@@ -1,0 +1,166 @@
+"""NFL — the two-stage Normalizing-Flow Learned index (paper §3), PyTorch.
+
+Port of ``repro.core.nfl`` for the flat backend's read path.  Stage 1
+trains the Numerical NF on a sample of the bulk-loaded keys and
+transforms every key through the NF kernel; the paper's switching
+mechanism (AutoSwitch) keeps the flow only if it lowers the tail
+conflict degree.  Stage 2 builds ``FlatAFLI`` over the (possibly
+transformed) keys and verifies the serve path end to end.  Every
+``lookup_batch`` is one fused kernel launch (NF forward included when
+the flow is on).
+
+Not ported yet, and raising ``NotImplementedError`` with the ROADMAP
+item that ports them: the paper's pointer-tree backend (A13), sharded
+serving (A10), drift re-flow and resharding (A11), and inserts, deletes
+and range scans (A6, A8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.conflict import should_use_flow
+from repro_torch.core.feature import expand_features
+from repro_torch.core.flat_afli import FlatAFLI, FlatAFLIConfig
+from repro_torch.core.flow import FlowConfig
+from repro_torch.core.train_flow import FlowTrainConfig, train_flow
+from repro_torch.kernels import ops
+from repro_torch.kernels.backend import resolve_device
+
+__all__ = ["NFL", "NFLConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class NFLConfig:
+    flow: FlowConfig = dataclasses.field(default_factory=FlowConfig)
+    flow_train: FlowTrainConfig = dataclasses.field(
+        default_factory=FlowTrainConfig)
+    flat_index: FlatAFLIConfig = dataclasses.field(
+        default_factory=FlatAFLIConfig)
+    gamma: float = 0.99
+    force_flow: Optional[bool] = None  # None -> paper's switching mechanism
+    backend: str = "afli"              # "afli" (paper tree) | "flat" (fused)
+    shards: int = 1                    # flat backend: key-space shards
+    drift: Any = None                  # drift telemetry config (ROADMAP A11)
+    reshard: Any = None                # resharding config (ROADMAP A11)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+
+
+class NFL:
+    """Two-stage learned index: Numerical NF + FlatAFLI, on one device."""
+
+    def __init__(self, config: NFLConfig | None = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.cfg = config or NFLConfig()
+        if self.cfg.backend == "afli":
+            raise _not_ported("backend='afli' (the paper's pointer tree)",
+                              "A13")
+        if self.cfg.backend != "flat":
+            raise ValueError(f"unknown NFL backend: {self.cfg.backend!r}")
+        if self.cfg.shards > 1:
+            raise _not_ported("sharded serving (shards > 1)", "A10")
+        if getattr(self.cfg.drift, "enabled", False):
+            raise _not_ported("drift telemetry and re-flow", "A11")
+        if getattr(self.cfg.reshard, "enabled", False):
+            raise _not_ported("dynamic resharding", "A11")
+        self.device = resolve_device(device)
+        self.index = FlatAFLI(self.cfg.flat_index, device=self.device)
+        self.flow_params = None
+        self.normalizer = None
+        self.use_flow = False
+        self.metrics: Dict[str, float] = {}
+        self._packed_w = None   # pack_flow_weights row (CPU)
+        self._shapes = ()
+
+    # ------------------------------------------------------------ bulkload
+    def bulkload(self, keys: np.ndarray, payloads: np.ndarray) -> None:
+        """Train the flow, transform the keys through the NF kernel,
+        decide the flow (AutoSwitch or ``force_flow``), build the index
+        and verify the serve path.  Times land in ``metrics``."""
+        keys = np.asarray(keys, dtype=np.float64)
+        payloads = np.asarray(payloads, dtype=np.int64)
+        t0 = time.perf_counter()
+        params, normalizer, train_metrics = train_flow(
+            keys, self.cfg.flow, self.cfg.flow_train, device=self.device)
+        t_train = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        transformed = ops.nf_transform_keys(params, normalizer, keys,
+                                            self.cfg.flow, self.device)
+        t_transform = time.perf_counter() - t0
+
+        use, tail_orig, tail_flow = should_use_flow(keys, transformed,
+                                                    self.cfg.gamma)
+        if self.cfg.force_flow is not None:
+            use = self.cfg.force_flow
+        self.use_flow = bool(use)
+        self.flow_params = params
+        self.normalizer = normalizer
+        self._packed_w, self._shapes = self._pack_weights(params)
+
+        t0 = time.perf_counter()
+        n_shadow = 0
+        if self.use_flow:
+            self.index.build(transformed, payloads, ikeys=keys)
+            self.index.set_serve_flow(normalizer, self.cfg.flow,
+                                      self._packed_w, self._shapes)
+            feats = expand_features(keys, normalizer, self.cfg.flow.dim,
+                                    self.cfg.flow.theta, dtype=np.float32)
+            n_shadow = self.index.verify_serve_flow(
+                feats, keys, self._packed_w, self._shapes, payloads)
+        else:
+            self.index.build(keys, payloads)
+        t_build = time.perf_counter() - t0
+
+        self.metrics = {
+            **{f"flow_{k}": v for k, v in train_metrics.items()},
+            "flow_train_s": t_train,
+            "transform_s": t_transform,
+            "index_build_s": t_build,
+            "tail_conflict_original": float(tail_orig),
+            "tail_conflict_transformed": float(tail_flow),
+            "use_flow": float(self.use_flow),
+            "serve_verify_shadowed": float(n_shadow),
+        }
+
+    def _pack_weights(self, params):
+        """The flow's ``pack_flow_weights`` row (fused-kernel serve input)."""
+        return ops.pack_params(params, self.cfg.flow)
+
+    # ------------------------------------------------------------ batch ops
+    def lookup_batch(self, keys: np.ndarray) -> np.ndarray:
+        """Batched point lookups; -1 marks not-found.  One fused kernel
+        launch per call (NF forward in-kernel when the flow is on)."""
+        keys = np.asarray(keys, dtype=np.float64)
+        if not self.use_flow:
+            return self.index.lookup_batch(keys)
+        feats = expand_features(keys, self.normalizer, self.cfg.flow.dim,
+                                self.cfg.flow.theta, dtype=np.float32)
+        return self.index.lookup_batch_flow(feats, keys, self._packed_w,
+                                            self._shapes)
+
+    def insert_batch(self, keys, payloads):
+        raise _not_ported("insert_batch (the tiered write path)", "A6")
+
+    def delete_batch(self, keys):
+        raise _not_ported("delete_batch (tombstone deletes)", "A6")
+
+    def scan_batch(self, lo_keys, hi_keys, cap=None):
+        raise _not_ported("scan_batch (fused range scans)", "A8")
+
+    def dispatch_stats(self) -> Dict[str, int]:
+        """Kernel launch counters (process-wide, since the last
+        ``ops.reset_launch_counts``) and this index's shadowed keys."""
+        counts = ops.launch_counts()
+        return {"nf_forward_launches": counts["nf_forward"],
+                "fused_lookup_launches": counts["fused_lookup"],
+                "shadowed": int(self.index.n_shadowed)}

@@ -1,0 +1,163 @@
+"""Device-resident serving state of one ``FlatAFLI``, PyTorch.
+
+Port of ``repro.core.serving_state`` for the read path:
+
+* **pack once** — the tree pools are packed to kernel layout
+  (``to_kernel_args``, exact sizes) and moved to the device once per
+  build, never per call;
+* **bucketed tiers** — the run and delta tiers live in persistent device
+  buffers sized to power-of-two capacities (allocated at their first
+  refresh), with the live length in a device i32[1], so a tier that
+  grows by appends is reallocated a logarithmic number of times.  A
+  refresh writes the changed prefix in place by slice assignment.  Rows
+  past the live length hold ``+inf`` keys, so the kernel's fixed-round
+  lower bound never lands in stale data.
+
+The traversal depth bound and the duplicate windows are passed to the
+kernel as they are: the card compiles nothing per shape, so the JAX
+package's ratchets (which only keep its traced shapes stable) have no
+counterpart.
+
+Counted throughout (uploads, bytes, repacks, pack reuse).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["ServingState", "DeviceTier", "pow2_bucket"]
+
+_MIN_CAPACITY = 128
+
+
+def pow2_bucket(n: int, floor: int = _MIN_CAPACITY) -> int:
+    """Smallest power-of-two bucket >= max(n, floor)."""
+    n = max(int(n), int(floor))
+    return 1 << max(n - 1, 0).bit_length()
+
+
+class DeviceTier:
+    """One sorted write tier in a persistent bucketed device buffer:
+    pk f32 (+inf padded) / hi i32 / lo i32 (identity bit views) / pv i32
+    at bucket capacity, plus the live length as a device i32[1]."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.capacity = 0
+        self.length = 0
+        self.window = 1            # longest run of equal keys
+        self.pk = self.hi = self.lo = self.pv = self.plen = None
+        self.uploads = 0
+        self.upload_bytes = 0
+        self.repacks = 0
+
+    @property
+    def iters(self) -> int:
+        """Binary-search rounds covering the capacity bucket."""
+        return max(self.capacity, 1).bit_length()
+
+    def _alloc(self, cap: int) -> None:
+        dev = self.device
+        self.pk = torch.full((cap,), float("inf"), dtype=torch.float32,
+                             device=dev)
+        self.hi = torch.zeros(cap, dtype=torch.int32, device=dev)
+        self.lo = torch.zeros(cap, dtype=torch.int32, device=dev)
+        self.pv = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+        self.plen = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.capacity = cap
+        self.length = 0
+        self.repacks += 1
+
+    def refresh(self, pk: np.ndarray, hi: np.ndarray, lo: np.ndarray,
+                pv: np.ndarray, window: int) -> None:
+        """Adopt a new live tier state (sorted host mirror): an in-place
+        prefix write within the bucket, a reallocation past it.  Rows
+        that the old state used and the new one does not are reset to
+        padding."""
+        n = int(pk.shape[0])
+        need = pow2_bucket(n + 1)
+        self.window = int(window)
+        if self.pk is None or need > self.capacity:
+            self._alloc(max(need, self.capacity))
+        m = max(n, self.length)
+        ppk = np.full(m, np.inf, np.float32)
+        ppk[:n] = pk
+        phi = np.zeros(m, np.uint32)
+        phi[:n] = hi
+        plo = np.zeros(m, np.uint32)
+        plo[:n] = lo
+        ppv = np.full(m, -1, np.int32)
+        ppv[:n] = pv
+        if m:
+            self.pk[:m] = torch.from_numpy(ppk).to(self.device)
+            self.hi[:m] = torch.from_numpy(phi.view(np.int32)).to(self.device)
+            self.lo[:m] = torch.from_numpy(plo.view(np.int32)).to(self.device)
+            self.pv[:m] = torch.from_numpy(ppv).to(self.device)
+        self.plen.fill_(n)
+        self.length = n
+        self.uploads += 1
+        self.upload_bytes += 16 * m + 4
+
+
+class ServingState:
+    """Packed tree pools and the run and delta tiers of one
+    ``FlatAFLI`` on one device."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.tree_pools = None
+        self.run = DeviceTier(device)
+        self.delta = DeviceTier(device)
+        self.tree_packs = 0
+        self.tier_reuses = 0
+
+    def set_tree(self, arrays) -> None:
+        """Adopt a (re)built static structure: pack it once."""
+        self.tree_pools = arrays.to_kernel_args(self.device)
+        self.tree_packs += 1
+
+    def reset_tiers(self) -> None:
+        """Drop tier contents (new build); buffers stay."""
+        empty = (np.empty(0, np.float32), np.empty(0, np.uint32),
+                 np.empty(0, np.uint32), np.empty(0, np.int32))
+        for t in (self.run, self.delta):
+            if t.pk is not None:
+                t.refresh(*empty, window=1)
+
+    def tier_pack(self):
+        """The resident ``TierPack`` (None while both tiers are empty)."""
+        from repro_torch.kernels.fused_lookup import TierPack, TierPools
+
+        if not (self.run.length or self.delta.length):
+            return None
+        empty = (np.empty(0, np.float32), np.empty(0, np.uint32),
+                 np.empty(0, np.uint32), np.empty(0, np.int32))
+        for t in (self.run, self.delta):
+            if t.pk is None:
+                t.refresh(*empty, window=1)
+        self.tier_reuses += 1
+        r, d = self.run, self.delta
+        return TierPack(
+            pools=TierPools(run_pk=r.pk, run_hi=r.hi, run_lo=r.lo,
+                            run_pv=r.pv, run_len=r.plen,
+                            dl_pk=d.pk, dl_hi=d.hi, dl_lo=d.lo,
+                            dl_pv=d.pv, dl_len=d.plen),
+            run_iters=r.iters, run_window=r.window,
+            delta_iters=d.iters, delta_window=d.window)
+
+    def stats(self) -> dict:
+        return {
+            "tree_packs": self.tree_packs,
+            "tier_reuses": self.tier_reuses,
+            "tier_uploads": self.run.uploads + self.delta.uploads,
+            "tier_upload_bytes": (self.run.upload_bytes
+                                  + self.delta.upload_bytes),
+            "tier_repacks": self.run.repacks + self.delta.repacks,
+            "run_capacity": self.run.capacity,
+            "delta_capacity": self.delta.capacity,
+            "run_window": self.run.window,
+            "delta_window": self.delta.window,
+            "pool_bytes": (self.tree_pools.nbytes()
+                           if self.tree_pools is not None else 0),
+        }

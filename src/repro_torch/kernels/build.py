@@ -1,0 +1,131 @@
+"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+
+Each ``csrc/<name>.cu`` compiles, with its headers, into its own shared
+library with a plain C entry point, for ``sm_90a``, at first use.  The
+libraries land in ``build/repro_torch/`` at the root of the checkout,
+named by a hash of their sources and flags, so an edited source is
+rebuilt and an unchanged one is reused.  ``build_all`` starts one
+``nvcc`` per source in parallel.  Nothing here includes PyTorch's
+headers: a plain C interface builds in seconds where a PyTorch extension
+takes minutes.
+
+Nothing in this module runs at import: the CPU tests import every
+module, and there is no ``nvcc`` without a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "build_dir",
+           "NFParams", "NF_MAX_LAYERS", "NF_MAX_W"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("nf_forward", "fused_lookup")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# must match nf_device.cuh
+NF_MAX_LAYERS = 8
+NF_MAX_W = 768
+
+
+class NFParams(ctypes.Structure):
+    """Kernel-argument copy of the packed flow weights (nf_device.cuh)."""
+
+    _fields_ = [("dim", ctypes.c_int), ("n_layers", ctypes.c_int),
+                ("n_out", ctypes.c_int * NF_MAX_LAYERS),
+                ("n_in", ctypes.c_int * NF_MAX_LAYERS),
+                ("n_w", ctypes.c_int),
+                ("w", ctypes.c_float * NF_MAX_W)]
+
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """``build/repro_torch/`` at the root of the checkout."""
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, dict]:
+    """Compile every missing library, one ``nvcc`` per source, all at
+    once.  Returns ``{name: {"path", "seconds", "built", "log"}}`` (the
+    log carries ``-Xptxas -v``'s registers and spills).  Raises
+    ``RuntimeError`` with the compiler's output if any build fails."""
+    out: Dict[str, dict] = {}
+    procs = {}
+    build_dir().mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    for name in SOURCES:
+        path = _lib_path(name)
+        if path.exists():
+            out[name] = {"path": str(path), "seconds": 0.0, "built": False,
+                         "log": ""}
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, path)
+    failures = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, path)
+        out[name] = {"path": str(path), "seconds": time.perf_counter() - t0,
+                     "built": True, "log": log}
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel ``name``, building it if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

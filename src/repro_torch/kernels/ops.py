@@ -1,0 +1,84 @@
+"""Public entry points over the port's kernels, and their launch counters.
+
+Port of the parts of ``repro.kernels.ops`` the flat backend's read path
+uses.  ``fused_lookup`` has one rung: the pools live in device memory on
+the card, so there is no residency budget to overflow, no streamed rung
+and no oracle fallback — every call launches the fused kernel (or, on
+CPU tensors, runs its plain version).  The streamed rung ports with
+ROADMAP A9.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.feature import KeyNormalizer, expand_features
+from repro_torch.core.flow import FlowConfig, materialize_weights
+from repro_torch.kernels import fused_lookup as _fl
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.nf_forward import nf_forward, pack_flow_weights
+
+__all__ = ["nf_transform_keys", "pack_params", "fused_lookup",
+           "launch_counts", "reset_launch_counts"]
+
+
+def pack_params(params: Dict, cfg: FlowConfig):
+    """``pack_flow_weights`` of a flow parameter tree -> (CPU row, shapes)."""
+    with torch.no_grad():
+        weights = materialize_weights(params, cfg)
+        dev = params["out_log_scale"].device
+        out_scale = torch.exp(params["out_log_scale"])
+        feat_mu = params.get("feat_mu", torch.zeros(cfg.dim, device=dev))
+        feat_sd = params.get("feat_sd", torch.ones(cfg.dim, device=dev))
+        return pack_flow_weights(weights, out_scale, feat_mu, feat_sd)
+
+
+def nf_transform_keys(params: Dict, normalizer: KeyNormalizer,
+                      keys: np.ndarray, cfg: FlowConfig,
+                      device: Optional[Union[str, torch.device]] = None
+                      ) -> np.ndarray:
+    """Kernel-backed key transformation: host f64 feature expansion ->
+    ``nf_forward`` on ``device`` -> z as f64 numpy (the f32 kernel output,
+    widened).  The flat backend positions its build by this z."""
+    dev = resolve_device(device)
+    keys = np.asarray(keys, dtype=np.float64)
+    feats = expand_features(keys, normalizer, cfg.dim, cfg.theta,
+                            dtype=np.float32)
+    packed, shapes = pack_params(params, cfg)
+    z = nf_forward(torch.from_numpy(feats).to(dev), packed, shapes, cfg.dim)
+    return z.cpu().numpy().astype(np.float64)
+
+
+def fused_lookup(pools, feats: torch.Tensor, qhi: torch.Tensor,
+                 qlo: torch.Tensor, *, flow=None, max_depth: int,
+                 dense_iters: int, bucket_cap: int, dense_window: int = 8,
+                 tiers=None):
+    """One fused dispatch for a query batch -> (payload i32[B], z f32[B])
+    as tensors on the batch's device.
+
+    pools: ``KernelPools``; feats: f32[B, d] query features with
+    ``flow=(packed_w, shapes)``, or f32[B, 1] positioning keys without;
+    tiers: a ``TierPack``, or None when both write tiers are empty."""
+    if flow is not None:
+        packed_w, shapes = flow
+    else:
+        packed_w, shapes = None, ()
+    return _fl.fused_lookup(
+        feats, qhi, qlo, packed_w, pools, tiers, dim=int(feats.shape[1]),
+        shapes=shapes, max_depth=max_depth, dense_iters=dense_iters,
+        bucket_cap=bucket_cap, dense_window=dense_window,
+        use_flow=flow is not None)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last reset, per kernel."""
+    return {"nf_forward": nf_forward.launches,
+            "fused_lookup": _fl.fused_lookup.launches}
+
+
+def reset_launch_counts() -> None:
+    nf_forward.launches = 0
+    _fl.fused_lookup.launches = 0

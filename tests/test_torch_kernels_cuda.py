@@ -1,0 +1,153 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Marked ``cuda``; without a card every test skips from the
+``cuda`` fixture.  On the H100:
+
+    python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.feature import KeyNormalizer, expand_features
+from repro_torch.core.flat_afli import FlatAFLI, split_key_bits
+from repro_torch.core.flow import FlowConfig, init_flow
+from repro_torch.core.nfl import NFL, NFLConfig
+from repro_torch.core.train_flow import FlowTrainConfig, FlowTrainer
+from repro_torch.data.datasets import make_dataset
+from repro_torch.kernels import ops
+from repro_torch.kernels.fused_lookup import fused_lookup, fused_lookup_plain
+from repro_torch.kernels.nf_forward import nf_forward, nf_forward_plain
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the H100)")
+    return torch.device("cuda")
+
+
+def _flow(dim, hidden, layers, seed, dev):
+    cfg = FlowConfig(dim=dim, hidden=hidden, layers=layers)
+    params = init_flow(torch.Generator().manual_seed(seed), cfg, dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    params["out_log_scale"] = torch.randn(dim, generator=g).to(dev)
+    params["feat_mu"] = torch.randn(dim, generator=g).to(dev)
+    params["feat_sd"] = (torch.rand(dim, generator=g) + 0.5).to(dev)
+    return cfg, params
+
+
+@pytest.mark.parametrize("dim,hidden,layers", [(2, 2, 2), (3, 2, 2),
+                                               (4, 3, 3), (8, 4, 2)])
+def test_nf_forward_kernel_matches_plain(cuda, dim, hidden, layers):
+    cfg, params = _flow(dim, hidden, layers, dim + 10 * layers, cuda)
+    packed, shapes = ops.pack_params(params, cfg)
+    feats = torch.randn(100_003, dim, generator=torch.Generator()
+                        .manual_seed(1)).mul_(4).to(cuda)
+    before = nf_forward.launches
+    zk = nf_forward(feats, packed, shapes, dim)
+    zp = nf_forward_plain(feats, packed, shapes, dim)
+    torch.cuda.synchronize()
+    assert nf_forward.launches == before + 1
+    # same operation order and rounding; both call the card's tanhf
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+
+
+def _index(dev, flow: bool):
+    keys = make_dataset("longlat" if flow else "lognormal", 40_000)
+    pv = np.arange(keys.shape[0], dtype=np.int64)
+    nfl = NFL(NFLConfig(backend="flat", force_flow=flow,
+                        flow_train=FlowTrainConfig(epochs=1)), device=dev)
+    nfl.bulkload(keys[::2], pv[::2])
+    # a quarter of the keys ride in the run tier, under their serving
+    # positioning keys
+    extra = keys[1::4]
+    pk = (ops.nf_transform_keys(nfl.flow_params, nfl.normalizer, extra,
+                                nfl.cfg.flow, dev) if flow else extra)
+    hi, lo = split_key_bits(extra)
+    nfl.index._append_run(pk.astype(np.float32), hi, lo,
+                          pv[1::4].astype(np.int32))
+    return nfl, keys, pv
+
+
+@pytest.mark.parametrize("flow", [True, False])
+def test_fused_lookup_kernel_matches_plain(cuda, flow):
+    nfl, keys, pv = _index(cuda, flow)
+    idx = nfl.index
+    if flow:
+        feats = expand_features(keys, nfl.normalizer, 2, 1e3, dtype=np.float32)
+    else:
+        feats = keys.astype(np.float32).reshape(-1, 1)
+    hi, lo = split_key_bits(keys)
+    args = (torch.from_numpy(feats).to(cuda),
+            torch.from_numpy(hi.view(np.int32)).to(cuda),
+            torch.from_numpy(lo.view(np.int32)).to(cuda), nfl._packed_w,
+            idx._kernel_pools(), idx._tier_pack())
+    kw = dict(dim=feats.shape[1] if flow else 2, shapes=nfl._shapes,
+              max_depth=idx.max_depth, dense_iters=24, bucket_cap=6,
+              dense_window=idx.dense_window, use_flow=flow)
+    pk, zk = fused_lookup(*args, **kw)
+    pp, zp = fused_lookup_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp)
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+    expect = np.where((pv % 2 == 0) | (pv % 4 == 1), pv, -1)
+    assert np.array_equal(pk.cpu().numpy(), expect)
+    if flow:
+        z_nf = nf_forward(args[0], nfl._packed_w, nfl._shapes, 2)
+        assert torch.equal(zk.view(torch.int32), z_nf.view(torch.int32))
+
+
+def test_kernel_rejects_bad_inputs(cuda):
+    nfl, keys, _ = _index(cuda, False)
+    idx = nfl.index
+    q = torch.from_numpy(keys[:64].astype(np.float32).reshape(-1, 1)).to(cuda)
+    h = torch.zeros(64, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        fused_lookup(q, h, h, None, idx._kernel_pools(), None, dim=1,
+                     max_depth=4, dense_iters=24, bucket_cap=6,
+                     use_flow=False)
+    with pytest.raises(ValueError):
+        nf_forward(q.double(), nfl._packed_w, nfl._shapes, 2)
+
+
+def test_nfl_serves_through_kernels(cuda):
+    keys = make_dataset("longlat", 60_000)
+    pv = np.arange(keys.shape[0], dtype=np.int64)
+    ops.reset_launch_counts()
+    nfl = NFL(NFLConfig(backend="flat", force_flow=True,
+                        flow_train=FlowTrainConfig(epochs=1)))
+    nfl.bulkload(keys[::2], pv[::2])
+    got = nfl.lookup_batch(keys)
+    assert np.array_equal(got, np.where(pv % 2 == 0, pv, -1))
+    s = nfl.dispatch_stats()
+    assert s["nf_forward_launches"] == 1
+    assert s["fused_lookup_launches"] == 3  # self-verify, serve verify, read
+    assert s["shadowed"] == 0
+
+
+def test_trainer_on_card_matches_cpu(cuda):
+    keys = make_dataset("lognormal", 20_000)
+    a = FlowTrainer(keys, FlowConfig(), FlowTrainConfig(epochs=3),
+                    device="cpu")
+    b = FlowTrainer(keys, FlowConfig(), FlowTrainConfig(epochs=3),
+                    device=cuda)
+    for _ in range(20):
+        a.step()
+        b.step()
+    np.testing.assert_allclose(b.losses, a.losses, rtol=1e-5)
+    np.testing.assert_allclose(b.params["layers"][0]["w"].cpu().numpy(),
+                               a.params["layers"][0]["w"].numpy(), atol=1e-5)
+
+
+def test_normalizer_features_are_host_side(cuda):
+    keys = make_dataset("lognormal", 1000)
+    norm = KeyNormalizer.fit(keys)
+    f = expand_features(keys, norm, 2, 1e3, dtype=np.float32)
+    idx = FlatAFLI(device=cuda)
+    idx.build(keys, np.arange(keys.shape[0]))
+    assert idx._kernel_pools().ekey.device.type == "cuda"
+    assert f.dtype == np.float32
