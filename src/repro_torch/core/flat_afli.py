@@ -11,21 +11,35 @@ so a bulk load of tens of millions of keys takes seconds.
 
 Serving: the pools are packed once per build into a ``ServingState`` on
 the index's device, and every lookup is one ``ops.fused_lookup`` launch
-that also probes the run tier.  ``_self_verify`` and
+that also probes the write tiers.  ``_self_verify`` and
 ``verify_serve_flow`` look every built key up through that kernel and
 shadow any key it cannot find into the run tier (keyed by the served
 positioning key).  With the kernel's slot arithmetic rounding exactly as
 the builder's does, the shadow set is expected to be empty; the net
 stays.
 
-Not ported yet: the write path (``insert_batch``/``delete_batch``,
-the delta tier, incremental folds — ROADMAP A6) and range scans
-(ROADMAP A8).
+Writes are log-structured and tiered, as in the JAX package: a batch
+lands in the active delta (last write wins by identity), a full delta
+merges into the compacted run, and a deletion appends a TOMBSTONE (-2)
+that masks every older copy of its identity.  When the run outgrows
+``rebuild_frac`` of the live keys, a bounded-step fold (``_Fold``)
+rebuilds the tree from a snapshot while the old tree and the frozen tiers
+keep serving, and swaps the new tree in.  Range scans
+(``scan_batch``) are one ``ops.fused_range_scan`` launch over the
+static keys in rank order (the scan pool) merged with both tiers.
+
+The set of live identities is a sorted ``uint64`` array, updated per
+batch with array operations.
+
+Not ported yet: re-flow (``start_reflow``, ROADMAP A11), the sharded
+tier hold (A10) and the async lookups (A12).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -33,12 +47,13 @@ import torch
 
 from repro_torch.core.conflict import (conflict_degrees, fit_linear_model,
                                        should_use_flow, tail_conflict_degree)
+from repro_torch.core.feature import expand_features
 from repro_torch.core.serving_state import ServingState
 from repro_torch.kernels import ops
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.kernels.fused_lookup import (BUCKET, CHILD, DATA, KIND_DENSE,
-                                              KIND_MODEL, TOMBSTONE,
-                                              KernelPools)
+from repro_torch.kernels.fused_lookup import (BUCKET, CHILD, DATA, EMPTY,
+                                              KIND_DENSE, KIND_MODEL,
+                                              TOMBSTONE, KernelPools)
 
 __all__ = ["FlatAFLI", "FlatAFLIConfig", "FlatArrays", "TOMBSTONE",
            "split_key_bits"]
@@ -92,6 +107,11 @@ class FlatAFLIConfig:
     alpha: float = 1.2
     max_depth: int = 16
     dense_search_iters: int = 24      # binary-search rounds (2^24 max dense)
+    rebuild_frac: float = 0.25        # run / live keys that starts a fold
+    delta_cap: int = 4096             # active-delta bound before run merge
+    fold_step_keys: int = 4096        # fold work unit and verify chunk (keys)
+    fold_work_factor: float = 8.0     # fold work per write call, x batch
+    scan_cap: int = 128               # range-scan output lanes per query
 
 
 class FlatArrays(NamedTuple):
@@ -113,6 +133,26 @@ class FlatArrays(NamedTuple):
     blo: np.ndarray              # u32[B, cap]
     bpayload: np.ndarray         # i32[B, cap]
     blen: np.ndarray             # i32[B]
+
+    @classmethod
+    def empty(cls, cap: int) -> "FlatArrays":
+        """The structure of an index that was never built: one model node
+        whose single slot is EMPTY, so every probe misses the tree and
+        resolves from the write tiers alone."""
+        z = np.zeros(1, np.int32)
+        return cls(node_kind=np.full(1, KIND_MODEL, np.uint8),
+                   node_slope=np.zeros(1, np.float32),
+                   node_intercept=np.zeros(1, np.float32),
+                   node_offset=z, node_size=np.ones(1, np.int32),
+                   etype=np.full(1, EMPTY, np.uint8),
+                   ekey=np.zeros(1, np.float32),
+                   ehi=np.zeros(1, np.uint32), elo=np.zeros(1, np.uint32),
+                   epayload=np.full(1, -1, np.int32),
+                   echild=np.full(1, -1, np.int32),
+                   bkey=np.zeros((1, cap), np.float32),
+                   bhi=np.zeros((1, cap), np.uint32),
+                   blo=np.zeros((1, cap), np.uint32),
+                   bpayload=np.zeros((1, cap), np.int32), blen=z)
 
     def to_kernel_args(self, device: Union[str, torch.device]
                        ) -> KernelPools:
@@ -208,6 +248,16 @@ class _Builder:
               pv: np.ndarray) -> int:
         """Build the whole tree over sorted f32 keys ``pk``; returns the
         root's id (0)."""
+        for _ in self.build_steps(pk, hi, lo, pv):
+            pass
+        return 0
+
+    def build_steps(self, pk: np.ndarray, hi: np.ndarray, lo: np.ndarray,
+                    pv: np.ndarray):
+        """``build`` one level at a time: a generator that yields after
+        each level the number of keys that level placed, then after the
+        depth-first assembly of the pools a quarter of the key count (the
+        incremental fold charges its work budget with these)."""
         cfg = self.cfg
         alpha = cfg.alpha
         # per breadth-first node
@@ -226,6 +276,7 @@ class _Builder:
         forced = np.zeros(1, bool)
         n_nodes = 0
         while s0.shape[0]:
+            level_keys = int(n.sum())
             level_start.append(n_nodes)
             ids = n_nodes + np.arange(s0.shape[0])
             n_nodes += s0.shape[0]
@@ -306,6 +357,7 @@ class _Builder:
             dep = dep[model][gseg[fg]] + 1
             par = gnode[fg]
             forced = tot == nm[gseg[fg]]
+            yield level_keys
         level_start.append(n_nodes)
         self._arrays = self._assemble(
             pk, hi, lo, pv, np.concatenate(kind), np.concatenate(slope_n),
@@ -313,7 +365,7 @@ class _Builder:
             np.concatenate(parent), level_start,
             np.concatenate(dense_w), np.concatenate(data_w),
             np.concatenate(bucket_w), np.concatenate(child_w))
-        return 0
+        yield pk.shape[0] // 4
 
     def _assemble(self, pk, hi, lo, pv, kind, slope, icpt, size, parent,
                   level_start, dense, data, bucket, child) -> FlatArrays:
@@ -408,9 +460,141 @@ class _Builder:
         return self._arrays
 
 
+class _Fold:
+    """Bounded-step fold of the write tiers into a new tree.
+
+    Port of ``repro.core.flat_afli._IncrementalFold``'s contract, not of
+    its work items: the JAX fold defers subtrees through hooks of its
+    recursive builder, while this builder works a level at a time, so
+    the fold advances it a level per step (``_Builder.build_steps``).
+    Phases, each charged to the per-call work budget in keys:
+
+    1. ``build`` — one level of the new tree per step (the snapshot is
+       taken when the fold starts);
+    2. ``pack`` — the new pools go to the device beside the serving ones;
+    3. ``verify`` — placement through the kernel against the new pools,
+       tree only (the tiers are excluded, so a newer write of an identity
+       is not mistaken for a misplacement), in chunks of
+       ``fold_step_keys``; with a serve flow, again through the in-kernel
+       NF.  Keys the kernel cannot find become shadows.
+
+    The old tree and the frozen tiers serve until the swap.  At the swap
+    the new tree and scan pool go in together, the run becomes the
+    shadows, the active delta (which only grew during the fold, so its
+    entries stay newest) carries over untouched, and the capacity floors
+    are pinned again."""
+
+    def __init__(self, idx: "FlatAFLI", pk, hi, lo, pv):
+        self.idx = idx
+        self.pk, self.hi, self.lo, self.pv = pk, hi, lo, pv
+        self.n = int(pk.shape[0])
+        self.step = max(int(idx.cfg.fold_step_keys), 1)
+        self.serve_flow = idx._serve_flow
+        self.builder = _Builder(idx.cfg, idx.d_tail)
+        self._levels = self.builder.build_steps(pk, hi, lo, pv)
+        self.phase = "build"
+        self.arrays_new: Optional[FlatArrays] = None
+        self.pools_new = None
+        self.max_depth_new = 1
+        self.dense_window_new = 8
+        self.chunks = collections.deque()
+        self.shadow = []   # [(pk, hi, lo, pv)] chunks for the new run
+        # host seconds per phase and write calls that advanced the fold
+        self.report = {"keys": self.n, "ticks": 0, "build_s": 0.0,
+                       "pack_s": 0.0, "verify_s": 0.0}
+
+    def tick(self, budget: int) -> bool:
+        """Work under ``budget`` keys (at least one step a call).
+        Returns True once the new tree is live."""
+        self.report["ticks"] += 1
+        while budget > 0:
+            t0 = time.perf_counter()
+            phase = self.phase
+            if phase == "build":
+                cost = next(self._levels, None)
+                if cost is None:
+                    self.phase = "pack"
+                    continue
+                budget -= max(cost, 1)
+            elif phase == "pack":
+                budget -= self._pack()
+                self.phase = "verify"
+            else:
+                if not self.chunks:
+                    self._swap()
+                    return True
+                kind, a, b = self.chunks.popleft()
+                self._verify_chunk(a, b, flow=kind == "verify_flow")
+                budget -= max(b - a, 1)
+            self.report[f"{phase}_s"] += time.perf_counter() - t0
+        return False
+
+    def _pack(self) -> int:
+        b = self.builder
+        self.arrays_new = b.finalize()
+        self.pools_new = self.idx._serving.pack_tree(self.arrays_new)
+        self.max_depth_new = b.max_depth + 1
+        self.dense_window_new = _max_equal_run(self.pk) + 2
+        kinds = ("verify",) + (("verify_flow",) if self.serve_flow else ())
+        for kind in kinds:
+            for a in range(0, self.n, self.step):
+                self.chunks.append((kind, a, min(a + self.step, self.n)))
+        return max(self.n // 4, 1)
+
+    def _verify_chunk(self, a: int, b: int, flow: bool) -> None:
+        idx = self.idx
+        hi, lo, pv = self.hi[a:b], self.lo[a:b], self.pv[a:b]
+        over = dict(pools=self.pools_new, max_depth=self.max_depth_new,
+                    dense_window=self.dense_window_new)
+        if flow:
+            normalizer, flow_cfg, packed_w, shapes = self.serve_flow
+            ik64 = _ids64(hi, lo).view(np.float64)
+            feats = expand_features(ik64, normalizer, flow_cfg.dim,
+                                    flow_cfg.theta, dtype=np.float32)
+            res, pk = idx._dispatch(feats, hi, lo, (packed_w, shapes),
+                                    tiers=False, **over)
+        else:
+            pk = self.pk[a:b]
+            res, _ = idx._dispatch(pk.reshape(-1, 1), hi, lo, None,
+                                   tiers=False, **over)
+        wrong = res != pv
+        if wrong.any():
+            self.shadow.append((pk[wrong].astype(np.float32), hi[wrong],
+                                lo[wrong], pv[wrong]))
+
+    def _swap(self) -> None:
+        t0 = time.perf_counter()
+        idx = self.idx
+        idx.arrays = self.arrays_new
+        idx.max_depth = self.max_depth_new
+        idx.dense_window = self.dense_window_new
+        idx._serving.set_tree(self.arrays_new, self.pools_new)
+        # the snapshot IS the new structure's keys in rank order
+        idx._set_scan_pool(self.pk, self.hi, self.lo, self.pv)
+        if self.shadow:
+            pk, hi, lo, pv = (np.concatenate([s[i] for s in self.shadow])
+                              for i in range(4))
+            order = np.argsort(pk, kind="stable")
+            idx._run_pk, idx._run_hi = pk[order], hi[order]
+            idx._run_lo, idx._run_pv = lo[order], pv[order].astype(np.int32)
+            idx.n_shadowed = int(pk.shape[0])
+        else:
+            idx._run_pk = np.empty(0, np.float32)
+            idx._run_hi = np.empty(0, np.uint32)
+            idx._run_lo = np.empty(0, np.uint32)
+            idx._run_pv = np.empty(0, np.int32)
+            idx.n_shadowed = 0
+        idx._sync_run()
+        idx._preallocate_tiers(self.n)
+        idx.n_rebuilds += 1
+        idx.last_fold = dict(self.report, shadowed=idx.n_shadowed,
+                             swap_s=time.perf_counter() - t0)
+        idx._fold = None
+
+
 class FlatAFLI:
-    """Static flat index on one device, served by the fused kernel, with
-    the run tier as the home of shadowed keys."""
+    """Flat index on one device, served by the fused kernels, with the
+    tiered write path: active delta > compacted run > static tree."""
 
     def __init__(self, cfg: FlatAFLIConfig | None = None,
                  device: Optional[Union[str, torch.device]] = None):
@@ -419,13 +603,17 @@ class FlatAFLI:
         self.arrays: Optional[FlatArrays] = None
         self._serving = ServingState(self.device)
         self.last_dispatch = {}
+        self.last_scan_dispatch = {}
         self.max_depth = 1
         self.dense_window = 8
         self.d_tail = self.cfg.min_bucket
         self.n_keys = 0
         self.n_shadowed = 0            # keys shadowed into the run tier
+        self.n_rebuilds = 0
+        self.last_fold = {}            # _Fold.report of the last swap
         self._ids = np.empty(0, np.uint64)   # sorted live identities
         self._serve_flow = None        # (normalizer, flow_cfg, packed_w, shapes)
+        self._fold: Optional[_Fold] = None
         self.autoswitch = {"use_flow": None, "tail_original": 0,
                            "tail_transformed": 0}
         self._reset_tiers()
@@ -443,9 +631,11 @@ class FlatAFLI:
               ikeys: np.ndarray | None = None) -> None:
         """Bulk build from positioning keys: sort, fit the flattened tree
         with f32 placement arithmetic, pack the pools once onto the
-        device, and verify every key's placement through the kernel
-        (shadowing any it misses).  ``ikeys`` are the raw 64-bit identity keys when ``pkeys`` are
-        flow-transformed."""
+        device, adopt the sorted keys as the range path's scan pool, pin
+        the tier capacities, and verify every key's placement through the
+        kernel (shadowing any it misses).  ``ikeys`` are the raw 64-bit
+        identity keys when ``pkeys`` are flow-transformed.  Writes
+        buffered before the build are dropped."""
         pk64 = np.asarray(pkeys, dtype=np.float64)
         ik64 = pk64 if ikeys is None else np.asarray(ikeys, dtype=np.float64)
         pv = np.asarray(payloads, dtype=np.int64)
@@ -482,57 +672,97 @@ class FlatAFLI:
         self.dense_window = _max_equal_run(pk32) + 2
         self._serving.set_tree(self.arrays)
         self._reset_tiers()
+        self._preallocate_tiers(pk32.shape[0])
+        self._set_scan_pool(pk32, hi, lo, pv)
         self._ids = np.unique(_ids64(hi, lo))
         self.n_keys = int(self._ids.shape[0])
         self.n_shadowed = 0
         self._self_verify(pk32, hi, lo, pv.astype(np.int32))
 
     def _reset_tiers(self) -> None:
+        self._delta_pk = np.empty(0, np.float32)
+        self._delta_hi = np.empty(0, np.uint32)
+        self._delta_lo = np.empty(0, np.uint32)
+        self._delta_pv = np.empty(0, np.int32)
         self._run_pk = np.empty(0, np.float32)
         self._run_hi = np.empty(0, np.uint32)
         self._run_lo = np.empty(0, np.uint32)
         self._run_pv = np.empty(0, np.int32)
         self._serving.reset_tiers()
+        self._fold = None
+
+    def _preallocate_tiers(self, n: int) -> None:
+        """Pin the tier capacities from the configured write bounds: the
+        delta holds up to ``delta_cap`` between merges and keeps taking
+        writes while a fold runs, the run peaks near the fold trigger,
+        and the scan pool holds the live keys plus the same headroom;
+        8x ``delta_cap`` over each keeps a steady write window from
+        reallocating."""
+        cfg = self.cfg
+        n = max(int(n), 1)
+        slack = 8 * cfg.delta_cap + 1
+        self._serving.preallocate(
+            delta_floor=slack,
+            run_floor=int(cfg.rebuild_frac * n) + slack,
+            scan_floor=int((1.0 + cfg.rebuild_frac) * n) + slack)
+
+    def _set_scan_pool(self, pk, hi, lo, pv) -> None:
+        """Ship the (re)built structure's sorted keys to the range path's
+        scan pool: at build and fold swap only, off the serve path."""
+        self._serving.set_scan(pk, hi, lo, np.asarray(pv, np.int32),
+                               _tier_window(pk))
 
     def set_serve_flow(self, normalizer, flow_cfg, packed_w, shapes) -> None:
         """Register the serve-path flow context (normalizer, config and
-        the packed weights the fused kernel evaluates)."""
+        the packed weights the fused kernels evaluate); every fold
+        verifies placement through it as well."""
         self._serve_flow = (normalizer, flow_cfg, packed_w, shapes)
 
-    def contains_batch(self, ikeys: np.ndarray) -> np.ndarray:
-        """Exact membership by 64-bit identity."""
-        hi, lo = split_key_bits(np.asarray(ikeys, dtype=np.float64))
-        ids = _ids64(hi, lo)
+    def _has(self, ids: np.ndarray) -> np.ndarray:
+        """Membership of u64 identities in the live set."""
         if not self._ids.shape[0]:
             return np.zeros(ids.shape[0], bool)
         j = np.minimum(np.searchsorted(self._ids, ids),
                        self._ids.shape[0] - 1)
         return self._ids[j] == ids
 
+    def contains_batch(self, ikeys: np.ndarray) -> np.ndarray:
+        """Exact membership by 64-bit identity (tree and tiers: a
+        tombstoned key is absent until it is inserted again)."""
+        hi, lo = split_key_bits(np.asarray(ikeys, dtype=np.float64))
+        return self._has(_ids64(hi, lo))
+
     # ---------------------------------------------------- device dispatch
     def _kernel_pools(self) -> KernelPools:
+        """The serving tree pools; an index that was never built serves
+        an empty tree, so every read resolves from the tiers."""
+        if self._serving.tree_pools is None:
+            self._serving.set_tree(FlatArrays.empty(self.cfg.max_bucket))
         return self._serving.tree_pools
 
     def _tier_pack(self):
         return self._serving.tier_pack()
 
     def _dispatch(self, feats: np.ndarray, hi: np.ndarray, lo: np.ndarray,
-                  flow, tiers: bool) -> Tuple[np.ndarray, np.ndarray]:
+                  flow, tiers: bool, pools=None, max_depth=None,
+                  dense_window=None) -> Tuple[np.ndarray, np.ndarray]:
         """Move the batch to the device, launch the fused kernel once,
-        and bring (payloads, z) back."""
-        if self.arrays is None:
-            raise RuntimeError("FlatAFLI.build must run before lookups")
+        and bring (payloads, z) back.  A fold verifies its new tree by
+        passing that tree's pools, depth and window."""
         dev = self.device
         tier_pack = self._tier_pack() if tiers else None
         pay, z = ops.fused_lookup(
-            self._kernel_pools(),
+            self._kernel_pools() if pools is None else pools,
             torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(dev),
             torch.from_numpy(np.ascontiguousarray(hi).view(np.int32)).to(dev),
             torch.from_numpy(np.ascontiguousarray(lo).view(np.int32)).to(dev),
-            flow=flow, max_depth=self.max_depth,
+            flow=flow,
+            max_depth=self.max_depth if max_depth is None else max_depth,
             dense_iters=self.cfg.dense_search_iters,
             bucket_cap=self.cfg.max_bucket,
-            dense_window=self.dense_window, tiers=tier_pack)
+            dense_window=(self.dense_window if dense_window is None
+                          else dense_window),
+            tiers=tier_pack)
         self.last_dispatch = {"path": "fused", "n_dispatch": 1,
                               "tier_path": ("kernel" if tier_pack is not None
                                             else "none")}
@@ -554,6 +784,28 @@ class FlatAFLI:
             self._append_run(pk32[wrong], hi[wrong], lo[wrong], pv[wrong])
             self.n_shadowed += int(wrong.sum())
 
+    # ------------------------------------------------------- write tiers
+    def _sync_run(self) -> None:
+        self._serving.run.refresh(self._run_pk, self._run_hi, self._run_lo,
+                                  self._run_pv, _tier_window(self._run_pk))
+
+    def _sync_delta(self) -> None:
+        self._serving.delta.refresh(self._delta_pk, self._delta_hi,
+                                    self._delta_lo, self._delta_pv,
+                                    _tier_window(self._delta_pk))
+
+    def _append_delta(self, pk, hi, lo, pv) -> None:
+        """Append a batch to the active delta, last write wins by 64-bit
+        identity (the batch is newer than the delta, and later entries of
+        the batch are newer than earlier ones), and ship it."""
+        (self._delta_pk, self._delta_hi,
+         self._delta_lo, self._delta_pv) = _dedup_newest(
+            np.concatenate([self._delta_pk, pk.astype(np.float32)]),
+            np.concatenate([self._delta_hi, hi]),
+            np.concatenate([self._delta_lo, lo]),
+            np.concatenate([self._delta_pv, pv.astype(np.int32)]))
+        self._sync_delta()
+
     def _append_run(self, pk, hi, lo, pv) -> None:
         """Merge entries into the compacted run (last write wins by
         64-bit identity) and ship the run to the device."""
@@ -563,8 +815,144 @@ class FlatAFLI:
             np.concatenate([self._run_hi, hi]),
             np.concatenate([self._run_lo, lo]),
             np.concatenate([self._run_pv, pv.astype(np.int32)]))
-        self._serving.run.refresh(self._run_pk, self._run_hi, self._run_lo,
-                                  self._run_pv, _tier_window(self._run_pk))
+        self._sync_run()
+
+    def _merge_delta_into_run(self) -> None:
+        """Retire the active delta into the compacted run."""
+        if not self._delta_pk.shape[0]:
+            return
+        self._append_run(self._delta_pk, self._delta_hi, self._delta_lo,
+                         self._delta_pv)
+        self._delta_pk = np.empty(0, np.float32)
+        self._delta_hi = np.empty(0, np.uint32)
+        self._delta_lo = np.empty(0, np.uint32)
+        self._delta_pv = np.empty(0, np.int32)
+        self._sync_delta()
+
+    # ------------------------------------------------------------ writes
+    def insert_batch(self, keys: np.ndarray, payloads: np.ndarray,
+                     ikeys: np.ndarray | None = None) -> None:
+        """Tiered write: the batch lands in the active delta (probed
+        inside the fused kernels); a full delta merges into the run; a
+        run past ``rebuild_frac`` of the live keys starts a fold, which
+        every write call advances by a bounded work budget."""
+        k64 = np.asarray(keys, dtype=np.float64)
+        ik64 = k64 if ikeys is None else np.asarray(ikeys, dtype=np.float64)
+        pv = np.asarray(payloads, dtype=np.int32)
+        self._check_payloads(pv)
+        pk = k64.astype(np.float32)
+        hi, lo = split_key_bits(ik64)
+        self._append_delta(pk, hi, lo, pv)
+        # only identities not live yet count (re-inserts overwrite)
+        ids = np.unique(_ids64(hi, lo))
+        fresh = ids[~self._has(ids)]
+        self._ids = np.insert(self._ids, np.searchsorted(self._ids, fresh),
+                              fresh)
+        self.n_keys += int(fresh.shape[0])
+        self._advance_write_path(pk.shape[0])
+
+    def delete_batch(self, keys: np.ndarray,
+                     ikeys: np.ndarray | None = None) -> np.ndarray:
+        """Tombstone deletes: each present key appends a TOMBSTONE to the
+        active delta, the newest copy of its identity, which masks every
+        older copy on the point and range paths; the next fold drops it.
+        Returns per-key success: False for an absent key, and for the
+        second delete of one key within a batch."""
+        k64 = np.asarray(keys, dtype=np.float64)
+        ik64 = k64 if ikeys is None else np.asarray(ikeys, dtype=np.float64)
+        pk = k64.astype(np.float32)
+        hi, lo = split_key_bits(ik64)
+        ids = _ids64(hi, lo)
+        uniq, first = np.unique(ids, return_index=True)
+        live = self._has(uniq)
+        ok = np.zeros(ids.shape[0], dtype=bool)
+        ok[first[live]] = True
+        if ok.any():
+            self._ids = np.delete(self._ids,
+                                  np.searchsorted(self._ids, uniq[live]))
+            n_del = int(ok.sum())
+            self.n_keys -= n_del
+            self._append_delta(pk[ok], hi[ok], lo[ok],
+                               np.full(n_del, TOMBSTONE, np.int32))
+            self._advance_write_path(n_del)
+        return ok
+
+    def _advance_write_path(self, n_batch: int) -> None:
+        """After a write: advance a fold in flight by the per-call
+        budget, retire a full delta into the run, and start a fold when
+        the run outgrows its bound.  An index never built keeps
+        buffering: there is no tree to fold into."""
+        budget = max(int(self.cfg.fold_step_keys),
+                     int(self.cfg.fold_work_factor * max(n_batch, 1)))
+        if self._fold is not None:
+            self._fold_tick(budget)
+        if self._fold is None:
+            if self._delta_pk.shape[0] > self.cfg.delta_cap:
+                self._merge_delta_into_run()
+            if (self.arrays is not None
+                    and self._run_pk.shape[0]
+                    > self.cfg.rebuild_frac * max(self.n_keys, 1)):
+                self._fold_start()
+                if self._fold is not None:
+                    self._fold_tick(budget)
+
+    # -------------------------------------------------------------- fold
+    def _snapshot_live(self):
+        """Freeze the live keyset: merge the delta into the run, gather
+        static DATA entries (oldest), bucket entries, then the run
+        (newest), keep the newest copy of each identity and drop the
+        tombstoned ones.  Returns ``(pk, hi, lo, pv)`` sorted by pk."""
+        self._merge_delta_into_run()
+        if self.arrays is not None:
+            a = self.arrays
+            data = a.etype == DATA
+            bmask = np.arange(self.cfg.max_bucket)[None, :] < a.blen[:, None]
+            pk = np.concatenate([a.ekey[data], a.bkey[bmask], self._run_pk])
+            hi = np.concatenate([a.ehi[data], a.bhi[bmask], self._run_hi])
+            lo = np.concatenate([a.elo[data], a.blo[bmask], self._run_lo])
+            pv = np.concatenate([a.epayload[data], a.bpayload[bmask],
+                                 self._run_pv])
+        else:
+            pk, hi, lo, pv = (self._run_pk, self._run_hi, self._run_lo,
+                              self._run_pv)
+        pk, hi, lo, pv = _dedup_newest(pk, hi, lo, np.asarray(pv, np.int64))
+        live = pv != TOMBSTONE
+        if not live.all():
+            pk, hi, lo, pv = pk[live], hi[live], lo[live], pv[live]
+        return pk, hi, lo, pv
+
+    def _fold_start(self) -> None:
+        """Begin a fold over a snapshot of the live keys.  If every key
+        is tombstoned there is nothing to fold into: the old tree keeps
+        serving and the run keeps the tombstones that mask it."""
+        t0 = time.perf_counter()
+        pk, hi, lo, pv = self._snapshot_live()
+        if pk.shape[0]:
+            self._fold = _Fold(self, pk, hi, lo, pv)
+            self._fold.report["snapshot_s"] = time.perf_counter() - t0
+
+    def _fold_tick(self, budget: int) -> None:
+        if self._fold is not None and self._fold.tick(budget):
+            # swapped in: apply a delta merge deferred during the fold
+            if self._delta_pk.shape[0] > self.cfg.delta_cap:
+                self._merge_delta_into_run()
+
+    def rebuild(self) -> None:
+        """Fold every write tier into the tree now: finish a fold in
+        flight (its snapshot misses the writes made since), then fold
+        what is left."""
+        if self.arrays is None:
+            return
+        while self._fold is not None:
+            self._fold_tick(1 << 62)
+        self._fold_start()
+        while self._fold is not None:
+            self._fold_tick(1 << 62)
+
+    def start_reflow(self, transform_fn, serve_flow, on_swap) -> bool:
+        raise NotImplementedError(
+            "FlatAFLI.start_reflow (re-keying folds) is not ported to "
+            "repro_torch yet (ROADMAP A11)")
 
     # ------------------------------------------------------------- lookup
     def lookup_batch(self, keys: np.ndarray,
@@ -602,8 +990,53 @@ class FlatAFLI:
             self.n_shadowed += int(wrong.sum())
         return int(wrong.sum())
 
+    # -------------------------------------------------------- range scan
+    def scan_batch(self, lo_keys: np.ndarray, hi_keys: np.ndarray,
+                   cap: int | None = None):
+        """Batched ``[lo, hi)`` range scans over positioning-key order.
+        Returns ``(payloads i32[n, cap] (-1 padded), counts i32[n],
+        totals i32[n])``: per query the first ``counts[i]`` lanes are the
+        live entries in range, in key order; ``totals[i] > cap`` flags
+        truncation (``cap`` bounds the candidates examined).  Without a
+        flow the positioning order is the key order (the f32 cast is
+        monotone)."""
+        lo32 = np.asarray(lo_keys, dtype=np.float64).astype(np.float32)
+        hi32 = np.asarray(hi_keys, dtype=np.float64).astype(np.float32)
+        return self._device_scan(lo32.reshape(-1, 1), hi32.reshape(-1, 1),
+                                 flow=None, cap=cap)
+
+    def scan_batch_flow(self, feats_lo: np.ndarray, feats_hi: np.ndarray,
+                        packed_w, shapes, cap: int | None = None):
+        """Range scans for flow-positioned indexes: one launch runs the
+        NF on both endpoints (``expand_features`` of the raw keys), the
+        lower bounds and the tier-merged emission."""
+        return self._device_scan(feats_lo, feats_hi,
+                                 flow=(packed_w, shapes), cap=cap)
+
+    def _device_scan(self, feats_lo: np.ndarray, feats_hi: np.ndarray, *,
+                     flow, cap: int | None):
+        """One ``ops.fused_range_scan`` launch for the whole batch (the
+        kernel takes any batch size, so nothing is padded)."""
+        cap = int(cap if cap is not None else self.cfg.scan_cap)
+        dev = self.device
+        tiers = self._tier_pack()
+        pv, cnt, tot, _zlo, _zhi = ops.fused_range_scan(
+            self._serving.scan_pack(), tiers,
+            torch.from_numpy(np.ascontiguousarray(feats_lo, np.float32)
+                             ).to(dev),
+            torch.from_numpy(np.ascontiguousarray(feats_hi, np.float32)
+                             ).to(dev),
+            flow=flow, scan_cap=cap)
+        tot = tot.cpu().numpy()
+        self.last_scan_dispatch = {
+            "path": "fused", "n_dispatch": 1,
+            "truncated": int((tot > cap).sum()),
+            "tier_path": "kernel" if tiers is not None else "none"}
+        return pv.cpu().numpy(), cnt.cpu().numpy(), tot
+
     def stats(self):
-        """Structure sizes, tier lengths and the serving-state counters."""
+        """Structure sizes, tier lengths, fold state and the
+        serving-state counters."""
         a = self.arrays
         return {
             "n_nodes": int(a.node_kind.shape[0]) if a is not None else 0,
@@ -612,6 +1045,11 @@ class FlatAFLI:
             "max_depth": self.max_depth,
             "n_keys": self.n_keys,
             "n_shadowed": self.n_shadowed,
+            "delta_len": int(self._delta_pk.shape[0]),
             "run_len": int(self._run_pk.shape[0]),
+            "fold_active": self._fold is not None,
+            "n_rebuilds": self.n_rebuilds,
+            "last_fold": dict(self.last_fold),
+            "scan_pool_len": self._serving.scan.length,
             "serving": self._serving.stats(),
         }

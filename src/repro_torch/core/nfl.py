@@ -1,18 +1,19 @@
 """NFL — the two-stage Normalizing-Flow Learned index (paper §3), PyTorch.
 
-Port of ``repro.core.nfl`` for the flat backend's read path.  Stage 1
-trains the Numerical NF on a sample of the bulk-loaded keys and
-transforms every key through the NF kernel; the paper's switching
-mechanism (AutoSwitch) keeps the flow only if it lowers the tail
-conflict degree.  Stage 2 builds ``FlatAFLI`` over the (possibly
-transformed) keys and verifies the serve path end to end.  Every
-``lookup_batch`` is one fused kernel launch (NF forward included when
-the flow is on).
+Port of ``repro.core.nfl`` for the flat backend.  Stage 1 trains the
+Numerical NF on a sample of the bulk-loaded keys and transforms every
+key through the NF kernel; the paper's switching mechanism (AutoSwitch)
+keeps the flow only if it lowers the tail conflict degree.  Stage 2
+builds ``FlatAFLI`` over the (possibly transformed) keys and verifies
+the serve path end to end.  Every ``lookup_batch`` is one fused kernel
+launch and every ``scan_batch`` one range-scan launch (NF forward
+included when the flow is on); a write positions its keys through the
+NF kernel and lands in the index's write tiers.
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP
 item that ports them: the paper's pointer-tree backend (A13), sharded
-serving (A10), drift re-flow and resharding (A11), and inserts, deletes
-and range scans (A6, A8).
+serving (A10), drift re-flow and resharding (A11), and the async
+lookups of the front end (A12).
 """
 
 from __future__ import annotations
@@ -113,10 +114,9 @@ class NFL:
             self.index.build(transformed, payloads, ikeys=keys)
             self.index.set_serve_flow(normalizer, self.cfg.flow,
                                       self._packed_w, self._shapes)
-            feats = expand_features(keys, normalizer, self.cfg.flow.dim,
-                                    self.cfg.flow.theta, dtype=np.float32)
             n_shadow = self.index.verify_serve_flow(
-                feats, keys, self._packed_w, self._shapes, payloads)
+                self._feats(keys), keys, self._packed_w, self._shapes,
+                payloads)
         else:
             self.index.build(keys, payloads)
         t_build = time.perf_counter() - t0
@@ -143,24 +143,83 @@ class NFL:
         keys = np.asarray(keys, dtype=np.float64)
         if not self.use_flow:
             return self.index.lookup_batch(keys)
-        feats = expand_features(keys, self.normalizer, self.cfg.flow.dim,
-                                self.cfg.flow.theta, dtype=np.float32)
-        return self.index.lookup_batch_flow(feats, keys, self._packed_w,
-                                            self._shapes)
+        return self.index.lookup_batch_flow(self._feats(keys), keys,
+                                            self._packed_w, self._shapes)
 
-    def insert_batch(self, keys, payloads):
-        raise _not_ported("insert_batch (the tiered write path)", "A6")
+    def lookup_batch_async(self, keys: np.ndarray):
+        raise _not_ported("lookup_batch_async (the front end's async "
+                          "dispatch)", "A12")
 
-    def delete_batch(self, keys):
-        raise _not_ported("delete_batch (tombstone deletes)", "A6")
+    def _pkeys(self, keys: np.ndarray) -> np.ndarray:
+        """Positioning keys of a batch: the keys themselves without the
+        flow, else z from the NF kernel (bit-equal to the in-kernel NF of
+        the lookup and range kernels)."""
+        if not self.use_flow:
+            return keys
+        return ops.nf_transform_keys(self.flow_params, self.normalizer,
+                                     keys, self.cfg.flow, self.device)
 
-    def scan_batch(self, lo_keys, hi_keys, cap=None):
-        raise _not_ported("scan_batch (fused range scans)", "A8")
+    def _feats(self, keys: np.ndarray) -> np.ndarray:
+        return expand_features(keys, self.normalizer, self.cfg.flow.dim,
+                               self.cfg.flow.theta, dtype=np.float32)
+
+    def insert_batch(self, keys: np.ndarray, payloads: np.ndarray) -> None:
+        """Batched inserts (an existing key's payload is overwritten)."""
+        keys = np.asarray(keys, dtype=np.float64)
+        payloads = np.asarray(payloads, dtype=np.int64)
+        self.index.insert_batch(self._pkeys(keys), payloads,
+                                ikeys=keys if self.use_flow else None)
+
+    def update_batch(self, keys: np.ndarray,
+                     payloads: np.ndarray) -> np.ndarray:
+        """Batched updates of present keys; per-key success (False: the
+        key is absent and is not created).  The write path is last write
+        wins by identity, so an update is an insert of present keys."""
+        keys = np.asarray(keys, dtype=np.float64)
+        ok = self.index.contains_batch(keys)
+        if ok.any():
+            self.insert_batch(keys[ok], np.asarray(payloads)[ok])
+        return ok
+
+    def delete_batch(self, keys: np.ndarray) -> np.ndarray:
+        """Batched deletes; per-key success (False: the key is absent).
+        Deleted keys vanish from point and range results at once and are
+        dropped from the tree by the next fold."""
+        keys = np.asarray(keys, dtype=np.float64)
+        return self.index.delete_batch(self._pkeys(keys),
+                                       ikeys=keys if self.use_flow else None)
+
+    def scan_batch(self, lo_keys: np.ndarray, hi_keys: np.ndarray,
+                   cap: int | None = None):
+        """Batched ``[lo, hi)`` range scans -> ``(payloads i32[n, cap]
+        (-1 padded), counts i32[n], totals i32[n])``: per query the first
+        ``counts[i]`` lanes hold the live payloads in range, in
+        positioning-key order; ``totals[i] > cap`` flags truncation.
+        The order is the key order with the flow off and the z order with
+        it on (both endpoints go through the same NF as every stored
+        key)."""
+        lo_keys = np.asarray(lo_keys, dtype=np.float64)
+        hi_keys = np.asarray(hi_keys, dtype=np.float64)
+        if not self.use_flow:
+            return self.index.scan_batch(lo_keys, hi_keys, cap=cap)
+        return self.index.scan_batch_flow(
+            self._feats(lo_keys), self._feats(hi_keys), self._packed_w,
+            self._shapes, cap=cap)
+
+    # the established range-query spelling beside the batched name
+    lookup_range = scan_batch
+
+    def stats(self):
+        return self.index.stats()
 
     def dispatch_stats(self) -> Dict[str, int]:
-        """Kernel launch counters (process-wide, since the last
-        ``ops.reset_launch_counts``) and this index's shadowed keys."""
+        """Kernel launch counters and truncated range queries
+        (process-wide, since the last ``ops.reset_launch_counts``), and
+        this index's shadowed keys and completed folds."""
         counts = ops.launch_counts()
         return {"nf_forward_launches": counts["nf_forward"],
                 "fused_lookup_launches": counts["fused_lookup"],
-                "shadowed": int(self.index.n_shadowed)}
+                "fused_range_scan_launches": counts["fused_range_scan"],
+                "scan_truncated": ops.fused_range_scan.truncated,
+                "shadowed": int(self.index.n_shadowed),
+                "rebuilds": int(self.index.n_rebuilds)}

@@ -1,17 +1,22 @@
 """Device-resident serving state of one ``FlatAFLI``, PyTorch.
 
-Port of ``repro.core.serving_state`` for the read path:
+Port of ``repro.core.serving_state``:
 
 * **pack once** — the tree pools are packed to kernel layout
   (``to_kernel_args``, exact sizes) and moved to the device once per
-  build, never per call;
-* **bucketed tiers** — the run and delta tiers live in persistent device
-  buffers sized to power-of-two capacities (allocated at their first
-  refresh), with the live length in a device i32[1], so a tier that
+  build or fold (a fold packs its pools beside the old ones and swaps
+  them in), never per call;
+* **bucketed tiers** — the run and delta tiers and the range path's scan
+  pool live in persistent device buffers sized to power-of-two
+  capacities, with the live length in a device i32[1], so a tier that
   grows by appends is reallocated a logarithmic number of times.  A
-  refresh writes the changed prefix in place by slice assignment.  Rows
+  refresh writes the live prefix in place by slice assignment.  Rows
   past the live length hold ``+inf`` keys, so the kernel's fixed-round
-  lower bound never lands in stale data.
+  lower bound never lands in stale data.  ``preallocate`` pins each
+  capacity from the write path's configured bounds at build and at fold
+  swap, so a steady write window reallocates nothing.  The write path
+  refreshes the tier it changed right away, so reads find every tier
+  resident; the scan pool is refreshed only at build and fold swap.
 
 The traversal depth bound and the duplicate windows are passed to the
 kernel as they are: the card compiles nothing per shape, so the JAX
@@ -48,6 +53,7 @@ class DeviceTier:
         self.length = 0
         self.window = 1            # longest run of equal keys
         self.pk = self.hi = self.lo = self.pv = self.plen = None
+        self.min_capacity = 0
         self.uploads = 0
         self.upload_bytes = 0
         self.repacks = 0
@@ -58,15 +64,21 @@ class DeviceTier:
         return max(self.capacity, 1).bit_length()
 
     def _alloc(self, cap: int) -> None:
+        """(Re)allocate at capacity ``cap``, keeping the live rows."""
         dev = self.device
+        old = (self.pk, self.hi, self.lo, self.pv)
         self.pk = torch.full((cap,), float("inf"), dtype=torch.float32,
                              device=dev)
         self.hi = torch.zeros(cap, dtype=torch.int32, device=dev)
         self.lo = torch.zeros(cap, dtype=torch.int32, device=dev)
         self.pv = torch.full((cap,), -1, dtype=torch.int32, device=dev)
-        self.plen = torch.zeros(1, dtype=torch.int32, device=dev)
+        n = self.length if old[0] is not None else 0
+        for new, prev in zip((self.pk, self.hi, self.lo, self.pv), old):
+            if n:
+                new[:n] = prev[:n]
+        if self.plen is None:
+            self.plen = torch.zeros(1, dtype=torch.int32, device=dev)
         self.capacity = cap
-        self.length = 0
         self.repacks += 1
 
     def refresh(self, pk: np.ndarray, hi: np.ndarray, lo: np.ndarray,
@@ -76,7 +88,7 @@ class DeviceTier:
         that the old state used and the new one does not are reset to
         padding."""
         n = int(pk.shape[0])
-        need = pow2_bucket(n + 1)
+        need = max(pow2_bucket(n + 1), self.min_capacity)
         self.window = int(window)
         if self.pk is None or need > self.capacity:
             self._alloc(max(need, self.capacity))
@@ -100,30 +112,69 @@ class DeviceTier:
         self.upload_bytes += 16 * m + 4
 
 
+_EMPTY = (np.empty(0, np.float32), np.empty(0, np.uint32),
+          np.empty(0, np.uint32), np.empty(0, np.int32))
+
+
 class ServingState:
-    """Packed tree pools and the run and delta tiers of one
-    ``FlatAFLI`` on one device."""
+    """Packed tree pools, the run and delta tiers and the scan pool of
+    one ``FlatAFLI`` on one device."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.tree_pools = None
         self.run = DeviceTier(device)
         self.delta = DeviceTier(device)
+        self.scan = DeviceTier(device)
         self.tree_packs = 0
         self.tier_reuses = 0
+        self.scan_reuses = 0
 
-    def set_tree(self, arrays) -> None:
-        """Adopt a (re)built static structure: pack it once."""
-        self.tree_pools = arrays.to_kernel_args(self.device)
+    def pack_tree(self, arrays):
+        """Pack a static structure's pools for the kernels (a fold packs
+        its new pools here, beside the ones serving)."""
         self.tree_packs += 1
+        return arrays.to_kernel_args(self.device)
+
+    def set_tree(self, arrays, pools=None) -> None:
+        """Adopt a (re)built static structure: pack it once, or take the
+        pools a fold packed already."""
+        self.tree_pools = self.pack_tree(arrays) if pools is None else pools
+
+    def set_scan(self, pk, hi, lo, pv, window: int) -> None:
+        """Adopt the (re)built structure's rank-ordered scan pool.  Called
+        only at build and fold swap, off the serve path."""
+        self.scan.refresh(pk, hi, lo, pv, window)
+
+    def scan_pack(self):
+        """The resident ``ScanPack``; before the first build the pool is
+        empty and every range resolves from the write tiers alone."""
+        from repro_torch.kernels.range_scan import ScanPack, ScanPool
+
+        if self.scan.pk is None:
+            self.scan.refresh(*_EMPTY, window=1)
+        self.scan_reuses += 1
+        s = self.scan
+        return ScanPack(pool=ScanPool(pk=s.pk, hi=s.hi, lo=s.lo, pv=s.pv,
+                                      plen=s.plen), iters=s.iters)
+
+    def preallocate(self, *, delta_floor: int, run_floor: int,
+                    scan_floor: int) -> None:
+        """Pin the capacity buckets from the write path's configured
+        bounds and allocate them now, keeping live rows."""
+        for t, floor in ((self.delta, delta_floor), (self.run, run_floor),
+                         (self.scan, scan_floor)):
+            t.min_capacity = max(t.min_capacity, pow2_bucket(floor))
+            if t.pk is None:
+                t.refresh(*_EMPTY, window=1)
+            elif t.capacity < t.min_capacity:
+                t._alloc(t.min_capacity)
 
     def reset_tiers(self) -> None:
         """Drop tier contents (new build); buffers stay."""
-        empty = (np.empty(0, np.float32), np.empty(0, np.uint32),
-                 np.empty(0, np.uint32), np.empty(0, np.int32))
         for t in (self.run, self.delta):
             if t.pk is not None:
-                t.refresh(*empty, window=1)
+                t.refresh(*_EMPTY, window=1)
 
     def tier_pack(self):
         """The resident ``TierPack`` (None while both tiers are empty)."""
@@ -131,11 +182,9 @@ class ServingState:
 
         if not (self.run.length or self.delta.length):
             return None
-        empty = (np.empty(0, np.float32), np.empty(0, np.uint32),
-                 np.empty(0, np.uint32), np.empty(0, np.int32))
         for t in (self.run, self.delta):
             if t.pk is None:
-                t.refresh(*empty, window=1)
+                t.refresh(*_EMPTY, window=1)
         self.tier_reuses += 1
         r, d = self.run, self.delta
         return TierPack(
@@ -150,12 +199,17 @@ class ServingState:
         return {
             "tree_packs": self.tree_packs,
             "tier_reuses": self.tier_reuses,
+            "scan_reuses": self.scan_reuses,
             "tier_uploads": self.run.uploads + self.delta.uploads,
             "tier_upload_bytes": (self.run.upload_bytes
                                   + self.delta.upload_bytes),
             "tier_repacks": self.run.repacks + self.delta.repacks,
+            "scan_uploads": self.scan.uploads,
+            "scan_upload_bytes": self.scan.upload_bytes,
+            "scan_repacks": self.scan.repacks,
             "run_capacity": self.run.capacity,
             "delta_capacity": self.delta.capacity,
+            "scan_capacity": self.scan.capacity,
             "run_window": self.run.window,
             "delta_window": self.delta.window,
             "pool_bytes": (self.tree_pools.nbytes()

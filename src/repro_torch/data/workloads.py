@@ -4,8 +4,8 @@ Own copy of ``repro.data.workloads``: bulk-load 50% of the dataset, then
 run a request stream with a given query/insert mix.  Queried keys follow
 a Zipfian distribution over the loaded keys; inserted keys come from the
 not-yet-loaded half.  Requests are delivered in batches (paper §3.1).
-The port serves the ``read_only`` mix so far; the generator itself is
-mix-agnostic and draws exactly as the JAX package does.
+Every mix runs on the port; the generator draws exactly as the JAX
+package does.
 """
 
 from __future__ import annotations

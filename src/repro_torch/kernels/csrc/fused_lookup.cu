@@ -16,7 +16,8 @@
 //    then the FIRST entry of the `dense_window` scan whose f32 key and
 //    identity both match;
 //  * bucket: the MAX payload over identity matches with col < blen;
-//  * tiers: delta, then run, each by lower_bound plus the identity window
+//  * tiers: delta, then run, each by `probe_tier` (tier_device.cuh, shared
+//    with the range kernel): lower_bound plus the identity window
 //    [l - W, l + 3W); the newest (highest) index wins, a tier match
 //    (TOMBSTONE included) beats every older tier, TOMBSTONE maps to -1.
 //
@@ -37,6 +38,7 @@
 #include <cstdint>
 
 #include "nf_device.cuh"
+#include "tier_device.cuh"
 
 #define KIND_MODEL 0
 #define KIND_DENSE 1
@@ -94,34 +96,6 @@ struct LookupArgs {
   int dl_window;
   int pad_;
 };
-
-// Newest payload matching (qhi, qlo) in one sorted tier (-1: none; a
-// matched TOMBSTONE passes through for the caller).
-__device__ __forceinline__ int probe_tier(const float* pk, const int* hi,
-                                          const int* lo, const int* pv,
-                                          int n, int cap, int iters,
-                                          int window, float q, int qhi,
-                                          int qlo) {
-  if (n <= 0) return -1;
-  int l = 0, h = n;
-  for (int it = 0; it < iters; ++it) {
-    const int mid = (l + h) >> 1;
-    const int m = mid < cap ? mid : cap - 1;
-    if (__ldg(pk + m) < q) {
-      l = mid + 1;
-    } else {
-      h = mid;
-    }
-  }
-  int last = -1;
-  const int w0 = l - window;
-  for (int w = 0; w < 4 * window; ++w) {
-    const int j = w0 + w;
-    if (j < 0 || j >= n) continue;
-    if (__ldg(hi + j) == qhi && __ldg(lo + j) == qlo) last = j;
-  }
-  return last >= 0 ? __ldg(pv + last) : -1;
-}
 
 template <int MAXW>
 __global__ void fused_lookup_kernel(const LookupArgs a, const NFParams p) {

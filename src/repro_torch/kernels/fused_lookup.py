@@ -121,18 +121,29 @@ def _slot_index(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(r, -2147483648.0, 2147483520.0).to(torch.int64)
 
 
-def _probe_tier_plain(pk, hi, lo, pv, n_len, iters: int, window: int,
-                      q, qhi, qlo) -> torch.Tensor:
+def _lower_bound_plain(pk, n_len, iters: int, q) -> torch.Tensor:
+    """``lower_bound`` of csrc/tier_device.cuh, vectorised over ``q``:
+    the leftmost index in [0, n] with ``pk[i] >= q``, as ``iters`` rounds
+    of binary search with reads clamped to the pool."""
     cap = pk.shape[0]
-    b = q.shape[0]
-    n = n_len.reshape(()).to(torch.int64)
-    l = torch.zeros(b, dtype=torch.int64, device=q.device)
-    h = n.expand(b).clone()
+    l = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    h = n_len.reshape(()).to(torch.int64).expand(q.shape[0]).clone()
     for _ in range(iters):
         mid = (l + h) // 2
         go = pk[torch.clamp(mid, max=cap - 1)] < q
         l = torch.where(go, mid + 1, l)
         h = torch.where(go, h, mid)
+    return l
+
+
+def _probe_tier_plain(pk, hi, lo, pv, n_len, iters: int, window: int,
+                      q, qhi, qlo) -> torch.Tensor:
+    """``probe_tier`` of csrc/tier_device.cuh: the newest payload whose
+    identity matches in the window around ``q``'s lower bound (-1: none;
+    a TOMBSTONE passes through)."""
+    cap = pk.shape[0]
+    n = n_len.reshape(()).to(torch.int64)
+    l = _lower_bound_plain(pk, n_len, iters, q)
     widx = (l - window)[:, None] + torch.arange(4 * window, device=q.device)
     wc = torch.clamp(widx, 0, cap - 1)
     ok = ((widx >= 0) & (widx < n) & (hi[wc] == qhi[:, None])

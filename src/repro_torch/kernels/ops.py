@@ -1,11 +1,11 @@
 """Public entry points over the port's kernels, and their launch counters.
 
-Port of the parts of ``repro.kernels.ops`` the flat backend's read path
-uses.  ``fused_lookup`` has one rung: the pools live in device memory on
-the card, so there is no residency budget to overflow, no streamed rung
-and no oracle fallback — every call launches the fused kernel (or, on
-CPU tensors, runs its plain version).  The streamed rung ports with
-ROADMAP A9.
+Port of the parts of ``repro.kernels.ops`` the flat backend uses.
+``fused_lookup`` and ``fused_range_scan`` have one rung each: the pools
+live in device memory on the card, so there is no residency budget to
+overflow, no streamed rung and no host fallback — every call launches
+the kernel (or, on CPU tensors, runs its plain version).  The streamed
+rung ports with ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -18,11 +18,12 @@ import torch
 from repro_torch.core.feature import KeyNormalizer, expand_features
 from repro_torch.core.flow import FlowConfig, materialize_weights
 from repro_torch.kernels import fused_lookup as _fl
+from repro_torch.kernels import range_scan as _rs
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.nf_forward import nf_forward, pack_flow_weights
 
 __all__ = ["nf_transform_keys", "pack_params", "fused_lookup",
-           "launch_counts", "reset_launch_counts"]
+           "fused_range_scan", "launch_counts", "reset_launch_counts"]
 
 
 def pack_params(params: Dict, cfg: FlowConfig):
@@ -73,12 +74,42 @@ def fused_lookup(pools, feats: torch.Tensor, qhi: torch.Tensor,
         use_flow=flow is not None)
 
 
+def fused_range_scan(scan_pack, tiers, feats_lo: torch.Tensor,
+                     feats_hi: torch.Tensor, *, flow=None, scan_cap: int):
+    """One range-scan dispatch for a batch of ``[lo, hi)`` queries ->
+    (pv i32[B, scan_cap], cnt i32[B], tot i32[B], zlo f32[B], zhi f32[B])
+    as tensors on the batch's device.
+
+    scan_pack: ``ScanPack``; tiers: a ``TierPack``, or None when both
+    write tiers are empty; feats_lo/feats_hi: f32[B, d] endpoint features
+    with ``flow=(packed_w, shapes)``, or f32[B, 1] positioning keys
+    without.  Queries with ``tot > scan_cap`` were truncated; they are
+    counted in ``fused_range_scan.truncated``."""
+    if flow is not None:
+        packed_w, shapes = flow
+    else:
+        packed_w, shapes = None, ()
+    out = _rs.fused_range_scan(
+        feats_lo, feats_hi, packed_w, scan_pack, tiers,
+        dim=int(feats_lo.shape[1]), shapes=shapes, scan_cap=scan_cap,
+        use_flow=flow is not None)
+    fused_range_scan.truncated += int((out[2] > scan_cap).sum())
+    return out
+
+
+fused_range_scan.truncated = 0
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, per kernel."""
     return {"nf_forward": nf_forward.launches,
-            "fused_lookup": _fl.fused_lookup.launches}
+            "fused_lookup": _fl.fused_lookup.launches,
+            "fused_range_scan": _rs.fused_range_scan.launches}
 
 
 def reset_launch_counts() -> None:
+    """Zero the launch counters and the range scans' truncation count."""
     nf_forward.launches = 0
     _fl.fused_lookup.launches = 0
+    _rs.fused_range_scan.launches = 0
+    fused_range_scan.truncated = 0

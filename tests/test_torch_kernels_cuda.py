@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from repro_torch.core.feature import KeyNormalizer, expand_features
-from repro_torch.core.flat_afli import FlatAFLI, split_key_bits
+from repro_torch.core.flat_afli import FlatAFLI, FlatAFLIConfig, split_key_bits
 from repro_torch.core.flow import FlowConfig, init_flow
 from repro_torch.core.nfl import NFL, NFLConfig
 from repro_torch.core.train_flow import FlowTrainConfig, FlowTrainer
@@ -18,6 +18,8 @@ from repro_torch.data.datasets import make_dataset
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_lookup import fused_lookup, fused_lookup_plain
 from repro_torch.kernels.nf_forward import nf_forward, nf_forward_plain
+from repro_torch.kernels.range_scan import (fused_range_scan,
+                                            fused_range_scan_plain)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -99,6 +101,122 @@ def test_fused_lookup_kernel_matches_plain(cuda, flow):
     if flow:
         z_nf = nf_forward(args[0], nfl._packed_w, nfl._shapes, 2)
         assert torch.equal(zk.view(torch.int32), z_nf.view(torch.int32))
+
+
+def _written(dev, flow: bool):
+    """An NFL on ``dev`` after writes that leave data, updates and
+    tombstones in both the run and the delta (no fold), with its ground
+    truth: (nfl, keys, expected payload per key)."""
+    keys = make_dataset("longlat" if flow else "lognormal", 40_000)
+    pv = np.arange(keys.shape[0], dtype=np.int64)
+    nfl = NFL(NFLConfig(backend="flat", force_flow=flow,
+                        flow_train=FlowTrainConfig(epochs=1),
+                        flat_index=FlatAFLIConfig(delta_cap=4096,
+                                                  rebuild_frac=10.0)),
+              device=dev)
+    nfl.bulkload(keys[::2], pv[::2])
+    expect = np.where(pv % 2 == 0, pv, -1)
+    nfl.insert_batch(keys[1::4], pv[1::4])          # -> the run
+    expect[1::4] = pv[1::4]
+    gone = np.arange(0, keys.shape[0], 10)
+    assert nfl.delete_batch(keys[gone[:1500]]).all()  # tombstones, run
+    upd = np.arange(2, keys.shape[0], 16)
+    ok = nfl.update_batch(keys[upd], pv[upd] + 1_000_000)
+    expect[upd[ok]] = pv[upd[ok]] + 1_000_000
+    nfl.insert_batch(keys[3::40], pv[3::40] + 2_000_000)  # -> the delta
+    expect[3::40] = pv[3::40] + 2_000_000
+    assert nfl.delete_batch(keys[gone[1500:]]).all()  # tombstones, delta
+    expect[gone] = -1
+    st = nfl.stats()
+    assert st["run_len"] and st["delta_len"] and not st["fold_active"]
+    return nfl, keys, expect
+
+
+def _feats(nfl, keys):
+    if nfl.use_flow:
+        return expand_features(keys, nfl.normalizer, nfl.cfg.flow.dim,
+                               nfl.cfg.flow.theta, dtype=np.float32)
+    return keys.astype(np.float32).reshape(-1, 1)
+
+
+@pytest.mark.parametrize("flow", [True, False])
+def test_fused_lookup_kernel_matches_plain_with_tiers(cuda, flow):
+    nfl, keys, expect = _written(cuda, flow)
+    idx = nfl.index
+    hi, lo = split_key_bits(keys)
+    args = (torch.from_numpy(_feats(nfl, keys)).to(cuda),
+            torch.from_numpy(hi.view(np.int32)).to(cuda),
+            torch.from_numpy(lo.view(np.int32)).to(cuda), nfl._packed_w,
+            idx._kernel_pools(), idx._tier_pack())
+    kw = dict(dim=nfl.cfg.flow.dim, shapes=nfl._shapes,
+              max_depth=idx.max_depth, dense_iters=24, bucket_cap=6,
+              dense_window=idx.dense_window, use_flow=flow)
+    pk, zk = fused_lookup(*args, **kw)
+    pp, zp = fused_lookup_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp)
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+    assert np.array_equal(pk.cpu().numpy(), expect)
+
+
+@pytest.mark.parametrize("flow", [True, False])
+def test_range_scan_kernel_matches_plain(cuda, flow):
+    nfl, keys, expect = _written(cuda, flow)
+    idx = nfl.index
+    rng = np.random.default_rng(7)
+    lo_k = rng.choice(keys, 4096)
+    hi_k = lo_k + rng.uniform(0, 1e-3 if flow else 1e4, 4096) * np.where(
+        rng.random(4096) < 0.1, -1, 1)                 # some inverted
+    args = (torch.from_numpy(_feats(nfl, lo_k)).to(cuda),
+            torch.from_numpy(_feats(nfl, hi_k)).to(cuda), nfl._packed_w,
+            idx._serving.scan_pack(), idx._tier_pack())
+    kw = dict(dim=nfl.cfg.flow.dim, shapes=nfl._shapes, scan_cap=128,
+              use_flow=flow)
+    before = fused_range_scan.launches
+    got = fused_range_scan(*args, **kw)
+    want = fused_range_scan_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_range_scan.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    cnt, tot = got[1].cpu().numpy(), got[2].cpu().numpy()
+    assert cnt.sum() > 0 and (tot > cnt).any()
+    if flow:
+        z_nf = nf_forward(args[0], nfl._packed_w, nfl._shapes,
+                          nfl.cfg.flow.dim)
+        assert torch.equal(got[3].view(torch.int32), z_nf.view(torch.int32))
+
+
+def test_nfl_writes_scans_and_rebuild_on_card(cuda):
+    """insert, update, delete, scan and rebuild through NFL on the card,
+    against ground truth: point reads, and scans as z-space multisets."""
+    ops.reset_launch_counts()
+    nfl, keys, expect = _written(cuda, True)
+
+    def check():
+        assert np.array_equal(nfl.lookup_batch(keys), expect)
+        live = keys[expect >= 0]
+        z = ops.nf_transform_keys(nfl.flow_params, nfl.normalizer, live,
+                                  nfl.cfg.flow, cuda).astype(np.float32)
+        order = np.argsort(z, kind="stable")
+        zs, ps = z[order], expect[expect >= 0][order]
+        r = np.random.default_rng(3).integers(0, live.shape[0] - 101, 512)
+        lo_k, hi_k = live[order][r], live[order][r + 60]
+        pv, cnt, tot = nfl.scan_batch(lo_k, hi_k)
+        for i in np.flatnonzero(tot <= 128):
+            want = np.sort(ps[np.searchsorted(zs, zs[r[i]]):
+                              np.searchsorted(zs, zs[r[i] + 60])])
+            assert np.array_equal(np.sort(pv[i, :cnt[i]]), want), i
+
+    check()
+    nfl.index.rebuild()
+    assert nfl.index.n_rebuilds == 1
+    assert nfl.stats()["run_len"] == nfl.index.n_shadowed == 0
+    check()
+    s = nfl.dispatch_stats()
+    assert s["fused_range_scan_launches"] == 2 and s["rebuilds"] == 1
+    assert s["nf_forward_launches"] > 0 and s["fused_lookup_launches"] > 0
 
 
 def test_kernel_rejects_bad_inputs(cuda):

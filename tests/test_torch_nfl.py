@@ -45,7 +45,8 @@ def test_bulkload_and_lookup_ground_truth(name, force_flow):
     assert (nfl.lookup_batch(unloaded) == -1).all()
     stats = nfl.dispatch_stats()
     assert stats == {"nf_forward_launches": 0, "fused_lookup_launches": 0,
-                     "shadowed": 0}
+                     "fused_range_scan_launches": 0, "scan_truncated": 0,
+                     "shadowed": 0, "rebuilds": 0}
 
 
 def _shared_flow(keys):
@@ -111,9 +112,10 @@ def test_unported_operations_raise():
     keys = make_dataset("lognormal", 3000)
     nfl = t_nfl.NFL(_cfg(force_flow=False), device="cpu")
     nfl.bulkload(keys, np.arange(keys.shape[0]))
-    for call, item in [(lambda: nfl.insert_batch(keys[:2], [1, 2]), "A6"),
-                       (lambda: nfl.delete_batch(keys[:2]), "A6"),
-                       (lambda: nfl.scan_batch(keys[:1], keys[1:2]), "A8")]:
+    for call, item in [
+            (lambda: nfl.lookup_batch_async(keys[:2]), "A12"),
+            (lambda: nfl.index.start_reflow(lambda k: k, None,
+                                            lambda: None), "A11")]:
         with pytest.raises(NotImplementedError, match=item):
             call()
 
