@@ -25,27 +25,45 @@ Phases (any failure exits non-zero before the result lines):
       ``[z(k_r), z(k_{r+L}))`` as a multiset;
    e. ``rebuild()`` folds everything; the reads, the deleted-key misses
       and one scan batch are checked again.
+   The streamed rung (``pool_budget=0`` on the built index, switched
+   with ``dataclasses.replace`` and back):
+   s1. after 2a, the 64 read batches and the miss batch again through
+       the streamed rung, every read checked; then each read batch
+       through both rungs: payloads and z bit-equal; then the root node
+       probed with each batch's z through ``ops.index_probe``: where the
+       root entry is DATA, its payload is the fused rung's;
+   s2. after 2c, the inserted, updated and deleted keys read back through
+       the streamed rung;
+   s3. after 2e, the router was rebuilt for the folded scan pool, and s1
+       again with the deleted keys in place of the misses.
 3. ``lognormal`` at 2^22 keys, 2^21 loaded, ``force_flow=False``: reads
    as in 2a; ``write_heavy`` batches until a fold starts and completes
-   in-stream, every read checked, those served mid-fold included; 1,024
-   deletes; one scan batch.
+   in-stream, the rung alternating per batch (even batches fused, odd
+   batches streamed), every read checked, those served mid-fold
+   included: the phase fails unless streamed reads were served while the
+   fold ran and the streamed launches equal the odd batches' read calls
+   (no fold verify streamed); 1,024 deletes; one scan batch.
 4. kernels against their plain PyTorch versions on the card, at the
    main path's shapes: ``nf_forward`` on the bulk-load keys;
-   ``fused_lookup`` on the read batches of the fresh index (timed launch
-   by launch over the 64 distinct batches, each after an L2 flush (cold)
-   or after an idle spin (warm), its host issue time apart, bounded by
-   the distinct 32-byte sectors its reads touch) and on a batch taken
-   while the run and delta hold data and tombstones;
-   ``fused_range_scan`` flow on and off on scan batches taken in that
-   state (longlat's 16 batches timed the same way, bounded by the
-   sectors of the endpoint searches, the pool spans and the probe
-   windows, plus its inputs and output rows).
+   ``fused_lookup`` and ``streamed_lookup`` on the read batches of the
+   fresh index, flow on (longlat) and off (lognormal), each timed launch
+   by launch over the same 64 distinct batches, each after an L2 flush
+   (cold) or after an idle spin (warm), its host issue time apart,
+   bounded by the distinct 32-byte sectors its reads touch; both on a
+   batch taken while the run and delta hold data and tombstones;
+   ``index_probe`` on longlat's root node with the read batches' z,
+   timed and bounded the same way; ``fused_range_scan`` flow on and off
+   on scan batches taken in that state (longlat's 16 batches timed the
+   same way, bounded by the sectors of the endpoint searches, the pool
+   spans and the probe windows, plus its inputs and output rows).
 5. result lines: the kernel table as JSON, then the final JSON object
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are zeroed just before each driven step of phases 2
 and 3 and read just after; the kernels' launches in phase 4 and those
-that compute ground truth fall between those windows and do not count.
+that compute ground truth or compare the rungs fall between those
+windows and do not count.  Every window outside the streamed steps must
+launch ``streamed_lookup`` 0 times (``pool_budget`` is None there).
 
 Exits non-zero, printing no result, without a CUDA device or when the
 repository's sources are missing.
@@ -54,6 +72,7 @@ repository's sources are missing.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -145,13 +164,25 @@ class Windows:
         self.ops = ops
         self.total = collections.Counter()
 
-    def run(self, fn):
+    def run(self, fn, streamed: bool = False):
+        """Drive ``fn`` in a window; outside the streamed steps
+        (``streamed`` False) the streamed kernel must not launch."""
         self.ops.reset_launch_counts()
         out = fn()
         counts = self.ops.launch_counts()
         counts["scan_truncated"] = self.ops.fused_range_scan.truncated
         self.total.update(counts)
+        if not streamed and counts["streamed_lookup"]:
+            fail(f"streamed_lookup launched {counts['streamed_lookup']} "
+                 "times with pool_budget None")
         return out, counts
+
+
+def set_rung(nfl, budget) -> None:
+    """Select the point-read rung of the built index: ``pool_budget=0``
+    streams every live read, None never streams."""
+    idx = nfl.index
+    idx.cfg = dataclasses.replace(idx.cfg, pool_budget=budget)
 
 
 class Truth:
@@ -295,25 +326,125 @@ def touched_sectors(pools, q, qhi, qlo, kw, tiers):
         read("echild", e[ch])
         node = pools.echild[e[ch]].to(torch.int64)
         qq, hh, ll = qm[ch], hm_[ch], lm[ch]
-    if tiers is not None:
-        t = tiers.pools
-        zero = torch.zeros(1, dtype=torch.int64, device=dev)
-        for tag, iters, window in (("run", tiers.run_iters, tiers.run_window),
-                                   ("dl", tiers.delta_iters,
-                                    tiers.delta_window)):
-            read(f"{tag}_len", zero)
-            n = int(getattr(t, f"{tag}_len").item())
-            if n <= 0:
-                continue
-            pk, hi, lo, pv = (getattr(t, f"{tag}_{f}")
-                              for f in ("pk", "hi", "lo", "pv"))
-            l = searched(pk, n, iters, q, lambda m, tag=tag:
-                         read(f"{tag}_pk", m))
-            probe_window(hi, lo, n, window, l, qhi, qlo,
-                         lambda f, idx, tag=tag: read(f"{tag}_{f}", idx))
+    tier_reads(tiers, q, qhi, qlo, read)
     return count_sectors(reads), sum(
         int(x.numel()) for v in reads.values() for x in v), \
         levels / q.shape[0]
+
+
+def tier_reads(tiers, q, qhi, qlo, read) -> None:
+    """The reads of the delta and run probes (``probe_tier`` of
+    csrc/tier_device.cuh), which both point-read kernels end with."""
+    if tiers is None:
+        return
+    t = tiers.pools
+    zero = torch.zeros(1, dtype=torch.int64, device=q.device)
+    for tag, iters, window in (("run", tiers.run_iters, tiers.run_window),
+                               ("dl", tiers.delta_iters,
+                                tiers.delta_window)):
+        read(f"{tag}_len", zero)
+        n = int(getattr(t, f"{tag}_len").item())
+        if n <= 0:
+            continue
+        pk, hi, lo, pv = (getattr(t, f"{tag}_{f}")
+                          for f in ("pk", "hi", "lo", "pv"))
+        l = searched(pk, n, iters, q, lambda m, tag=tag:
+                     read(f"{tag}_pk", m))
+        probe_window(hi, lo, n, window, l, qhi, qlo,
+                     lambda f, idx, tag=tag: read(f"{tag}_{f}", idx))
+
+
+def streamed_sectors(sp, tiers, q, qhi, qlo):
+    """Distinct 32-byte sectors that the streamed kernel's reads touch for
+    one batch, replayed from ``csrc/streamed_lookup.cu``: the router's
+    binary search and the walk down the bracket, each probed tile's
+    11-round search and identity window (hi at every live position, lo
+    where hi matched, pv at the match), then the tier probes.  Returns
+    (sectors, mean tiles probed per query)."""
+    from repro_torch.kernels.streamed_lookup import (STREAM_ALIGN,
+                                                     TILE_ITERS, _wrap32,
+                                                     ord_f32)
+    reads = collections.defaultdict(list)
+
+    def read(pool, idx):
+        reads[pool].append(idx.reshape(-1).to(torch.int64))
+
+    dev = q.device
+    b = q.shape[0]
+    pool, w = sp.pool, sp.window
+    cap = pool.pk.shape[0]
+    plen = int(pool.plen.item())
+    read("slen", torch.zeros(1, dtype=torch.int64, device=dev))
+    oz = ord_f32(q)
+    lo_k = _wrap32(ord_f32(sp.router) - 2)
+    hi_k = _wrap32(ord_f32(sp.router) + 2)
+    l = torch.zeros(b, dtype=torch.int64, device=dev)
+    h = torch.full((b,), (plen + STREAM_ALIGN - 1) // STREAM_ALIGN,
+                   dtype=torch.int64, device=dev)
+    while bool((l < h).any()):
+        act = l < h
+        mid = (l + h) // 2
+        read("router", mid[act])
+        go = act & (lo_k[torch.clamp(mid, max=lo_k.shape[0] - 1)] <= oz)
+        l, h = torch.where(go, mid + 1, l), torch.where(act & ~go, mid, h)
+    t = l - 1
+    done = t < 0
+    probed = 0
+    cols = torch.arange(4 * w, device=dev)
+    while not bool(done.all()):
+        act = ~done
+        read("router", (t + 1)[act])
+        qs = act & (hi_k[torch.clamp(t + 1, 0)] >= oz)
+        done = done | (act & ~qs)
+        if bool(qs.any()):
+            base = t[qs] * STREAM_ALIGN
+            live = torch.clamp(plen - base, max=STREAM_ALIGN)
+            last = base + torch.clamp(cap - base, max=STREAM_ALIGN) - 1
+            zq, hq, lq = q[qs], qhi[qs], qlo[qs]
+            tl_ = torch.zeros_like(base)
+            th_ = live.clone()
+            for _ in range(TILE_ITERS):
+                mid = (tl_ + th_) // 2
+                m = torch.minimum(base + mid, last)
+                read("pk", m)
+                go = pool.pk[m] < zq
+                tl_ = torch.where(go, mid + 1, tl_)
+                th_ = torch.where(go, th_, mid)
+            j = (tl_ - w)[:, None] + cols
+            inside = (j >= 0) & (j < live[:, None])
+            g = torch.clamp(base[:, None] + j, 0, cap - 1)
+            mh = inside & (pool.hi[g] == hq[:, None])
+            ml = mh & (pool.lo[g] == lq[:, None])
+            read("hi", g[inside])
+            read("lo", g[mh])
+            found = ml.any(dim=1)
+            best = torch.max(torch.where(ml, g, -1), dim=1).values
+            read("pv", best[found])
+            hit = torch.zeros_like(done)
+            hit[qs.nonzero()[:, 0][found]] = True
+            done = done | hit
+            probed += int(qs.sum())
+        t = t - 1
+        done = done | (t < 0)
+    tier_reads(tiers, q, qhi, qlo, read)
+    return count_sectors(reads), probed / b
+
+
+def probe_sectors(q, qhi, qlo, slope, intercept, entries):
+    """Distinct sectors that ``index_probe``'s reads touch for one batch,
+    replayed from ``csrc/index_probe.cu``: etype and echild at each slot,
+    ehi where the entry is DATA, elo where ehi matched, epay at a hit."""
+    from repro_torch.kernels.fused_lookup import DATA, _slot_index
+    etype, ehi, elo, epay, echild = entries
+    sl = torch.tensor(np.float32(slope), device=q.device)
+    ic = torch.tensor(np.float32(intercept), device=q.device)
+    slot = torch.clamp(_slot_index(sl * q + ic), 0, etype.shape[0] - 1)
+    d = etype[slot] == DATA
+    mh = d & (ehi[slot] == qhi)
+    ml = mh & (elo[slot] == qlo)
+    return count_sectors({"etype": [slot], "echild": [slot],
+                          "ehi": [slot[d]], "elo": [slot[mh]],
+                          "epay": [slot[ml]]})
 
 
 def searched(pk, n, iters, q, read):
@@ -518,17 +649,143 @@ def bulkload_and_read(name, n_keys, force_flow, seed, m, win):
     if nfl.use_flow and counts["nf_forward"] == 0:
         fail(f"{name}: nf_forward never launched on the main path")
     return {"name": name, "nfl": nfl, "keys": keys, "wl": wl,
-            "unloaded": unloaded, "seed": seed,
+            "unloaded": unloaded, "seed": seed, "miss_keys": miss_keys,
             "truth": Truth(wl.load_keys, wl.load_payloads),
             "batches": [k for _op, k, _p in wl.batches],
-            "use_flow": nfl.use_flow}
+            "use_flow": nfl.use_flow, "lookups_per_s": n_reads / t_reads}
 
 
-def write_stream(res, m, win, n_batches, until_fold):
+def rung_read(nfl, keys, budget, split_key_bits):
+    """(payloads, z) of one batch through the index's own point-read
+    dispatch with the rung that ``pool_budget=budget`` selects."""
+    set_rung(nfl, budget)
+    idx = nfl.index
+    hi, lo = split_key_bits(keys)
+    if nfl.use_flow:
+        out = idx._flow_device_lookup(nfl._feats(keys), hi, lo,
+                                      nfl._packed_w, nfl._shapes)
+    else:
+        out = idx._dispatch(keys.astype(np.float32).reshape(-1, 1), hi, lo,
+                            None, True)
+    path = idx.last_dispatch["path"]
+    set_rung(nfl, None)
+    if path != ("fused" if budget is None else "streamed"):
+        fail(f"pool_budget={budget} served on the {path} rung")
+    return out
+
+
+def streamed_reads(res, win, split_key_bits, what, extra):
+    """s1 / s3: the read batches and ``extra`` (name -> keys) through
+    ``NFL.lookup_batch`` on the streamed rung, every read against the
+    ground truth; then each read batch through both rungs, payloads and z
+    bit-equal.  Returns the fused rung's (z, payloads) per batch."""
+    name, nfl = res["name"], res["nfl"]
+    truth = res["truth"]
+    batches = res["batches"]
+    want = [truth.lookup(k) for k in batches]
+    extra = {n: (k, truth.lookup(k)) for n, k in extra.items()}
+    set_rung(nfl, 0)
+
+    def drive():
+        wrong = n = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for k, w in zip(batches, want):
+            wrong += int((nfl.lookup_batch(k) != w).sum())
+            n += k.shape[0]
+        secs = time.perf_counter() - t
+        bad = {}
+        for n_, (k, w) in extra.items():
+            got = np.concatenate([nfl.lookup_batch(k[i:i + BATCH])
+                                  for i in range(0, k.shape[0], BATCH)])
+            bad[n_] = int((got != w).sum())
+        return wrong, n, secs, bad
+
+    (wrong, n, secs, bad), counts = win.run(drive, streamed=True)
+    set_rung(nfl, None)
+    n_calls = len(batches) + sum(-(-k.shape[0] // BATCH)
+                                 for k, _w in extra.values())
+    log(f"[{name}] streamed rung ({what}): {n} reads in {len(batches)} "
+        f"batches, wrong={wrong}; {bad}; {n / secs:.0f} lookups/s end to "
+        f"end (fused rung in 2a: {res['lookups_per_s']:.0f}); launches "
+        f"{counts}; serving {nfl.index.stats()['serving']}")
+    if wrong or any(bad.values()):
+        fail(f"{name}: wrong reads on the streamed rung ({what})")
+    if counts["streamed_lookup"] != n_calls or counts["fused_lookup"]:
+        fail(f"{name}: {n_calls} reads on the streamed rung launched "
+             f"{counts['streamed_lookup']} streamed and "
+             f"{counts['fused_lookup']} fused kernels")
+    diff_pay = diff_z = 0
+    fused = []
+    for k in batches:
+        fp, fz = rung_read(nfl, k, None, split_key_bits)
+        sp_, sz = rung_read(nfl, k, 0, split_key_bits)
+        diff_pay += int((fp != sp_).sum())
+        diff_z += int((fz.view(np.int32) != sz.view(np.int32)).sum())
+        fused.append((fz, fp))
+    log(f"[{name}] both rungs on the {len(batches)} read batches ({what}): "
+        f"payloads differ in {diff_pay}, z in {diff_z} (bound 0)")
+    if diff_pay or diff_z:
+        fail(f"{name}: the streamed rung disagrees with the fused rung")
+    return dict(lookups_per_s=n / secs, fused=fused)
+
+
+def root_probe(res, m, win, fused, split_key_bits):
+    """s1: ``ops.index_probe`` on the root node of the fresh index with
+    each read batch's z (driven, counted): where the root entry is DATA,
+    its payload must be the one the fused rung served.  Returns the
+    probe's device arguments per batch."""
+    from repro_torch.kernels.fused_lookup import DATA, KIND_MODEL
+    name, nfl = res["name"], res["nfl"]
+    idx = nfl.index
+    a = idx.arrays
+    if int(a.node_kind[0]) != KIND_MODEL:
+        fail(f"{name}: the root is not a model node; nothing to probe")
+    if idx._tier_pack() is not None:
+        fail(f"{name}: the fresh index holds shadows; the root's DATA hits "
+             "are not the served payloads")
+    size = int(a.node_size[0])
+    pools = idx._kernel_pools()
+    node = (float(a.node_slope[0]), float(a.node_intercept[0]),
+            *(getattr(pools, f)[:size]
+              for f in ("etype", "ehi", "elo", "epayload", "echild")))
+    dev = torch.device("cuda")
+    args = []
+    for k, (fz, _fp) in zip(res["batches"], fused):
+        hi, lo = split_key_bits(k)
+        args.append((torch.from_numpy(fz).to(dev),
+                     torch.from_numpy(hi.view(np.int32)).to(dev),
+                     torch.from_numpy(lo.view(np.int32)).to(dev), *node))
+
+    def drive():
+        return [m.ops.index_probe(*x) for x in args]
+
+    outs, counts = win.run(drive)
+    wrong = n_data = n_hit = 0
+    for (pay, code, _child), (_fz, fp) in zip(outs, fused):
+        d = code.cpu().numpy() == DATA
+        p = pay.cpu().numpy()
+        wrong += int((p[d] != fp[d]).sum())
+        n_data += int(d.sum())
+        n_hit += int((p >= 0).sum())
+    log(f"[{name}] root probe (ops.index_probe, {size} slots): "
+        f"{len(args) * BATCH} queries, {n_data} land on DATA at the root, "
+        f"{n_hit} hits, {wrong} disagree with the fused rung; launches "
+        f"{counts}")
+    if wrong or n_data == 0:
+        fail(f"{name}: index_probe disagrees with the fused rung at the root")
+    if counts["index_probe"] != len(args):
+        fail(f"{name}: index_probe launched {counts['index_probe']} times "
+             f"for {len(args)} batches")
+    return args
+
+
+def write_stream(res, m, win, n_batches, until_fold, alternate=False):
     """Phase 2b / 3b: ``write_heavy`` batches from the read phase's seed
     (so the load split is the one bulk-loaded).  Every read is checked;
     with ``until_fold`` the stream stops after the batch in which a fold
-    that it started completes."""
+    that it started completes.  With ``alternate`` the odd batches read
+    through the streamed rung."""
     name, nfl = res["name"], res["nfl"]
     idx = nfl.index
     wl = m.make_workload(res["keys"], m.WorkloadConfig(
@@ -546,10 +803,16 @@ def write_stream(res, m, win, n_batches, until_fold):
         for b, (op, k, p) in enumerate(wl.batches):
             mid = idx._fold is not None
             r = op == 0
+            streamed = alternate and b % 2 == 1
+            set_rung(nfl, 0 if streamed else None)
             got = nfl.lookup_batch(k[r])
+            set_rung(nfl, None)
             rec["wrong"] += int((got != p[r]).sum())
             rec["reads"] += int(r.sum())
             rec["mid_fold_reads"] += int(r.sum()) if mid else 0
+            rec["streamed_calls"] += int(streamed)
+            rec["mid_fold_streamed_reads"] += (int(r.sum())
+                                               if mid and streamed else 0)
             t1 = time.perf_counter()
             nfl.insert_batch(k[~r], p[~r])
             ins_ms.append((time.perf_counter() - t1) * 1e3)
@@ -562,7 +825,7 @@ def write_stream(res, m, win, n_batches, until_fold):
                 break
         return time.perf_counter() - t
 
-    secs, counts = win.run(drive)
+    secs, counts = win.run(drive, streamed=alternate)
     res["truth"].insert(np.concatenate(ins_k), np.concatenate(ins_p))
     st = idx.stats()
     log(f"[{name}] writes: {len(ins_ms)} write_heavy batches of {BATCH}, "
@@ -572,8 +835,9 @@ def write_stream(res, m, win, n_batches, until_fold):
         f"{statistics.median(ins_ms):.1f} max {max(ins_ms):.1f}; run "
         f"{st['run_len']} delta {st['delta_len']}; folds "
         f"{idx.n_rebuilds - folds0}; batches with a fold in flight "
-        f"{fold_batches}; reads served mid-fold {rec['mid_fold_reads']}; "
-        f"launches {counts}")
+        f"{fold_batches}; reads served mid-fold {rec['mid_fold_reads']} "
+        f"({rec['mid_fold_streamed_reads']} on the streamed rung, in "
+        f"{rec['streamed_calls']} streamed read calls); launches {counts}")
     if idx.n_rebuilds > folds0:
         log(f"[{name}] in-stream fold: {st['last_fold']}")
     if rec["wrong"]:
@@ -587,6 +851,11 @@ def write_stream(res, m, win, n_batches, until_fold):
              "served while it ran")
     if not until_fold and idx.n_rebuilds != folds0:
         fail(f"{name}: a fold ran during the write phase")
+    if alternate and (rec["mid_fold_streamed_reads"] == 0
+                      or counts["streamed_lookup"] != rec["streamed_calls"]):
+        fail(f"{name}: {counts['streamed_lookup']} streamed launches for "
+             f"{rec['streamed_calls']} streamed read calls, "
+             f"{rec['mid_fold_streamed_reads']} streamed reads mid-fold")
     res["write"] = dict(rec, seconds=secs, batches=len(ins_ms),
                         insert_ms_median=statistics.median(ins_ms),
                         insert_ms_max=max(ins_ms),
@@ -594,20 +863,28 @@ def write_stream(res, m, win, n_batches, until_fold):
     return np.concatenate(ins_k), np.concatenate(ins_p)
 
 
-def readback(res, keys, win, what):
-    """Look up ``keys`` in batches of 65,536 against the ground truth."""
+def readback(res, keys, win, what, streamed=False):
+    """Look up ``keys`` in batches of 65,536 against the ground truth, on
+    the streamed rung if ``streamed``."""
     nfl = res["nfl"]
     want = res["truth"].lookup(keys)
+    set_rung(nfl, 0 if streamed else None)
 
     def drive():
         return [nfl.lookup_batch(keys[i:i + BATCH])
                 for i in range(0, keys.shape[0], BATCH)]
 
-    got, counts = win.run(drive)
+    got, counts = win.run(drive, streamed=streamed)
+    set_rung(nfl, None)
     wrong = int((np.concatenate(got) != want).sum())
-    log(f"[{res['name']}] {what}: {keys.shape[0]} keys, wrong={wrong}")
+    rung = "streamed" if streamed else "fused"
+    log(f"[{res['name']}] {what} ({rung} rung): {keys.shape[0]} keys, "
+        f"wrong={wrong}; launches {counts}")
     if wrong:
-        fail(f"{res['name']}: {wrong} wrong lookups ({what})")
+        fail(f"{res['name']}: {wrong} wrong lookups ({what}, {rung})")
+    if streamed and (counts["streamed_lookup"] != len(got)
+                     or counts["fused_lookup"]):
+        fail(f"{res['name']}: {what} did not all take the streamed rung")
 
 
 def update_and_delete(res, win, ins_keys):
@@ -891,10 +1168,121 @@ def time_lookup(res, k, split_key_bits, flush_buf):
                 host_ms_per_call=host, max_abs_err=err)
 
 
+def compare_streamed(res, args, kw, k, what, fused):
+    """streamed_lookup against its plain version on one batch (args as
+    ``lookup_args``, the stream pack in place of the tree pools):
+    payloads and z bit-equal, and equal to the fused kernel's ``fused``
+    (payloads, z)."""
+    pk, zk = k.streamed_lookup(*args, **kw)
+    pp, zp = k.streamed_lookup_plain(*args, **kw)
+    torch.cuda.synchronize()
+    eq = {"payloads": bit_equal(pk, pp), "z": bit_equal(zk, zp),
+          "payloads = fused": bit_equal(pk, fused[0]),
+          "z = fused": bit_equal(zk, fused[1])}
+    err = max(float((pk - pp).abs().max().item()),
+              float((zk - zp).abs().max().item()))
+    log(f"streamed_lookup vs plain, {res['name']} ({what}), "
+        f"{args[0].shape[0]} queries, window {args[4].window}: bit-equal "
+        f"{eq}")
+    if not all(eq.values()):
+        fail(f"streamed_lookup disagrees with its plain version or the "
+             f"fused kernel ({what})")
+    return err
+
+
+def stream_kw(nfl):
+    return dict(dim=nfl.cfg.flow.dim, shapes=nfl._shapes,
+                use_flow=nfl.use_flow)
+
+
+def time_streamed(res, k, split_key_bits, flush_buf, look):
+    """Phase 4, on the fresh index: streamed_lookup against plain and the
+    fused kernel on the first read batch, against the fused kernel on
+    all 64, then timed launch by launch over the same 64 batches as
+    ``fused_lookup`` (``look``)."""
+    dev = torch.device("cuda")
+    nfl = res["nfl"]
+    sp = nfl.index._serving.stream_pack()
+    kw = stream_kw(nfl)
+    batches = [lookup_args(nfl, b, dev, split_key_bits)
+               for b in res["batches"]]
+    sargs = [(*a[:4], sp, a[5]) for a in batches]
+    err = compare_streamed(res, sargs[0], kw, k, "fresh index",
+                           k.fused_lookup(*batches[0], **lookup_kw(nfl)))
+    diff = 0
+    for a, f in zip(sargs, batches):
+        ps, zs_ = k.streamed_lookup(*a, **kw)
+        pf, zf = k.fused_lookup(*f, **lookup_kw(nfl))
+        diff += int((ps != pf).sum()) + int((zs_.view(torch.int32)
+                                             != zf.view(torch.int32)).sum())
+    if diff:
+        fail(f"streamed_lookup differs from fused_lookup in {diff} outputs")
+    a0 = sargs[0]
+    _p, z0 = k.streamed_lookup(*a0, **kw)
+    sectors, tiles = streamed_sectors(sp, a0[5], z0, a0[1], a0[2])
+    io = BATCH * (4 * a0[0].shape[1] + 8 + 8)
+    bound = (sectors * SECTOR + io) / HBM_BYTES_PER_S * 1e3
+    fns = [lambda a=a: k.streamed_lookup(*a, **kw) for a in sargs]
+    cold, warm, host = timed_launches(fns, flush_buf)
+    ms, ms_warm = statistics.median(cold), statistics.median(warm)
+    plain_ms = time_ms(lambda: k.streamed_lookup_plain(*a0, **kw), 3, 1)
+    flow = "on" if nfl.use_flow else "off"
+    log(f"streamed_lookup flow={flow}: median over {len(fns)} distinct "
+        f"batches {ms:.5f} ms cold L2 (min {min(cold):.5f}, max "
+        f"{max(cold):.5f}), {ms_warm:.5f} ms warm L2; host issue "
+        f"{host:.5f} ms/call; plain {plain_ms:.3f} ms; scan pool "
+        f"{int(sp.pool.plen.item())} rows (capacity {sp.pool.pk.shape[0]}, "
+        f"router {sp.router.shape[0]}, window {sp.window}); "
+        f"{tiles:.3f} tiles probed/query; {sectors} distinct sectors "
+        f"({sectors / BATCH:.3f}/query); bound {bound:.6f} ms; same "
+        f"batches, fused_lookup {look['ms']:.5f} ms cold, "
+        f"{look['ms_warm_l2']:.5f} ms warm: streamed/fused "
+        f"{ms / look['ms']:.2f} cold, {ms_warm / look['ms_warm_l2']:.2f} "
+        "warm")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, ms_warm_l2=ms_warm,
+                host_ms_per_call=host, max_abs_err=err,
+                tiles_per_query=tiles, fused_ms=look["ms"],
+                fused_ms_warm_l2=look["ms_warm_l2"])
+
+
+def time_probe(res, k, probe_args, flush_buf):
+    """Phase 4: index_probe against plain on all 64 root-probe batches of
+    s1 (bit-equal), timed launch by launch over them and bounded by the
+    sectors its gathers touch plus its inputs and outputs."""
+    want = [k.index_probe_plain(*a) for a in probe_args]
+    got = [k.index_probe(*a) for a in probe_args]
+    torch.cuda.synchronize()
+    eq = all(bit_equal(g, w) for gs, ws in zip(got, want)
+             for g, w in zip(gs, ws))
+    err = max(float((g - w).abs().max().item())
+              for gs, ws in zip(got, want) for g, w in zip(gs, ws))
+    log(f"index_probe vs plain, {res['name']} root node, "
+        f"{len(probe_args)} batches of {BATCH}: payload, code and child "
+        f"bit-equal {eq}")
+    if not eq:
+        fail("index_probe disagrees with its plain version")
+    a0 = probe_args[0]
+    sectors = probe_sectors(*a0[:5], a0[5:])
+    io = BATCH * (12 + 12)
+    bound = (sectors * SECTOR + io) / HBM_BYTES_PER_S * 1e3
+    fns = [lambda a=a: k.index_probe(*a) for a in probe_args]
+    cold, warm, host = timed_launches(fns, flush_buf)
+    ms, ms_warm = statistics.median(cold), statistics.median(warm)
+    plain_ms = time_ms(lambda: k.index_probe_plain(*a0), 5, 1)
+    log(f"index_probe: median over {len(fns)} distinct batches {ms:.5f} ms "
+        f"cold L2 (min {min(cold):.5f}, max {max(cold):.5f}), "
+        f"{ms_warm:.5f} ms warm L2; host issue {host:.5f} ms/call; plain "
+        f"{plain_ms:.3f} ms; {sectors} distinct sectors + {io} B of inputs "
+        f"and outputs; bound {bound:.6f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, ms_warm_l2=ms_warm,
+                host_ms_per_call=host, max_abs_err=err)
+
+
 def compare_lookup_tiers(res, k, split_key_bits):
-    """fused_lookup against plain while the run and the delta hold data
-    and tombstones: a batch of deleted, updated, inserted, loaded and
-    unloaded keys, also held to the ground truth."""
+    """fused_lookup and streamed_lookup against their plain versions (and
+    each other) while the run and the delta hold data and tombstones: a
+    batch of deleted, updated, inserted, loaded and unloaded keys, also
+    held to the ground truth."""
     dev = torch.device("cuda")
     nfl = res["nfl"]
     rng = np.random.default_rng(res["seed"] + 300)
@@ -906,14 +1294,16 @@ def compare_lookup_tiers(res, k, split_key_bits):
     args = lookup_args(nfl, keys, dev, split_key_bits)
     if args[5] is None:
         fail(f"{res['name']}: no write tier holds data for the comparison")
-    pk, _zk, err = compare_lookup(res, args, lookup_kw(nfl), k,
-                                  "run and delta populated, tombstones")
+    what = "run and delta populated, tombstones"
+    pk, zk, err = compare_lookup(res, args, lookup_kw(nfl), k, what)
     wrong = int((pk.cpu().numpy() != res["truth"].lookup(keys)).sum())
     log(f"fused_lookup with populated tiers against ground truth: "
         f"wrong={wrong}")
     if wrong:
         fail(f"{res['name']}: fused_lookup wrong with populated tiers")
-    return err
+    sargs = (*args[:4], nfl.index._serving.stream_pack(), args[5])
+    err_s = compare_streamed(res, sargs, stream_kw(nfl), k, what, (pk, zk))
+    return err, err_s
 
 
 def compare_range(res, args, k):
@@ -1003,6 +1393,10 @@ class Kernels:
     def __init__(self):
         from repro_torch.kernels.fused_lookup import (fused_lookup,
                                                       fused_lookup_plain)
+        from repro_torch.kernels.index_probe import (index_probe,
+                                                     index_probe_plain)
+        from repro_torch.kernels.streamed_lookup import (
+            streamed_lookup, streamed_lookup_plain)
         from repro_torch.kernels.nf_forward import (nf_forward,
                                                     nf_forward_plain)
         from repro_torch.kernels.range_scan import (fused_range_scan,
@@ -1013,6 +1407,10 @@ class Kernels:
         self.fused_lookup_plain = fused_lookup_plain
         self.fused_range_scan = fused_range_scan
         self.fused_range_scan_plain = fused_range_scan_plain
+        self.streamed_lookup = streamed_lookup
+        self.streamed_lookup_plain = streamed_lookup_plain
+        self.index_probe, self.index_probe_plain = (index_probe,
+                                                    index_probe_plain)
 
 
 def main() -> int:
@@ -1054,10 +1452,26 @@ def main() -> int:
     rows = {"nf_forward": nf_forward_row(ll, k)}
     look = {True: time_lookup(ll, k, split_key_bits, flush_buf)}
     t0 = time.perf_counter()
+    s1 = streamed_reads(ll, win, split_key_bits, "fresh index",
+                        {"misses": ll["miss_keys"]})
+    probe_args = root_probe(ll, m, win, s1["fused"], split_key_bits)
+    wall("longlat streamed reads", t0)
+    streamed = {True: time_streamed(ll, k, split_key_bits, flush_buf,
+                                    look[True])}
+    probe = time_probe(ll, k, probe_args, flush_buf)
+    del probe_args, s1
+    t0 = time.perf_counter()
     ins_k, _ins_p = write_stream(ll, m, win, N_WRITE_BATCHES, False)
-    readback(ll, np.unique(ins_k), win, "inserted keys read back")
+    ins_u = np.unique(ins_k)
+    readback(ll, ins_u, win, "inserted keys read back")
     update_and_delete(ll, win, ins_k)
     wall("longlat writes", t0)
+    t0 = time.perf_counter()
+    readback(ll, ins_u, win, "inserted keys read back", streamed=True)
+    readback(ll, ll["updated"][0], win, "updated keys", streamed=True)
+    readback(ll, ll["deleted"], win, "deleted keys", streamed=True)
+    wall("longlat streamed readback", t0)
+    del ins_u
     t0 = time.perf_counter()
     sk, zs, ps = scan_truth(ll, m, dev)
     queries = scan_queries(ll, m, sk, N_SCAN_BATCHES)
@@ -1068,6 +1482,7 @@ def main() -> int:
                                k, flush_buf)}
     t0 = time.perf_counter()
     idx = ll["nfl"].index
+    router_builds = idx._serving.router_builds
     (_none, counts) = win.run(idx.rebuild)
     log(f"[longlat] rebuild(): {time.perf_counter() - t0:.2f} s, fold "
         f"{idx.last_fold}; n_rebuilds {idx.n_rebuilds}; run "
@@ -1078,6 +1493,13 @@ def main() -> int:
              "read batches after rebuild (updates and deletes applied)")
     readback(ll, ll["deleted"], win, "deleted keys after rebuild")
     run_scans(ll, win, sk, zs, ps, queries[:1], "after rebuild")
+    streamed_reads(ll, win, split_key_bits, "after rebuild",
+                   {"deleted keys": ll["deleted"]})
+    built = idx._serving.router_builds - router_builds
+    log(f"[longlat] router builds across rebuild(): {built}")
+    if built != 1:
+        fail(f"longlat: the router was built {built} times for the folded "
+             "scan pool (expected once)")
     wall("longlat rebuild", t0)
     log(f"[longlat] max_memory_allocated since its bulkload "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1087,7 +1509,10 @@ def main() -> int:
     t0 = time.perf_counter()
     ln = bulkload_and_read("lognormal", LOGNORMAL_KEYS, False, 1, m, win)
     look[False] = time_lookup(ln, k, split_key_bits, flush_buf)
-    ins_k, _ = write_stream(ln, m, win, MAX_FOLD_BATCHES, True)
+    streamed[False] = time_streamed(ln, k, split_key_bits, flush_buf,
+                                    look[False])
+    ins_k, _ = write_stream(ln, m, win, MAX_FOLD_BATCHES, True,
+                            alternate=True)
     readback(ln, np.unique(ins_k), win, "inserted keys read back")
     dele = np.random.default_rng(301).choice(ln["truth"].keys, TAIL,
                                              replace=False)
@@ -1127,7 +1552,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/fused_lookup.py:490",
         "launches": None,
         "max_abs_err": max(on["max_abs_err"], off["max_abs_err"],
-                           *err_tiers.values()),
+                           *(e[0] for e in err_tiers.values())),
         "ms": on["ms"], "plain_ms": on["plain_ms"],
         "bound_ms": on["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "ms_warm_l2": on["ms_warm_l2"],
@@ -1146,6 +1571,31 @@ def main() -> int:
         "ms_warm_l2": rs["ms_warm_l2"],
         "host_ms_per_call": rs["host_ms_per_call"],
         "ratio_to_bound": rs["ratio_to_bound"],
+    }
+    son, soff = streamed[True], streamed[False]
+    rows["streamed_lookup"] = {
+        "name": "streamed_lookup", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/streamed_lookup.cu",
+        "replaces": "src/repro/kernels/streamed_lookup.py:283",
+        "launches": None,
+        "max_abs_err": max(son["max_abs_err"], soff["max_abs_err"],
+                           *(e[1] for e in err_tiers.values())),
+        "ms": son["ms"], "plain_ms": son["plain_ms"],
+        "bound_ms": son["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        **{key: v for key, v in son.items()
+           if key not in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+        **{f"{key}_flow_off": v for key, v in soff.items()
+           if key != "max_abs_err"},
+    }
+    rows["index_probe"] = {
+        "name": "index_probe", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/index_probe.cu",
+        "replaces": "src/repro/kernels/index_probe.py:62",
+        "launches": None, "max_abs_err": probe["max_abs_err"],
+        "ms": probe["ms"], "plain_ms": probe["plain_ms"],
+        "bound_ms": probe["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "ms_warm_l2": probe["ms_warm_l2"],
+        "host_ms_per_call": probe["host_ms_per_call"],
     }
     out = []
     for row in rows.values():

@@ -1,4 +1,4 @@
-"""FlatAFLI — the flattened AFLI index, served by the port's fused kernel.
+"""FlatAFLI — the flattened AFLI index, served by the port's kernels.
 
 Port of ``repro.core.flat_afli`` for the read path.  The structure is the
 JAX package's, bit for bit: model nodes with f32 precise placement,
@@ -11,9 +11,11 @@ so a bulk load of tens of millions of keys takes seconds.
 
 Serving: the pools are packed once per build into a ``ServingState`` on
 the index's device, and every lookup is one ``ops.fused_lookup`` launch
-that also probes the write tiers.  ``_self_verify`` and
-``verify_serve_flow`` look every built key up through that kernel and
-shadow any key it cannot find into the run tier (keyed by the served
+that also probes the write tiers: the fused rung (the tree), or, when
+``pool_budget`` is set and the tree pools' bytes exceed it, the streamed
+rung (the scan pool in router-bracketed tiles).  ``_self_verify`` and
+``verify_serve_flow`` look every built key up through the fused rung
+and shadow any key it cannot find into the run tier (keyed by the served
 positioning key).  With the kernel's slot arithmetic rounding exactly as
 the builder's does, the shadow set is expected to be empty; the net
 stays.
@@ -101,6 +103,19 @@ def _tier_window(pk_pool: np.ndarray) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class FlatAFLIConfig:
+    """Build, write-path and serving settings of one ``FlatAFLI``.
+
+    ``pool_budget`` is the card's counterpart of the JAX package's
+    ``vmem_budget``: live point reads take the streamed rung when the
+    packed tree pools exceed that many bytes (``0`` streams every live
+    read).  Its default, ``None``, never streams: the card holds the
+    pools in device memory, so no residency limit forces a rung.  Bytes
+    do not predict the faster rung either: ``chip_smoke.py`` times both
+    rungs on the same batches, and the streamed rung is the slower one
+    on the larger index and the faster one on the smaller (PERF.md
+    section 7).  ROADMAP A9b replaces this budget with a criterion the
+    index can observe."""
+
     gamma: float = 0.99
     max_bucket: int = 6
     min_bucket: int = 2
@@ -112,6 +127,8 @@ class FlatAFLIConfig:
     fold_step_keys: int = 4096        # fold work unit and verify chunk (keys)
     fold_work_factor: float = 8.0     # fold work per write call, x batch
     scan_cap: int = 128               # range-scan output lanes per query
+    pool_budget: Optional[int] = None  # tree-pool bytes above which live
+                                       # reads stream; None: never
 
 
 class FlatArrays(NamedTuple):
@@ -593,7 +610,7 @@ class _Fold:
 
 
 class FlatAFLI:
-    """Flat index on one device, served by the fused kernels, with the
+    """Flat index on one device, served by the port's kernels, with the
     tiered write path: active delta > compacted run > static tree."""
 
     def __init__(self, cfg: FlatAFLIConfig | None = None,
@@ -743,15 +760,28 @@ class FlatAFLI:
     def _tier_pack(self):
         return self._serving.tier_pack()
 
+    def _streams(self, live: bool) -> bool:
+        """Whether a point dispatch takes the streamed rung: only a live
+        read, and only when the tree pools' bytes exceed ``pool_budget``.
+        A placement verify probes a tree (a fold's candidate, or the tree
+        it checks) that the live scan pool does not stand for."""
+        budget = self.cfg.pool_budget
+        return (live and budget is not None
+                and self._kernel_pools().nbytes() > budget)
+
     def _dispatch(self, feats: np.ndarray, hi: np.ndarray, lo: np.ndarray,
                   flow, tiers: bool, pools=None, max_depth=None,
-                  dense_window=None) -> Tuple[np.ndarray, np.ndarray]:
-        """Move the batch to the device, launch the fused kernel once,
+                  dense_window=None, verify: bool = False
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """Move the batch to the device, launch one point-read kernel,
         and bring (payloads, z) back.  A fold verifies its new tree by
-        passing that tree's pools, depth and window."""
+        passing that tree's pools, depth and window.  Only a live read
+        (tiers probed, the serving tree, not a verify) may stream."""
         dev = self.device
         tier_pack = self._tier_pack() if tiers else None
-        pay, z = ops.fused_lookup(
+        live = pools is None and tiers and not verify
+        stream = self._serving.stream_pack() if self._streams(live) else None
+        pay, z, path = ops.fused_lookup(
             self._kernel_pools() if pools is None else pools,
             torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(dev),
             torch.from_numpy(np.ascontiguousarray(hi).view(np.int32)).to(dev),
@@ -762,8 +792,8 @@ class FlatAFLI:
             bucket_cap=self.cfg.max_bucket,
             dense_window=(self.dense_window if dense_window is None
                           else dense_window),
-            tiers=tier_pack)
-        self.last_dispatch = {"path": "fused", "n_dispatch": 1,
+            tiers=tier_pack, stream=stream)
+        self.last_dispatch = {"path": path, "n_dispatch": 1,
                               "tier_path": ("kernel" if tier_pack is not None
                                             else "none")}
         return pay.cpu().numpy(), z.cpu().numpy()
@@ -964,9 +994,10 @@ class FlatAFLI:
         hi, lo = split_key_bits(ik64)
         return self._device_lookup(k64.astype(np.float32), hi, lo)
 
-    def _flow_device_lookup(self, feats, hi, lo, packed_w, shapes):
+    def _flow_device_lookup(self, feats, hi, lo, packed_w, shapes,
+                            verify: bool = False):
         return self._dispatch(np.asarray(feats, np.float32), hi, lo,
-                              (packed_w, shapes), True)
+                              (packed_w, shapes), True, verify=verify)
 
     def lookup_batch_flow(self, feats: np.ndarray, ikeys: np.ndarray,
                           packed_w, shapes) -> np.ndarray:
@@ -980,9 +1011,12 @@ class FlatAFLI:
                           packed_w, shapes, payloads: np.ndarray) -> int:
         """Serve-path placement check: any built key the fused kernel
         (in-kernel NF) cannot resolve is shadowed into the run tier under
-        its served positioning key.  Returns the number shadowed."""
+        its served positioning key.  It checks the tree, so it stays on
+        the fused rung whatever ``pool_budget`` says.  Returns the number
+        shadowed."""
         hi, lo = split_key_bits(np.asarray(ikeys, dtype=np.float64))
-        res, z = self._flow_device_lookup(feats, hi, lo, packed_w, shapes)
+        res, z = self._flow_device_lookup(feats, hi, lo, packed_w, shapes,
+                                          verify=True)
         wrong = res != np.asarray(payloads, res.dtype)
         if wrong.any():
             self._append_run(z[wrong], hi[wrong], lo[wrong],

@@ -5,10 +5,11 @@ Numerical NF on a sample of the bulk-loaded keys and transforms every
 key through the NF kernel; the paper's switching mechanism (AutoSwitch)
 keeps the flow only if it lowers the tail conflict degree.  Stage 2
 builds ``FlatAFLI`` over the (possibly transformed) keys and verifies
-the serve path end to end.  Every ``lookup_batch`` is one fused kernel
-launch and every ``scan_batch`` one range-scan launch (NF forward
-included when the flow is on); a write positions its keys through the
-NF kernel and lands in the index's write tiers.
+the serve path end to end.  Every ``lookup_batch`` is one point-read
+kernel launch (the fused rung, or the streamed rung when the index's
+``pool_budget`` selects it) and every ``scan_batch`` one range-scan
+launch (NF forward included when the flow is on); a write positions its
+keys through the NF kernel and lands in the index's write tiers.
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP
 item that ports them: the paper's pointer-tree backend (A13), sharded
@@ -219,6 +220,7 @@ class NFL:
         counts = ops.launch_counts()
         return {"nf_forward_launches": counts["nf_forward"],
                 "fused_lookup_launches": counts["fused_lookup"],
+                "streamed_lookup_launches": counts["streamed_lookup"],
                 "fused_range_scan_launches": counts["fused_range_scan"],
                 "scan_truncated": ops.fused_range_scan.truncated,
                 "shadowed": int(self.index.n_shadowed),

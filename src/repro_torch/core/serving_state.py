@@ -16,7 +16,11 @@ Port of ``repro.core.serving_state``:
   capacity from the write path's configured bounds at build and at fold
   swap, so a steady write window reallocates nothing.  The write path
   refreshes the tier it changed right away, so reads find every tier
-  resident; the scan pool is refreshed only at build and fold swap.
+  resident; the scan pool is refreshed only at build and fold swap;
+* **one router per scan pool** — the streamed rung reads the scan
+  pool's buffers and a router of its tile heads; the router is rebuilt
+  only when the pool's ``(uploads, capacity)`` changes (build, fold
+  swap, capacity growth) and reused by every other read.
 
 The traversal depth bound and the duplicate windows are passed to the
 kernel as they are: the card compiles nothing per shape, so the JAX
@@ -129,6 +133,10 @@ class ServingState:
         self.tree_packs = 0
         self.tier_reuses = 0
         self.scan_reuses = 0
+        self._router = None
+        self._router_for = None    # the scan pool's (uploads, capacity)
+        self.router_builds = 0
+        self.stream_reuses = 0
 
     def pack_tree(self, arrays):
         """Pack a static structure's pools for the kernels (a fold packs
@@ -146,17 +154,44 @@ class ServingState:
         only at build and fold swap, off the serve path."""
         self.scan.refresh(pk, hi, lo, pv, window)
 
-    def scan_pack(self):
-        """The resident ``ScanPack``; before the first build the pool is
-        empty and every range resolves from the write tiers alone."""
-        from repro_torch.kernels.range_scan import ScanPack, ScanPool
+    def _scan_pool(self):
+        """The scan tier's buffers as a ``ScanPool``; before the first
+        build the pool is empty."""
+        from repro_torch.kernels.range_scan import ScanPool
 
         if self.scan.pk is None:
             self.scan.refresh(*_EMPTY, window=1)
-        self.scan_reuses += 1
         s = self.scan
-        return ScanPack(pool=ScanPool(pk=s.pk, hi=s.hi, lo=s.lo, pv=s.pv,
-                                      plen=s.plen), iters=s.iters)
+        return ScanPool(pk=s.pk, hi=s.hi, lo=s.lo, pv=s.pv, plen=s.plen)
+
+    def scan_pack(self):
+        """The resident ``ScanPack``; before the first build the pool is
+        empty and every range resolves from the write tiers alone."""
+        from repro_torch.kernels.range_scan import ScanPack
+
+        pool = self._scan_pool()
+        self.scan_reuses += 1
+        return ScanPack(pool=pool, iters=self.scan.iters)
+
+    def stream_pack(self):
+        """The resident ``StreamPack``: the scan pool's buffers (shared
+        with ``scan_pack``), its router and its window.  The router is
+        rebuilt only when the pool's ``(uploads, capacity)`` changes.
+        Before the first build the pool is empty and every read resolves
+        from the write tiers alone."""
+        from repro_torch.kernels.streamed_lookup import (StreamPack,
+                                                         build_router)
+
+        pool = self._scan_pool()
+        s = self.scan
+        key = (s.uploads, s.capacity)
+        if self._router_for != key:
+            self._router = build_router(s.pk)
+            self._router_for = key
+            self.router_builds += 1
+        else:
+            self.stream_reuses += 1
+        return StreamPack(pool=pool, router=self._router, window=s.window)
 
     def preallocate(self, *, delta_floor: int, run_floor: int,
                     scan_floor: int) -> None:
@@ -207,11 +242,14 @@ class ServingState:
             "scan_uploads": self.scan.uploads,
             "scan_upload_bytes": self.scan.upload_bytes,
             "scan_repacks": self.scan.repacks,
+            "router_builds": self.router_builds,
+            "stream_reuses": self.stream_reuses,
             "run_capacity": self.run.capacity,
             "delta_capacity": self.delta.capacity,
             "scan_capacity": self.scan.capacity,
             "run_window": self.run.window,
             "delta_window": self.delta.window,
+            "scan_window": self.scan.window,
             "pool_bytes": (self.tree_pools.nbytes()
                            if self.tree_pools is not None else 0),
         }

@@ -28,7 +28,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "build_dir",
            "NFParams", "NF_MAX_LAYERS", "NF_MAX_W"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("nf_forward", "fused_lookup", "range_scan")
+SOURCES = ("nf_forward", "fused_lookup", "range_scan", "streamed_lookup",
+           "index_probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -121,19 +121,43 @@ def _slot_index(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(r, -2147483648.0, 2147483520.0).to(torch.int64)
 
 
-def _lower_bound_plain(pk, n_len, iters: int, q) -> torch.Tensor:
+def _lower_bound_plain(pk, n_len, iters: int, q, base=None,
+                       rows=None) -> torch.Tensor:
     """``lower_bound`` of csrc/tier_device.cuh, vectorised over ``q``:
-    the leftmost index in [0, n] with ``pk[i] >= q``, as ``iters`` rounds
-    of binary search with reads clamped to the pool."""
+    the leftmost index in [0, n] with ``pk[base + i] >= q``, as ``iters``
+    rounds of binary search with reads clamped to ``pk[base + rows - 1]``.
+    ``n_len`` is one length (i32[1]) or one per query; ``base`` (default
+    0) and ``rows`` (default: the whole pool) are per query, for a pool
+    searched tile by tile."""
     cap = pk.shape[0]
     l = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
-    h = n_len.reshape(()).to(torch.int64).expand(q.shape[0]).clone()
+    h = n_len.reshape(-1).to(torch.int64).expand(q.shape[0]).clone()
+    off = 0 if base is None else base
+    last = cap - 1 if rows is None else off + rows - 1
     for _ in range(iters):
         mid = (l + h) // 2
-        go = pk[torch.clamp(mid, max=cap - 1)] < q
+        go = pk[torch.clamp(off + mid, max=last)] < q
         l = torch.where(go, mid + 1, l)
         h = torch.where(go, h, mid)
     return l
+
+
+def _probe_index_plain(pk, hi, lo, n_len, iters: int, window: int, q, qhi,
+                       qlo, base=None, rows=None) -> torch.Tensor:
+    """``probe_index`` of csrc/tier_device.cuh: the index (from ``base``)
+    of the newest row whose identity matches in the window around
+    ``q``'s lower bound, -1 where none does; arguments as
+    ``_lower_bound_plain``."""
+    cap = pk.shape[0]
+    n = n_len.reshape(-1).to(torch.int64)
+    l = _lower_bound_plain(pk, n_len, iters, q, base, rows)
+    widx = (l - window)[:, None] + torch.arange(4 * window, device=q.device)
+    off = 0 if base is None else base[:, None]
+    wc = torch.clamp(off + widx, 0, cap - 1)
+    ok = ((widx >= 0) & (widx < n[:, None]) & (hi[wc] == qhi[:, None])
+          & (lo[wc] == qlo[:, None]))
+    return torch.max(torch.where(ok, widx, torch.full_like(widx, -1)),
+                     dim=1).values
 
 
 def _probe_tier_plain(pk, hi, lo, pv, n_len, iters: int, window: int,
@@ -141,16 +165,8 @@ def _probe_tier_plain(pk, hi, lo, pv, n_len, iters: int, window: int,
     """``probe_tier`` of csrc/tier_device.cuh: the newest payload whose
     identity matches in the window around ``q``'s lower bound (-1: none;
     a TOMBSTONE passes through)."""
-    cap = pk.shape[0]
-    n = n_len.reshape(()).to(torch.int64)
-    l = _lower_bound_plain(pk, n_len, iters, q)
-    widx = (l - window)[:, None] + torch.arange(4 * window, device=q.device)
-    wc = torch.clamp(widx, 0, cap - 1)
-    ok = ((widx >= 0) & (widx < n) & (hi[wc] == qhi[:, None])
-          & (lo[wc] == qlo[:, None]))
-    last = torch.max(torch.where(ok, widx, torch.full_like(widx, -1)), dim=1
-                     ).values
-    pay = pv[torch.clamp(last, 0, cap - 1)]
+    last = _probe_index_plain(pk, hi, lo, n_len, iters, window, q, qhi, qlo)
+    pay = pv[torch.clamp(last, 0, pk.shape[0] - 1)]
     return torch.where(last >= 0, pay, torch.full_like(pay, -1))
 
 

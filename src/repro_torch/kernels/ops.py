@@ -1,11 +1,15 @@
 """Public entry points over the port's kernels, and their launch counters.
 
 Port of the parts of ``repro.kernels.ops`` the flat backend uses.
-``fused_lookup`` and ``fused_range_scan`` have one rung each: the pools
-live in device memory on the card, so there is no residency budget to
-overflow, no streamed rung and no host fallback — every call launches
-the kernel (or, on CPU tensors, runs its plain version).  The streamed
-rung ports with ROADMAP A9.
+``fused_lookup`` serves a point-read batch on one of two rungs: the
+fused rung (tree traversal, ``csrc/fused_lookup.cu``) or, when the
+caller passes a ``StreamPack``, the streamed rung (router-bracketed
+probe of the scan pool, ``csrc/streamed_lookup.cu``).  Which rung a
+read takes is the index's decision (``FlatAFLI._dispatch``).  Both
+rungs probe the write tiers in the kernel, so the JAX ladder's host tier
+probe and oracle rung have no counterpart: every call launches one
+kernel (or, on CPU tensors, runs its plain version).
+``fused_range_scan`` and ``index_probe`` have one kernel each.
 """
 
 from __future__ import annotations
@@ -18,12 +22,15 @@ import torch
 from repro_torch.core.feature import KeyNormalizer, expand_features
 from repro_torch.core.flow import FlowConfig, materialize_weights
 from repro_torch.kernels import fused_lookup as _fl
+from repro_torch.kernels import index_probe as _ip
 from repro_torch.kernels import range_scan as _rs
+from repro_torch.kernels import streamed_lookup as _sl
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.nf_forward import nf_forward, pack_flow_weights
 
 __all__ = ["nf_transform_keys", "pack_params", "fused_lookup",
-           "fused_range_scan", "launch_counts", "reset_launch_counts"]
+           "fused_range_scan", "index_probe", "launch_counts",
+           "reset_launch_counts"]
 
 
 def pack_params(params: Dict, cfg: FlowConfig):
@@ -56,22 +63,33 @@ def nf_transform_keys(params: Dict, normalizer: KeyNormalizer,
 def fused_lookup(pools, feats: torch.Tensor, qhi: torch.Tensor,
                  qlo: torch.Tensor, *, flow=None, max_depth: int,
                  dense_iters: int, bucket_cap: int, dense_window: int = 8,
-                 tiers=None):
-    """One fused dispatch for a query batch -> (payload i32[B], z f32[B])
-    as tensors on the batch's device.
+                 tiers=None, stream=None):
+    """One point-read dispatch for a query batch -> (payload i32[B],
+    z f32[B], rung) with the tensors on the batch's device and ``rung``
+    ``"fused"`` or ``"streamed"``.
 
     pools: ``KernelPools``; feats: f32[B, d] query features with
     ``flow=(packed_w, shapes)``, or f32[B, 1] positioning keys without;
-    tiers: a ``TierPack``, or None when both write tiers are empty."""
+    tiers: a ``TierPack``, or None when both write tiers are empty;
+    stream: the ``StreamPack`` to serve from on the streamed rung, or
+    None for the fused rung; both rungs return the same payloads and
+    z."""
     if flow is not None:
         packed_w, shapes = flow
     else:
         packed_w, shapes = None, ()
-    return _fl.fused_lookup(
-        feats, qhi, qlo, packed_w, pools, tiers, dim=int(feats.shape[1]),
+    dim = int(feats.shape[1])
+    if stream is not None:
+        pay, z = _sl.streamed_lookup(
+            feats, qhi, qlo, packed_w, stream, tiers, dim=dim,
+            shapes=shapes, use_flow=flow is not None)
+        return pay, z, "streamed"
+    pay, z = _fl.fused_lookup(
+        feats, qhi, qlo, packed_w, pools, tiers, dim=dim,
         shapes=shapes, max_depth=max_depth, dense_iters=dense_iters,
         bucket_cap=bucket_cap, dense_window=dense_window,
         use_flow=flow is not None)
+    return pay, z, "fused"
 
 
 def fused_range_scan(scan_pack, tiers, feats_lo: torch.Tensor,
@@ -100,16 +118,31 @@ def fused_range_scan(scan_pack, tiers, feats_lo: torch.Tensor,
 fused_range_scan.truncated = 0
 
 
+def index_probe(qkey: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
+                slope, intercept, etype: torch.Tensor, ehi: torch.Tensor,
+                elo: torch.Tensor, epayload: torch.Tensor,
+                echild: torch.Tensor):
+    """Probe one model node with a query batch -> (payload, entry code,
+    child id), each i32[B] on the batch's device (the JAX package's
+    ``tile`` argument sizes TPU blocks and has no counterpart)."""
+    return _ip.index_probe(qkey, qhi, qlo, slope, intercept, etype, ehi,
+                           elo, epayload, echild)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, per kernel."""
     return {"nf_forward": nf_forward.launches,
             "fused_lookup": _fl.fused_lookup.launches,
-            "fused_range_scan": _rs.fused_range_scan.launches}
+            "streamed_lookup": _sl.streamed_lookup.launches,
+            "fused_range_scan": _rs.fused_range_scan.launches,
+            "index_probe": _ip.index_probe.launches}
 
 
 def reset_launch_counts() -> None:
     """Zero the launch counters and the range scans' truncation count."""
     nf_forward.launches = 0
     _fl.fused_lookup.launches = 0
+    _sl.streamed_lookup.launches = 0
     _rs.fused_range_scan.launches = 0
+    _ip.index_probe.launches = 0
     fused_range_scan.truncated = 0

@@ -17,9 +17,12 @@ from repro_torch.core.train_flow import FlowTrainConfig, FlowTrainer
 from repro_torch.data.datasets import make_dataset
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_lookup import fused_lookup, fused_lookup_plain
+from repro_torch.kernels.index_probe import index_probe, index_probe_plain
 from repro_torch.kernels.nf_forward import nf_forward, nf_forward_plain
 from repro_torch.kernels.range_scan import (fused_range_scan,
                                             fused_range_scan_plain)
+from repro_torch.kernels.streamed_lookup import (streamed_lookup,
+                                                 streamed_lookup_plain)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -188,6 +191,81 @@ def test_range_scan_kernel_matches_plain(cuda, flow):
         assert torch.equal(got[3].view(torch.int32), z_nf.view(torch.int32))
 
 
+@pytest.mark.parametrize("flow", [True, False])
+def test_streamed_lookup_kernel_matches_plain_with_tiers(cuda, flow):
+    """The streamed kernel against its plain version, with data, updates
+    and tombstones in both tiers: bit-equal, right against ground truth,
+    and equal to the fused kernel (payloads and z)."""
+    nfl, keys, expect = _written(cuda, flow)
+    idx = nfl.index
+    hi, lo = split_key_bits(keys)
+    feats = torch.from_numpy(_feats(nfl, keys)).to(cuda)
+    qhi = torch.from_numpy(hi.view(np.int32)).to(cuda)
+    qlo = torch.from_numpy(lo.view(np.int32)).to(cuda)
+    sp, tp = idx._serving.stream_pack(), idx._tier_pack()
+    kw = dict(dim=nfl.cfg.flow.dim, shapes=nfl._shapes, use_flow=flow)
+    before = streamed_lookup.launches
+    pk, zk = streamed_lookup(feats, qhi, qlo, nfl._packed_w, sp, tp, **kw)
+    pp, zp = streamed_lookup_plain(feats, qhi, qlo, nfl._packed_w, sp, tp,
+                                   **kw)
+    pf, zf = fused_lookup(feats, qhi, qlo, nfl._packed_w,
+                          idx._kernel_pools(), tp, max_depth=idx.max_depth,
+                          dense_iters=24, bucket_cap=6,
+                          dense_window=idx.dense_window, **kw)
+    torch.cuda.synchronize()
+    assert streamed_lookup.launches == before + 1
+    assert torch.equal(pk, pp) and torch.equal(pk, pf)
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+    assert torch.equal(zk.view(torch.int32), zf.view(torch.int32))
+    assert np.array_equal(pk.cpu().numpy(), expect)
+
+
+def test_index_probe_kernel_matches_plain(cuda):
+    """The node probe against its plain version on a built root node:
+    bit-equal, and its DATA hits are the payloads the lookup serves."""
+    nfl, keys, pv = _index(cuda, False)
+    idx = nfl.index
+    a = idx.arrays
+    pools = idx._kernel_pools()
+    size = int(a.node_size[0])
+    hi, lo = split_key_bits(keys)
+    args = (torch.from_numpy(keys.astype(np.float32)).to(cuda),
+            torch.from_numpy(hi.view(np.int32)).to(cuda),
+            torch.from_numpy(lo.view(np.int32)).to(cuda),
+            a.node_slope[0], a.node_intercept[0],
+            *(getattr(pools, f)[:size] for f in ("etype", "ehi", "elo",
+                                                 "epayload", "echild")))
+    before = index_probe.launches
+    got = index_probe(*args)
+    want = index_probe_plain(*args)
+    torch.cuda.synchronize()
+    assert index_probe.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    hit = (got[0] >= 0).cpu().numpy()
+    assert hit.sum() > 0
+    assert np.array_equal(got[0].cpu().numpy()[hit],
+                          idx.lookup_batch(keys[hit]))
+
+
+def test_nfl_serves_streamed_on_card(cuda):
+    """``pool_budget=0``: the reads of an NFL on the card launch the
+    streamed kernel and are right; the build's verifies stay fused."""
+    keys = make_dataset("longlat", 60_000)
+    pv = np.arange(keys.shape[0], dtype=np.int64)
+    ops.reset_launch_counts()
+    nfl = NFL(NFLConfig(backend="flat", force_flow=True,
+                        flow_train=FlowTrainConfig(epochs=1),
+                        flat_index=FlatAFLIConfig(pool_budget=0)))
+    nfl.bulkload(keys[::2], pv[::2])
+    s = nfl.dispatch_stats()
+    assert s["fused_lookup_launches"] == 2 and s["streamed_lookup_launches"] == 0
+    got = nfl.lookup_batch(keys)
+    assert nfl.index.last_dispatch["path"] == "streamed"
+    assert np.array_equal(got, np.where(pv % 2 == 0, pv, -1))
+    assert nfl.dispatch_stats()["streamed_lookup_launches"] == 1
+
+
 def test_nfl_writes_scans_and_rebuild_on_card(cuda):
     """insert, update, delete, scan and rebuild through NFL on the card,
     against ground truth: point reads, and scans as z-space multisets."""
@@ -230,6 +308,27 @@ def test_kernel_rejects_bad_inputs(cuda):
                      use_flow=False)
     with pytest.raises(ValueError):
         nf_forward(q.double(), nfl._packed_w, nfl._shapes, 2)
+    hi = torch.zeros(64, dtype=torch.int32, device=cuda)
+    sp = idx._serving.stream_pack()
+    kw = dict(dim=1, use_flow=False)
+    with pytest.raises(ValueError):            # wrong dtype
+        streamed_lookup(q, h, h, None, sp, None, **kw)
+    with pytest.raises(ValueError):            # wrong device
+        streamed_lookup(q, hi.cpu(), hi, None, sp, None, **kw)
+    with pytest.raises(ValueError):            # not contiguous
+        streamed_lookup(torch.cat([q, q], 1)[:, :1], hi, hi, None, sp, None,
+                        **kw)
+    pools = idx._kernel_pools()
+    entries = [getattr(pools, f)[:8] for f in ("etype", "ehi", "elo",
+                                              "epayload", "echild")]
+    with pytest.raises(ValueError):            # wrong dtype
+        index_probe(q[:, 0], h, h, 1.0, 0.0, *entries)
+    with pytest.raises(ValueError):            # wrong device
+        index_probe(q[:, 0], hi, hi, 1.0, 0.0, entries[0].cpu(),
+                    *entries[1:])
+    with pytest.raises(ValueError):            # not contiguous
+        index_probe(q[:, 0], hi, hi, 1.0, 0.0, pools.etype[:16:2],
+                    *entries[1:])
 
 
 def test_nfl_serves_through_kernels(cuda):

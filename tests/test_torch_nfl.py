@@ -45,6 +45,7 @@ def test_bulkload_and_lookup_ground_truth(name, force_flow):
     assert (nfl.lookup_batch(unloaded) == -1).all()
     stats = nfl.dispatch_stats()
     assert stats == {"nf_forward_launches": 0, "fused_lookup_launches": 0,
+                     "streamed_lookup_launches": 0,
                      "fused_range_scan_launches": 0, "scan_truncated": 0,
                      "shadowed": 0, "rebuilds": 0}
 
