@@ -56,13 +56,36 @@ Phases (any failure exits non-zero before the result lines):
    on scan batches taken in that state (longlat's 16 batches timed the
    same way, bounded by the sectors of the endpoint searches, the pool
    spans and the probe windows, plus its inputs and output rows).
-5. result lines: the kernel table as JSON, then the final JSON object
+5. LM serving, falcon-mamba-7b at its full published config (64 layers,
+   d_model 4096, vocab 65,024, bf16) with ``use_scan_kernel=True``,
+   random weights on the card from the seed, after the index phases'
+   tensors are freed: 16 requests (prompts of 256-2,048 tokens uniform
+   over the vocabulary, 32 new tokens each) through the port's
+   ``ContinuousBatcher`` with 8 slots until drained; every request must
+   finish with 32 tokens, no logit may be NaN or inf, and ``mamba_scan``
+   must launch 64 times per prefill.  Then a teacher-forced replay of 4
+   requests at batch 1 (each of the batcher's tokens within 4 bf16 ulps
+   of the replay's maximum logit), and the kernel path against the
+   chunked path on one 2,048-token prompt: one ``mamba_block`` with
+   layer 0's weights in f32 (within 2e-3), and the full model's bf16
+   prefill logits (relative L2 under ``LM_LOGIT_REL_L2``, same argmax).
+   One decode step of 8 slots runs under ``torch.profiler`` (its device
+   operations and device time; informational, it fails nothing).
+   ``ops.flash_decode`` is then driven at qwen3-14b's attention shape
+   (40 q heads, 8 kv heads, head dim 128) over a 32,768-position bf16
+   cache for 16 rows with ragged lengths (0, 1 and S among them).
+6. the LM kernels against their plain versions: ``mamba_scan`` on the
+   scan inputs of the first layers of the 2,048-token prompt and on a
+   ragged L of 1,000, bounded by its bytes or its exponentials;
+   ``flash_decode`` with the bf16 cache and an f32 one, timed beside
+   ``scaled_dot_product_attention`` (the library yardstick only).
+7. result lines: the kernel table as JSON, then the final JSON object
    ``{"ok": true, "device": {...}}``.
 
-The launch counters are zeroed just before each driven step of phases 2
-and 3 and read just after; the kernels' launches in phase 4 and those
-that compute ground truth or compare the rungs fall between those
-windows and do not count.  Every window outside the streamed steps must
+The launch counters are zeroed just before each driven step of phases
+2, 3 and 5 and read just after; the kernels' launches in phases 4 and 6
+and those that compute ground truth, replay or compare fall between
+those windows and do not count.  Every window outside the streamed steps must
 launch ``streamed_lookup`` 0 times (``pool_budget`` is None there).
 
 Exits non-zero, printing no result, without a CUDA device or when the
@@ -73,6 +96,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -98,6 +122,31 @@ LONGLAT_KEYS = 1 << 25         # half bulk-loaded
 LOGNORMAL_KEYS = 1 << 22
 L2_FLUSH_BYTES = 512 << 20     # ten times the H100's 50 MB L2
 SPIN_CYCLES = 400_000          # ~0.2 ms idle spin, longer than a host call
+# exp2 results per SM per clock on compute capability 9.0 (the CUDA C++
+# Programming Guide's table of arithmetic instruction throughput); one
+# MUFU.EX2 per accurate expf
+SFU_PER_SM_PER_CLOCK = 16
+LM_ARCH = "falcon-mamba-7b"
+LM_REQUESTS = 16
+LM_PROMPT = (256, 2048)        # prompt lengths, uniform, inclusive
+LM_NEW = 32                    # new tokens per request
+LM_SLOTS = 8
+LM_REPLAYS = 4                 # requests replayed at batch 1
+LM_CHECK_LEN = 2048            # kernel-vs-chunked prompt
+LM_SCAN_LAYERS = 8             # layers whose scan inputs phase 6 times
+LM_LOGIT_REL_L2 = 0.1          # kernel vs chunked bf16 prefill logits
+SCAN_TOL = 1e-4                # mamba_scan vs plain (rtol and atol)
+BRANCH_TOL = 2e-3              # f32 mamba_block, kernel vs chunked
+FD_ATTN_ARCH = "qwen3-14b"     # flash_decode's attention shape
+FD_BATCH, FD_SEQ = 16, 32768   # decode_32k's length; batch cut from 128
+FD_F32_BATCH = 4
+FD_STEPS = 4                   # ops.flash_decode calls in its window
+# flash_decode vs plain, for every cache dtype: both widen k and v to f32
+# exactly and compute in f32, so only the order of the sums differs (the
+# JAX tests' 2e-2 for bf16 covers XLA rounding bf16 inputs, which neither
+# side here does; outputs are a few hundredths in size, so 2e-2 would
+# pass a kernel that returned zeros)
+FD_TOL = 2e-5
 
 
 def log(*args) -> None:
@@ -1372,6 +1421,424 @@ def time_range(res, batches, k, flush_buf):
                 ratio_to_bound=ms / bound)
 
 
+# ------------------------------------------------------- LM serving path
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values (8 significant bits) at |x|."""
+    return 2.0 ** (int(np.floor(np.log2(max(abs(x), 2.0 ** -126)))) - 7)
+
+
+def lm_serve(win, seed):
+    """Phase 5: falcon-mamba-7b at full width and depth, random weights on
+    the card, 16 requests through the continuous batcher until drained,
+    in one counted window."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.scheduler import (ContinuousBatcher, Request,
+                                             ServeConfig)
+
+    # f32 products and convolutions in full f32 for the f32 comparisons
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    base = get_config(LM_ARCH)
+    cfg = dataclasses.replace(base, ssm=dataclasses.replace(
+        base.ssm, use_scan_kernel=True))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab}, {cfg.param_dtype}; {n_params} parameters "
+        f"({sum(t.numel() * t.element_size() for t in leaves(params)) / 2**30:.2f} "
+        f"GiB) drawn in {init_s:.2f} s")
+    rng = np.random.default_rng(seed + 400)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    pre_s, dec_ms, bad = [], [], collections.Counter()
+
+    def prefill(p, tokens, max_len):
+        t = time.perf_counter()
+        state, logits = model.prefill(p, tokens, max_len)
+        bad["prefill"] += int((~torch.isfinite(logits)).sum())
+        pre_s.append(time.perf_counter() - t)
+        return state, logits
+
+    def decode_step(p, state, tokens):
+        t = time.perf_counter()
+        logits, state = model.decode_step(p, state, tokens)
+        bad["decode"] += int((~torch.isfinite(logits)).sum())
+        dec_ms.append((time.perf_counter() - t) * 1e3)
+        return logits, state
+
+    timed = dataclasses.replace(model, prefill=prefill,
+                                decode_step=decode_step)
+    batcher = ContinuousBatcher(timed, params, ServeConfig(
+        batch_slots=LM_SLOTS, max_len=LM_PROMPT[1] + LM_NEW))
+    reqs = [Request(rid=i, prompt=pr, max_new_tokens=LM_NEW)
+            for i, pr in enumerate(prompts)]
+
+    def drive():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for r in reqs:
+            batcher.submit(r)
+        status = batcher.run_until_drained()
+        return status, t, time.perf_counter() - t
+
+    (status, t_sub, secs), counts = win.run(drive)
+    n_prompt = int(lens.sum())
+    n_new = sum(len(r.output) for r in reqs)
+    ttft = [(r.t_first - t_sub) * 1e3 for r in reqs]
+    met = dict(
+        init_s=init_s, params=n_params, requests=len(reqs),
+        prompt_tokens=n_prompt, new_tokens=n_new, decode_steps=batcher.steps,
+        seconds=secs, prefill_tokens_per_s=n_prompt / sum(pre_s),
+        prefill_ms_median=statistics.median(pre_s) * 1e3,
+        prefill_ms_max=max(pre_s) * 1e3,
+        ttft_ms_median=statistics.median(ttft), ttft_ms_max=max(ttft),
+        decode_step_ms_median=statistics.median(dec_ms),
+        decode_step_ms_max=max(dec_ms),
+        decode_tokens_per_s=n_new / secs,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[lm] served {len(reqs)} requests ({n_prompt} prompt tokens, "
+        f"{n_new} new) in {secs:.2f} s, {batcher.steps} decode steps of "
+        f"{LM_SLOTS} slots: prefill {met['prefill_tokens_per_s']:.0f} "
+        f"tokens/s (ms per request median {met['prefill_ms_median']:.1f}, "
+        f"max {met['prefill_ms_max']:.1f}); TTFT ms median "
+        f"{met['ttft_ms_median']:.1f} max {met['ttft_ms_max']:.1f}; decode "
+        f"step ms median {met['decode_step_ms_median']:.2f} max "
+        f"{met['decode_step_ms_max']:.2f}; {met['decode_tokens_per_s']:.1f} "
+        f"new tokens/s end to end; peak {met['peak_gib']:.2f} GiB; "
+        f"non-finite logits {dict(bad)}; launches {counts}")
+    log("[lm] metrics " + json.dumps(met))
+    if not status.drained or any(len(r.output) != LM_NEW or not r.done
+                                 for r in reqs):
+        fail("lm: a request did not finish with its tokens")
+    if sum(bad.values()):
+        fail(f"lm: non-finite logits {dict(bad)}")
+    if len(pre_s) != LM_REQUESTS \
+            or counts["mamba_scan"] != cfg.n_layers * len(pre_s):
+        fail(f"lm: mamba_scan launched {counts['mamba_scan']} times for "
+             f"{len(pre_s)} prefills of {cfg.n_layers} layers")
+    if counts["flash_decode"]:
+        fail("lm: flash_decode launched on the ssm path")
+    return dict(model=model, params=params, cfg=cfg, reqs=reqs, met=met,
+                max_len=LM_PROMPT[1] + LM_NEW)
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def lm_replay(lm):
+    """Teacher-forced: replay the batcher's tokens of ``LM_REPLAYS``
+    requests through a batch-1 prefill and decode loop; each token must
+    score within 4 bf16 ulps of the replay's maximum logit (a batch of 8
+    and a batch of 1 round apart in the products, so argmax may differ
+    only on a near tie)."""
+    model, params = lm["model"], lm["params"]
+    dev = torch.device("cuda")
+    worst = (0.0, 0.0)
+    flips = 0
+    for r in lm["reqs"][:LM_REPLAYS]:
+        toks = torch.as_tensor(r.prompt[None].astype(np.int64), device=dev)
+        state, logits = model.prefill(params, toks, lm["max_len"])
+        for t, tok in enumerate(r.output):
+            if t:
+                logits, state = model.decode_step(
+                    params, state, torch.tensor([[r.output[t - 1]]],
+                                                device=dev))
+            lg = logits[0].float()
+            mx = float(lg.max())
+            gap = mx - float(lg[tok])
+            flips += int(gap > 0)
+            if gap > 4 * bf16_ulp(mx):
+                fail(f"lm replay: request {r.rid} token {t} ({tok}) scores "
+                     f"{gap} below the replay's max logit {mx}")
+            if gap >= worst[0]:
+                worst = (gap, 4 * bf16_ulp(mx))
+    log(f"[lm] teacher-forced replay of {LM_REPLAYS} requests x {LM_NEW} "
+        f"tokens at batch 1: {flips} tokens not the replay's argmax; worst "
+        f"gap to the max logit {worst[0]} (bound {worst[1]})")
+    return dict(flips=flips, worst_gap=worst[0])
+
+
+def decode_profile(lm):
+    """One decode step of ``LM_SLOTS`` slots under ``torch.profiler``: the
+    device operations it launches and their summed device time, beside
+    the step's host wall time.  Informational: where the profiler sees no
+    device events, the counts read "not measured" and nothing fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, params = lm["model"], lm["params"]
+    dev = torch.device("cuda")
+    state = model.init_decode_state(LM_SLOTS, lm["max_len"])
+    tokens = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device=dev)
+    for _ in range(2):
+        _lg, state = model.decode_step(params, state, tokens)
+    torch.cuda.synchronize()
+    out = dict(device_ops=None, device_ms=None, wall_ms=None)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            model.decode_step(params, state, tokens)
+            torch.cuda.synchronize()
+            out["wall_ms"] = (time.perf_counter() - t) * 1e3
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:          # informational: never fails the smoke
+        log(f"[lm] decode step profile: not measured ({exc!r})")
+        return out
+    if evs:
+        out["device_ops"] = len(evs)
+        out["device_ms"] = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+    log(f"[lm] decode step of {LM_SLOTS} slots under torch.profiler: "
+        f"{out['device_ops'] if evs else 'not measured'} device operations "
+        f"(kernels, copies, fills), summed device time "
+        f"{out['device_ms'] if evs else 'not measured'} ms, host wall "
+        f"{out['wall_ms']:.3f} ms with the profiler on (unprofiled step "
+        f"median {lm['met']['decode_step_ms_median']:.3f} ms)")
+    return out
+
+
+def lm_branches(lm, seed):
+    """The kernel path against the chunked path on one prompt of 2,048
+    tokens: one mamba_block in f32 with layer 0's weights, and the full
+    model's bf16 prefill logits.  Returns the scan inputs of the first
+    ``LM_SCAN_LAYERS`` layers on that prompt (for phase 6)."""
+    from repro_torch.models import ssm, transformer as tfm
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import build_model
+
+    dev = torch.device("cuda")
+    model, params, cfg = lm["model"], lm["params"], lm["cfg"]
+    chunked = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, use_scan_kernel=False))
+    rng = np.random.default_rng(seed + 401)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, LM_CHECK_LEN)),
+                           device=dev)
+    lp0 = tfm.layer_params(params, 0)
+    p32 = {k: v.float() for k, v in lp0["ssm"].items()}
+    h = rms_norm(params["embed"][toks].float(), lp0["ln"].float(),
+                 cfg.norm_eps)
+    yk = ssm.mamba_block(h, p32, cfg.d_model, cfg.ssm)
+    yc = ssm.mamba_block(h, p32, cfg.d_model, chunked.ssm)
+    err = float((yk - yc).abs().max())
+    ok = bool(torch.allclose(yk, yc, rtol=BRANCH_TOL, atol=BRANCH_TOL))
+    log(f"[lm] mamba_block layer 0 in f32, {LM_CHECK_LEN} tokens: kernel vs "
+        f"chunked max |dy| {err} (max |y| {float(yc.abs().max())}); within "
+        f"{BRANCH_TOL}: {ok}")
+    if not ok:
+        fail("lm: kernel and chunked mamba_block disagree in f32")
+    del yk, yc, h, p32
+    t = time.perf_counter()
+    _, lk = model.prefill(params, toks, lm["max_len"])
+    torch.cuda.synchronize()
+    tk = time.perf_counter() - t
+    t = time.perf_counter()
+    _, lc = build_model(chunked).prefill(params, toks, lm["max_len"])
+    torch.cuda.synchronize()
+    tc = time.perf_counter() - t
+    lk, lc = lk[0].float(), lc[0].float()
+    rel = float((lk - lc).norm() / lc.norm())
+    top = torch.topk(lc, 2).values
+    same = int(lk.argmax()) == int(lc.argmax())
+    log(f"[lm] full-model bf16 prefill logits, {LM_CHECK_LEN} tokens: "
+        f"kernel vs chunked relative L2 {rel} (bound {LM_LOGIT_REL_L2}), "
+        f"max |d| {float((lk - lc).abs().max())}, same argmax {same} "
+        f"(chunked top-2 gap {float(top[0] - top[1])}); prefill s kernel "
+        f"{tk:.3f}, chunked {tc:.3f}")
+    if not rel < LM_LOGIT_REL_L2 or not same:
+        fail("lm: kernel and chunked prefill logits disagree")
+    caps = []
+    x = params["embed"][toks]
+    for i in range(LM_SCAN_LAYERS):
+        lp = tfm.layer_params(params, i)
+        h = rms_norm(x, lp["ln"], cfg.norm_eps)
+        caps.append((*ssm.mamba_scan_inputs(h, lp["ssm"])[:4],
+                     lp["ssm"]["A_log"].contiguous()))
+        x = tfm._ssm_block(x, lp, cfg)
+    return caps, dict(block_err=err, logit_rel_l2=rel, same_argmax=same,
+                      prefill_s_kernel=tk, prefill_s_chunked=tc)
+
+
+def sfu_per_s() -> float:
+    """exp2 results per second: SMs x 16 per clock x the max SM clock."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * SFU_PER_SM_PER_CLOCK * mhz * 1e6
+
+
+def scan_row(caps, k, flush_buf):
+    """Phase 6: mamba_scan against plain on layer 0's real inputs and on
+    their first 1,000 positions, timed launch by launch over the captured
+    layers, bounded by its bytes or its exponentials."""
+    ragged = tuple(t[:, :1000].contiguous() if t.dim() == 3 else t
+                   for t in caps[0])
+    err = 0.0
+    for what, args in (("layer 0", caps[0]), ("layer 0, L 1000", ragged)):
+        yk = k.mamba_scan(*args)
+        yp = k.mamba_scan_plain(*args)
+        torch.cuda.synchronize()
+        e = float((yk - yp).abs().max())
+        same = float((yk == yp).float().mean())
+        ok = bool(torch.allclose(yk, yp, rtol=SCAN_TOL, atol=SCAN_TOL))
+        log(f"mamba_scan vs plain, {what} {tuple(args[0].shape)} N "
+            f"{args[2].shape[2]}: max |dy| {e}, bit-equal share {same}, "
+            f"within {SCAN_TOL}: {ok}")
+        if not ok or not bool(torch.isfinite(yk).all()):
+            fail(f"mamba_scan disagrees with its plain version ({what})")
+        err = max(err, e)
+    b, l, di = caps[0][0].shape
+    n = caps[0][2].shape[2]
+    bytes_ = b * l * di * 4 * 3 + b * l * n * 4 * 2 + di * n * 4
+    exps = b * l * di * n
+    rate = sfu_per_s()
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = exps / rate * 1e3
+    fns = [lambda a=a: k.mamba_scan(*a) for a in caps]
+    cold, warm, host = timed_launches(fns, flush_buf)
+    ms, ms_warm = statistics.median(cold), statistics.median(warm)
+    plain_ms = time_ms(lambda: k.mamba_scan_plain(*caps[0]), 1, 1)
+    bound = max(t_bytes, t_ops)
+    log(f"mamba_scan: median over {len(fns)} layers' inputs {ms:.5f} ms "
+        f"cold L2 (min {min(cold):.5f}, max {max(cold):.5f}), {ms_warm:.5f} "
+        f"ms warm L2; host issue {host:.5f} ms/call; plain {plain_ms:.3f} "
+        f"ms; bytes {bytes_} -> {t_bytes:.5f} ms, {exps} exponentials at "
+        f"{rate:.4g}/s -> {t_ops:.5f} ms; ms/bound {ms / bound:.1f}")
+    return {
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:67",
+        "launches": None, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "ms_warm_l2": ms_warm, "host_ms_per_call": host,
+        "bytes_ms": t_bytes, "exp_ms": t_ops, "sfu_per_s": rate,
+        "shape": [b, l, di, n]}
+
+
+def flash_decode_inputs(seed):
+    from repro_torch.configs import get_config
+
+    a = get_config(FD_ATTN_ARCH).attn
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 500)
+    q = torch.randn(FD_BATCH, a.n_heads, a.head_dim, generator=g,
+                    device=dev) / a.head_dim ** 0.5
+    kc = torch.randn(FD_BATCH, FD_SEQ, a.kv_heads, a.head_dim, generator=g,
+                     device=dev, dtype=torch.bfloat16)
+    vc = torch.randn(FD_BATCH, FD_SEQ, a.kv_heads, a.head_dim, generator=g,
+                     device=dev, dtype=torch.bfloat16)
+    rng = np.random.default_rng(seed + 501)
+    kv_len = rng.integers(1, FD_SEQ + 1, FD_BATCH)
+    kv_len[:3] = (0, 1, FD_SEQ)
+    return q, kc, vc, kv_len
+
+
+def flash_decode_window(win, ops, q, kc, vc, kv_len):
+    """Phase 5: ``ops.flash_decode`` through its entry point, one call per
+    decode step with each row's length one longer (capped at S), in a
+    counted window; each output finite, the empty row 0."""
+    dev = q.device
+
+    def drive():
+        outs = []
+        for step in range(FD_STEPS):
+            kl = np.minimum(kv_len + step * (kv_len > 0), FD_SEQ)
+            outs.append(ops.flash_decode(q, kc, vc, torch.as_tensor(
+                kl, dtype=torch.int32, device=dev)))
+        torch.cuda.synchronize()
+        return outs
+
+    outs, counts = win.run(drive)
+    ok = all(bool(torch.isfinite(o).all()) and not o[0].any() for o in outs)
+    log(f"[decode attention] ops.flash_decode over {FD_STEPS} steps, "
+        f"{tuple(q.shape)} x cache {tuple(kc.shape)} bf16, lengths "
+        f"{kv_len.tolist()}: finite with the empty row 0: {ok}; launches "
+        f"{counts}")
+    if not ok or counts["flash_decode"] != FD_STEPS:
+        fail("flash_decode window: wrong outputs or launches")
+
+
+def flash_decode_row(k, flush_buf, q, kc, vc, kv_len):
+    """Phase 6: flash_decode against plain with the bf16 cache and an f32
+    one, timed launch by launch, bounded by the K/V rows below kv_len
+    plus q and o, beside SDPA (timed only)."""
+    import torch.nn.functional as F
+
+    dev = q.device
+    kl = torch.as_tensor(kv_len, dtype=torch.int32, device=dev)
+    err = 0.0
+    for what, args in (
+            ("bf16 cache", (q, kc, vc, kl)),
+            ("f32 cache", (q[:FD_F32_BATCH].contiguous(),
+                           kc[:FD_F32_BATCH].float(),
+                           vc[:FD_F32_BATCH].float(), kl[:FD_F32_BATCH]))):
+        ok_k = k.flash_decode(*args)
+        ok_p = k.flash_decode_plain(*args)
+        torch.cuda.synchronize()
+        e = float((ok_k - ok_p).abs().max())
+        good = bool(torch.allclose(ok_k, ok_p, rtol=FD_TOL, atol=FD_TOL))
+        zero = not ok_k[0].any() and not ok_p[0].any()
+        log(f"flash_decode vs plain, {what} {tuple(args[1].shape)}, "
+            f"lengths {kv_len[:args[0].shape[0]].tolist()}: max |do| {e}, "
+            f"within {FD_TOL}: {good} (plain's mean |o| "
+            f"{float(ok_p.abs().mean())}); kv_len 0 row zero in both: "
+            f"{zero}")
+        if not (good and zero):
+            fail(f"flash_decode disagrees with its plain version ({what})")
+        err = max(err, e)
+        del ok_k, ok_p
+    b, s, kh, d = kc.shape
+    h = q.shape[1]
+    rows = int(np.minimum(kv_len, s).sum())
+    bytes_ = rows * kh * d * kc.element_size() * 2 + 2 * b * h * d * 4
+    bound = bytes_ / HBM_BYTES_PER_S * 1e3
+    fns = [lambda: k.flash_decode(q, kc, vc, kl)] * 16
+    cold, warm, host = timed_launches(fns, flush_buf)
+    ms, ms_warm = statistics.median(cold), statistics.median(warm)
+    plain_ms = time_ms(lambda: k.flash_decode_plain(q, kc, vc, kl), 1, 1)
+    # the library yardstick: SDPA over the same cache, heads-major copies
+    qs = q.to(kc.dtype)[:, :, None, :]
+    ks, vs = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device=dev)[None, :] < kl[:, None].long()
+            )[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              scale=1.0, enable_gqa=True)
+
+    lib_ms = time_ms(library, 5, 1)
+    del ks, vs
+    log(f"flash_decode: median over {len(fns)} launches {ms:.5f} ms cold L2 "
+        f"(min {min(cold):.5f}, max {max(cold):.5f}), {ms_warm:.5f} ms warm "
+        f"L2; host issue {host:.5f} ms/call; plain {plain_ms:.3f} ms; SDPA "
+        f"{lib_ms:.5f} ms; {rows} K/V positions, {bytes_} B -> bound "
+        f"{bound:.5f} ms; ms/bound {ms / bound:.1f}")
+    return {
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:69",
+        "launches": None, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+        "library_ms": lib_ms, "ms_warm_l2": ms_warm,
+        "host_ms_per_call": host, "positions": rows,
+        "shape": [b, h, kh, d, s]}
+
+
 # ----------------------------------------------------------------- main
 class Mods:
     """The port's modules the smoke drives (imported after the checks)."""
@@ -1411,6 +1878,14 @@ class Kernels:
         self.streamed_lookup_plain = streamed_lookup_plain
         self.index_probe, self.index_probe_plain = (index_probe,
                                                     index_probe_plain)
+        from repro_torch.kernels.flash_decode import (flash_decode,
+                                                      flash_decode_plain)
+        from repro_torch.kernels.mamba_scan import (mamba_scan,
+                                                    mamba_scan_plain)
+
+        self.mamba_scan, self.mamba_scan_plain = mamba_scan, mamba_scan_plain
+        self.flash_decode = flash_decode
+        self.flash_decode_plain = flash_decode_plain
 
 
 def main() -> int:
@@ -1543,6 +2018,30 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del flush_buf
 
+    # ---- LM serving: the index phases' tensors go first
+    del ll, ln, idx, sk, zs, ps, queries
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm = lm_serve(win, 0)
+    lm["replay"] = lm_replay(lm)
+    lm["decode_profile"] = decode_profile(lm)
+    caps, lm["branches"] = lm_branches(lm, 0)
+    del lm["model"], lm["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    fd_in = flash_decode_inputs(0)
+    flash_decode_window(win, m.ops, *fd_in)
+    wall("lm serving and decode attention", t0)
+    flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    lm_rows = {"mamba_scan": scan_row(caps, k, flush_buf)}
+    del caps
+    lm_rows["flash_decode"] = flash_decode_row(k, flush_buf, *fd_in)
+    del fd_in, flush_buf
+    log("[lm] summary " + json.dumps({key: lm[key] for key in
+                                      ("met", "replay", "decode_profile",
+                                       "branches")}))
+
     launches = dict(win.total)
     log(f"main-path launches (every window): {launches}")
     on, off = look[True], look[False]
@@ -1597,6 +2096,7 @@ def main() -> int:
         "library_ms": None, "ms_warm_l2": probe["ms_warm_l2"],
         "host_ms_per_call": probe["host_ms_per_call"],
     }
+    rows.update(lm_rows)
     out = []
     for row in rows.values():
         row["launches"] = launches.get(row["name"], 0)

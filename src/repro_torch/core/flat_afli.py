@@ -213,6 +213,22 @@ def _ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
     return np.repeat(starts - excl, counts) + np.arange(total)
 
 
+def _node_chunks(n: np.ndarray, step: Optional[int]):
+    """(start, stop) runs of consecutive nodes holding at most ``step``
+    keys together, or one node that alone holds more; ``None``: one run."""
+    if step is None:
+        return [(0, n.shape[0])]
+    cs = np.cumsum(n)
+    out = []
+    a = 0
+    while a < n.shape[0]:
+        done = int(cs[a - 1]) if a else 0
+        b = max(int(np.searchsorted(cs, done + step, side="right")), a + 1)
+        out.append((a, b))
+        a = b
+    return out
+
+
 def _seg_cumsum_excl(vals: np.ndarray, seg: np.ndarray) -> np.ndarray:
     """Exclusive running sum of ``vals`` within runs of equal ``seg``
     (``seg`` non-decreasing)."""
@@ -270,13 +286,22 @@ class _Builder:
         return 0
 
     def build_steps(self, pk: np.ndarray, hi: np.ndarray, lo: np.ndarray,
-                    pv: np.ndarray):
-        """``build`` one level at a time: a generator that yields after
-        each level the number of keys that level placed, then after the
-        depth-first assembly of the pools a quarter of the key count (the
-        incremental fold charges its work budget with these)."""
-        cfg = self.cfg
-        alpha = cfg.alpha
+                    pv: np.ndarray, step_keys: Optional[int] = None):
+        """``build`` in bounded steps: a generator that yields the work of
+        each step in keys, for the incremental fold's budget.
+
+        Each tree level is cut into node chunks: maximal runs of
+        consecutive nodes holding at most ``step_keys`` keys together, or
+        one node that alone holds more.  A chunk fits and places its
+        nodes and is charged the keys it holds; a single node above the
+        step is one vectorised partition pass and is charged a
+        sixteenth of its keys, as the reference fold charges its root
+        partition.  After each level the partition into the next level
+        is charged a sixteenth of the level's keys, and the depth-first
+        assembly of the pools a quarter of all keys.  ``step_keys=None``
+        takes each level whole (the bulk load).  Chunking changes no
+        output: nodes are independent within a level, and the chunks are
+        concatenated in node order."""
         # per breadth-first node
         kind, slope_n, icpt_n, size_n, parent = [], [], [], [], []
         level_start = []
@@ -299,82 +324,31 @@ class _Builder:
             n_nodes += s0.shape[0]
             if (~forced).any():
                 self.max_depth = max(self.max_depth, int(dep[~forced].max()))
-            sl, ic = self._fit(pk, s0, n, forced)
-            degen = forced | (sl <= 0.0) | (n < 2)
-            s32 = sl.astype(np.float32)
-            b32 = ic.astype(np.float32)
-            first = np.zeros(s0.shape[0], np.int64)
-            last = np.zeros(s0.shape[0], np.int64)
-            cand = np.flatnonzero(~degen)
-            if cand.shape[0]:
-                nc = n[cand]
-                idx = _ranges(s0[cand], nc)
-                st = np.cumsum(nc) - nc
-                raw = np.rint(np.repeat(s32[cand], nc) * pk[idx]
-                              + np.repeat(b32[cand], nc))
-                fin = np.logical_and.reduceat(np.isfinite(raw), st)
-                first[cand] = np.where(fin, raw[st], 0).astype(np.int64)
-                last[cand] = np.where(fin, raw[st + nc - 1], 0).astype(np.int64)
-                degen[cand] |= ~fin
-            degen |= last == first
-            dense = degen | (dep >= cfg.max_depth)
-            model = np.flatnonzero(~dense)
-            size = n.copy()
-            mslope = np.zeros(s0.shape[0], np.float32)
-            micpt = np.zeros(s0.shape[0], np.float32)
-            nm = n[model]
-            fm, lm = first[model], last[model]
-            sz = np.minimum(np.maximum(np.floor(nm * alpha).astype(np.int64),
-                                       2), lm - fm + 1)
-            size[model] = sz
-            scale = ((sz - 1) / np.maximum(lm - fm, 1)).astype(np.float32)
-            mslope[model] = s32[model] * scale
-            micpt[model] = (b32[model] - fm.astype(np.float32)) * scale
-            kind.append(np.where(dense, KIND_DENSE, KIND_MODEL))
-            slope_n.append(mslope)
-            icpt_n.append(micpt)
-            size_n.append(size)
+            parts = []
+            n_child = 0
+            for a, b in _node_chunks(n, step_keys):
+                part = self._place_nodes(pk, s0[a:b], n[a:b], dep[a:b],
+                                         forced[a:b], ids[a:b],
+                                         n_nodes + n_child)
+                n_child += part[-1][0].shape[0]
+                parts.append(part)
+                keys = int(n[a:b].sum())
+                yield keys if b - a > 1 or step_keys is None \
+                    or keys <= step_keys else max(keys // 16, 1)
+            cols = [np.concatenate(c) for c in zip(*(p[:8] for p in parts))]
+            k_, sl_, ic_, sz_, dw, daw, bw, cw = cols
+            kind.append(k_)
+            slope_n.append(sl_)
+            icpt_n.append(ic_)
+            size_n.append(sz_)
             parent.append(par)
-            dj = np.flatnonzero(dense)
-            dense_w.append(np.stack([ids[dj], s0[dj]], 1))
-
-            # slot groups of every model node of the level
-            idx = _ranges(s0[model], nm)
-            base = np.cumsum(sz) - sz
-            pred = np.rint(np.repeat(mslope[model], nm) * pk[idx]
-                           + np.repeat(micpt[model], nm)).astype(np.int64)
-            pred = np.clip(pred, 0, np.repeat(sz - 1, nm))
-            # per-node running max: node bases keep nodes apart
-            gpred = np.maximum.accumulate(pred + np.repeat(base, nm))
-            gs = np.flatnonzero(np.r_[True, gpred[1:] != gpred[:-1]]
-                                [:idx.shape[0]])
-            gcount = np.diff(np.r_[gs, idx.shape[0]])
-            gseg = np.repeat(np.arange(model.shape[0]), nm)[gs]
-            gslot = gpred[gs] - base[gseg]
-            gkey = idx[gs]
-            gnode = ids[model][gseg]
-            single = gcount == 1
-            big = gcount >= self.d_tail
-            bk = ~single & ~big
-            data_w.append(np.stack([gnode[single], gslot[single],
-                                    gkey[single]], 1))
-            bucket_w.append(np.stack([gnode[bk], gslot[bk], gkey[bk],
-                                      gcount[bk]], 1))
-            # children: maximal runs of adjacent big slots of one node
-            g = np.flatnonzero(big)
-            new_run = np.r_[True, (np.diff(g) != 1) | (np.diff(gseg[g]) != 0)
-                            | (np.diff(gslot[g]) != 1)][:g.shape[0]]
-            fg = g[new_run]
-            lg = g[np.r_[new_run[1:], True]] if g.shape[0] else g
-            i0 = gkey[fg]
-            tot = gkey[lg] + gcount[lg] - i0
-            child_w.append(np.stack([gnode[fg], gslot[fg], gslot[lg],
-                                     n_nodes + np.arange(fg.shape[0])], 1))
-            s0, n = i0, tot
-            dep = dep[model][gseg[fg]] + 1
-            par = gnode[fg]
-            forced = tot == nm[gseg[fg]]
-            yield level_keys
+            dense_w.append(dw)
+            data_w.append(daw)
+            bucket_w.append(bw)
+            child_w.append(cw)
+            s0, n, dep, par, forced = (np.concatenate(c) for c in
+                                       zip(*(p[8] for p in parts)))
+            yield max(level_keys // 16, 1)
         level_start.append(n_nodes)
         self._arrays = self._assemble(
             pk, hi, lo, pv, np.concatenate(kind), np.concatenate(slope_n),
@@ -382,7 +356,84 @@ class _Builder:
             np.concatenate(parent), level_start,
             np.concatenate(dense_w), np.concatenate(data_w),
             np.concatenate(bucket_w), np.concatenate(child_w))
-        yield pk.shape[0] // 4
+        yield max(pk.shape[0] // 4, 1)
+
+    def _place_nodes(self, pk, s0, n, dep, forced, ids, child_base):
+        """Fit and place a run of consecutive nodes of one level.
+
+        Returns the nodes' kind, slope, intercept and size, their
+        dense, DATA, bucket and child records, and the next level's
+        nodes (first key, count, depth, parent, forced) as a tuple, with
+        the children numbered from ``child_base``."""
+        cfg = self.cfg
+        alpha = cfg.alpha
+        sl, ic = self._fit(pk, s0, n, forced)
+        degen = forced | (sl <= 0.0) | (n < 2)
+        s32 = sl.astype(np.float32)
+        b32 = ic.astype(np.float32)
+        first = np.zeros(s0.shape[0], np.int64)
+        last = np.zeros(s0.shape[0], np.int64)
+        cand = np.flatnonzero(~degen)
+        if cand.shape[0]:
+            nc = n[cand]
+            idx = _ranges(s0[cand], nc)
+            st = np.cumsum(nc) - nc
+            raw = np.rint(np.repeat(s32[cand], nc) * pk[idx]
+                          + np.repeat(b32[cand], nc))
+            fin = np.logical_and.reduceat(np.isfinite(raw), st)
+            first[cand] = np.where(fin, raw[st], 0).astype(np.int64)
+            last[cand] = np.where(fin, raw[st + nc - 1], 0).astype(np.int64)
+            degen[cand] |= ~fin
+        degen |= last == first
+        dense = degen | (dep >= cfg.max_depth)
+        model = np.flatnonzero(~dense)
+        size = n.copy()
+        mslope = np.zeros(s0.shape[0], np.float32)
+        micpt = np.zeros(s0.shape[0], np.float32)
+        nm = n[model]
+        fm, lm = first[model], last[model]
+        sz = np.minimum(np.maximum(np.floor(nm * alpha).astype(np.int64),
+                                   2), lm - fm + 1)
+        size[model] = sz
+        scale = ((sz - 1) / np.maximum(lm - fm, 1)).astype(np.float32)
+        mslope[model] = s32[model] * scale
+        micpt[model] = (b32[model] - fm.astype(np.float32)) * scale
+        dj = np.flatnonzero(dense)
+
+        # slot groups of every model node of the run
+        idx = _ranges(s0[model], nm)
+        base = np.cumsum(sz) - sz
+        pred = np.rint(np.repeat(mslope[model], nm) * pk[idx]
+                       + np.repeat(micpt[model], nm)).astype(np.int64)
+        pred = np.clip(pred, 0, np.repeat(sz - 1, nm))
+        # per-node running max: node bases keep nodes apart
+        gpred = np.maximum.accumulate(pred + np.repeat(base, nm))
+        gs = np.flatnonzero(np.r_[True, gpred[1:] != gpred[:-1]]
+                            [:idx.shape[0]])
+        gcount = np.diff(np.r_[gs, idx.shape[0]])
+        gseg = np.repeat(np.arange(model.shape[0]), nm)[gs]
+        gslot = gpred[gs] - base[gseg]
+        gkey = idx[gs]
+        gnode = ids[model][gseg]
+        single = gcount == 1
+        big = gcount >= self.d_tail
+        bk = ~single & ~big
+        # children: maximal runs of adjacent big slots of one node
+        g = np.flatnonzero(big)
+        new_run = np.r_[True, (np.diff(g) != 1) | (np.diff(gseg[g]) != 0)
+                        | (np.diff(gslot[g]) != 1)][:g.shape[0]]
+        fg = g[new_run]
+        lg = g[np.r_[new_run[1:], True]] if g.shape[0] else g
+        i0 = gkey[fg]
+        tot = gkey[lg] + gcount[lg] - i0
+        return (np.where(dense, KIND_DENSE, KIND_MODEL), mslope, micpt, size,
+                np.stack([ids[dj], s0[dj]], 1),
+                np.stack([gnode[single], gslot[single], gkey[single]], 1),
+                np.stack([gnode[bk], gslot[bk], gkey[bk], gcount[bk]], 1),
+                np.stack([gnode[fg], gslot[fg], gslot[lg],
+                          child_base + np.arange(fg.shape[0])], 1),
+                (i0, tot, dep[model][gseg[fg]] + 1, gnode[fg],
+                 tot == nm[gseg[fg]]))
 
     def _assemble(self, pk, hi, lo, pv, kind, slope, icpt, size, parent,
                   level_start, dense, data, bucket, child) -> FlatArrays:
@@ -483,11 +534,13 @@ class _Fold:
     Port of ``repro.core.flat_afli._IncrementalFold``'s contract, not of
     its work items: the JAX fold defers subtrees through hooks of its
     recursive builder, while this builder works a level at a time, so
-    the fold advances it a level per step (``_Builder.build_steps``).
-    Phases, each charged to the per-call work budget in keys:
+    the fold advances it a node chunk of about ``fold_step_keys`` keys
+    per step (``_Builder.build_steps``).  Phases, each charged to the
+    per-call work budget in keys:
 
-    1. ``build`` — one level of the new tree per step (the snapshot is
-       taken when the fold starts);
+    1. ``build`` — one node chunk of a level of the new tree per step,
+       the partition into the next level, and the assembly of the pools
+       (the snapshot is taken when the fold starts);
     2. ``pack`` — the new pools go to the device beside the serving ones;
     3. ``verify`` — placement through the kernel against the new pools,
        tree only (the tiers are excluded, so a newer write of an identity
@@ -508,7 +561,8 @@ class _Fold:
         self.step = max(int(idx.cfg.fold_step_keys), 1)
         self.serve_flow = idx._serve_flow
         self.builder = _Builder(idx.cfg, idx.d_tail)
-        self._levels = self.builder.build_steps(pk, hi, lo, pv)
+        self._levels = self.builder.build_steps(pk, hi, lo, pv,
+                                                self.step)
         self.phase = "build"
         self.arrays_new: Optional[FlatArrays] = None
         self.pools_new = None
@@ -910,8 +964,11 @@ class FlatAFLI:
     def _advance_write_path(self, n_batch: int) -> None:
         """After a write: advance a fold in flight by the per-call
         budget, retire a full delta into the run, and start a fold when
-        the run outgrows its bound.  An index never built keeps
-        buffering: there is no tree to fold into."""
+        the run outgrows its bound.  The call that starts a fold has
+        spent the snapshot's keys of its budget on the snapshot (an
+        O(n) merge and sort), and ticks only with what is left.  An
+        index never built keeps buffering: there is no tree to fold
+        into."""
         budget = max(int(self.cfg.fold_step_keys),
                      int(self.cfg.fold_work_factor * max(n_batch, 1)))
         if self._fold is not None:
@@ -923,8 +980,8 @@ class FlatAFLI:
                     and self._run_pk.shape[0]
                     > self.cfg.rebuild_frac * max(self.n_keys, 1)):
                 self._fold_start()
-                if self._fold is not None:
-                    self._fold_tick(budget)
+                if self._fold is not None and budget > self._fold.n:
+                    self._fold_tick(budget - self._fold.n)
 
     # -------------------------------------------------------------- fold
     def _snapshot_live(self):

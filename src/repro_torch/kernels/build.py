@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "build_dir",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("nf_forward", "fused_lookup", "range_scan", "streamed_lookup",
-           "index_probe")
+           "index_probe", "mamba_scan", "flash_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -9,7 +9,11 @@ read takes is the index's decision (``FlatAFLI._dispatch``).  Both
 rungs probe the write tiers in the kernel, so the JAX ladder's host tier
 probe and oracle rung have no counterpart: every call launches one
 kernel (or, on CPU tensors, runs its plain version).
-``fused_range_scan`` and ``index_probe`` have one kernel each.
+``fused_range_scan`` and ``index_probe`` have one kernel each, and so
+do the LM kernels: ``mamba_scan`` (the ssm prefill's selective scan,
+called by ``models.ssm.mamba_block`` under ``use_scan_kernel``) and
+``flash_decode`` (one-token decode attention; no model calls it, in the
+JAX package either).
 """
 
 from __future__ import annotations
@@ -21,16 +25,18 @@ import torch
 
 from repro_torch.core.feature import KeyNormalizer, expand_features
 from repro_torch.core.flow import FlowConfig, materialize_weights
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import fused_lookup as _fl
 from repro_torch.kernels import index_probe as _ip
+from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import range_scan as _rs
 from repro_torch.kernels import streamed_lookup as _sl
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.nf_forward import nf_forward, pack_flow_weights
 
 __all__ = ["nf_transform_keys", "pack_params", "fused_lookup",
-           "fused_range_scan", "index_probe", "launch_counts",
-           "reset_launch_counts"]
+           "fused_range_scan", "index_probe", "mamba_scan", "flash_decode",
+           "launch_counts", "reset_launch_counts"]
 
 
 def pack_params(params: Dict, cfg: FlowConfig):
@@ -129,13 +135,31 @@ def index_probe(qkey: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
                            elo, epayload, echild)
 
 
+def mamba_scan(dt: torch.Tensor, xi: torch.Tensor, b_in: torch.Tensor,
+               c_out: torch.Tensor, a_log: torch.Tensor) -> torch.Tensor:
+    """Mamba1 selective scan -> y f32[B, L, di] on the inputs' device
+    (the JAX package's ``chunk`` and ``dblock`` size TPU blocks and have
+    no counterpart)."""
+    return _ms.mamba_scan(dt, xi, b_in, c_out, a_log)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len: torch.Tensor) -> torch.Tensor:
+    """One-token GQA decode attention -> f32 [B, H, D] on the inputs'
+    device (the JAX package's ``block`` sizes TPU blocks; the plain
+    version keeps its 256)."""
+    return _fd.flash_decode(q, k, v, kv_len)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, per kernel."""
     return {"nf_forward": nf_forward.launches,
             "fused_lookup": _fl.fused_lookup.launches,
             "streamed_lookup": _sl.streamed_lookup.launches,
             "fused_range_scan": _rs.fused_range_scan.launches,
-            "index_probe": _ip.index_probe.launches}
+            "index_probe": _ip.index_probe.launches,
+            "mamba_scan": _ms.mamba_scan.launches,
+            "flash_decode": _fd.flash_decode.launches}
 
 
 def reset_launch_counts() -> None:
@@ -145,4 +169,6 @@ def reset_launch_counts() -> None:
     _sl.streamed_lookup.launches = 0
     _rs.fused_range_scan.launches = 0
     _ip.index_probe.launches = 0
+    _ms.mamba_scan.launches = 0
+    _fd.flash_decode.launches = 0
     fused_range_scan.truncated = 0

@@ -16,8 +16,10 @@ from repro_torch.core.nfl import NFL, NFLConfig
 from repro_torch.core.train_flow import FlowTrainConfig, FlowTrainer
 from repro_torch.data.datasets import make_dataset
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.fused_lookup import fused_lookup, fused_lookup_plain
 from repro_torch.kernels.index_probe import index_probe, index_probe_plain
+from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
 from repro_torch.kernels.nf_forward import nf_forward, nf_forward_plain
 from repro_torch.kernels.range_scan import (fused_range_scan,
                                             fused_range_scan_plain)
@@ -368,3 +370,131 @@ def test_normalizer_features_are_host_side(cuda):
     idx.build(keys, np.arange(keys.shape[0]))
     assert idx._kernel_pools().ekey.device.type == "cuda"
     assert f.dtype == np.float32
+
+
+# ------------------------------------------------------------ LM kernels
+# mamba_scan: h follows the plain version's arithmetic (one rounding per
+# multiply and add, the same expf); y's N-term sum runs in another order,
+# far inside the JAX test's 1e-4.  flash_decode: the JAX tests' bounds
+# (2e-5 with an f32 cache, 2e-2 with a 16-bit one); the softmax sums run
+# in another order.
+SCAN_TOL = 1e-4
+
+
+def _scan_args(b, l, di, n, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn(b, l, di, generator=g))
+    xi = torch.randn(b, l, di, generator=g)
+    b_in = torch.randn(b, l, n, generator=g)
+    c_out = torch.randn(b, l, n, generator=g)
+    a_log = torch.randn(di, n, generator=g) * 0.5
+    return [t.to(dev) for t in (dt, xi, b_in, c_out, a_log)]
+
+
+@pytest.mark.parametrize("b,l,di,n", [(1, 2048, 8192, 16), (2, 1000, 256, 16),
+                                      (3, 77, 200, 8), (1, 50, 64, 48),
+                                      (2, 33, 40, 1)])
+def test_mamba_scan_kernel_matches_plain(cuda, b, l, di, n):
+    args = _scan_args(b, l, di, n, l + n, cuda)
+    before = mamba_scan.launches
+    yk = mamba_scan(*args)
+    yp = mamba_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert mamba_scan.launches == before + 1
+    assert yk.shape == (b, l, di) and bool(torch.isfinite(yk).all())
+    torch.testing.assert_close(yk, yp, rtol=SCAN_TOL, atol=SCAN_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b,h,kh,d,s", [(4, 40, 8, 128, 4096),
+                                        (3, 8, 2, 64, 300),
+                                        (3, 4, 4, 256, 130),
+                                        (3, 6, 3, 40, 77)])
+def test_flash_decode_kernel_matches_plain(cuda, dtype, b, h, kh, d, s):
+    g = torch.Generator().manual_seed(b * h + s)
+    q = (torch.randn(b, h, d, generator=g) / d ** 0.5).to(cuda)
+    k = torch.randn(b, s, kh, d, generator=g).to(dtype).to(cuda)
+    v = torch.randn(b, s, kh, d, generator=g).to(dtype).to(cuda)
+    kv_len = torch.tensor([0, 1, s, s // 2][:b], dtype=torch.int32,
+                          device=cuda)
+    before = flash_decode.launches
+    ok = flash_decode(q, k, v, kv_len)
+    op = flash_decode_plain(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    assert ok.dtype == torch.float32 and not ok[0].any()
+    # both sides widen k and v to f32 exactly, whatever their dtype, and
+    # compute in f32: only the order of the sums differs
+    torch.testing.assert_close(ok, op, rtol=2e-5, atol=2e-5)
+
+
+def test_lm_kernels_reject_bad_inputs(cuda):
+    dt, xi, b_in, c_out, a_log = _scan_args(1, 16, 32, 8, 0, cuda)
+    with pytest.raises(ValueError):            # wrong device
+        mamba_scan(dt, xi, b_in, c_out, a_log.cpu())
+    with pytest.raises(ValueError):            # wrong dtype
+        mamba_scan(dt.double(), xi, b_in, c_out, a_log)
+    with pytest.raises(ValueError):            # not contiguous
+        mamba_scan(dt, xi, torch.cat([b_in, b_in], -1)[..., ::2], c_out,
+                   a_log)
+    with pytest.raises(ValueError):            # state wider than 128
+        big = torch.zeros(1, 16, 129, device=cuda)
+        mamba_scan(dt, xi, big, big, torch.zeros(32, 129, device=cuda))
+    q = torch.zeros(2, 8, 64, device=cuda)
+    k = torch.zeros(2, 32, 2, 64, device=cuda, dtype=torch.bfloat16)
+    kv_len = torch.full((2,), 32, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):            # wrong device
+        flash_decode(q, k, k, kv_len.cpu())
+    with pytest.raises(ValueError):            # wrong dtype
+        flash_decode(q, k, k, kv_len.long())
+    with pytest.raises(ValueError):            # k and v differ in dtype
+        flash_decode(q, k, k.float(), kv_len)
+    with pytest.raises(ValueError):            # not contiguous
+        flash_decode(q, k.transpose(1, 2), k.transpose(1, 2), kv_len)
+    with pytest.raises(ValueError):            # H % KH != 0
+        flash_decode(q[:, :7].contiguous(), k, k, kv_len)
+
+
+def test_lm_serves_on_card_through_the_scan(cuda):
+    """The falcon-mamba-7b smoke model on the card: every prefill layer
+    launches the scan, and the batcher's tokens equal the chunked path's
+    on the card and the port's on the CPU (f32, TF32 off)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serve.scheduler import (ContinuousBatcher, Request,
+                                             ServeConfig)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = get_config("falcon-mamba-7b", smoke=True)
+    prompts = [np.array([5, 6, 7], np.int32), np.arange(40, dtype=np.int32),
+               np.array([11, 3, 1, 8], np.int32)]
+
+    def serve(cfg, dev, params):
+        model = build_model(cfg, device=dev)
+        b = ContinuousBatcher(model, params, ServeConfig(batch_slots=2,
+                                                         max_len=64))
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            b.submit(r)
+        b.run_until_drained()
+        return [r.output for r in reqs]
+
+    kcfg = dataclasses.replace(base, ssm=dataclasses.replace(
+        base.ssm, use_scan_kernel=True))
+    params = build_model(kcfg, cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    ops.reset_launch_counts()
+    got = serve(kcfg, cuda, params)
+    assert ops.launch_counts()["mamba_scan"] == base.n_layers * len(prompts)
+    assert got == serve(base, cuda, params)
+    cpu_params = {k: (v.cpu() if torch.is_tensor(v) else
+                      {a: (b.cpu() if torch.is_tensor(b) else
+                           {c: d.cpu() for c, d in b.items()})
+                       for a, b in v.items()})
+                  for k, v in params.items()}
+    assert got == serve(kcfg, "cpu", cpu_params)

@@ -36,6 +36,8 @@ def test_bulkload_and_lookup_ground_truth(name, force_flow):
     loaded, zipf reads of loaded keys, then every unloaded key misses."""
     keys = make_dataset(name, 12000)
     wl = make_workload(keys, WorkloadConfig(n_ops=8192, batch_size=2048))
+    # the counters are process-wide: start from zero, whatever ran before
+    ops.reset_launch_counts()
     nfl = t_nfl.NFL(_cfg(force_flow=force_flow), device="cpu")
     nfl.bulkload(wl.load_keys, wl.load_payloads)
     assert nfl.use_flow is force_flow

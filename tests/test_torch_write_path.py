@@ -237,6 +237,98 @@ def test_fold_is_bounded_per_write_and_serves_while_running():
     assert np.array_equal(idx.lookup_batch(live), [oracle[x] for x in live])
 
 
+@pytest.mark.parametrize("step", [64, 1024])
+def test_fold_tick_bounds_fits_and_charges(step, monkeypatch):
+    """Each build step of a fold fits and places one chunk of nodes of
+    at most ``fold_step_keys`` keys (or one node above it, charged as a
+    partition pass); one tick at a budget of ``step`` places at most two
+    steps' worth of keys in multi-node chunks and overshoots its budget
+    by at most its last step; and the folded pools equal a one-shot
+    build of the same snapshot, of either package, bit for bit."""
+    rng = np.random.default_rng(11)
+    keys = np.unique(np.floor(rng.lognormal(0, 2, 40_000) * 1e9))
+    pv = np.arange(keys.shape[0], dtype=np.int64)
+    cfg = tfa.FlatAFLIConfig(fold_step_keys=step, rebuild_frac=10.0)
+    idx = tfa.FlatAFLI(cfg, device="cpu")
+    idx.build(keys, pv)
+    fits = []                       # per _fit call: (nodes, keys)
+    fit = tfa._Builder._fit
+
+    def counting_fit(self, pk, s0, n, skip):
+        fits.append((int(n.shape[0]), int(n.sum())))
+        return fit(self, pk, s0, n, skip)
+
+    monkeypatch.setattr(tfa._Builder, "_fit", counting_fit)
+    idx._fold_start()
+    fold = idx._fold
+    snapshot = (fold.pk, fold.hi, fold.lo, fold.pv)
+    charges = []
+    levels = fold._levels
+
+    def recorded():
+        for c in levels:
+            charges.append(c)
+            yield c
+
+    fold._levels = recorded()
+    ticks = []
+    while idx._fold is not None:
+        f0, c0 = len(fits), len(charges)
+        idx._fold_tick(step)
+        ticks.append((fits[f0:], charges[c0:]))
+    assert idx.n_rebuilds == 1 and len(fits) > 10
+    for nodes, k in fits:
+        assert nodes == 1 or k <= step, (nodes, k)
+    for tick_fits, tick_charges in ticks:
+        assert sum(k for nodes, k in tick_fits if nodes > 1) <= 2 * step
+        if tick_charges:
+            assert sum(tick_charges[:-1]) < step
+    build_ticks = sum(1 for f, c in ticks if c)
+    assert build_ticks >= sum(k for _, k in fits) // (16 * 2 * step)
+    one = tfa._Builder(cfg, idx.d_tail)
+    one.build(*snapshot)
+    jb = jfa._Builder(jfa.FlatAFLIConfig(fold_step_keys=step), idx.d_tail)
+    jb.build(*snapshot)
+    for field, x, y, z in zip(one.finalize()._fields, one.finalize(),
+                              idx.arrays, jb.finalize()):
+        z = np.asarray(z)
+        assert np.array_equal(x, y) and x.dtype == y.dtype, field
+        assert np.array_equal(x, z) and x.dtype == z.dtype, field
+
+
+def test_fold_start_call_spends_its_budget_on_the_snapshot():
+    """The write call that starts a fold pays the O(n) snapshot, counts
+    it against its budget and takes no build step when the snapshot
+    alone exceeds the budget; the next call does, and the fold still
+    swaps in-stream with every read right."""
+    rng = np.random.default_rng(9)
+    keys = np.unique(rng.uniform(0, 1e9, 8000))
+    load, extra = keys[::2], keys[1::2]
+    cfg = tfa.FlatAFLIConfig(rebuild_frac=0.05, delta_cap=64,
+                             fold_step_keys=128, fold_work_factor=2.0)
+    idx = tfa.FlatAFLI(cfg, device="cpu")
+    idx.build(load, np.arange(load.shape[0]))
+    oracle = dict(zip(load, range(load.shape[0])))
+    started = None
+    for i in range(0, extra.shape[0], 100):
+        k = extra[i:i + 100]
+        v = np.arange(k.shape[0]) + 10_000 + i
+        had = idx._fold is not None
+        idx.insert_batch(k, v)
+        oracle.update(zip(k, v))
+        if started is None and not had and idx._fold is not None:
+            started = idx._fold
+            assert started.n > 2 * 100           # snapshot above budget
+            assert started.report["ticks"] == 0 and started.phase == "build"
+        elif started is not None and idx._fold is started:
+            assert started.report["ticks"] >= 1
+        got = idx.lookup_batch(k)
+        assert np.array_equal(got, v)
+    assert started is not None and idx.n_rebuilds >= 1
+    live = np.array(sorted(oracle))
+    assert np.array_equal(idx.lookup_batch(live), [oracle[x] for x in live])
+
+
 def test_unbuilt_index_buffers_writes_in_the_tiers():
     """Writes before any build land in the tiers and are served from
     them (the tree is empty); a build then replaces them, as in the JAX
