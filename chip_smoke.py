@@ -78,7 +78,9 @@ Phases (any failure exits non-zero before the result lines):
    scan inputs of the first layers of the 2,048-token prompt and on a
    ragged L of 1,000, bounded by its bytes or its exponentials;
    ``flash_decode`` with the bf16 cache and an f32 one, timed beside
-   ``scaled_dot_product_attention`` (the library yardstick only).
+   ``scaled_dot_product_attention`` (the library yardstick only), and
+   again at B 1 over the cache's row of length S, where the split plan
+   matters most; each kernel's plan (scan chunks, decode splits) printed.
 7. result lines: the kernel table as JSON, then the final JSON object
    ``{"ok": true, "device": {...}}``.
 
@@ -1708,6 +1710,8 @@ def scan_row(caps, k, flush_buf):
     rate = sfu_per_s()
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = exps / rate * 1e3
+    plan = k.scan_plan(b, l, di, n)
+    log(f"mamba_scan plan at {(b, l, di, n)}: {plan._asdict()}")
     fns = [lambda a=a: k.mamba_scan(*a) for a in caps]
     cold, warm, host = timed_launches(fns, flush_buf)
     ms, ms_warm = statistics.median(cold), statistics.median(warm)
@@ -1727,7 +1731,7 @@ def scan_row(caps, k, flush_buf):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "ms_warm_l2": ms_warm, "host_ms_per_call": host,
         "bytes_ms": t_bytes, "exp_ms": t_ops, "sfu_per_s": rate,
-        "shape": [b, l, di, n]}
+        "shape": [b, l, di, n], "plan": plan._asdict()}
 
 
 def flash_decode_inputs(seed):
@@ -1773,70 +1777,114 @@ def flash_decode_window(win, ops, q, kc, vc, kv_len):
         fail("flash_decode window: wrong outputs or launches")
 
 
-def flash_decode_row(k, flush_buf, q, kc, vc, kv_len):
-    """Phase 6: flash_decode against plain with the bf16 cache and an f32
-    one, timed launch by launch, bounded by the K/V rows below kv_len
-    plus q and o, beside SDPA (timed only)."""
+def sdpa_ms(q, kc, vc, kl, flush_buf):
+    """``scaled_dot_product_attention`` over the same cache (heads-major
+    copies, a length mask): the library yardstick, timed only, never
+    called by the port.  Returns the mean of 5 calls back to back (the
+    host's issue time shows through when the call is short) and the
+    median of 16 calls each alone after an L2 flush, timed as the
+    kernels are (the figure to hold them against)."""
     import torch.nn.functional as F
 
-    dev = q.device
-    kl = torch.as_tensor(kv_len, dtype=torch.int32, device=dev)
-    err = 0.0
-    for what, args in (
-            ("bf16 cache", (q, kc, vc, kl)),
-            ("f32 cache", (q[:FD_F32_BATCH].contiguous(),
-                           kc[:FD_F32_BATCH].float(),
-                           vc[:FD_F32_BATCH].float(), kl[:FD_F32_BATCH]))):
-        ok_k = k.flash_decode(*args)
-        ok_p = k.flash_decode_plain(*args)
-        torch.cuda.synchronize()
-        e = float((ok_k - ok_p).abs().max())
-        good = bool(torch.allclose(ok_k, ok_p, rtol=FD_TOL, atol=FD_TOL))
-        zero = not ok_k[0].any() and not ok_p[0].any()
-        log(f"flash_decode vs plain, {what} {tuple(args[1].shape)}, "
-            f"lengths {kv_len[:args[0].shape[0]].tolist()}: max |do| {e}, "
-            f"within {FD_TOL}: {good} (plain's mean |o| "
-            f"{float(ok_p.abs().mean())}); kv_len 0 row zero in both: "
-            f"{zero}")
-        if not (good and zero):
-            fail(f"flash_decode disagrees with its plain version ({what})")
-        err = max(err, e)
-        del ok_k, ok_p
-    b, s, kh, d = kc.shape
-    h = q.shape[1]
-    rows = int(np.minimum(kv_len, s).sum())
-    bytes_ = rows * kh * d * kc.element_size() * 2 + 2 * b * h * d * 4
-    bound = bytes_ / HBM_BYTES_PER_S * 1e3
-    fns = [lambda: k.flash_decode(q, kc, vc, kl)] * 16
-    cold, warm, host = timed_launches(fns, flush_buf)
-    ms, ms_warm = statistics.median(cold), statistics.median(warm)
-    plain_ms = time_ms(lambda: k.flash_decode_plain(q, kc, vc, kl), 1, 1)
-    # the library yardstick: SDPA over the same cache, heads-major copies
+    s = kc.shape[1]
     qs = q.to(kc.dtype)[:, :, None, :]
     ks, vs = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-    mask = (torch.arange(s, device=dev)[None, :] < kl[:, None].long()
+    mask = (torch.arange(s, device=q.device)[None, :] < kl[:, None].long()
             )[:, None, None, :]
 
     def library():
         return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                               scale=1.0, enable_gqa=True)
 
-    lib_ms = time_ms(library, 5, 1)
-    del ks, vs
+    mean = time_ms(library, 5, 1)
+    cold = statistics.median(launch_times_ms([library] * 16, flush_buf.zero_))
+    return mean, cold
+
+
+def decode_bytes(kc, kv_len, b, h):
+    """K and V rows below kv_len, read once, plus q and o in f32."""
+    s, kh, d = kc.shape[1:]
+    rows = int(np.minimum(kv_len, s).sum())
+    return rows, rows * kh * d * kc.element_size() * 2 + 2 * b * h * d * 4
+
+
+def flash_decode_row(k, flush_buf, q, kc, vc, kv_len):
+    """Phase 6: flash_decode against plain with the bf16 cache and an f32
+    one, timed launch by launch, bounded by the K/V rows below kv_len
+    plus q and o, beside SDPA (timed only); then the same at B 1 over the
+    row of length S, where the split plan matters most."""
+    dev = q.device
+    kl = torch.as_tensor(kv_len, dtype=torch.int32, device=dev)
+    b, s, kh, d = kc.shape
+    h = q.shape[1]
+    err = 0.0
+    one = int(np.flatnonzero(kv_len == s)[0])      # the row of length S
+    cases = (("bf16 cache", (q, kc, vc, kl)),
+             ("f32 cache", (q[:FD_F32_BATCH].contiguous(),
+                            kc[:FD_F32_BATCH].float(),
+                            vc[:FD_F32_BATCH].float(), kl[:FD_F32_BATCH])),
+             ("bf16 cache, B 1", (q[one:one + 1], kc[one:one + 1],
+                                  vc[one:one + 1], kl[one:one + 1])))
+    for what, args in cases:
+        plan = k.device_plan(args[0], args[1])
+        ok_k = k.flash_decode(*args, plan)
+        ok_p = k.flash_decode_plain(*args, plan)
+        torch.cuda.synchronize()
+        e = float((ok_k - ok_p).abs().max())
+        good = bool(torch.allclose(ok_k, ok_p, rtol=FD_TOL, atol=FD_TOL))
+        lens = args[3].tolist()
+        zero = all(not ok_k[i].any() and not ok_p[i].any()
+                   for i, n in enumerate(lens) if n == 0)
+        log(f"flash_decode vs plain, {what} {tuple(args[1].shape)}, "
+            f"lengths {lens}, plan {plan._asdict()}: max |do| {e}, within "
+            f"{FD_TOL}: {good} (plain's mean |o| "
+            f"{float(ok_p.abs().mean())}); kv_len 0 rows zero in both: "
+            f"{zero}")
+        if not (good and zero):
+            fail(f"flash_decode disagrees with its plain version ({what})")
+        err = max(err, e)
+        del ok_k, ok_p
+    if kv_len[0] != 0:
+        fail("flash_decode inputs lost their kv_len 0 row")
+    plan = k.device_plan(q, kc)
+    rows, bytes_ = decode_bytes(kc, kv_len, b, h)
+    bound = bytes_ / HBM_BYTES_PER_S * 1e3
+    fns = [lambda: k.flash_decode(q, kc, vc, kl)] * 16
+    cold, warm, host = timed_launches(fns, flush_buf)
+    ms, ms_warm = statistics.median(cold), statistics.median(warm)
+    plain_ms = time_ms(lambda: k.flash_decode_plain(q, kc, vc, kl), 1, 1)
+    lib_ms, lib_cold = sdpa_ms(q, kc, vc, kl, flush_buf)
     log(f"flash_decode: median over {len(fns)} launches {ms:.5f} ms cold L2 "
         f"(min {min(cold):.5f}, max {max(cold):.5f}), {ms_warm:.5f} ms warm "
         f"L2; host issue {host:.5f} ms/call; plain {plain_ms:.3f} ms; SDPA "
-        f"{lib_ms:.5f} ms; {rows} K/V positions, {bytes_} B -> bound "
-        f"{bound:.5f} ms; ms/bound {ms / bound:.1f}")
+        f"{lib_ms:.5f} ms back to back, {lib_cold:.5f} ms cold L2; {rows} "
+        f"K/V positions, {bytes_} B -> bound "
+        f"{bound:.5f} ms; ms/bound {ms / bound:.2f}; plan {plan._asdict()}")
+    a1 = cases[2][1]
+    plan1 = k.device_plan(a1[0], a1[1])
+    rows1, bytes1 = decode_bytes(kc, kv_len[one:one + 1], 1, h)
+    bound1 = bytes1 / HBM_BYTES_PER_S * 1e3
+    cold1, warm1, _h1 = timed_launches([lambda: k.flash_decode(*a1)] * 16,
+                                       flush_buf)
+    ms1 = statistics.median(cold1)
+    lib1, lib1_cold = sdpa_ms(*a1, flush_buf)
+    log(f"flash_decode at B 1, S {s}: median {ms1:.5f} ms cold L2, "
+        f"{statistics.median(warm1):.5f} ms warm; SDPA {lib1:.5f} ms back "
+        f"to back, {lib1_cold:.5f} ms cold L2; "
+        f"{rows1} positions, {bytes1} B -> bound {bound1:.5f} ms; ms/bound "
+        f"{ms1 / bound1:.2f}; plan {plan1._asdict()}")
     return {
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode.py:69",
         "launches": None, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-        "library_ms": lib_ms, "ms_warm_l2": ms_warm,
-        "host_ms_per_call": host, "positions": rows,
-        "shape": [b, h, kh, d, s]}
+        "library_ms": lib_cold, "library_ms_back_to_back": lib_ms,
+        "ms_warm_l2": ms_warm, "host_ms_per_call": host, "positions": rows,
+        "shape": [b, h, kh, d, s], "plan": plan._asdict(),
+        "b1_ms": ms1, "b1_ms_warm_l2": statistics.median(warm1),
+        "b1_library_ms": lib1_cold, "b1_library_ms_back_to_back": lib1,
+        "b1_bound_ms": bound1, "b1_plan": plan1._asdict()}
 
 
 # ----------------------------------------------------------------- main
@@ -1878,14 +1926,18 @@ class Kernels:
         self.streamed_lookup_plain = streamed_lookup_plain
         self.index_probe, self.index_probe_plain = (index_probe,
                                                     index_probe_plain)
-        from repro_torch.kernels.flash_decode import (flash_decode,
+        from repro_torch.kernels.flash_decode import (device_plan,
+                                                      flash_decode,
                                                       flash_decode_plain)
         from repro_torch.kernels.mamba_scan import (mamba_scan,
-                                                    mamba_scan_plain)
+                                                    mamba_scan_plain,
+                                                    scan_plan)
 
         self.mamba_scan, self.mamba_scan_plain = mamba_scan, mamba_scan_plain
+        self.scan_plan = scan_plan
         self.flash_decode = flash_decode
         self.flash_decode_plain = flash_decode_plain
+        self.device_plan = device_plan
 
 
 def main() -> int:

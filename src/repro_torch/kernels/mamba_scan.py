@@ -3,29 +3,54 @@
 Port of ``repro.kernels.mamba_scan`` (and of its oracle
 ``repro.kernels.ref.mamba_scan_ref``).  ``mamba_scan`` launches the CUDA
 kernel (``csrc/mamba_scan.cu``: a group of lanes per channel, the state
-in registers for the whole sequence) on CUDA tensors and runs
-``mamba_scan_plain`` on CPU tensors.  Per batch row and channel d:
+in registers for the whole sequence, dt, x, B and C staged through
+shared memory a time chunk at a time, as ``scan_plan`` sizes them) on
+CUDA tensors and runs ``mamba_scan_plain`` on CPU tensors.  Per batch
+row and channel d:
 
     h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t,  A = -exp(a_log)
     y_t = sum_n h_t[n] * C_t[n]
 
 from ``h_0 = 0``; returns y and drops the final state, as the JAX
 wrapper does.  The JAX function's ``chunk`` and ``dblock`` size TPU
-blocks (VMEM tiling) and have no counterpart: the card needs no padding
-of L and takes any di.
+blocks (VMEM tiling); the plan's ``chunk`` sizes the shared-memory stages
+instead, and the card needs no padding of L and takes any di.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["mamba_scan", "mamba_scan_plain", "MAX_STATE"]
+__all__ = ["mamba_scan", "mamba_scan_plain", "scan_plan", "ScanPlan",
+           "MAX_STATE"]
 
-MAX_STATE = 128   # 32 lanes x MAX_NPL (csrc/mamba_scan.cu)
+MAX_STATE = 128      # LANES x the widest NPL the kernel is built for
+CHANNEL_TILE = 32    # csrc/mamba_scan.cu CT: channels per block
+LANES = 8            # lanes per channel once N reaches it
+SMEM_BUDGET = 100 * 1024   # bytes: two blocks of a plan fit on an SM
+# (lanes, states per lane) pairs that csrc/mamba_scan.cu instantiates
+KERNELS = frozenset({(1, 1), (2, 1), (4, 1), (8, 1), (8, 2), (8, 4),
+                     (8, 8), (8, 16)})
+
+
+class ScanPlan(NamedTuple):
+    """How the kernel cuts a scan: ``lanes`` per channel, each keeping
+    ``npl`` states; ``channel_tile`` channels per block; time staged in
+    chunks of ``chunk`` steps, double-buffered, with each lane's share of
+    y, in ``smem_bytes`` of shared memory; ``blocks`` blocks of
+    ``channel_tile * lanes`` threads."""
+
+    lanes: int
+    npl: int
+    chunk: int
+    channel_tile: int
+    blocks: int
+    smem_bytes: int
 
 
 class _MambaArgs(ctypes.Structure):
@@ -33,7 +58,25 @@ class _MambaArgs(ctypes.Structure):
 
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "dt", "xi", "b_in", "c_out", "a_neg", "y")]
-        + [(n, ctypes.c_int) for n in ("B", "L", "di", "N")])
+        + [(n, ctypes.c_int) for n in ("B", "L", "di", "N", "lanes", "npl",
+                                       "chunk")])
+
+
+def scan_plan(b: int, l: int, di: int, n: int) -> ScanPlan:
+    """The kernel's cut of a [B, L, di] x N scan, 0 < N <= ``MAX_STATE``:
+    ``min(LANES, next_pow2(N))`` lanes per channel, each with the next
+    power of two of ``N / lanes`` states (a pair in ``KERNELS``); the
+    longest chunk of 64, 32 or 16 steps whose two stages and lane sums
+    fit ``SMEM_BUDGET``."""
+    g = min(LANES, 1 << (n - 1).bit_length())
+    npl = 1 << (-(-n // g) - 1).bit_length()
+    ct = CHANNEL_TILE
+
+    def smem(chunk):
+        return 4 * (2 * (2 * chunk * ct + 2 * chunk * n) + chunk * ct * g)
+
+    chunk = next((c for c in (64, 32) if smem(c) <= SMEM_BUDGET), 16)
+    return ScanPlan(g, npl, chunk, ct, -(-di // ct) * b, smem(chunk))
 
 
 def mamba_scan_plain(dt: torch.Tensor, xi: torch.Tensor, b_in: torch.Tensor,
@@ -64,8 +107,9 @@ def mamba_scan(dt: torch.Tensor, xi: torch.Tensor, b_in: torch.Tensor,
 
     dt, xi: f32[B, L, di] (softplus'd step sizes, conv+silu'd inputs);
     b_in, c_out: f32[B, L, N]; a_log: f32[di, N]; all contiguous on one
-    device, N <= 128.  CUDA tensors launch ``csrc/mamba_scan.cu`` (and
-    count the launch); CPU tensors run ``mamba_scan_plain``."""
+    device, N <= 128.  CUDA tensors launch ``csrc/mamba_scan.cu`` as
+    ``scan_plan`` cuts it (and count the launch); CPU tensors run
+    ``mamba_scan_plain``."""
     if dt.device.type == "cpu":
         return mamba_scan_plain(dt, xi, b_in, c_out, a_log)
     if dt.device.type != "cuda":
@@ -88,6 +132,7 @@ def mamba_scan(dt: torch.Tensor, xi: torch.Tensor, b_in: torch.Tensor,
     if not 0 < n <= MAX_STATE or b > 65535:
         raise ValueError(f"mamba_scan takes 0 < N <= {MAX_STATE} and "
                          "B <= 65535")
+    plan = scan_plan(b, l, di, n)
     y = torch.empty((b, l, di), dtype=torch.float32, device=dt.device)
     if y.numel() == 0:
         return y
@@ -97,6 +142,7 @@ def mamba_scan(dt: torch.Tensor, xi: torch.Tensor, b_in: torch.Tensor,
                                                           c_out))
     a.a_neg, a.y = a_neg.data_ptr(), y.data_ptr()
     a.B, a.L, a.di, a.N = b, l, di, n
+    a.lanes, a.npl, a.chunk = plan.lanes, plan.npl, plan.chunk
     fn = build.load("mamba_scan").mamba_scan_launch
     fn.argtypes = [ctypes.POINTER(_MambaArgs), ctypes.c_void_p]
     fn.restype = ctypes.c_int

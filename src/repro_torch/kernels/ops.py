@@ -138,16 +138,16 @@ def index_probe(qkey: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
 def mamba_scan(dt: torch.Tensor, xi: torch.Tensor, b_in: torch.Tensor,
                c_out: torch.Tensor, a_log: torch.Tensor) -> torch.Tensor:
     """Mamba1 selective scan -> y f32[B, L, di] on the inputs' device
-    (the JAX package's ``chunk`` and ``dblock`` size TPU blocks and have
-    no counterpart)."""
+    (the JAX package's ``chunk`` and ``dblock`` size TPU blocks; the
+    kernel's own cut is ``mamba_scan.scan_plan``)."""
     return _ms.mamba_scan(dt, xi, b_in, c_out, a_log)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kv_len: torch.Tensor) -> torch.Tensor:
     """One-token GQA decode attention -> f32 [B, H, D] on the inputs'
-    device (the JAX package's ``block`` sizes TPU blocks; the plain
-    version keeps its 256)."""
+    device (the JAX package's ``block`` sizes TPU blocks; the kernel and
+    the plain version both follow ``flash_decode.decode_plan``)."""
     return _fd.flash_decode(q, k, v, kv_len)
 
 

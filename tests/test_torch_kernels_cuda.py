@@ -16,7 +16,8 @@ from repro_torch.core.nfl import NFL, NFLConfig
 from repro_torch.core.train_flow import FlowTrainConfig, FlowTrainer
 from repro_torch.data.datasets import make_dataset
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from repro_torch.kernels.flash_decode import (DecodePlan, device_plan,
+                                              flash_decode, flash_decode_plain)
 from repro_torch.kernels.fused_lookup import fused_lookup, fused_lookup_plain
 from repro_torch.kernels.index_probe import index_probe, index_probe_plain
 from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
@@ -391,9 +392,14 @@ def _scan_args(b, l, di, n, seed, dev):
     return [t.to(dev) for t in (dt, xi, b_in, c_out, a_log)]
 
 
+# L 1, L inside one chunk (``scan_plan``: 32 steps at N 16, 16 at N 128),
+# one step past a chunk and past two, di not a multiple of the 32-channel
+# tile (and not of 4: the unvectorised staging), N at its 128 maximum
 @pytest.mark.parametrize("b,l,di,n", [(1, 2048, 8192, 16), (2, 1000, 256, 16),
                                       (3, 77, 200, 8), (1, 50, 64, 48),
-                                      (2, 33, 40, 1)])
+                                      (2, 33, 40, 1), (1, 1, 8192, 16),
+                                      (2, 20, 96, 16), (1, 33, 1001, 16),
+                                      (2, 17, 72, 128), (1, 65, 100, 16)])
 def test_mamba_scan_kernel_matches_plain(cuda, b, l, di, n):
     args = _scan_args(b, l, di, n, l + n, cuda)
     before = mamba_scan.launches
@@ -427,6 +433,36 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, b, h, kh, d, s):
     # both sides widen k and v to f32 exactly, whatever their dtype, and
     # compute in f32: only the order of the sums differs
     torch.testing.assert_close(ok, op, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b,h,kh,d,s,lens,plan", [
+    (1, 40, 8, 128, 32768, [32768], None),            # B 1 at S 32k
+    (2, 8, 8, 64, 1000, [1000, 333], None),           # group size 1
+    (2, 40, 8, 128, 5000, [5000, 2500], None),        # group size 5
+    (2, 40, 2, 64, 300, [300, 131], None),            # 20 heads: 3 groups
+    (2, 8, 2, 64, 4096, [512, 1024], DecodePlan(8, 512, 16)),  # on a split
+    (3, 8, 2, 64, 1000, [1000, 999, 65], DecodePlan(4, 256, 16)),  # S % 16
+    (2, 4, 2, 33, 100, [100, 50], None),              # odd D: 2-byte rows
+])
+def test_flash_decode_kernel_split_edges(cuda, dtype, b, h, kh, d, s, lens,
+                                         plan):
+    g = torch.Generator().manual_seed(b * h + s + d)
+    q = (torch.randn(b, h, d, generator=g) / d ** 0.5).to(cuda)
+    k = torch.randn(b, s, kh, d, generator=g).to(dtype).to(cuda)
+    v = torch.randn(b, s, kh, d, generator=g).to(dtype).to(cuda)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    plan = plan or device_plan(q, k)
+    before = flash_decode.launches
+    ok = flash_decode(q, k, v, kv_len, plan)
+    op = flash_decode_plain(q, k, v, kv_len, plan)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    torch.testing.assert_close(ok, op, rtol=2e-5, atol=2e-5)
+    # the default plan's result is the same function
+    torch.testing.assert_close(ok, flash_decode(q, k, v, kv_len), rtol=2e-5,
+                               atol=2e-5)
 
 
 def test_lm_kernels_reject_bad_inputs(cuda):

@@ -27,7 +27,9 @@ from repro.models.model import build_model as j_build_model
 from repro_torch.configs import get_config
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
+from repro_torch.kernels.mamba_scan import (KERNELS, MAX_STATE, SMEM_BUDGET,
+                                            mamba_scan, mamba_scan_plain,
+                                            scan_plan)
 from repro_torch.models import ssm
 from repro_torch.models.layers import Initializer
 from repro_torch.models.model import build_model
@@ -81,6 +83,20 @@ def test_mamba_scan_runs_plain_on_cpu_tensors():
     assert torch.equal(y, mamba_scan_plain(*args))
     assert torch.equal(y, mamba_scan(*args))
     assert ops.launch_counts()["mamba_scan"] == 0
+
+
+def test_scan_plan_has_a_kernel_for_every_state_width():
+    """Every N up to MAX_STATE gets a (lanes, states per lane) pair the
+    kernel is built for, enough states, chunks of whole 16-byte rows and
+    shared memory within the budget; falcon-mamba-7b's N 16 takes 8 lanes
+    of 2 states."""
+    for n in range(1, MAX_STATE + 1):
+        plan = scan_plan(1, 2048, 8192, n)
+        assert (plan.lanes, plan.npl) in KERNELS
+        assert plan.lanes * plan.npl >= n and plan.chunk % 4 == 0
+        assert plan.smem_bytes <= SMEM_BUDGET
+        assert plan.blocks == 8192 // plan.channel_tile
+    assert scan_plan(1, 2048, 8192, 16)[:3] == (8, 2, 32)
 
 
 def _layer(d_model, s, seed):
