@@ -44,13 +44,17 @@ Phases (any failure exits non-zero before the result lines):
    fold ran and the streamed launches equal the odd batches' read calls
    (no fold verify streamed); 1,024 deletes; one scan batch.
 4. kernels against their plain PyTorch versions on the card, at the
-   main path's shapes: ``nf_forward`` on the bulk-load keys;
+   main path's shapes: ``nf_forward`` on the bulk-load keys (and beside
+   its dense PyTorch equivalent, both cold L2);
    ``fused_lookup`` and ``streamed_lookup`` on the read batches of the
    fresh index, flow on (longlat) and off (lognormal), each timed launch
    by launch over the same 64 distinct batches, each after an L2 flush
    (cold) or after an idle spin (warm), its host issue time apart,
    bounded by the distinct 32-byte sectors its reads touch; both on a
    batch taken while the run and delta hold data and tombstones;
+   ``fused_lookup`` also at the fold verify's 4,096 keys (16 chunks in
+   key order, no tiers) and, after 2b, over the 52 read-back batches
+   with the run and the delta populated;
    ``index_probe`` on longlat's root node with the read batches' z,
    timed and bounded the same way; ``fused_range_scan`` flow on and off
    on scan batches taken in that state (longlat's 16 batches timed the
@@ -117,6 +121,8 @@ N_READ_BATCHES = 64
 N_WRITE_BATCHES = 64           # longlat write_heavy batches
 MAX_FOLD_BATCHES = 64          # lognormal: write batches allowed for a fold
 TAIL = 1024                    # writes left in the delta before the scans
+VERIFY_CHUNK = 4096            # FlatAFLIConfig.fold_step_keys
+N_VERIFY_CHUNKS = 16
 SCAN_BATCH = 16384
 N_SCAN_BATCHES = 16
 SCAN_CAP = 128
@@ -214,6 +220,7 @@ class Windows:
     def __init__(self, ops):
         self.ops = ops
         self.total = collections.Counter()
+        self.lookup_sizes = collections.Counter()   # batch size -> launches
 
     def run(self, fn, streamed: bool = False):
         """Drive ``fn`` in a window; outside the streamed steps
@@ -223,6 +230,7 @@ class Windows:
         counts = self.ops.launch_counts()
         counts["scan_truncated"] = self.ops.fused_range_scan.truncated
         self.total.update(counts)
+        self.lookup_sizes.update(self.ops.fused_lookup_launch_sizes())
         if not streamed and counts["streamed_lookup"]:
             fail(f"streamed_lookup launched {counts['streamed_lookup']} "
                  "times with pool_budget None")
@@ -1108,7 +1116,7 @@ def lookup_kw(nfl):
 
 
 # ------------------------------------------------- kernels vs plain
-def nf_forward_row(res, k):
+def nf_forward_row(res, k, flush_buf):
     dev = torch.device("cuda")
     nfl = res["nfl"]
     cfg = nfl.cfg.flow
@@ -1150,18 +1158,27 @@ def nf_forward_row(res, k):
              + sum(o for o, _ in shapes[:-1]) + 2 * d - 1)
     bytes_ = b * (4 * d + 4)
     bound_ms = max(bytes_ / HBM_BYTES_PER_S, b * flops / F32_FLOPS_PER_S) * 1e3
+
+    def kernel():
+        return k.nf_forward(feats, packed, shapes, d)
+
+    # cold L2: each call alone after a flush, the median of 5
+    cold = launch_times_ms([kernel] * 5, flush_buf.zero_)
+    lib_cold = launch_times_ms([library] * 5, flush_buf.zero_)
     return {
         "name": "nf_forward", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/nf_forward.cu",
         "replaces": "src/repro/kernels/nf_forward.py:113",
         "launches": None, "max_abs_err": err,
-        "ms": time_ms(lambda: k.nf_forward(feats, packed, shapes, d), 20),
+        "ms": statistics.median(cold),
         "plain_ms": time_ms(lambda: k.nf_forward_plain(feats, packed, shapes,
                                                        d), 5, 1),
         "bound_ms": bound_ms,
         "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S
                      >= b * flops / F32_FLOPS_PER_S else "operations"),
-        "library_ms": time_ms(library, 5, 1),
+        "library_ms": statistics.median(lib_cold),
+        "ms_back_to_back": time_ms(kernel, 20),
+        "library_ms_back_to_back": time_ms(library, 5, 1),
     }
 
 
@@ -1215,8 +1232,58 @@ def time_lookup(res, k, split_key_bits, flush_buf):
         f"{mean_depth:.3f}; {n_reads / BATCH:.2f} reads/query in "
         f"{sectors} distinct sectors ({sectors / BATCH:.3f}/query); "
         f"bound {bound:.6f} ms")
+    # the fold verify's launches: VERIFY_CHUNK keys in key order, no tiers
+    srt = np.sort(res["wl"].load_keys)
+    step = srt.shape[0] // N_VERIFY_CHUNKS
+    chunks = [lookup_args(nfl, srt[i * step:i * step + VERIFY_CHUNK], dev,
+                          split_key_bits)[:5] + (None,)
+              for i in range(N_VERIFY_CHUNKS)]
+    compare_lookup(res, chunks[0], kw, k, "verify chunk")
+    vcold, vwarm, vhost = timed_launches(
+        [lambda a=a: k.fused_lookup(*a, **kw) for a in chunks], flush_buf)
+    vms = statistics.median(vcold)
+    log(f"fused_lookup flow={flow} at the verify chunk ({VERIFY_CHUNK} "
+        f"keys in key order, no tiers): median over {len(chunks)} chunks "
+        f"{vms:.5f} ms cold L2 (min {min(vcold):.5f}, max "
+        f"{max(vcold):.5f}), {statistics.median(vwarm):.5f} ms warm L2; "
+        f"host issue {vhost:.5f} ms/call")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, ms_warm_l2=ms_warm,
-                host_ms_per_call=host, max_abs_err=err)
+                host_ms_per_call=host, max_abs_err=err, ms_verify_chunk=vms,
+                ms_warm_l2_verify_chunk=statistics.median(vwarm))
+
+
+def time_lookup_tiers(res, k, keys, split_key_bits, flush_buf):
+    """fused_lookup with the run and the delta populated, over the
+    read-back batches of the inserted keys: against plain on the first
+    (bit-equal), then timed launch by launch like ``time_lookup`` and
+    bounded by the sectors its reads touch, the tier searches' included.
+    """
+    dev = torch.device("cuda")
+    nfl = res["nfl"]
+    kw = lookup_kw(nfl)
+    batches = [lookup_args(nfl, keys[i:i + BATCH], dev, split_key_bits)
+               for i in range(0, keys.shape[0], BATCH)]
+    if batches[0][5] is None:
+        fail(f"{res['name']}: no write tier holds data for the tier timing")
+    _pk, zk, err = compare_lookup(res, batches[0], kw, k,
+                                  "read-back batch, tiers populated")
+    a0 = batches[0]
+    sectors, _n, _d = touched_sectors(a0[4], zk, a0[1], a0[2], kw, a0[5])
+    b0 = a0[0].shape[0]
+    bound = (sectors * SECTOR + b0 * (4 * a0[0].shape[1] + 16)) \
+        / HBM_BYTES_PER_S * 1e3
+    fns = [lambda a=a: k.fused_lookup(*a, **kw) for a in batches]
+    cold, warm, host = timed_launches(fns, flush_buf)
+    ms, ms_warm = statistics.median(cold), statistics.median(warm)
+    t = a0[5].pools
+    log(f"fused_lookup with tiers (run {int(t.run_len.item())}, delta "
+        f"{int(t.dl_len.item())}): median over {len(fns)} read-back "
+        f"batches {ms:.5f} ms cold L2 (min {min(cold):.5f}, max "
+        f"{max(cold):.5f}), {ms_warm:.5f} ms warm L2; host issue "
+        f"{host:.5f} ms/call; {sectors} distinct sectors on the first; "
+        f"bound {bound:.6f} ms")
+    return dict(ms_tiers=ms, ms_warm_l2_tiers=ms_warm, bound_ms_tiers=bound,
+                host_ms_per_call_tiers=host, max_abs_err_tiers=err)
 
 
 def compare_streamed(res, args, kw, k, what, fused):
@@ -1976,7 +2043,7 @@ def main() -> int:
     if not ll["use_flow"]:
         fail("longlat phase did not serve with the flow on")
     wall("longlat reads", t0)
-    rows = {"nf_forward": nf_forward_row(ll, k)}
+    rows = {"nf_forward": nf_forward_row(ll, k, flush_buf)}
     look = {True: time_lookup(ll, k, split_key_bits, flush_buf)}
     t0 = time.perf_counter()
     s1 = streamed_reads(ll, win, split_key_bits, "fresh index",
@@ -1991,6 +2058,7 @@ def main() -> int:
     ins_k, _ins_p = write_stream(ll, m, win, N_WRITE_BATCHES, False)
     ins_u = np.unique(ins_k)
     readback(ll, ins_u, win, "inserted keys read back")
+    look_tiers = time_lookup_tiers(ll, k, ins_u, split_key_bits, flush_buf)
     update_and_delete(ll, win, ins_k)
     wall("longlat writes", t0)
     t0 = time.perf_counter()
@@ -2096,6 +2164,15 @@ def main() -> int:
 
     launches = dict(win.total)
     log(f"main-path launches (every window): {launches}")
+    lookup_sizes = collections.Counter()
+    for size, n in win.lookup_sizes.items():
+        lookup_sizes["<=" + str(1 << max(size - 1, 0).bit_length())] += n
+    lookup_sizes = dict(sorted(lookup_sizes.items(),
+                               key=lambda kv: int(kv[0][2:])))
+    log(f"fused_lookup main-path launches by batch size: {lookup_sizes} "
+        f"(exact sizes: {len(win.lookup_sizes)} distinct; "
+        f"{win.lookup_sizes.get(BATCH, 0)} of {BATCH}, "
+        f"{win.lookup_sizes.get(VERIFY_CHUNK, 0)} of {VERIFY_CHUNK})")
     on, off = look[True], look[False]
     rows["fused_lookup"] = {
         "name": "fused_lookup", "route": "cuda",
@@ -2103,11 +2180,17 @@ def main() -> int:
         "replaces": "src/repro/kernels/fused_lookup.py:490",
         "launches": None,
         "max_abs_err": max(on["max_abs_err"], off["max_abs_err"],
+                           look_tiers["max_abs_err_tiers"],
                            *(e[0] for e in err_tiers.values())),
         "ms": on["ms"], "plain_ms": on["plain_ms"],
         "bound_ms": on["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "ms_warm_l2": on["ms_warm_l2"],
         "host_ms_per_call": on["host_ms_per_call"],
+        "ms_verify_chunk": on["ms_verify_chunk"],
+        "ms_warm_l2_verify_chunk": on["ms_warm_l2_verify_chunk"],
+        **{key: v for key, v in look_tiers.items() if key.endswith("tiers")
+           and not key.startswith("max_abs_err")},
+        "launches_by_batch": lookup_sizes,
         **{f"{key}_flow_off": v for key, v in off.items()
            if key != "max_abs_err"},
     }

@@ -24,8 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "build_dir",
-           "NFParams", "NF_MAX_LAYERS", "NF_MAX_W"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "function",
+           "build_dir", "NFParams", "NF_MAX_LAYERS", "NF_MAX_W"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("nf_forward", "fused_lookup", "range_scan", "streamed_lookup",
@@ -49,6 +49,7 @@ class NFParams(ctypes.Structure):
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def build_dir() -> Path:
@@ -118,6 +119,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """C entry point ``symbol`` of kernel library ``name``, bound once:
+    later calls return the same ctypes function without touching its
+    ``argtypes``."""
+    fn = _FNS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _FNS[(name, symbol)] = fn
+    return fn
 
 
 def check(err: int, what: str) -> None:

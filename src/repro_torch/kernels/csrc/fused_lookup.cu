@@ -16,25 +16,44 @@
 //    then the FIRST entry of the `dense_window` scan whose f32 key and
 //    identity both match;
 //  * bucket: the MAX payload over identity matches with col < blen;
-//  * tiers: delta, then run, each by `probe_tier` (tier_device.cuh, shared
-//    with the range kernel): lower_bound plus the identity window
-//    [l - W, l + 3W); the newest (highest) index wins, a tier match
-//    (TOMBSTONE included) beats every older tier, TOMBSTONE maps to -1.
+//  * tiers: delta, then run, each matched in the identity window
+//    [l - W, l + 3W) around q's lower bound l (`lower_bound`'s rounds,
+//    then `window_pv`, tier_device.cuh); the newest (highest) index
+//    wins, a tier match (TOMBSTONE included) beats every older tier,
+//    TOMBSTONE maps to -1.
 //
 // Identity halves travel as int32 bit views of the u32 pools; only
 // equality is ever taken.  The TPU kernel's batch-gated `lax.cond` has
-// no counterpart: each thread early-exits its own traversal, and warps
-// diverge where their queries do.
+// no counterpart: each thread early-exits its own traversal.
 //
-// Bound on the card: memory latency and sectors.  Every level is a chain
-// of dependent random reads (node fields, then the entry, then a bucket
-// row), each touching its own 32-byte sector, and a query's levels are
-// serial.  The floor is the sectors a query must touch (counted per run
-// by chip_smoke.py from the pool layout and the measured mean depth) over
-// 3.35 TB/s.  The design keeps one query per thread so that many
-// independent chains are in flight per SM, reads pools through the
-// read-only path (__ldg), and keeps the NF in registers, so z never
-// round-trips through device memory before the traversal uses it.
+// Bound on the card: memory latency, then the bytes of the sectors it
+// touches.  A query is a chain of dependent random reads; a warp lasts as
+// long as its longest lane, and with tens of chains in flight per SM,
+// every sector a round reads and does not need costs device-memory
+// bandwidth.  The design:
+//
+//  * a tree level is two rounds: the node's five fields, then the
+//    entry's type and child (in bounds at the same index, whatever the
+//    type); a DATA entry's identity and payload are one more round, read
+//    only for DATA entries.  A conflict bucket is two more: blen with the
+//    row's hi columns (unrolled to BCAP and masked by blen; a wider
+//    bucket takes the generic instantiation), then lo and payload only
+//    of the columns whose hi matched.  The dense window is two as well:
+//    its keys, then identity and payload only where the key matched;
+//  * with tiers, half the block's warps walk the tree for 128 queries
+//    while the other half probes the delta and the run for the same
+//    queries (z handed over in shared memory).  The probe's two binary
+//    searches step together, and its identity windows read hi four rows
+//    a load, then lo and pv only where hi matched (`window_pv`).  A read
+//    waits on the longer of the walk and the probe, not on their sum: in
+//    one warp the lanes would wait for each other's chains;
+//  * one query per thread otherwise, so many independent chains are in
+//    flight per SM; pools through the read-only path (__ldg); the NF in
+//    registers, evaluated once per query.
+//
+// The floor is the sectors a batch must touch (counted per run by
+// chip_smoke.py from the pool layout and the measured mean depth) over
+// 3.35 TB/s.
 #include <cstdint>
 
 #include "nf_device.cuh"
@@ -47,6 +66,9 @@
 #define ET_BUCKET 2
 #define ET_CHILD 3
 #define TOMBSTONE (-2)
+#define THREADS 256
+#define HALF (THREADS / 2)
+#define BUCKET_UNROLL 8
 
 struct LookupArgs {
   const float* feats;
@@ -97,33 +119,17 @@ struct LookupArgs {
   int pad_;
 };
 
-template <int MAXW>
-__global__ void fused_lookup_kernel(const LookupArgs a, const NFParams p) {
-  __shared__ float sw[NF_MAX_W];
-  if (a.use_flow) nf_stage_weights(p, sw);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.B) return;
-
-  float q;
-  if (a.use_flow) {
-    float x[MAXW];
-#pragma unroll
-    for (int k = 0; k < MAXW; ++k) {
-      x[k] = (k < p.dim) ? __ldg(a.feats + (int64_t)i * a.feat_dim + k) : 0.f;
-    }
-    q = nf_eval<MAXW>(x, p, sw);
-  } else {
-    q = __ldg(a.feats + (int64_t)i * a.feat_dim);
-  }
-  const int qhi = __ldg(a.qhi + i);
-  const int qlo = __ldg(a.qlo + i);
-
+// The tree's payload for one query (-1: miss).
+template <int BCAP>
+__device__ __forceinline__ int walk(const LookupArgs& a, float q, int qhi,
+                                    int qlo) {
   int node = 0;
-  int result = -1;
   for (int depth = 0; depth < a.max_depth; ++depth) {
     const int kind = __ldg(a.nkind + node);
     const int off = __ldg(a.noff + node);
     const int size = __ldg(a.nsize + node);
+    const float slope = __ldg(a.nslope + node);
+    const float icpt = __ldg(a.nicept + node);
     if (kind == KIND_DENSE) {
       int l = off, h = off + size;
       for (int it = 0; it < a.dense_iters; ++it) {
@@ -136,85 +142,210 @@ __global__ void fused_lookup_kernel(const LookupArgs a, const NFParams p) {
         }
       }
       const int last = off + size - 1;
-      int e = l < off ? off : (l > last ? last : l);
-      result = -1;
-      for (int w = 0; w < a.dense_window; ++w) {
+      const int e = l < off ? off : (l > last ? last : l);
+      // the window: keys first, then identity and payload where the key
+      // matched; the first full match wins
+      unsigned km = 0;
+#pragma unroll 8
+      for (int w = 0; w < a.dense_window && w < 32; ++w) {
+        const int j = (e + w) > last ? last : (e + w);
+        km |= (unsigned)(__ldg(a.ekey + j) == q) << w;
+      }
+      while (km) {
+        const int w = __ffs(km) - 1;
+        const int j = (e + w) > last ? last : (e + w);
+        const int h2 = __ldg(a.ehi + j);
+        const int o2 = __ldg(a.elo + j);
+        const int v2 = __ldg(a.epay + j);
+        if (h2 == qhi && o2 == qlo) return v2;
+        km &= km - 1;
+      }
+      for (int w = 32; w < a.dense_window; ++w) {
         const int j = (e + w) > last ? last : (e + w);
         if (__ldg(a.ekey + j) == q && __ldg(a.ehi + j) == qhi &&
             __ldg(a.elo + j) == qlo) {
-          result = __ldg(a.epay + j);
-          break;
+          return __ldg(a.epay + j);
         }
       }
-      break;
+      return -1;
     }
-    const float slope = __ldg(a.nslope + node);
-    const float icpt = __ldg(a.nicept + node);
     int slot = __float2int_rz(rintf(__fadd_rn(__fmul_rn(slope, q), icpt)));
     slot = slot < 0 ? 0 : (slot > size - 1 ? size - 1 : slot);
     const int e = off + slot;
     const int et = __ldg(a.etype + e);
+    const int ec = __ldg(a.echild + e);
     if (et == ET_DATA) {
-      result = (__ldg(a.ehi + e) == qhi && __ldg(a.elo + e) == qlo)
-                   ? __ldg(a.epay + e) : -1;
-      break;
+      const int eh = __ldg(a.ehi + e);
+      const int el = __ldg(a.elo + e);
+      const int ep = __ldg(a.epay + e);
+      return (eh == qhi && el == qlo) ? ep : -1;
     }
     if (et == ET_BUCKET) {
-      int bid = __ldg(a.echild + e);
-      bid = bid < 0 ? 0 : bid;
-      const int len = __ldg(a.blen + bid);
+      const int bid = ec < 0 ? 0 : ec;
       const int64_t row = (int64_t)bid * a.bucket_cap;
       int best = -1;
-      for (int c = 0; c < a.bucket_cap; ++c) {
-        if (c < len && __ldg(a.bhi + row + c) == qhi &&
-            __ldg(a.blo + row + c) == qlo) {
+      if constexpr (BCAP > 0) {
+        // blen and the row's hi columns, then lo and payload where hi
+        // matched
+        const int len = __ldg(a.blen + bid);
+        unsigned hm = 0;
+#pragma unroll
+        for (int c = 0; c < BCAP; ++c) {
+          if (c < a.bucket_cap) {
+            hm |= (unsigned)(__ldg(a.bhi + row + c) == qhi) << c;
+          }
+        }
+        hm &= len >= BCAP ? ~0u : (len > 0 ? (1u << len) - 1u : 0u);
+        while (hm) {
+          const int c = __ffs(hm) - 1;
+          const int o = __ldg(a.blo + row + c);
           const int v = __ldg(a.bpay + row + c);
-          best = v > best ? v : best;
+          if (o == qlo) best = v > best ? v : best;
+          hm &= hm - 1;
+        }
+      } else {
+        const int len = __ldg(a.blen + bid);
+        for (int c = 0; c < a.bucket_cap; ++c) {
+          if (c < len && __ldg(a.bhi + row + c) == qhi &&
+              __ldg(a.blo + row + c) == qlo) {
+            const int v = __ldg(a.bpay + row + c);
+            best = v > best ? v : best;
+          }
         }
       }
-      result = best;
-      break;
+      return best;
     }
-    if (et == ET_CHILD) {
-      node = __ldg(a.echild + e);
-      result = -1;
-      continue;
-    }
-    result = -1;  // EMPTY
-    break;
+    if (et != ET_CHILD) return -1;  // EMPTY
+    node = ec;
   }
+  return -1;
+}
 
-  if (a.probe_tiers) {
-    const int dl = probe_tier(a.dpk, a.dhi, a.dlo, a.dpv, __ldg(a.dlen),
-                              a.dl_cap, a.dl_iters, a.dl_window, q, qhi,
-                              qlo);
-    const int rn = probe_tier(a.rpk, a.rhi, a.rlo, a.rpv, __ldg(a.rlen),
-                              a.run_cap, a.run_iters, a.run_window, q, qhi,
-                              qlo);
-    result = dl != -1 ? dl : (rn != -1 ? rn : result);
-    if (result == TOMBSTONE) result = -1;
+// The newest tier copy of (qhi, qlo): the delta's, else the run's, else
+// -1 (a TOMBSTONE passes through).  Both lower bounds step together, one
+// round each, so the two searches cost the longer one; then both
+// identity windows (`window_pv`).
+__device__ __forceinline__ int tier_probe(const LookupArgs& a, float q,
+                                          int qhi, int qlo) {
+  const int rn = __ldg(a.rlen);
+  const int dn = __ldg(a.dlen);
+  int rl = 0, rh = rn, dl = 0, dh = dn;
+  const int iters = a.run_iters > a.dl_iters ? a.run_iters : a.dl_iters;
+  for (int it = 0; it < iters; ++it) {
+    const int rm = (rl + rh) >> 1;
+    const int dm = (dl + dh) >> 1;
+    const bool r_on = it < a.run_iters, d_on = it < a.dl_iters;
+    const float rp =
+        r_on ? __ldg(a.rpk + (rm < a.run_cap ? rm : a.run_cap - 1)) : 0.f;
+    const float dp =
+        d_on ? __ldg(a.dpk + (dm < a.dl_cap ? dm : a.dl_cap - 1)) : 0.f;
+    if (r_on) {
+      if (rp < q) {
+        rl = rm + 1;
+      } else {
+        rh = rm;
+      }
+    }
+    if (d_on) {
+      if (dp < q) {
+        dl = dm + 1;
+      } else {
+        dh = dm;
+      }
+    }
   }
-  a.out_pay[i] = result;
-  a.out_z[i] = q;
+  const int dv = window_pv(a.dhi, a.dlo, a.dpv, dn, a.dl_window, dl, qhi,
+                           qlo);
+  const int rv = window_pv(a.rhi, a.rlo, a.rpv, rn, a.run_window, rl, qhi,
+                           qlo);
+  return dv != -1 ? dv : rv;
+}
+
+template <int MAXW, int BCAP>
+__global__ void __launch_bounds__(THREADS)
+    fused_lookup_kernel(const LookupArgs a, const NFParams p) {
+  __shared__ float sw[NF_MAX_W];
+  __shared__ float s_q[HALF];
+  __shared__ int s_hi[HALF], s_lo[HALF], s_tier[HALF];
+  if (a.use_flow) nf_stage_weights(p, sw);
+  // with tiers: the first half of the block walks HALF queries, the
+  // second half probes the tiers for the same queries
+  const bool tiers = a.probe_tiers != 0;
+  const bool prober = tiers && threadIdx.x >= HALF;
+  const int t = prober ? threadIdx.x - HALF : threadIdx.x;
+  const int i = blockIdx.x * (tiers ? HALF : THREADS) + t;
+  const bool live = i < a.B;
+
+  float q = 0.f;
+  int qhi = 0, qlo = 0;
+  if (live && !prober) {
+    if (a.use_flow) {
+      float x[MAXW];
+#pragma unroll
+      for (int k = 0; k < MAXW; ++k) {
+        x[k] = (k < p.dim) ? __ldg(a.feats + (int64_t)i * a.feat_dim + k)
+                           : 0.f;
+      }
+      q = nf_eval<MAXW>(x, p, sw);
+    } else {
+      q = __ldg(a.feats + (int64_t)i * a.feat_dim);
+    }
+    qhi = __ldg(a.qhi + i);
+    qlo = __ldg(a.qlo + i);
+  }
+  if (tiers) {
+    if (!prober) {
+      s_q[t] = q;
+      s_hi[t] = qhi;
+      s_lo[t] = qlo;
+    }
+    __syncthreads();
+    if (prober) {
+      if (live) s_tier[t] = tier_probe(a, s_q[t], s_hi[t], s_lo[t]);
+    }
+  }
+  int result = -1;
+  if (live && !prober) result = walk<BCAP>(a, q, qhi, qlo);
+  if (tiers) {
+    __syncthreads();
+    if (live && !prober) {
+      const int tv = s_tier[t];
+      result = tv != -1 ? tv : result;
+      if (result == TOMBSTONE) result = -1;
+    }
+  }
+  if (live && !prober) {
+    a.out_pay[i] = result;
+    a.out_z[i] = q;
+  }
+}
+
+template <int BCAP>
+static int launch_width(const LookupArgs* a, const NFParams* p, int blocks,
+                        cudaStream_t s) {
+  const int w = a->use_flow ? nf_max_width(*p) : 1;
+  if (w <= 4) {
+    fused_lookup_kernel<4, BCAP><<<blocks, THREADS, 0, s>>>(*a, *p);
+  } else if (w <= 8) {
+    fused_lookup_kernel<8, BCAP><<<blocks, THREADS, 0, s>>>(*a, *p);
+  } else if (w <= 16) {
+    fused_lookup_kernel<16, BCAP><<<blocks, THREADS, 0, s>>>(*a, *p);
+  } else if (w <= 32) {
+    fused_lookup_kernel<32, BCAP><<<blocks, THREADS, 0, s>>>(*a, *p);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int fused_lookup_launch(const LookupArgs* a, const NFParams* p,
                                    void* stream) {
   if (a->B <= 0) return 0;
-  const int threads = 256;
-  const int blocks = (a->B + threads - 1) / threads;
+  const int per_block = a->probe_tiers ? HALF : THREADS;
+  const int blocks = (a->B + per_block - 1) / per_block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int w = a->use_flow ? nf_max_width(*p) : 1;
-  if (w <= 4) {
-    fused_lookup_kernel<4><<<blocks, threads, 0, s>>>(*a, *p);
-  } else if (w <= 8) {
-    fused_lookup_kernel<8><<<blocks, threads, 0, s>>>(*a, *p);
-  } else if (w <= 16) {
-    fused_lookup_kernel<16><<<blocks, threads, 0, s>>>(*a, *p);
-  } else if (w <= 32) {
-    fused_lookup_kernel<32><<<blocks, threads, 0, s>>>(*a, *p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (a->bucket_cap <= BUCKET_UNROLL) {
+    return launch_width<BUCKET_UNROLL>(a, p, blocks, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_width<0>(a, p, blocks, s);
 }

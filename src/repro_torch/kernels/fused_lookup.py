@@ -1,8 +1,10 @@
 """Fused point lookup: NF forward + FlatAFLI traversal + write-tier probe.
 
 Port of ``repro.kernels.fused_lookup``.  ``fused_lookup`` launches the
-CUDA kernel (``csrc/fused_lookup.cu``, one thread per query) on CUDA
-tensors and runs ``fused_lookup_plain`` on CPU tensors.  The plain
+CUDA kernel (``csrc/fused_lookup.cu``, one thread per query; with tiers,
+half of each block walks the tree while the other half probes the tiers
+for the same queries) on CUDA tensors and runs ``fused_lookup_plain`` on
+CPU tensors.  The plain
 version is the JAX package's ``flat_lookup`` oracle written in PyTorch,
 plus the in-kernel tier probe: per level a model-node slot
 (``rint(slope*z + intercept)``, multiply and add rounded separately,
@@ -17,17 +19,18 @@ taken on them.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.nf_forward import nf_forward_plain, nf_params
+from repro_torch.kernels.nf_forward import nf_forward_plain, nf_params_cached
 
 __all__ = ["fused_lookup", "fused_lookup_plain", "KernelPools", "TierPools",
            "TierPack", "TOMBSTONE", "EMPTY", "DATA", "BUCKET", "CHILD",
-           "KIND_MODEL", "KIND_DENSE"]
+           "KIND_MODEL", "KIND_DENSE", "check_window_layout"]
 
 # entry / node codes — schema owned by repro_torch.core.flat_afli
 EMPTY, DATA, BUCKET, CHILD = 0, 1, 2, 3
@@ -111,6 +114,17 @@ class _LookupArgs(ctypes.Structure):
             "bucket_cap", "dense_window", "n_entries", "probe_tiers",
             "run_cap", "run_iters", "run_window", "dl_cap", "dl_iters",
             "dl_window", "pad_")])
+
+
+def check_window_layout(tiers: "TierPack", what: str) -> None:
+    """The kernels read a tier's identity window four hi rows per 16-byte
+    load (``window_pv`` in csrc/tier_device.cuh): each tier's hi must
+    start 16-byte aligned and hold a multiple of 4 rows, as
+    ServingState's buffers do."""
+    for hi in (tiers.pools.run_hi, tiers.pools.dl_hi):
+        if hi.data_ptr() % 16 or hi.shape[0] % 4:
+            raise ValueError(f"{what}: tier hi arrays must be 16-byte "
+                             "aligned with a multiple of 4 rows")
 
 
 def _slot_index(x: torch.Tensor) -> torch.Tensor:
@@ -299,8 +313,8 @@ def fused_lookup(feats: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
         raise ValueError("qhi/qlo must be i32[B] identity bit views")
     if pools.bhi.shape[1] != bucket_cap:
         raise ValueError("bucket pool width must equal bucket_cap")
-    params = (nf_params(packed_w, shapes, dim) if use_flow
-              else build.NFParams())
+    params = (nf_params_cached(packed_w, shapes, dim) if use_flow
+              else _NO_FLOW)
     pay = torch.empty(b, dtype=torch.int32, device=feats.device)
     z = torch.empty(b, dtype=torch.float32, device=feats.device)
     if b == 0:
@@ -311,6 +325,7 @@ def fused_lookup(feats: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
      a.elo, a.epay, a.echild, a.bhi, a.blo, a.bpay, a.blen) = (
         t.data_ptr() for t in pools)
     if tiers is not None:
+        check_window_layout(tiers, "fused_lookup")
         t = tiers.pools
         (a.rpk, a.rhi, a.rlo, a.rpv, a.rlen, a.dpk, a.dhi, a.dlo, a.dpv,
          a.dlen) = (x.data_ptr() for x in t)
@@ -327,15 +342,16 @@ def fused_lookup(feats: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
     a.bucket_cap = bucket_cap
     a.dense_window = dense_window
     a.n_entries = int(pools.ekey.shape[0])
-    lib = build.load("fused_lookup")
-    fn = lib.fused_lookup_launch
-    fn.argtypes = [ctypes.POINTER(_LookupArgs),
-                   ctypes.POINTER(build.NFParams), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("fused_lookup", "fused_lookup_launch",
+                        [ctypes.POINTER(_LookupArgs),
+                         ctypes.POINTER(build.NFParams), ctypes.c_void_p])
     build.check(fn(ctypes.byref(a), ctypes.byref(params),
                    build.stream_ptr(feats.device)), "fused_lookup")
     fused_lookup.launches += 1
+    fused_lookup.launch_sizes[b] += 1
     return pay, z
 
 
+_NO_FLOW = build.NFParams()
 fused_lookup.launches = 0
+fused_lookup.launch_sizes = collections.Counter()   # batch size -> launches

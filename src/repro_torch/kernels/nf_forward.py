@@ -12,6 +12,7 @@ per multiply and per add.
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from typing import Sequence, Tuple
 
 import torch
@@ -19,7 +20,7 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = ["pack_flow_weights", "nf_forward", "nf_forward_plain",
-           "nf_params"]
+           "nf_params", "nf_params_cached"]
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -67,6 +68,30 @@ def nf_params(packed_w: torch.Tensor, shapes: Shapes,
     p.n_w = n_w
     ctypes.memmove(p.w, flat.contiguous().numpy().ctypes.data, 4 * n_w)
     return p
+
+
+_PARAMS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_PARAMS_KEEP = 4
+
+
+def nf_params_cached(packed_w: torch.Tensor, shapes: Shapes,
+                     dim: int) -> build.NFParams:
+    """``nf_params`` built once per packed-weights tensor: keyed by its
+    ``data_ptr()`` and ``_version`` (an in-place change rebuilds it), its
+    length, the shapes and dim.  The cache holds the tensor, so its
+    address is not reused while its entry lives; the last few entries
+    are kept."""
+    key = (packed_w.data_ptr(), packed_w._version, packed_w.numel(),
+           tuple(shapes), dim)
+    hit = _PARAMS.get(key)
+    if hit is None:
+        hit = (packed_w, nf_params(packed_w, shapes, dim))
+        _PARAMS[key] = hit
+        while len(_PARAMS) > _PARAMS_KEEP:
+            _PARAMS.popitem(last=False)
+    else:
+        _PARAMS.move_to_end(key)
+    return hit[1]
 
 
 def nf_forward_plain(feats: torch.Tensor, packed_w: torch.Tensor,

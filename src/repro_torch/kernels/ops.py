@@ -36,7 +36,8 @@ from repro_torch.kernels.nf_forward import nf_forward, pack_flow_weights
 
 __all__ = ["nf_transform_keys", "pack_params", "fused_lookup",
            "fused_range_scan", "index_probe", "mamba_scan", "flash_decode",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "fused_lookup_launch_sizes",
+           "reset_launch_counts"]
 
 
 def pack_params(params: Dict, cfg: FlowConfig):
@@ -162,10 +163,16 @@ def launch_counts() -> Dict[str, int]:
             "flash_decode": _fd.flash_decode.launches}
 
 
+def fused_lookup_launch_sizes() -> Dict[int, int]:
+    """``fused_lookup`` launches since the last reset, per batch size."""
+    return dict(_fl.fused_lookup.launch_sizes)
+
+
 def reset_launch_counts() -> None:
     """Zero the launch counters and the range scans' truncation count."""
     nf_forward.launches = 0
     _fl.fused_lookup.launches = 0
+    _fl.fused_lookup.launch_sizes.clear()
     _sl.streamed_lookup.launches = 0
     _rs.fused_range_scan.launches = 0
     _ip.index_probe.launches = 0

@@ -1,8 +1,9 @@
 """Fused range scan: endpoint NF + three-pool lower bounds + tier merge.
 
 Port of ``repro.kernels.range_scan``.  ``fused_range_scan`` launches the
-CUDA kernel (``csrc/range_scan.cu``, one thread per range query) on CUDA
-tensors and runs ``fused_range_scan_plain`` on CPU tensors.  The plain
+CUDA kernel (``csrc/range_scan.cu``, one warp per range query, merging
+up to 32 candidates a round) on CUDA tensors and runs
+``fused_range_scan_plain`` on CPU tensors.  The plain
 version is the JAX package's ``_kernel`` written in PyTorch, round for
 round: per ``[lo, hi)`` query both endpoints' z, their lower bounds in
 the scan pool (the static structure's keys in rank order), the run and
@@ -26,8 +27,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_lookup import (TOMBSTONE, TierPack,
                                               _lower_bound_plain,
-                                              _probe_tier_plain)
-from repro_torch.kernels.nf_forward import nf_forward_plain, nf_params
+                                              _probe_tier_plain,
+                                              check_window_layout)
+from repro_torch.kernels.nf_forward import nf_forward_plain, nf_params_cached
 
 __all__ = ["fused_range_scan", "fused_range_scan_plain", "ScanPool",
            "ScanPack"]
@@ -193,8 +195,8 @@ def fused_range_scan(feats_lo: torch.Tensor, feats_hi: torch.Tensor,
                              "and on one device")
     if scan_cap <= 0:
         raise ValueError("scan_cap must be positive")
-    params = (nf_params(packed_w, shapes, dim) if use_flow
-              else build.NFParams())
+    params = (nf_params_cached(packed_w, shapes, dim) if use_flow
+              else _NO_FLOW)
     dev = feats_lo.device
     pv = torch.empty((b, scan_cap), dtype=torch.int32, device=dev)
     cnt = torch.empty(b, dtype=torch.int32, device=dev)
@@ -210,6 +212,7 @@ def fused_range_scan(feats_lo: torch.Tensor, feats_hi: torch.Tensor,
     a.s_cap = int(scan_pack.pool.pk.shape[0])
     a.s_iters = scan_pack.iters
     if tiers is not None:
+        check_window_layout(tiers, "fused_range_scan")
         t = tiers.pools
         (a.rpk, a.rhi, a.rlo, a.rpv, a.rlen, a.dpk, a.dhi, a.dlo, a.dpv,
          a.dlen) = (x.data_ptr() for x in t)
@@ -224,15 +227,14 @@ def fused_range_scan(feats_lo: torch.Tensor, feats_hi: torch.Tensor,
     a.feat_dim = width
     a.use_flow = int(bool(use_flow))
     a.scan_cap = scan_cap
-    lib = build.load("range_scan")
-    fn = lib.range_scan_launch
-    fn.argtypes = [ctypes.POINTER(_ScanArgs),
-                   ctypes.POINTER(build.NFParams), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("range_scan", "range_scan_launch",
+                        [ctypes.POINTER(_ScanArgs),
+                         ctypes.POINTER(build.NFParams), ctypes.c_void_p])
     build.check(fn(ctypes.byref(a), ctypes.byref(params),
                    build.stream_ptr(dev)), "fused_range_scan")
     fused_range_scan.launches += 1
     return pv, cnt, tot, zlo, zhi
 
 
+_NO_FLOW = build.NFParams()
 fused_range_scan.launches = 0

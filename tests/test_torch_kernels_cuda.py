@@ -194,6 +194,126 @@ def test_range_scan_kernel_matches_plain(cuda, flow):
         assert torch.equal(got[3].view(torch.int32), z_nf.view(torch.int32))
 
 
+def _wide(dev, flow: bool, max_bucket: int = 6):
+    """An index whose run holds more than 2^16 rows, with (flow off)
+    colliding f32 keys (1e15 + arange) in the tree, the run and the
+    delta, and tombstones: (nfl, keys, expected payload per key)."""
+    base = make_dataset("longlat" if flow else "lognormal", 240_000)
+    keys = base if flow else np.unique(
+        np.concatenate([base, 1e15 + np.arange(400.0)]))
+    pv = np.arange(keys.shape[0], dtype=np.int64)
+    nfl = NFL(NFLConfig(backend="flat", force_flow=flow,
+                        flow_train=FlowTrainConfig(epochs=1),
+                        flat_index=FlatAFLIConfig(delta_cap=4096,
+                                                  rebuild_frac=10.0,
+                                                  max_bucket=max_bucket)),
+              device=dev)
+    nfl.bulkload(keys[::2], pv[::2])
+    odd, odd_pv = keys[1::2], pv[1::2]
+    run_k = odd[:-150]
+    pk = (ops.nf_transform_keys(nfl.flow_params, nfl.normalizer, run_k,
+                                nfl.cfg.flow, dev) if flow else run_k)
+    hi, lo = split_key_bits(run_k)
+    nfl.index._append_run(pk.astype(np.float32), hi, lo,
+                          odd_pv[:-150].astype(np.int32))
+    nfl.insert_batch(odd[-150:], odd_pv[-150:])        # -> the delta
+    gone = np.arange(0, 6000, 10)                      # loaded keys
+    assert nfl.delete_batch(keys[gone]).all()
+    expect = pv.copy()
+    expect[gone] = -1
+    st = nfl.stats()
+    assert st["run_len"] > 1 << 16 and st["delta_len"]
+    return nfl, keys, expect
+
+
+@pytest.mark.parametrize("flow", [True, False])
+def test_fused_lookup_kernel_wide_run_and_edge_batches(cuda, flow):
+    """A run past 2^16 rows (fences of stride > 1), colliding keys with
+    windows above 1 (flow off), and batches of 1 and of 1,037 queries
+    (not a multiple of a warp or a block): bit-equal to plain."""
+    nfl, keys, expect = _wide(cuda, flow)
+    idx = nfl.index
+    if not flow:
+        st = idx.stats()["serving"]
+        assert st["run_window"] > 1 and st["delta_window"] > 1
+    kw = dict(dim=nfl.cfg.flow.dim, shapes=nfl._shapes,
+              max_depth=idx.max_depth, dense_iters=idx.cfg.dense_search_iters,
+              bucket_cap=idx.cfg.max_bucket, dense_window=idx.dense_window,
+              use_flow=flow)
+    for sel in (slice(None), slice(0, 1), slice(-1037, None),
+                slice(77, 78)):
+        k = keys[sel]
+        hi, lo = split_key_bits(k)
+        args = (torch.from_numpy(_feats(nfl, k)).to(cuda),
+                torch.from_numpy(hi.view(np.int32)).to(cuda),
+                torch.from_numpy(lo.view(np.int32)).to(cuda), nfl._packed_w,
+                idx._kernel_pools(), idx._tier_pack())
+        pk, zk = fused_lookup(*args, **kw)
+        pp, zp = fused_lookup_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(pk, pp), sel
+        assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+        assert np.array_equal(pk.cpu().numpy(), expect[sel]), sel
+
+
+def test_fused_lookup_kernel_generic_bucket_width(cuda):
+    """``bucket_cap`` above the kernel's unrolled 8 columns takes the
+    generic instantiation: bit-equal to plain, with and without tiers."""
+    nfl, keys, expect = _wide(cuda, False, max_bucket=12)
+    idx = nfl.index
+    pools = idx._kernel_pools()
+    assert pools.bhi.shape[1] == 12
+    hi, lo = split_key_bits(keys)
+    kw = dict(dim=nfl.cfg.flow.dim, shapes=nfl._shapes,
+              max_depth=idx.max_depth, dense_iters=idx.cfg.dense_search_iters,
+              bucket_cap=12, dense_window=idx.dense_window, use_flow=False)
+    for tiers in (idx._tier_pack(), None):
+        args = (torch.from_numpy(_feats(nfl, keys)).to(cuda),
+                torch.from_numpy(hi.view(np.int32)).to(cuda),
+                torch.from_numpy(lo.view(np.int32)).to(cuda), None, pools,
+                tiers)
+        pk, zk = fused_lookup(*args, **kw)
+        pp, zp = fused_lookup_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(pk, pp)
+        assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+        if tiers is not None:
+            assert np.array_equal(pk.cpu().numpy(), expect)
+
+
+@pytest.mark.parametrize("flow", [True, False])
+def test_range_scan_kernel_wide_run_ties_and_truncation(cuda, flow):
+    """Ranges over a run past 2^16 rows and (flow off) over the colliding
+    keys, cut by ``scan_cap`` inside a run of equal keys; batches of 1 and
+    of 1,037 ranges (not a multiple of the block's 8 warps)."""
+    nfl, keys, _expect = _wide(cuda, flow)
+    idx = nfl.index
+    rng = np.random.default_rng(11)
+    lo_k = np.concatenate([rng.choice(keys, 1024), keys[-420:-407]])
+    span = 1e-4 if flow else 1e5
+    hi_k = lo_k + rng.uniform(0, span, lo_k.shape[0])
+    hi_k[-13:] = 1e15 + np.arange(13) * 37.0          # across the ties
+    for cap in (33, 128):
+        for sel in (slice(None), slice(-1, None), slice(5, 6)):
+            args = (torch.from_numpy(_feats(nfl, lo_k[sel])).to(cuda),
+                    torch.from_numpy(_feats(nfl, hi_k[sel])).to(cuda),
+                    nfl._packed_w, idx._serving.scan_pack(),
+                    idx._tier_pack())
+            kw = dict(dim=nfl.cfg.flow.dim, shapes=nfl._shapes,
+                      scan_cap=cap, use_flow=flow)
+            got = fused_range_scan(*args, **kw)
+            want = fused_range_scan_plain(*args, **kw)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    full = fused_range_scan(
+        torch.from_numpy(_feats(nfl, lo_k)).to(cuda),
+        torch.from_numpy(_feats(nfl, hi_k)).to(cuda), nfl._packed_w,
+        idx._serving.scan_pack(), idx._tier_pack(), dim=nfl.cfg.flow.dim,
+        shapes=nfl._shapes, scan_cap=33, use_flow=flow)
+    assert (full[2] > 33).any() and (full[1] > 0).any()
+
+
 @pytest.mark.parametrize("flow", [True, False])
 def test_streamed_lookup_kernel_matches_plain_with_tiers(cuda, flow):
     """The streamed kernel against its plain version, with data, updates
@@ -332,6 +452,19 @@ def test_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):            # not contiguous
         index_probe(q[:, 0], hi, hi, 1.0, 0.0, pools.etype[:16:2],
                     *entries[1:])
+    # tier hi arrays are read four rows a 16-byte load: a view that
+    # starts one row in is refused by both tier-probing kernels
+    tp = idx._tier_pack()
+    t = tp.pools
+    shifted = tp._replace(pools=t._replace(
+        run_pk=t.run_pk[1:-3], run_hi=t.run_hi[1:-3], run_lo=t.run_lo[1:-3],
+        run_pv=t.run_pv[1:-3]))
+    with pytest.raises(ValueError):
+        fused_lookup(q, hi, hi, None, pools, shifted, dim=1, max_depth=4,
+                     dense_iters=24, bucket_cap=6, use_flow=False)
+    with pytest.raises(ValueError):
+        fused_range_scan(q, q, None, idx._serving.scan_pack(), shifted,
+                         dim=1, scan_cap=8, use_flow=False)
 
 
 def test_nfl_serves_through_kernels(cuda):
