@@ -45,16 +45,21 @@ Phases (any failure exits non-zero before the result lines):
    (no fold verify streamed); 1,024 deletes; one scan batch.
 4. kernels against their plain PyTorch versions on the card, at the
    main path's shapes: ``nf_forward`` on the bulk-load keys (and beside
-   its dense PyTorch equivalent, both cold L2);
+   its dense PyTorch equivalent, both cold L2) and on the inserts of
+   each ``write_heavy`` batch, bounded by the largest of its bytes, its
+   FP32 issue and its SFU operations (counted per key in the SASS of the
+   built kernel), its launches on the main path counted by batch size;
    ``fused_lookup`` and ``streamed_lookup`` on the read batches of the
    fresh index, flow on (longlat) and off (lognormal), each timed launch
    by launch over the same 64 distinct batches, each after an L2 flush
    (cold) or after an idle spin (warm), its host issue time apart,
-   bounded by the distinct 32-byte sectors its reads touch; both on a
-   batch taken while the run and delta hold data and tombstones;
+   bounded by the distinct 32-byte sectors its reads touch (the
+   streamed kernel by those of its first design's reads, the least the
+   work needs, with its own count beside), their ratio printed; both on
+   a batch taken while the run and delta hold data and tombstones;
    ``fused_lookup`` also at the fold verify's 4,096 keys (16 chunks in
-   key order, no tiers) and, after 2b, over the 52 read-back batches
-   with the run and the delta populated;
+   key order, no tiers) and, after 2b, both over the 52 read-back
+   batches with the run and the delta populated;
    ``index_probe`` on longlat's root node with the read batches' z,
    timed and bounded the same way; ``fused_range_scan`` flow on and off
    on scan batches taken in that state (longlat's 16 batches timed the
@@ -114,7 +119,6 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-F32_FLOPS_PER_S = 67e12        # H100 SXM f32, outside the tensor cores
 SECTOR = 32                    # bytes per device-memory sector
 BATCH = 65536
 N_READ_BATCHES = 64
@@ -134,6 +138,9 @@ SPIN_CYCLES = 400_000          # ~0.2 ms idle spin, longer than a host call
 # Programming Guide's table of arithmetic instruction throughput); one
 # MUFU.EX2 per accurate expf
 SFU_PER_SM_PER_CLOCK = 16
+# FP32 lanes per SM per clock on compute capability 9.0 (the same table):
+# one issue slot per rounded multiply or add, which must not fuse
+FP32_PER_SM_PER_CLOCK = 128
 LM_ARCH = "falcon-mamba-7b"
 LM_REQUESTS = 16
 LM_PROMPT = (256, 2048)        # prompt lengths, uniform, inclusive
@@ -221,6 +228,7 @@ class Windows:
         self.ops = ops
         self.total = collections.Counter()
         self.lookup_sizes = collections.Counter()   # batch size -> launches
+        self.nf_sizes = collections.Counter()
 
     def run(self, fn, streamed: bool = False):
         """Drive ``fn`` in a window; outside the streamed steps
@@ -231,10 +239,20 @@ class Windows:
         counts["scan_truncated"] = self.ops.fused_range_scan.truncated
         self.total.update(counts)
         self.lookup_sizes.update(self.ops.fused_lookup_launch_sizes())
+        self.nf_sizes.update(self.ops.nf_forward_launch_sizes())
         if not streamed and counts["streamed_lookup"]:
             fail(f"streamed_lookup launched {counts['streamed_lookup']} "
                  "times with pool_budget None")
         return out, counts
+
+
+def size_buckets(sizes) -> dict:
+    """Launches per batch size, gathered into power-of-two buckets
+    ("<=65536": launches of 32,769 to 65,536 keys)."""
+    out = collections.Counter()
+    for size, n in sizes.items():
+        out["<=" + str(1 << max(size - 1, 0).bit_length())] += n
+    return dict(sorted(out.items(), key=lambda kv: int(kv[0][2:])))
 
 
 def set_rung(nfl, budget) -> None:
@@ -487,6 +505,156 @@ def streamed_sectors(sp, tiers, q, qhi, qlo):
         done = done | (t < 0)
     tier_reads(tiers, q, qhi, qlo, read)
     return count_sectors(reads), probed / b
+
+
+ISEARCH_ROWS, ISEARCH_NARROW, ISEARCH_GUESSES = 8, 4096, 4  # tier_device.cuh
+
+
+def isearch_reads(pk, base, n, q, kl, kh, read):
+    """``Isearch`` of csrc/tier_device.cuh over the rows ``base + [0,
+    n)`` (``base``, ``n`` and the steering keys ``kl``, ``kh`` per query
+    or one for all), replayed: each round's aligned block at its guess,
+    four rows a load, goes to ``read`` (the first row of each load).
+    Returns the bounds (searchsorted-left)."""
+    dev = q.device
+    b = q.shape[0]
+    base = torch.as_tensor(base, device=dev).to(torch.int64).expand(b)
+    l = torch.zeros(b, dtype=torch.int64, device=dev)
+    h = torch.as_tensor(n, device=dev).to(torch.int64).expand(b).clone()
+    kl = torch.as_tensor(kl, dtype=torch.float32, device=dev).expand(b) \
+        .clone()
+    kh = torch.as_tensor(kh, dtype=torch.float32, device=dev).expand(b) \
+        .clone()
+    h = torch.where(q <= kl, 0, h)
+    l = torch.where((q > kl) & (q > kh), h, l)
+    rows = torch.arange(ISEARCH_ROWS, device=dev)
+    loads = torch.arange(0, ISEARCH_ROWS, 4, device=dev)
+    guesses = torch.zeros(b, dtype=torch.int64, device=dev)
+    while True:
+        o = l < h
+        if not bool(o.any()):
+            break
+        lo_, ho, ql, qh, qo, bo = l[o], h[o], kl[o], kh[o], q[o], base[o]
+        span = qh - ql
+        guess = lo_ + ((qo - ql) / span * (ho - lo_).to(torch.float32)
+                       ).nan_to_num(0.0).clamp(-2e9, 2e9).to(torch.int64)
+        use = (ho - lo_ <= ISEARCH_NARROW) & (guesses[o] < ISEARCH_GUESSES) \
+            & (ql < qo) & (qo < qh) & (span < float("inf"))
+        guesses[o] += use.to(torch.int64)
+        g = torch.where(use, guess, (lo_ + ho) // 2)
+        st = torch.minimum(torch.maximum(g - ISEARCH_ROWS // 2, lo_),
+                           torch.maximum(ho - ISEARCH_ROWS, lo_))
+        bb = st & ~7
+        r = bb[:, None] + loads
+        read((bo[:, None] + r)[(r < ho[:, None]) & (r + 3 >= lo_[:, None])])
+        f = torch.maximum(bb, lo_)
+        e = torch.minimum(bb + ISEARCH_ROWS, ho)
+        j = bb[:, None] + rows
+        x = pk[(bo[:, None] + j).clamp(0, pk.shape[0] - 1)]
+        below = ((j >= f[:, None]) & (j < e[:, None])
+                 & (x < qo[:, None])).sum(1)
+        none, every = below == 0, below == e - f
+        kh[o] = torch.where(none, pk[bo + f], qh)
+        kl[o] = torch.where(every, pk[(bo + e - 1).clamp(min=0)], ql)
+        l[o] = torch.where(none, lo_, torch.where(every, e, f + below))
+        h[o] = torch.where(none, f, torch.where(every, ho, f + below))
+    return l
+
+
+def window_reads(hi, lo, base, n, window, l, qhi, qlo, read):
+    """``window_newest`` of csrc/tier_device.cuh around the bounds ``l``
+    (rows ``base + [0, n)``), replayed: hi in aligned four-row loads over
+    the window (row by row above WINDOW_VEC_MAX), then lo and pv at the hi
+    matches, newest first, up to the first full match.  ``read(f, idx)``.
+    Returns the matched rows (-1: none)."""
+    dev = l.device
+    base = torch.as_tensor(base, device=dev).to(torch.int64).expand(l.shape)
+    n = torch.as_tensor(n, device=dev).to(torch.int64).expand(l.shape)
+    j = (l - window)[:, None] + torch.arange(4 * window, device=dev)
+    inside = (j >= 0) & (j < n[:, None])
+    g = (base[:, None] + j).clamp(0, hi.shape[0] - 1)
+    hm = inside & (hi[g] == qhi[:, None])
+    full = hm & (lo[g] == qlo[:, None])
+    newest = torch.max(torch.where(full, j, -1), dim=1).values
+    if window > 8:
+        read("hi", g[inside])
+        read("lo", g[hm])
+    else:
+        first = torch.where(inside, j, 1 << 40).min(1).values
+        last = torch.where(inside, j, -1).max(1).values
+        k = (first >> 2)[:, None] + torch.arange(window + 1, device=dev)
+        ok = (last >= 0)[:, None] & (k <= (last >> 2)[:, None])
+        read("hi", (base[:, None] + 4 * k)[ok])
+        seen = hm & (j >= newest[:, None])
+        read("lo", g[seen])
+        read("pv", g[seen])
+    hit = newest >= 0
+    if window > 8:
+        read("pv", (base + newest)[hit])
+    return torch.where(hit, base + newest, -1)
+
+
+def streamed_kernel_sectors(sp, tiers, q, qhi, qlo):
+    """Distinct 32-byte sectors that the redesigned streamed kernel's reads
+    touch for one batch, replayed from ``csrc/streamed_lookup.cu``: the
+    router's live entries staged once (16-byte copies), each probed
+    tile's block search and identity window, then the tiers' block
+    searches (after their first and last keys) and windows.  Returns the
+    sector count."""
+    from repro_torch.kernels.streamed_lookup import (STREAM_ALIGN, _wrap32,
+                                                     ord_f32)
+    reads = collections.defaultdict(list)
+
+    def read(pool, idx):
+        reads[pool].append(idx.reshape(-1).to(torch.int64))
+
+    dev = q.device
+    pool, w = sp.pool, sp.window
+    cap = pool.pk.shape[0]
+    plen = int(pool.plen.item())
+    n_tiles = -(-plen // STREAM_ALIGN)
+    read("slen", torch.zeros(1, dtype=torch.int64, device=dev))
+    read("router", torch.arange(-(-(n_tiles + 1) // 4) * 4, device=dev))
+    oz = ord_f32(q)
+    lo_k = _wrap32(ord_f32(sp.router) - 2)
+    hi_k = _wrap32(ord_f32(sp.router) + 2)
+    t = torch.searchsorted(lo_k[:n_tiles].contiguous(), oz, right=True) - 1
+    done = t < 0
+    while not bool(done.all()):
+        act = ~done & (hi_k[(t + 1).clamp(min=0)] >= oz)
+        done = done | ~act
+        if bool(act.any()):
+            base = t[act] * STREAM_ALIGN
+            live = torch.clamp(plen - base, max=STREAM_ALIGN)
+            rows = torch.clamp(cap - base, max=STREAM_ALIGN)
+            zq = q[act]
+            lb = isearch_reads(pool.pk, base, live, zq, sp.router[t[act]],
+                               sp.router[t[act] + 1],
+                               lambda i: read("pk", i))
+            lb = lb + ((lb == live) & (live == rows)).to(torch.int64)
+            got = window_reads(pool.hi, pool.lo, base, live, w, lb,
+                               qhi[act], qlo[act],
+                               lambda f, i: read(f, i))
+            hit = torch.zeros_like(done)
+            hit[act.nonzero()[:, 0][got >= 0]] = True
+            done = done | hit
+        t = t - 1
+        done = done | (t < 0)
+    if tiers is not None:
+        tp = tiers.pools
+        for tag, window in (("dl", tiers.delta_window),
+                            ("run", tiers.run_window)):
+            n = int(getattr(tp, f"{tag}_len").item())
+            read(f"{tag}_len", torch.zeros(1, dtype=torch.int64, device=dev))
+            pk, hi, lo = (getattr(tp, f"{tag}_{f}") for f in ("pk", "hi",
+                                                              "lo"))
+            ends = torch.tensor([0, max(n - 1, 0)], device=dev)
+            read(f"{tag}_pk", ends)
+            lb = isearch_reads(pk, 0, n, q, pk[ends[0]], pk[ends[1]],
+                               lambda i, tag=tag: read(f"{tag}_pk", i))
+            window_reads(hi, lo, 0, n, window, lb, qhi, qlo,
+                         lambda f, i, tag=tag: read(f"{tag}_{f}", i))
+    return count_sectors(reads)
 
 
 def probe_sectors(q, qhi, qlo, slope, intercept, entries):
@@ -919,6 +1087,7 @@ def write_stream(res, m, win, n_batches, until_fold, alternate=False):
                         insert_ms_median=statistics.median(ins_ms),
                         insert_ms_max=max(ins_ms),
                         fold_batches=fold_batches)
+    res["write_batches"] = ins_k
     return np.concatenate(ins_k), np.concatenate(ins_p)
 
 
@@ -1116,7 +1285,38 @@ def lookup_kw(nfl):
 
 
 # ------------------------------------------------- kernels vs plain
-def nf_forward_row(res, k, flush_buf):
+def nf_sass_per_key(shapes):
+    """FP32 and SFU instructions per key of the default flow's
+    ``nf_forward`` kernel, counted in the SASS of the built library
+    (``cuobjdump -sass``): its FADD, FMUL, FFMA, FSETP, FSEL and FMNMX
+    (one FP32 issue slot each) and its MUFU, over the keys its code
+    evaluates (one MUFU.EX2 per accurate tanhf, one tanhf per hidden unit
+    of every layer but the last)."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build._lib_path("nf_forward"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    body = next(f for f in sass.split("Function : ")[1:]
+                if f.startswith("_Z15nf_forward_vec4"))
+    ops = collections.Counter(op.split(".")[0] for op in re.findall(
+        r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body))
+    ex2 = len(re.findall(r"MUFU\.EX2", body))
+    tanh = sum(o for o, _ in shapes[:-1])
+    keys = ex2 / tanh
+    fp32 = sum(ops[o] for o in ("FADD", "FMUL", "FFMA", "FSETP", "FSEL",
+                                "FMNMX"))
+    return fp32 / keys, ops["MUFU"] / keys, keys
+
+
+def nf_forward_row(res, k, flush_buf, write_batches):
+    """nf_forward against plain on the bulk load's keys, timed there and
+    at the write batches' size (their inserts' positioning keys), with
+    its bound the largest of its bytes, its FP32 issue and its SFU
+    operations (counted in its SASS)."""
     dev = torch.device("cuda")
     nfl = res["nfl"]
     cfg = nfl.cfg.flow
@@ -1152,12 +1352,13 @@ def nf_forward_row(res, k, flush_buf):
         return (h * scale).sum(dim=1)
 
     b = feats.shape[0]
-    # per key: standardize (sub, mul), a multiply and an add per weight,
-    # one op per tanh, the decode's d multiplies and d-1 adds
-    flops = (2 * d + sum(2 * o * n for o, n in shapes)
-             + sum(o for o, _ in shapes[:-1]) + 2 * d - 1)
-    bytes_ = b * (4 * d + 4)
-    bound_ms = max(bytes_ / HBM_BYTES_PER_S, b * flops / F32_FLOPS_PER_S) * 1e3
+    fp32_key, sfu_key, sass_keys = nf_sass_per_key(shapes)
+    fp32_s, sfu_s = sm_rates()
+    times = {"bytes": b * (4 * d + 4) / HBM_BYTES_PER_S,
+             "operations (FP32 issue)": b * fp32_key / fp32_s,
+             "operations (SFU)": b * sfu_key / sfu_s}
+    bound_by = max(times, key=times.get)
+    bound_ms = times[bound_by] * 1e3
 
     def kernel():
         return k.nf_forward(feats, packed, shapes, d)
@@ -1165,7 +1366,17 @@ def nf_forward_row(res, k, flush_buf):
     # cold L2: each call alone after a flush, the median of 5
     cold = launch_times_ms([kernel] * 5, flush_buf.zero_)
     lib_cold = launch_times_ms([library] * 5, flush_buf.zero_)
-    return {
+    host = host_ms_per_call([kernel] * 20)
+    wfeats = [torch.from_numpy(nfl._feats(x)).to(dev) for x in write_batches]
+    for f in wfeats[:2]:
+        if not bit_equal(k.nf_forward(f, packed, shapes, d),
+                         k.nf_forward_plain(f, packed, shapes, d)):
+            fail("nf_forward disagrees with plain on a write batch")
+    wcold, wwarm, whost = timed_launches(
+        [lambda f=f: k.nf_forward(f, packed, shapes, d) for f in wfeats],
+        flush_buf)
+    wb = statistics.median(f.shape[0] for f in wfeats)
+    row = {
         "name": "nf_forward", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/nf_forward.cu",
         "replaces": "src/repro/kernels/nf_forward.py:113",
@@ -1174,12 +1385,28 @@ def nf_forward_row(res, k, flush_buf):
         "plain_ms": time_ms(lambda: k.nf_forward_plain(feats, packed, shapes,
                                                        d), 5, 1),
         "bound_ms": bound_ms,
-        "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S
-                     >= b * flops / F32_FLOPS_PER_S else "operations"),
+        "bound_by": "bytes" if bound_by == "bytes" else "operations",
         "library_ms": statistics.median(lib_cold),
         "ms_back_to_back": time_ms(kernel, 20),
         "library_ms_back_to_back": time_ms(library, 5, 1),
+        "host_ms_per_call": host,
+        "bound_ms_by": {key: v * 1e3 for key, v in times.items()},
+        "fp32_per_key": fp32_key, "sfu_per_key": sfu_key,
+        "write_batch_keys": wb,
+        "ms_write_batch": statistics.median(wcold),
+        "ms_warm_l2_write_batch": statistics.median(wwarm),
+        "host_ms_per_call_write_batch": whost,
     }
+    log(f"nf_forward: {b} keys {row['ms']:.5f} ms cold L2 (back to back "
+        f"{row['ms_back_to_back']:.5f}), host issue {host:.5f} ms/call; "
+        f"the write batches ({len(wfeats)}, median {wb:.0f} keys) "
+        f"{row['ms_write_batch']:.5f} ms cold, {row['ms_warm_l2_write_batch']:.5f} "
+        f"warm, host {whost:.5f}; per key {fp32_key:.1f} FP32 and "
+        f"{sfu_key:.1f} SFU instructions (SASS, {sass_keys:.0f} keys of "
+        f"code); bound {bound_ms:.5f} ms by {bound_by} "
+        f"({ {key: round(v * 1e3, 5) for key, v in times.items()} }); "
+        f"library {row['library_ms']:.4f} ms")
+    return row
 
 
 def compare_lookup(res, args, kw, k, what):
@@ -1338,6 +1565,7 @@ def time_streamed(res, k, split_key_bits, flush_buf, look):
     a0 = sargs[0]
     _p, z0 = k.streamed_lookup(*a0, **kw)
     sectors, tiles = streamed_sectors(sp, a0[5], z0, a0[1], a0[2])
+    ksectors = streamed_kernel_sectors(sp, a0[5], z0, a0[1], a0[2])
     io = BATCH * (4 * a0[0].shape[1] + 8 + 8)
     bound = (sectors * SECTOR + io) / HBM_BYTES_PER_S * 1e3
     fns = [lambda a=a: k.streamed_lookup(*a, **kw) for a in sargs]
@@ -1352,15 +1580,57 @@ def time_streamed(res, k, split_key_bits, flush_buf, look):
         f"{int(sp.pool.plen.item())} rows (capacity {sp.pool.pk.shape[0]}, "
         f"router {sp.router.shape[0]}, window {sp.window}); "
         f"{tiles:.3f} tiles probed/query; {sectors} distinct sectors "
-        f"({sectors / BATCH:.3f}/query); bound {bound:.6f} ms; same "
+        f"({sectors / BATCH:.3f}/query; the kernel's own reads touch "
+        f"{ksectors}, {ksectors / BATCH:.3f}/query); bound {bound:.6f} ms; same "
         f"batches, fused_lookup {look['ms']:.5f} ms cold, "
         f"{look['ms_warm_l2']:.5f} ms warm: streamed/fused "
         f"{ms / look['ms']:.2f} cold, {ms_warm / look['ms_warm_l2']:.2f} "
         "warm")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, ms_warm_l2=ms_warm,
                 host_ms_per_call=host, max_abs_err=err,
-                tiles_per_query=tiles, fused_ms=look["ms"],
-                fused_ms_warm_l2=look["ms_warm_l2"])
+                tiles_per_query=tiles, sectors=sectors,
+                sectors_kernel=ksectors, fused_ms=look["ms"],
+                fused_ms_warm_l2=look["ms_warm_l2"],
+                streamed_over_fused=ms / look["ms"])
+
+
+def time_streamed_tiers(res, k, keys, split_key_bits, flush_buf, look_tiers):
+    """streamed_lookup with the run and the delta populated, over the
+    read-back batches of ``time_lookup_tiers``: against plain (bit-equal)
+    and the fused kernel (payloads and z) on the first, then timed launch
+    by launch beside the fused kernel's time on the same batches."""
+    dev = torch.device("cuda")
+    nfl = res["nfl"]
+    sp = nfl.index._serving.stream_pack()
+    kw = stream_kw(nfl)
+    batches = [lookup_args(nfl, keys[i:i + BATCH], dev, split_key_bits)
+               for i in range(0, keys.shape[0], BATCH)]
+    sargs = [(*a[:4], sp, a[5]) for a in batches]
+    err = compare_streamed(res, sargs[0], kw, k,
+                           "read-back batch, tiers populated",
+                           k.fused_lookup(*batches[0], **lookup_kw(nfl)))
+    a0 = sargs[0]
+    _p, z0 = k.streamed_lookup(*a0, **kw)
+    sectors, _tiles = streamed_sectors(sp, a0[5], z0, a0[1], a0[2])
+    ksectors = streamed_kernel_sectors(sp, a0[5], z0, a0[1], a0[2])
+    b0 = a0[0].shape[0]
+    bound = (sectors * SECTOR + b0 * (4 * a0[0].shape[1] + 16)) \
+        / HBM_BYTES_PER_S * 1e3
+    cold, warm, host = timed_launches(
+        [lambda a=a: k.streamed_lookup(*a, **kw) for a in sargs], flush_buf)
+    ms, ms_warm = statistics.median(cold), statistics.median(warm)
+    fms = look_tiers["ms_tiers"]
+    log(f"streamed_lookup with tiers: median over {len(sargs)} read-back "
+        f"batches {ms:.5f} ms cold L2 (min {min(cold):.5f}, max "
+        f"{max(cold):.5f}), {ms_warm:.5f} ms warm L2; host issue "
+        f"{host:.5f} ms/call; {sectors} distinct sectors on the first (the "
+        f"kernel's own reads {ksectors}); bound {bound:.6f} ms; same "
+        f"batches, fused_lookup {fms:.5f} ms cold: streamed/fused "
+        f"{ms / fms:.2f}")
+    return dict(ms_tiers=ms, ms_warm_l2_tiers=ms_warm, bound_ms_tiers=bound,
+                host_ms_per_call_tiers=host, sectors_kernel_tiers=ksectors,
+                fused_ms_tiers=fms, streamed_over_fused_tiers=ms / fms,
+                max_abs_err_tiers=err)
 
 
 def time_probe(res, k, probe_args, flush_buf):
@@ -1739,15 +2009,21 @@ def lm_branches(lm, seed):
                       prefill_s_kernel=tk, prefill_s_chunked=tc)
 
 
-def sfu_per_s() -> float:
-    """exp2 results per second: SMs x 16 per clock x the max SM clock."""
+def sm_rates():
+    """(FP32 issue slots, SFU results) per second: SMs x 128 and SMs x 16
+    per clock, at the max SM clock."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True, timeout=60)
-    mhz = float(out.stdout.strip().splitlines()[0])
+    hz = float(out.stdout.strip().splitlines()[0]) * 1e6
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * SFU_PER_SM_PER_CLOCK * mhz * 1e6
+    return sms * FP32_PER_SM_PER_CLOCK * hz, sms * SFU_PER_SM_PER_CLOCK * hz
+
+
+def sfu_per_s() -> float:
+    """exp2 results per second: SMs x 16 per clock x the max SM clock."""
+    return sm_rates()[1]
 
 
 def scan_row(caps, k, flush_buf):
@@ -2043,7 +2319,6 @@ def main() -> int:
     if not ll["use_flow"]:
         fail("longlat phase did not serve with the flow on")
     wall("longlat reads", t0)
-    rows = {"nf_forward": nf_forward_row(ll, k, flush_buf)}
     look = {True: time_lookup(ll, k, split_key_bits, flush_buf)}
     t0 = time.perf_counter()
     s1 = streamed_reads(ll, win, split_key_bits, "fresh index",
@@ -2059,6 +2334,10 @@ def main() -> int:
     ins_u = np.unique(ins_k)
     readback(ll, ins_u, win, "inserted keys read back")
     look_tiers = time_lookup_tiers(ll, k, ins_u, split_key_bits, flush_buf)
+    streamed_tiers = time_streamed_tiers(ll, k, ins_u, split_key_bits,
+                                         flush_buf, look_tiers)
+    rows = {"nf_forward": nf_forward_row(ll, k, flush_buf,
+                                         ll.pop("write_batches"))}
     update_and_delete(ll, win, ins_k)
     wall("longlat writes", t0)
     t0 = time.perf_counter()
@@ -2164,15 +2443,15 @@ def main() -> int:
 
     launches = dict(win.total)
     log(f"main-path launches (every window): {launches}")
-    lookup_sizes = collections.Counter()
-    for size, n in win.lookup_sizes.items():
-        lookup_sizes["<=" + str(1 << max(size - 1, 0).bit_length())] += n
-    lookup_sizes = dict(sorted(lookup_sizes.items(),
-                               key=lambda kv: int(kv[0][2:])))
+    lookup_sizes = size_buckets(win.lookup_sizes)
     log(f"fused_lookup main-path launches by batch size: {lookup_sizes} "
         f"(exact sizes: {len(win.lookup_sizes)} distinct; "
         f"{win.lookup_sizes.get(BATCH, 0)} of {BATCH}, "
         f"{win.lookup_sizes.get(VERIFY_CHUNK, 0)} of {VERIFY_CHUNK})")
+    nf_sizes = size_buckets(win.nf_sizes)
+    log(f"nf_forward main-path launches by batch size: {nf_sizes} (exact "
+        f"sizes: {dict(sorted(win.nf_sizes.items()))})")
+    rows["nf_forward"]["launches_by_batch"] = nf_sizes
     on, off = look[True], look[False]
     rows["fused_lookup"] = {
         "name": "fused_lookup", "route": "cuda",
@@ -2213,14 +2492,21 @@ def main() -> int:
         "replaces": "src/repro/kernels/streamed_lookup.py:283",
         "launches": None,
         "max_abs_err": max(son["max_abs_err"], soff["max_abs_err"],
+                           streamed_tiers["max_abs_err_tiers"],
                            *(e[1] for e in err_tiers.values())),
         "ms": son["ms"], "plain_ms": son["plain_ms"],
         "bound_ms": son["bound_ms"], "bound_by": "bytes", "library_ms": None,
         **{key: v for key, v in son.items()
            if key not in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+        **{key: v for key, v in streamed_tiers.items()
+           if key != "max_abs_err_tiers"},
         **{f"{key}_flow_off": v for key, v in soff.items()
            if key != "max_abs_err"},
     }
+    log("streamed/fused kernel time, cold L2: longlat (flow on) "
+        f"{son['streamed_over_fused']:.3f} fresh, "
+        f"{streamed_tiers['streamed_over_fused_tiers']:.3f} with tiers; "
+        f"lognormal (flow off) {soff['streamed_over_fused']:.3f} fresh")
     rows["index_probe"] = {
         "name": "index_probe", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/index_probe.cu",

@@ -49,7 +49,8 @@
 //    one warp the lanes would wait for each other's chains;
 //  * one query per thread otherwise, so many independent chains are in
 //    flight per SM; pools through the read-only path (__ldg); the NF in
-//    registers, evaluated once per query.
+//    registers, evaluated once per query, its weights operands from the
+//    kernel-parameter bank (nf_device.cuh).
 //
 // The floor is the sectors a batch must touch (counted per run by
 // chip_smoke.py from the pool layout and the measured mean depth) over
@@ -261,13 +262,12 @@ __device__ __forceinline__ int tier_probe(const LookupArgs& a, float q,
   return dv != -1 ? dv : rv;
 }
 
-template <int MAXW, int BCAP>
+template <int NF, int BCAP>
 __global__ void __launch_bounds__(THREADS)
-    fused_lookup_kernel(const LookupArgs a, const NFParams p) {
-  __shared__ float sw[NF_MAX_W];
+    fused_lookup_kernel(const LookupArgs a,
+                        const __grid_constant__ NFParams p) {
   __shared__ float s_q[HALF];
   __shared__ int s_hi[HALF], s_lo[HALF], s_tier[HALF];
-  if (a.use_flow) nf_stage_weights(p, sw);
   // with tiers: the first half of the block walks HALF queries, the
   // second half probes the tiers for the same queries
   const bool tiers = a.probe_tiers != 0;
@@ -280,13 +280,7 @@ __global__ void __launch_bounds__(THREADS)
   int qhi = 0, qlo = 0;
   if (live && !prober) {
     if (a.use_flow) {
-      float x[MAXW];
-#pragma unroll
-      for (int k = 0; k < MAXW; ++k) {
-        x[k] = (k < p.dim) ? __ldg(a.feats + (int64_t)i * a.feat_dim + k)
-                           : 0.f;
-      }
-      q = nf_eval<MAXW>(x, p, sw);
+      q = nf_eval_row<NF>(a.feats, (int64_t)i * a.feat_dim, p);
     } else {
       q = __ldg(a.feats + (int64_t)i * a.feat_dim);
     }
@@ -321,21 +315,13 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int BCAP>
-static int launch_width(const LookupArgs* a, const NFParams* p, int blocks,
-                        cudaStream_t s) {
-  const int w = a->use_flow ? nf_max_width(*p) : 1;
-  if (w <= 4) {
-    fused_lookup_kernel<4, BCAP><<<blocks, THREADS, 0, s>>>(*a, *p);
-  } else if (w <= 8) {
-    fused_lookup_kernel<8, BCAP><<<blocks, THREADS, 0, s>>>(*a, *p);
-  } else if (w <= 16) {
-    fused_lookup_kernel<16, BCAP><<<blocks, THREADS, 0, s>>>(*a, *p);
-  } else if (w <= 32) {
-    fused_lookup_kernel<32, BCAP><<<blocks, THREADS, 0, s>>>(*a, *p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+static int launch_kind(const LookupArgs* a, const NFParams* p, int blocks,
+                       cudaStream_t s) {
+  return nf_dispatch(nf_kind(*p, a->use_flow != 0), [&](auto k) {
+    constexpr int NF = decltype(k)::value;
+    fused_lookup_kernel<NF, BCAP><<<blocks, THREADS, 0, s>>>(*a, *p);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" int fused_lookup_launch(const LookupArgs* a, const NFParams* p,
@@ -345,7 +331,7 @@ extern "C" int fused_lookup_launch(const LookupArgs* a, const NFParams* p,
   const int blocks = (a->B + per_block - 1) / per_block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a->bucket_cap <= BUCKET_UNROLL) {
-    return launch_width<BUCKET_UNROLL>(a, p, blocks, s);
+    return launch_kind<BUCKET_UNROLL>(a, p, blocks, s);
   }
-  return launch_width<0>(a, p, blocks, s);
+  return launch_kind<0>(a, p, blocks, s);
 }

@@ -20,7 +20,7 @@
 //    -0.0 == +0.0), then pool (delta, run, scan pool), then index within
 //    a pool.  A scan-pool candidate whose identity has a copy in the run
 //    or the delta is superseded, and a run candidate with a copy in the
-//    delta; the copy is the one `probe_tier` finds at the candidate's own
+//    delta; the copy is the one a tier probe finds at the candidate's own
 //    key: the newest identity match in the window [l - W, l + 3W) around
 //    the key's lower bound l in that tier, clipped to its live rows.  A
 //    TOMBSTONE candidate is dropped.  Valid payloads compact into lanes
@@ -105,26 +105,18 @@ struct Slot {
   int lr;    // lower_bound(run, key)
 };
 
-template <int MAXW>
+template <int NF>
 __device__ __forceinline__ float endpoint_z(const float* feats, int i,
                                             int feat_dim, int use_flow,
-                                            const NFParams& p,
-                                            const float* sw) {
+                                            const NFParams& p) {
   if (!use_flow) return __ldg(feats + (int64_t)i * feat_dim);
-  float x[MAXW];
-#pragma unroll
-  for (int k = 0; k < MAXW; ++k) {
-    x[k] = (k < p.dim) ? __ldg(feats + (int64_t)i * feat_dim + k) : 0.f;
-  }
-  return nf_eval<MAXW>(x, p, sw);
+  return nf_eval_row<NF>(feats, (int64_t)i * feat_dim, p);
 }
 
-template <int MAXW>
+template <int NF>
 __global__ void __launch_bounds__(WARPS * 32)
-    range_scan_kernel(const ScanArgs a, const NFParams p) {
-  __shared__ float sw[NF_MAX_W];
+    range_scan_kernel(const ScanArgs a, const __grid_constant__ NFParams p) {
   __shared__ Slot slots[WARPS][32];
-  if (a.use_flow) nf_stage_weights(p, sw);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * WARPS + warp;
@@ -134,8 +126,7 @@ __global__ void __launch_bounds__(WARPS * 32)
 
   float z = 0.f;
   if (lane < 2) {
-    z = endpoint_z<MAXW>(lane ? a.fhi : a.flo, i, a.feat_dim, a.use_flow, p,
-                         sw);
+    z = endpoint_z<NF>(lane ? a.fhi : a.flo, i, a.feat_dim, a.use_flow, p);
   }
   const float zlo = __shfl_sync(FULL, z, 0);
   const float zhi = __shfl_sync(FULL, z, 1);
@@ -293,17 +284,9 @@ extern "C" int range_scan_launch(const ScanArgs* a, const NFParams* p,
   if (a->B <= 0) return 0;
   const int blocks = (a->B + WARPS - 1) / WARPS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int w = a->use_flow ? nf_max_width(*p) : 1;
-  if (w <= 4) {
-    range_scan_kernel<4><<<blocks, WARPS * 32, 0, s>>>(*a, *p);
-  } else if (w <= 8) {
-    range_scan_kernel<8><<<blocks, WARPS * 32, 0, s>>>(*a, *p);
-  } else if (w <= 16) {
-    range_scan_kernel<16><<<blocks, WARPS * 32, 0, s>>>(*a, *p);
-  } else if (w <= 32) {
-    range_scan_kernel<32><<<blocks, WARPS * 32, 0, s>>>(*a, *p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return nf_dispatch(nf_kind(*p, a->use_flow != 0), [&](auto k) {
+    constexpr int NF = decltype(k)::value;
+    range_scan_kernel<NF><<<blocks, WARPS * 32, 0, s>>>(*a, *p);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

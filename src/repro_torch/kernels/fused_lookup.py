@@ -137,7 +137,8 @@ def _slot_index(x: torch.Tensor) -> torch.Tensor:
 
 def _lower_bound_plain(pk, n_len, iters: int, q, base=None,
                        rows=None) -> torch.Tensor:
-    """``lower_bound`` of csrc/tier_device.cuh, vectorised over ``q``:
+    """The binary search the kernels' tier searches give the index of
+    (``tier_probe`` in csrc/fused_lookup.cu), vectorised over ``q``:
     the leftmost index in [0, n] with ``pk[base + i] >= q``, as ``iters``
     rounds of binary search with reads clamped to ``pk[base + rows - 1]``.
     ``n_len`` is one length (i32[1]) or one per query; ``base`` (default
@@ -158,7 +159,7 @@ def _lower_bound_plain(pk, n_len, iters: int, q, base=None,
 
 def _probe_index_plain(pk, hi, lo, n_len, iters: int, window: int, q, qhi,
                        qlo, base=None, rows=None) -> torch.Tensor:
-    """``probe_index`` of csrc/tier_device.cuh: the index (from ``base``)
+    """A tier's (or a stream tile's) identity probe: the index (from ``base``)
     of the newest row whose identity matches in the window around
     ``q``'s lower bound, -1 where none does; arguments as
     ``_lower_bound_plain``."""
@@ -176,7 +177,8 @@ def _probe_index_plain(pk, hi, lo, n_len, iters: int, window: int, q, qhi,
 
 def _probe_tier_plain(pk, hi, lo, pv, n_len, iters: int, window: int,
                       q, qhi, qlo) -> torch.Tensor:
-    """``probe_tier`` of csrc/tier_device.cuh: the newest payload whose
+    """A tier's probe (``window_pv`` in csrc/tier_device.cuh at the
+    index ``_lower_bound_plain`` gives): the newest payload whose
     identity matches in the window around ``q``'s lower bound (-1: none;
     a TOMBSTONE passes through)."""
     last = _probe_index_plain(pk, hi, lo, n_len, iters, window, q, qhi, qlo)

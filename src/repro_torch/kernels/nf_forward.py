@@ -11,6 +11,7 @@ per multiply and per add.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from collections import OrderedDict
 from typing import Sequence, Tuple
@@ -135,9 +136,11 @@ def nf_forward(feats: torch.Tensor, packed_w: torch.Tensor, shapes: Shapes,
                dim: int) -> torch.Tensor:
     """feats f32[B, dim] -> z f32[B] on ``feats``' device.
 
-    CUDA tensors launch ``csrc/nf_forward.cu`` (and count the launch);
-    CPU tensors run ``nf_forward_plain``.  ``packed_w`` is the CPU row
-    from ``pack_flow_weights``."""
+    CUDA tensors launch ``csrc/nf_forward.cu`` (and count the launch, by
+    batch size too); CPU tensors run ``nf_forward_plain``.  ``packed_w``
+    is the CPU row from ``pack_flow_weights``.  Any contiguous ``feats``
+    is served; a 16-byte aligned one with the default flow takes the
+    kernel's four-keys-a-thread path."""
     if feats.device.type == "cpu":
         return nf_forward_plain(feats, packed_w, shapes, dim)
     if feats.device.type != "cuda":
@@ -145,12 +148,10 @@ def nf_forward(feats: torch.Tensor, packed_w: torch.Tensor, shapes: Shapes,
     if feats.dtype != torch.float32 or feats.dim() != 2 \
             or feats.shape[1] != dim or not feats.is_contiguous():
         raise ValueError("feats must be contiguous f32[B, dim]")
-    params = nf_params(packed_w, shapes, dim)
-    lib = build.load("nf_forward")
-    fn = lib.nf_forward_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.POINTER(build.NFParams), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    params = nf_params_cached(packed_w, shapes, dim)
+    fn = build.function("nf_forward", "nf_forward_launch",
+                        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.POINTER(build.NFParams), ctypes.c_void_p])
     b = int(feats.shape[0])
     out = torch.empty(b, dtype=torch.float32, device=feats.device)
     if b == 0:
@@ -158,7 +159,9 @@ def nf_forward(feats: torch.Tensor, packed_w: torch.Tensor, shapes: Shapes,
     build.check(fn(feats.data_ptr(), out.data_ptr(), b, ctypes.byref(params),
                    build.stream_ptr(feats.device)), "nf_forward")
     nf_forward.launches += 1
+    nf_forward.launch_sizes[b] += 1
     return out
 
 
 nf_forward.launches = 0
+nf_forward.launch_sizes = collections.Counter()   # batch size -> launches

@@ -37,6 +37,7 @@ from repro_torch.kernels.nf_forward import nf_forward, pack_flow_weights
 __all__ = ["nf_transform_keys", "pack_params", "fused_lookup",
            "fused_range_scan", "index_probe", "mamba_scan", "flash_decode",
            "launch_counts", "fused_lookup_launch_sizes",
+           "nf_forward_launch_sizes",
            "reset_launch_counts"]
 
 
@@ -168,9 +169,15 @@ def fused_lookup_launch_sizes() -> Dict[int, int]:
     return dict(_fl.fused_lookup.launch_sizes)
 
 
+def nf_forward_launch_sizes() -> Dict[int, int]:
+    """``nf_forward`` launches since the last reset, per batch size."""
+    return dict(nf_forward.launch_sizes)
+
+
 def reset_launch_counts() -> None:
     """Zero the launch counters and the range scans' truncation count."""
     nf_forward.launches = 0
+    nf_forward.launch_sizes.clear()
     _fl.fused_lookup.launches = 0
     _fl.fused_lookup.launch_sizes.clear()
     _sl.streamed_lookup.launches = 0

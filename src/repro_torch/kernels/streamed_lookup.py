@@ -7,8 +7,9 @@ order, which the range path also reads) instead of the tree: the pool is
 cut into ``STREAM_ALIGN``-row tiles, and a router vector holding the
 first key of every tile brackets the tiles that can hold a query's key.
 ``streamed_lookup`` launches the CUDA kernel
-(``csrc/streamed_lookup.cu``, one thread per query) on CUDA tensors and
-runs ``streamed_lookup_plain`` on CPU tensors.
+(``csrc/streamed_lookup.cu``: the router in shared memory, block
+searches, the tiers probed beside the pool) on CUDA tensors and runs
+``streamed_lookup_plain`` on CPU tensors.
 
 Per query, as the JAX package's ``_kernel``: z (the in-kernel NF, or
 ``feats[:, 0]``); the tiles whose span ``[ord(router[t]) - 2,
@@ -39,8 +40,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_lookup import (TOMBSTONE, TierPack,
                                               _probe_index_plain,
-                                              _probe_tier_plain)
-from repro_torch.kernels.nf_forward import nf_forward_plain, nf_params
+                                              _probe_tier_plain,
+                                              check_window_layout)
+from repro_torch.kernels.nf_forward import nf_forward_plain, nf_params_cached
 from repro_torch.kernels.range_scan import ScanPool
 
 __all__ = ["streamed_lookup", "streamed_lookup_plain", "StreamPack",
@@ -73,8 +75,7 @@ class _StreamArgs(ctypes.Structure):
         "dlen", "out_pay", "out_z")]
         + [(n, ctypes.c_int) for n in (
             "B", "feat_dim", "use_flow", "s_cap", "window", "probe_tiers",
-            "run_cap", "run_iters", "run_window", "dl_cap", "dl_iters",
-            "dl_window")])
+            "run_window", "dl_window", "r_smem", "chunk")])
 
 
 def router_len(capacity: int) -> int:
@@ -231,13 +232,35 @@ def streamed_lookup(feats: torch.Tensor, qhi: torch.Tensor,
     cap = int(pool.pk.shape[0])
     if pool.pk.dtype != torch.float32 or stream.router.dtype != torch.float32:
         raise ValueError("pool keys and router must be f32")
-    if int(stream.router.shape[0]) < max(cap // STREAM_ALIGN, 1) + 1:
+    # the router entries the bracket reads: one per tile, then the next
+    # tile's start
+    need = -(-cap // STREAM_ALIGN) + 1
+    if int(stream.router.shape[0]) < need:
         raise ValueError("router too short for the pool: build it with "
                          "build_router")
     if stream.window < 1:
         raise ValueError("the pool's window must be at least 1")
-    params = (nf_params(packed_w, shapes, dim) if use_flow
-              else build.NFParams())
+    # the searches' last round and the windows read four rows a 16-byte
+    # load; the router is staged 16 bytes a copy
+    if cap % 4 or any(x.data_ptr() % 16 for x in (pool.pk, pool.hi,
+                                                  stream.router)):
+        raise ValueError("streamed_lookup: the pool's pk and hi must be "
+                         "16-byte aligned with a multiple of 4 rows, the "
+                         "router 16-byte aligned")
+    if tiers is not None:
+        check_window_layout(tiers, "streamed_lookup")
+        t = tiers.pools
+        for pk, iters in ((t.run_pk, tiers.run_iters),
+                          (t.dl_pk, tiers.delta_iters)):
+            # the kernel's searches run to the exact lower bound; the
+            # plain version's `iters` rounds reach it when they cover
+            # the capacity
+            if pk.data_ptr() % 16 or pk.shape[0] % 4 \
+                    or (1 << iters) <= pk.shape[0]:
+                raise ValueError("streamed_lookup: tier pk must be 16-byte "
+                                 "aligned with a multiple of 4 rows, and "
+                                 "its search rounds cover its capacity")
+    params = nf_params_cached(packed_w, shapes, dim) if use_flow else _NO_FLOW
     pay = torch.empty(b, dtype=torch.int32, device=feats.device)
     z = torch.empty(b, dtype=torch.float32, device=feats.device)
     if b == 0:
@@ -247,28 +270,25 @@ def streamed_lookup(feats: torch.Tensor, qhi: torch.Tensor,
     a.spk, a.shi, a.slo, a.spv, a.slen = (x.data_ptr() for x in pool)
     a.router = stream.router.data_ptr()
     if tiers is not None:
-        t = tiers.pools
         (a.rpk, a.rhi, a.rlo, a.rpv, a.rlen, a.dpk, a.dhi, a.dlo, a.dpv,
          a.dlen) = (x.data_ptr() for x in t)
         a.probe_tiers = 1
-        a.run_cap, a.dl_cap = int(t.run_pk.shape[0]), int(t.dl_pk.shape[0])
-        a.run_iters, a.run_window = tiers.run_iters, tiers.run_window
-        a.dl_iters, a.dl_window = tiers.delta_iters, tiers.delta_window
+        a.run_window, a.dl_window = tiers.run_window, tiers.delta_window
     a.out_pay, a.out_z = pay.data_ptr(), z.data_ptr()
     a.B = b
     a.feat_dim = int(feats.shape[1])
     a.use_flow = int(bool(use_flow))
     a.s_cap = cap
     a.window = int(stream.window)
-    lib = build.load("streamed_lookup")
-    fn = lib.streamed_lookup_launch
-    fn.argtypes = [ctypes.POINTER(_StreamArgs),
-                   ctypes.POINTER(build.NFParams), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    a.r_smem = min(-(-need // 4) * 4, int(stream.router.shape[0]))
+    fn = build.function("streamed_lookup", "streamed_lookup_launch",
+                        [ctypes.POINTER(_StreamArgs),
+                         ctypes.POINTER(build.NFParams), ctypes.c_void_p])
     build.check(fn(ctypes.byref(a), ctypes.byref(params),
                    build.stream_ptr(feats.device)), "streamed_lookup")
     streamed_lookup.launches += 1
     return pay, z
 
 
+_NO_FLOW = build.NFParams()
 streamed_lookup.launches = 0

@@ -24,7 +24,7 @@ from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain
 from repro_torch.kernels.nf_forward import nf_forward, nf_forward_plain
 from repro_torch.kernels.range_scan import (fused_range_scan,
                                             fused_range_scan_plain)
-from repro_torch.kernels.streamed_lookup import (streamed_lookup,
+from repro_torch.kernels.streamed_lookup import (StreamPack, streamed_lookup,
                                                  streamed_lookup_plain)
 
 torch.set_num_threads(1)
@@ -504,6 +504,171 @@ def test_normalizer_features_are_host_side(cuda):
     idx.build(keys, np.arange(keys.shape[0]))
     assert idx._kernel_pools().ekey.device.type == "cuda"
     assert f.dtype == np.float32
+
+
+# ------------------------------------- NF and streamed kernels: edges
+@pytest.mark.parametrize("dim,hidden,layers", [(2, 2, 2), (3, 2, 2),
+                                               (4, 3, 3), (8, 4, 2)])
+def test_nf_forward_kernel_batch_sizes_and_unaligned_feats(cuda, dim, hidden,
+                                                          layers):
+    """Every flow shape at batches of 1, 2, 3, 5, 100,003 and 2^20 + 1
+    keys (the default flow's four-keys-a-thread path and its tail), and
+    a contiguous feats view that starts off a 16-byte boundary: bit-equal
+    to plain."""
+    cfg, params = _flow(dim, hidden, layers, 7 * dim + layers, cuda)
+    packed, shapes = ops.pack_params(params, cfg)
+    base = torch.randn((1 << 20) + 2, dim, generator=torch.Generator()
+                       .manual_seed(2)).mul_(4).to(cuda)
+    for b in (1, 2, 3, 5, 100_003, (1 << 20) + 1):
+        zk = nf_forward(base[:b], packed, shapes, dim)
+        zp = nf_forward_plain(base[:b], packed, shapes, dim)
+        assert torch.equal(zk.view(torch.int32), zp.view(torch.int32)), b
+    view = base.reshape(-1)[1:1 + 1001 * dim].view(1001, dim)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    zk = nf_forward(view, packed, shapes, dim)
+    zp = nf_forward_plain(view, packed, shapes, dim)
+    torch.cuda.synchronize()
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+
+
+def _streamed_on_card(cuda, sp, q, qh, ql, tiers=None):
+    """The streamed kernel on the card against its plain version on the
+    card, for a hand-made CPU stream pack (and tiers)."""
+    from repro_torch.kernels.range_scan import ScanPool
+    from repro_torch.kernels.streamed_lookup import StreamPack
+
+    dsp = StreamPack(ScanPool(*(t.to(cuda) for t in sp.pool)),
+                     sp.router.to(cuda), sp.window)
+    dt = None if tiers is None else tiers._replace(pools=type(tiers.pools)(
+        *(t.to(cuda) for t in tiers.pools)))
+    args = (torch.from_numpy(np.asarray(q, np.float32).reshape(-1, 1))
+            .to(cuda), torch.from_numpy(np.asarray(qh, np.int32)).to(cuda),
+            torch.from_numpy(np.asarray(ql, np.int32)).to(cuda), None, dsp,
+            dt)
+    pk, zk = streamed_lookup(*args, dim=1, use_flow=False)
+    pp, zp = streamed_lookup_plain(*args, dim=1, use_flow=False)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp)
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+    return pk.cpu().numpy()
+
+
+def test_streamed_lookup_kernel_edge_pools(cuda):
+    """Empty pools (with and without tiers), pools of less than one tile,
+    runs of equal keys across tile edges with windows of 24 and 40 (read
+    row by row), signed zeros, and tiers holding tombstones: bit-equal to
+    plain."""
+    from test_torch_streamed_order import _pool, _tiers
+
+    rng = np.random.default_rng(12)
+    grid = np.arange(-40, 40, dtype=np.float32)
+    grid[grid == 0] = -0.0
+    ident = rng.integers(0, 16, (2, 300)).astype(np.int32)
+    j = rng.integers(0, 300, 500)
+    q = rng.choice(grid, 500)
+    empty = np.empty(0, np.int32)
+    for cap in (128, 4096):
+        pool, router = _pool(np.empty(0, np.float32), empty, empty, empty,
+                             cap)
+        sp = StreamPack(pool, router, window=1)
+        assert (_streamed_on_card(cuda, sp, q, *ident[:, j]) == -1).all()
+        _streamed_on_card(cuda, sp, q, *ident[:, j],
+                          tiers=_tiers(rng, grid, ident))
+    for n in (1, 17, 1000):
+        keys = np.sort(rng.choice(grid, n)).astype(np.float32)
+        k = rng.integers(0, 300, n)
+        pool, router = _pool(keys, ident[0, k], ident[1, k],
+                             np.arange(n, dtype=np.int32), 4096)
+        for w in (1, 3, 9):
+            _streamed_on_card(cuda, StreamPack(pool, router, window=w), q,
+                              *ident[:, j], tiers=_tiers(rng, grid, ident))
+    keys = np.sort(rng.uniform(0, 1e6, 5000)).astype(np.float32)
+    for edge, length in ((1024, 24), (2048, 40), (3072, 17)):
+        keys[edge - length // 2:edge + length - length // 2] = keys[edge]
+    keys = np.sort(keys)
+    hi = rng.integers(0, 50, keys.shape[0]).astype(np.int32)
+    lo = rng.integers(0, 3, keys.shape[0]).astype(np.int32)
+    pool, router = _pool(keys, hi, lo, np.arange(keys.shape[0],
+                                                 dtype=np.int32), 8192)
+    pick = np.concatenate([np.arange(1000, 1060), np.arange(2000, 2100),
+                           rng.integers(0, keys.shape[0], 400)])
+    for w in (24, 40):
+        got = _streamed_on_card(cuda, StreamPack(pool, router, window=w),
+                                keys[pick], hi[pick], lo[pick])
+        assert (got >= 0).all()
+    # the bracket's slack and the full tile's last round, as
+    # test_torch_streamed_order.py places them
+    keys = np.unique(rng.uniform(1.0, 2.0, 3000).astype(np.float32))[:2500]
+    ident = np.arange(2500, dtype=np.int32)
+    pool, router = _pool(keys, ident, ident * 3, ident + 7, 4096)
+    q, row = [], []
+    for t in (1, 2):
+        x = np.float32(router[t].item())
+        for steps in (1, 2, 3):
+            x = np.nextafter(x, np.float32(-np.inf))
+            q.append(x)
+            row.append(1024 * t)
+        up = np.nextafter(np.float32(router[t].item()), np.float32(np.inf))
+        q += [up, up]
+        row += [1024 * t - 1, 1024 * t - 2]
+    row = np.array(row)
+    got = _streamed_on_card(cuda, StreamPack(pool, router, window=2), q,
+                            ident[row], ident[row] * 3)
+    assert got.tolist() == [1031, 1031, -1, 1030, -1,
+                            2055, 2055, -1, 2054, -1]
+
+
+def test_streamed_lookup_kernel_2_25_row_capacity(cuda):
+    """A pool of 2^25-row capacity, nearly full: its 128 KB router is
+    staged in shared memory; every key finds its own row."""
+    cap = 1 << 25
+    plen = cap - 1000
+    pv = np.full(cap, -1, np.int32)
+    pv[:plen] = np.arange(plen, dtype=np.int32)
+    pk = pv.astype(np.float32)
+    pk[plen:] = np.inf
+    hi = (pv.view(np.uint32) * np.uint32(2654435761)).view(np.int32)
+    from repro_torch.kernels.range_scan import ScanPool
+    from repro_torch.kernels.streamed_lookup import build_router
+
+    pool = ScanPool(torch.from_numpy(pk), torch.from_numpy(hi),
+                    torch.from_numpy(pv), torch.from_numpy(pv),
+                    torch.tensor([plen], dtype=torch.int32))
+    sp = StreamPack(pool, build_router(pool.pk), window=2)
+    pick = np.concatenate([np.random.default_rng(3).integers(0, plen,
+                                                             100_000),
+                           [0, 1, plen - 2, plen - 1, 1 << 24]])
+    got = _streamed_on_card(cuda, sp, pk[pick], hi[pick], pv[pick])
+    assert np.array_equal(got, pick)
+
+
+@pytest.mark.parametrize("flow", [True, False])
+def test_nf_using_kernels_share_z(cuda, flow):
+    """The z of ``nf_forward``, ``fused_lookup``, ``streamed_lookup`` and
+    ``fused_range_scan`` (its lower endpoints) are equal bit for bit on
+    the same keys, with data and tombstones in both tiers."""
+    nfl, keys, _expect = _written(cuda, flow)
+    idx = nfl.index
+    hi, lo = split_key_bits(keys)
+    feats = torch.from_numpy(_feats(nfl, keys)).to(cuda)
+    qhi = torch.from_numpy(hi.view(np.int32)).to(cuda)
+    qlo = torch.from_numpy(lo.view(np.int32)).to(cuda)
+    tp = idx._tier_pack()
+    kw = dict(dim=nfl.cfg.flow.dim, shapes=nfl._shapes, use_flow=flow)
+    _pf, zf = fused_lookup(feats, qhi, qlo, nfl._packed_w,
+                           idx._kernel_pools(), tp, max_depth=idx.max_depth,
+                           dense_iters=24, bucket_cap=6,
+                           dense_window=idx.dense_window, **kw)
+    _ps, zs = streamed_lookup(feats, qhi, qlo, nfl._packed_w,
+                              idx._serving.stream_pack(), tp, **kw)
+    zr = fused_range_scan(feats, feats, nfl._packed_w,
+                          idx._serving.scan_pack(), tp, scan_cap=8, **kw)[3]
+    torch.cuda.synchronize()
+    for z in (zs, zr):
+        assert torch.equal(zf.view(torch.int32), z.view(torch.int32))
+    if flow:
+        zn = nf_forward(feats, nfl._packed_w, nfl._shapes, nfl.cfg.flow.dim)
+        assert torch.equal(zf.view(torch.int32), zn.view(torch.int32))
 
 
 # ------------------------------------------------------------ LM kernels
