@@ -43,7 +43,31 @@ Phases (any failure exits non-zero before the result lines):
    included: the phase fails unless streamed reads were served while the
    fold ran and the streamed launches equal the odd batches' read calls
    (no fold verify streamed); 1,024 deletes; one scan batch.
-4. kernels against their plain PyTorch versions on the card, at the
+4. sharded serving, with the single indexes' tensors freed: phase 2's
+   longlat load (same keys, seed and loaded half) through
+   ``NFL(NFLConfig(backend="flat", shards=4))``, the four shards on the
+   one card, AutoSwitch deciding as in 2 (each shard's verdict, key
+   count, depth and pool bytes printed, and the sharded verify's
+   repaired keys):
+   a. reads: 2a's 64 batches, each in its own launch window (one router
+      ``nf_forward``, one ``fused_lookup`` per shard the batch reaches),
+      every payload equal to the single index's in 2a, and its misses;
+      the router's z bit-equal to the fused rung's on every batch; two
+      batches through ``lookup_batch_async``, both in flight before
+      either finishes; one batch split into its host steps and one under
+      ``torch.profiler`` (do the shards' kernels overlap on the card?);
+   b. busy-shard writes: batches of 65,536, 80% inserts of unloaded keys
+      that route to shard 1 and 20% reads over all shards, until shard
+      1's fold starts and completes in-stream; every read checked, those
+      served mid-fold included; no other shard folds; every inserted key
+      read back;
+   c. 65,536 updates and 65,536 deletes across the shards;
+   d. 2d's YCSB-E scans, then one batch of 1,024 ranges per boundary
+      starting within 100 ranks below it and ending past it (at least
+      3,072 must straddle and merge right);
+   e. ``rebuild()``, then the reads, the deleted keys, the misses and one
+      scan batch again.
+5. kernels against their plain PyTorch versions on the card, at the
    main path's shapes: ``nf_forward`` on the bulk-load keys (and beside
    its dense PyTorch equivalent, both cold L2) and on the inserts of
    each ``write_heavy`` batch, bounded by the largest of its bytes, its
@@ -65,7 +89,7 @@ Phases (any failure exits non-zero before the result lines):
    on scan batches taken in that state (longlat's 16 batches timed the
    same way, bounded by the sectors of the endpoint searches, the pool
    spans and the probe windows, plus its inputs and output rows).
-5. LM serving, falcon-mamba-7b at its full published config (64 layers,
+6. LM serving, falcon-mamba-7b at its full published config (64 layers,
    d_model 4096, vocab 65,024, bf16) with ``use_scan_kernel=True``,
    random weights on the card from the seed, after the index phases'
    tensors are freed: 16 requests (prompts of 256-2,048 tokens uniform
@@ -83,19 +107,19 @@ Phases (any failure exits non-zero before the result lines):
    ``ops.flash_decode`` is then driven at qwen3-14b's attention shape
    (40 q heads, 8 kv heads, head dim 128) over a 32,768-position bf16
    cache for 16 rows with ragged lengths (0, 1 and S among them).
-6. the LM kernels against their plain versions: ``mamba_scan`` on the
+7. the LM kernels against their plain versions: ``mamba_scan`` on the
    scan inputs of the first layers of the 2,048-token prompt and on a
    ragged L of 1,000, bounded by its bytes or its exponentials;
    ``flash_decode`` with the bf16 cache and an f32 one, timed beside
    ``scaled_dot_product_attention`` (the library yardstick only), and
    again at B 1 over the cache's row of length S, where the split plan
    matters most; each kernel's plan (scan chunks, decode splits) printed.
-7. result lines: the kernel table as JSON, then the final JSON object
+8. result lines: the kernel table as JSON, then the final JSON object
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are zeroed just before each driven step of phases
-2, 3 and 5 and read just after; the kernels' launches in phases 4 and 6
-and those that compute ground truth, replay or compare fall between
+2, 3, 4 and 6 and read just after; the kernels' launches in phases 5 and
+7 and those that compute ground truth, replay or compare fall between
 those windows and do not count.  Every window outside the streamed steps must
 launch ``streamed_lookup`` 0 times (``pool_budget`` is None there).
 
@@ -131,6 +155,10 @@ SCAN_BATCH = 16384
 N_SCAN_BATCHES = 16
 SCAN_CAP = 128
 LONGLAT_KEYS = 1 << 25         # half bulk-loaded
+N_SHARDS = 4                   # phase 4: key-space shards on one card
+BUSY_SHARD = 1                 # the shard phase 4's inserts aim at
+MAX_SHARD_WRITE_BATCHES = 96   # write batches allowed for its fold
+STRADDLE = 1024                # phase 4: ranges straddling each boundary
 LOGNORMAL_KEYS = 1 << 22
 L2_FLUSH_BYTES = 512 << 20     # ten times the H100's 50 MB L2
 SPIN_CYCLES = 400_000          # ~0.2 ms idle spin, longer than a host call
@@ -148,7 +176,7 @@ LM_NEW = 32                    # new tokens per request
 LM_SLOTS = 8
 LM_REPLAYS = 4                 # requests replayed at batch 1
 LM_CHECK_LEN = 2048            # kernel-vs-chunked prompt
-LM_SCAN_LAYERS = 8             # layers whose scan inputs phase 6 times
+LM_SCAN_LAYERS = 8             # layers whose scan inputs phase 7 times
 LM_LOGIT_REL_L2 = 0.1          # kernel vs chunked bf16 prefill logits
 SCAN_TOL = 1e-4                # mamba_scan vs plain (rtol and atol)
 BRANCH_TOL = 2e-3              # f32 mamba_block, kernel vs chunked
@@ -657,16 +685,22 @@ def streamed_kernel_sectors(sp, tiers, q, qhi, qlo):
     return count_sectors(reads)
 
 
-def probe_sectors(q, qhi, qlo, slope, intercept, entries):
-    """Distinct sectors that ``index_probe``'s reads touch for one batch,
-    replayed from ``csrc/index_probe.cu``: etype and echild at each slot,
-    ehi where the entry is DATA, elo where ehi matched, epay at a hit."""
+def probe_sectors(q, qhi, qlo, slope, intercept, entries, kernel=False):
+    """Distinct sectors of one batch's entry gathers in ``index_probe``:
+    the least the probe needs (etype and echild at each slot, ehi where
+    the entry is DATA, elo where ehi matched, epay at a hit), or with
+    ``kernel`` the reads of ``csrc/index_probe.cu``: etype and echild at
+    each slot, then ehi, elo and epay together where the entry is DATA."""
     from repro_torch.kernels.fused_lookup import DATA, _slot_index
     etype, ehi, elo, epay, echild = entries
     sl = torch.tensor(np.float32(slope), device=q.device)
     ic = torch.tensor(np.float32(intercept), device=q.device)
     slot = torch.clamp(_slot_index(sl * q + ic), 0, etype.shape[0] - 1)
     d = etype[slot] == DATA
+    if kernel:
+        return count_sectors({"etype": [slot], "echild": [slot],
+                              **{f: [slot[d]] for f in ("ehi", "elo",
+                                                        "epay")}})
     mh = d & (ehi[slot] == qhi)
     ml = mh & (elo[slot] == qlo)
     return count_sectors({"etype": [slot], "echild": [slot],
@@ -839,17 +873,20 @@ def bulkload_and_read(name, n_keys, force_flow, seed, m, win):
             m.ops.reset_launch_counts()
             nfl, t_bulk = bulkload(True)
         wrong = n_reads = 0
+        pays = []
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _op, k, p in wl.batches:
-            wrong += int((nfl.lookup_batch(k) != p).sum())
+            pays.append(nfl.lookup_batch(k))
+            wrong += int((pays[-1] != p).sum())
             n_reads += k.shape[0]
         t_reads = time.perf_counter() - t
         wrong_miss = int((nfl.lookup_batch(miss_keys) != -1).sum())
-        return nfl, t_bulk, wrong, n_reads, t_reads, wrong_miss
+        return nfl, t_bulk, wrong, n_reads, t_reads, wrong_miss, pays
 
-    (nfl, t_bulk, wrong, n_reads, t_reads, wrong_miss), counts = win.run(
-        drive)
+    (nfl, t_bulk, wrong, n_reads, t_reads, wrong_miss, pays), counts = \
+        win.run(drive)
+    peak = torch.cuda.max_memory_allocated()
     mt = nfl.metrics
     stats = nfl.index.stats()
     log(f"[{name}] use_flow={nfl.use_flow} tail_conflict "
@@ -865,7 +902,7 @@ def bulkload_and_read(name, n_keys, force_flow, seed, m, win):
     log(f"[{name}] lookups/s end to end (host feature expansion, copies, "
         f"kernel): {n_reads / t_reads:.0f}")
     log(f"[{name}] launches: {counts}; max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; pool bytes "
+        f"{peak / 2**30:.2f} GiB; pool bytes "
         f"{stats['serving']['pool_bytes']} ({stats['n_nodes']} nodes, "
         f"{stats['n_entries']} entries, {stats['n_buckets']} buckets, "
         f"depth {stats['max_depth']})")
@@ -878,8 +915,9 @@ def bulkload_and_read(name, n_keys, force_flow, seed, m, win):
     return {"name": name, "nfl": nfl, "keys": keys, "wl": wl,
             "unloaded": unloaded, "seed": seed, "miss_keys": miss_keys,
             "truth": Truth(wl.load_keys, wl.load_payloads),
-            "batches": [k for _op, k, _p in wl.batches],
-            "use_flow": nfl.use_flow, "lookups_per_s": n_reads / t_reads}
+            "batches": [k for _op, k, _p in wl.batches], "read_pay": pays,
+            "use_flow": nfl.use_flow, "lookups_per_s": n_reads / t_reads,
+            "peak_bytes": peak, "bulkload_s": t_bulk}
 
 
 def rung_read(nfl, keys, budget, split_key_bits):
@@ -1205,6 +1243,7 @@ def run_scans(res, win, sk, zs, ps, queries, what):
     """Drive ``scan_batch`` per batch (counted), then hold each
     untruncated range to the z-space ground truth as a multiset."""
     nfl = res["nfl"]
+    sharded = hasattr(nfl.index, "shards")
 
     def drive():
         out = []
@@ -1231,18 +1270,50 @@ def run_scans(res, win, sk, zs, ps, queries, what):
         diff = want[w_o] != got[g_o]
         wrong += int(bad.sum()) + int(np.unique(wq[w_o][diff]).shape[0])
         n_rows += int(cnt.sum())
-    n_q = len(queries) * SCAN_BATCH
-    log(f"[{res['name']}] scans ({what}): {len(queries)} batches of "
-        f"{SCAN_BATCH} ranges, {n_rows} rows, wrong={wrong}, truncated="
+    n_q = sum(r.shape[0] for r, _ln in queries)
+    log(f"[{res['name']}] scans ({what}): {len(queries)} batches, {n_q} "
+        f"ranges, {n_rows} rows, wrong={wrong}, truncated="
         f"{truncated} (counter {counts['scan_truncated']}); {n_q / secs:.0f} "
         f"scans/s end to end, {n_rows / secs:.0f} rows/s; launches {counts}")
     if wrong:
         fail(f"{res['name']}: {wrong} wrong range scans ({what})")
-    if counts["fused_range_scan"] != len(queries):
+    # one launch a batch; sharded, one a shard that the batch's ranges
+    # reach by their ground-truth z, and one router NF launch a batch
+    # with the flow on
+    want = (sum(shards_reached(nfl.index.boundaries, zs[r], zs[r + ln])
+                for r, ln in queries) if sharded else len(queries))
+    want_nf = len(queries) if sharded and nfl.use_flow else 0
+    if counts["fused_range_scan"] != want or counts["nf_forward"] != want_nf:
         fail(f"{res['name']}: fused_range_scan launched "
-             f"{counts['fused_range_scan']} times for {len(queries)} scans")
+             f"{counts['fused_range_scan']} times (expected {want}) and "
+             f"nf_forward {counts['nf_forward']} (expected {want_nf}) for "
+             f"{len(queries)} scan batches")
     return dict(scans_per_s=n_q / secs, rows_per_s=n_rows / secs,
                 truncated=truncated, seconds=secs)
+
+
+def shards_reached(boundaries, zlo, zhi) -> int:
+    """How many shards a batch of ``[zlo, zhi)`` ranges reaches: shard
+    ``s`` owns ``[B[s-1], B[s])``, so a non-empty range reaches every
+    shard from the one that holds ``zlo`` to the one below the first
+    boundary at or past ``zhi``."""
+    b = np.asarray(boundaries, np.float32)
+    ne = zhi > zlo
+    cover = np.zeros(b.shape[0] + 2, np.int64)
+    np.add.at(cover, np.searchsorted(b, zlo[ne], side="right"), 1)
+    np.add.at(cover, np.searchsorted(b, zhi[ne], side="left") + 1, -1)
+    return int((np.cumsum(cover)[:b.shape[0] + 1] > 0).sum())
+
+
+def batch_shards(res, m, keys) -> int:
+    """How many shards a point batch reaches: its ground-truth z (the
+    bulk transform) binned at the boundaries here, apart from the
+    router's own counters."""
+    nfl = res["nfl"]
+    z = m.ops.nf_transform_keys(nfl.flow_params, nfl.normalizer, keys,
+                                nfl.cfg.flow).astype(np.float32)
+    return int(np.unique(np.searchsorted(nfl.index.boundaries, z,
+                                         side="right")).shape[0])
 
 
 def scan_args(nfl, sk, queries, dev):
@@ -1282,6 +1353,428 @@ def lookup_kw(nfl):
                 dense_iters=idx.cfg.dense_search_iters,
                 bucket_cap=idx.cfg.max_bucket,
                 dense_window=idx.dense_window, use_flow=nfl.use_flow)
+
+
+# ------------------------------------------------------ sharded serving
+def sharded_load_and_read(base, m, win):
+    """Phase 4a: the longlat load of phase 2 (same keys, seed and loaded
+    half) through ``NFL(NFLConfig(backend="flat", shards=4))`` on the
+    card, AutoSwitch deciding (rerun with ``force_flow=True`` if it
+    declines)."""
+    wl = base["wl"]
+
+    def bulkload(force):
+        torch.cuda.reset_peak_memory_stats()
+        nfl = m.NFL(m.NFLConfig(backend="flat", shards=N_SHARDS,
+                                force_flow=force))
+        t = time.perf_counter()
+        nfl.bulkload(wl.load_keys, wl.load_payloads)
+        torch.cuda.synchronize()
+        return nfl, time.perf_counter() - t
+
+    def load():
+        nfl, t_bulk = bulkload(None)
+        if not nfl.use_flow:
+            log(f"[sharded] AutoSwitch declined the flow (tails "
+                f"{nfl.metrics['tail_conflict_original']:.0f} -> "
+                f"{nfl.metrics['tail_conflict_transformed']:.0f}); "
+                "rerunning with force_flow=True")
+            m.ops.reset_launch_counts()
+            nfl, t_bulk = bulkload(True)
+        return nfl, t_bulk
+
+    (nfl, t_bulk), counts = win.run(load)
+    peak = torch.cuda.max_memory_allocated()
+    idx = nfl.index
+    st = nfl.stats()
+    mt = nfl.metrics
+    log(f"[sharded] {N_SHARDS} shards on {st['devices']}, boundaries "
+        f"{st['boundaries']}; use_flow={nfl.use_flow}")
+    for s, sh in enumerate(st["shards"]):
+        log(f"[sharded] shard {s}: {sh['n_keys']} keys, depth "
+            f"{sh['max_depth']}, pool bytes {sh['serving']['pool_bytes']} "
+            f"({sh['n_nodes']} nodes), shadowed {sh['n_shadowed']}, "
+            f"AutoSwitch {sh['autoswitch']}")
+    log(f"[sharded] bulkload {t_bulk:.2f} s = train {mt['flow_train_s']:.2f} "
+        f"s + transform {mt['transform_s']:.2f} s + build and verify "
+        f"{mt['index_build_s']:.2f} s (single index, phase 2: "
+        f"{base['bulkload_s']:.2f} s); sharded verify repaired "
+        f"{mt['serve_verify_shadowed']:.0f} keys (expected 0); launches "
+        f"{counts}; max_memory_allocated {peak / 2**30:.2f} GiB (single "
+        f"index after its bulkload and reads: "
+        f"{base['peak_bytes'] / 2**30:.2f} GiB)")
+    if not nfl.use_flow:
+        fail("sharded: the flow is off")
+    if st["n_keys"] != wl.load_keys.shape[0]:
+        fail(f"sharded: {st['n_keys']} keys indexed of "
+             f"{wl.load_keys.shape[0]}")
+    return {"name": "sharded", "nfl": nfl, "keys": base["keys"], "wl": wl,
+            "unloaded": base["unloaded"], "seed": base["seed"],
+            "miss_keys": base["miss_keys"], "batches": base["batches"],
+            "truth": Truth(wl.load_keys, wl.load_payloads), "use_flow": True,
+            "bulkload_s": t_bulk, "peak_bytes": peak}
+
+
+def sharded_reads(res, win, what, single=None):
+    """The 64 read batches through ``NFL.lookup_batch``, each in its own
+    launch window: one router ``nf_forward`` and one ``fused_lookup``
+    per shard that its keys reach (``res["batch_shards"]``); every read
+    against the ground truth and, on the fresh index, against the single
+    index's payloads of phase 2a."""
+    nfl = res["nfl"]
+    truth = res["truth"]
+    wrong = diff = n = 0
+    bad = []
+    secs = 0.0
+    for b, (k, segs) in enumerate(zip(res["batches"],
+                                      res["batch_shards"])):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got, c = win.run(lambda k=k: nfl.lookup_batch(k))
+        secs += time.perf_counter() - t
+        if (c["nf_forward"], c["fused_lookup"], c["streamed_lookup"],
+                c["index_probe"]) != (1, segs, 0, 0):
+            bad.append((b, segs, c))
+        wrong += int((got != truth.lookup(k)).sum())
+        if single is not None:
+            diff += int((got != single[b]).sum())
+        n += k.shape[0]
+    log(f"[sharded] reads ({what}): {n} in {len(res['batches'])} batches, "
+        f"wrong={wrong}, differ from the single index's (phase 2a) "
+        f"{diff if single is not None else 'not compared'}; "
+        f"{n / secs:.0f} lookups/s end to end; launch windows off "
+        f"{bad[:3]} ({len(bad)} batches)")
+    if wrong or diff or bad:
+        fail(f"sharded: {wrong} wrong reads, {diff} differ from the single "
+             f"index, {len(bad)} batches with wrong launch windows")
+    return n / secs
+
+
+def router_z_check(res, split_key_bits):
+    """The router's z (``route_flow``: the NF kernel) against the fused
+    rung's z (NF in ``fused_lookup``) on every read batch: bit-equal.
+    Compare-only launches, outside the windows."""
+    nfl = res["nfl"]
+    idx = nfl.index
+    diff = 0
+    for k in res["batches"]:
+        feats = nfl._feats(k)
+        z, _sid = idx._route_flow(feats, nfl._packed_w, nfl._shapes)
+        hi, lo = split_key_bits(k)
+        _p, zf = idx.shards[0]._flow_device_lookup(feats, hi, lo,
+                                                   nfl._packed_w, nfl._shapes)
+        diff += int((z.view(np.int32) != zf.view(np.int32)).sum())
+    log(f"[sharded] router z against the fused rung's z on "
+        f"{len(res['batches'])} read batches: {diff} differ (bound 0)")
+    if diff:
+        fail("sharded: the router's z differs from the fused rung's")
+
+
+def sharded_async(res, win, single):
+    """Two read batches through ``NFL.lookup_batch_async``, both in flight
+    before either finishes (finished in reverse order)."""
+    nfl = res["nfl"]
+    b0, b1 = res["batches"][:2]
+
+    def drive():
+        f0 = nfl.lookup_batch_async(b0)
+        f1 = nfl.lookup_batch_async(b1)
+        return f1(), f0()
+
+    (r1, r0), c = win.run(drive)
+    diff = int((r0 != single[0]).sum()) + int((r1 != single[1]).sum())
+    log(f"[sharded] two batches in flight through lookup_batch_async: "
+        f"{diff} reads differ from the single index's; launches {c}")
+    if diff or c["nf_forward"] != 2:
+        fail("sharded: wrong async reads")
+
+
+def busy_shard_writes(res, m, win):
+    """``write_heavy`` batches of 65,536 aimed at one shard: 80% inserts
+    of unloaded keys whose z routes to shard ``BUSY_SHARD``, 20% reads of
+    live keys over all shards (a quarter of them among the keys inserted
+    so far), until that shard's fold starts and completes in-stream.
+    Every read is checked, those served mid-fold included; the other
+    shards must not fold.  Then every inserted key is read back."""
+    from repro_torch.kernels.shard_dispatch import route
+    nfl = res["nfl"]
+    idx = nfl.index
+    busy = idx.shards[BUSY_SHARD]
+    truth = res["truth"]
+    rng = np.random.default_rng(res["seed"] + 400)
+    z = m.ops.nf_transform_keys(nfl.flow_params, nfl.normalizer,
+                                res["unloaded"], nfl.cfg.flow)
+    pool = res["unloaded"][route(z.astype(np.float32), idx.boundaries)
+                           == BUSY_SHARD]
+    del z
+    # the miss batch stays unloaded
+    pool = rng.permutation(pool[~np.isin(pool, res["miss_keys"])])
+    n_ins = BATCH * 4 // 5
+    loaded, loaded_pv = truth.keys, truth.pv
+    rebuilds0 = [sh.n_rebuilds for sh in idx.shards]
+    writes0 = list(idx._router["per_shard_writes"])
+    rec = collections.Counter()
+    ins_ms, fold_batches = [], []
+    ins_k = np.empty(0, np.float64)
+    ins_p = np.empty(0, np.int64)
+
+    def drive():
+        nonlocal ins_k, ins_p
+        t = time.perf_counter()
+        for b in range(MAX_SHARD_WRITE_BATCHES):
+            mid = busy._fold is not None
+            n_old = BATCH - n_ins
+            if ins_k.shape[0]:
+                n_new = n_old // 4
+                j = rng.integers(0, ins_k.shape[0], n_new)
+                qk, qp = ins_k[j], ins_p[j]
+            else:
+                n_new = 0
+                qk = qp = np.empty(0)
+            j = rng.integers(0, loaded.shape[0], n_old - n_new)
+            q = np.concatenate([loaded[j], qk])
+            want = np.concatenate([loaded_pv[j], qp])
+            got = nfl.lookup_batch(q)
+            rec["wrong"] += int((got != want).sum())
+            rec["reads"] += q.shape[0]
+            rec["mid_fold_reads"] += q.shape[0] if mid else 0
+            k = pool[b * n_ins:(b + 1) * n_ins]
+            if not k.shape[0]:
+                fail(f"sharded: the unloaded keys of shard {BUSY_SHARD} ran "
+                     f"out after {b} batches with its fold unfinished")
+            p = (1 << 27) + b * n_ins + np.arange(k.shape[0])
+            t1 = time.perf_counter()
+            nfl.insert_batch(k, p)
+            ins_ms.append((time.perf_counter() - t1) * 1e3)
+            ins_k = np.concatenate([ins_k, k])
+            ins_p = np.concatenate([ins_p, p])
+            if mid or busy._fold is not None:
+                fold_batches.append(b)
+            if busy.n_rebuilds > rebuilds0[BUSY_SHARD]:
+                break
+        return time.perf_counter() - t
+
+    secs, counts = win.run(drive)
+    truth.insert(ins_k, ins_p)
+    rebuilds = [sh.n_rebuilds for sh in idx.shards]
+    writes = [a - b for a, b in zip(idx._router["per_shard_writes"], writes0)]
+    log(f"[sharded] busy-shard writes: {len(ins_ms)} batches of {BATCH}, "
+        f"{rec['reads']} reads (wrong={rec['wrong']}), {ins_k.shape[0]} "
+        f"inserts routed {writes} in {secs:.2f} s = "
+        f"{ins_k.shape[0] / secs:.0f} inserts/s with the reads; "
+        f"insert_batch ms median {statistics.median(ins_ms):.1f} max "
+        f"{max(ins_ms):.1f}; n_rebuilds {rebuilds0} -> {rebuilds}; batches "
+        f"with the fold in flight {fold_batches}; reads served mid-fold "
+        f"{rec['mid_fold_reads']}; launches {counts}")
+    log(f"[sharded] shard {BUSY_SHARD} in-stream fold: {busy.last_fold}")
+    others = [s for s in range(N_SHARDS) if s != BUSY_SHARD]
+    if rec["wrong"]:
+        fail(f"sharded: {rec['wrong']} wrong reads during the writes")
+    if rebuilds[BUSY_SHARD] == rebuilds0[BUSY_SHARD] \
+            or rec["mid_fold_reads"] == 0:
+        fail("sharded: the busy shard did not fold in-stream with reads "
+             "served while it ran")
+    if any(rebuilds[s] != rebuilds0[s] or writes[s] for s in others):
+        fail("sharded: writes or a fold reached the other shards")
+    if counts["streamed_lookup"] or counts["index_probe"]:
+        fail("sharded: the write phase launched an unexpected kernel")
+    res["write"] = dict(rec, seconds=secs, batches=len(ins_ms),
+                        inserts=int(ins_k.shape[0]),
+                        inserts_per_s=ins_k.shape[0] / secs,
+                        insert_ms_median=statistics.median(ins_ms),
+                        insert_ms_max=max(ins_ms), fold=busy.last_fold)
+    return ins_k
+
+
+def sharded_update_delete(res, win):
+    """65,536 updates and 65,536 deletes of loaded keys across all shards:
+    deleted keys miss, updated keys read their new payloads."""
+    nfl = res["nfl"]
+    wl = res["wl"]
+    rng = np.random.default_rng(res["seed"] + 500)
+    pick = rng.choice(wl.load_keys.shape[0], 2 * BATCH, replace=False)
+    upd, dele = wl.load_keys[pick[:BATCH]], wl.load_keys[pick[BATCH:]]
+    upd_pv = wl.load_payloads[pick[:BATCH]] + (1 << 28)
+
+    def drive():
+        t = time.perf_counter()
+        ok_u = nfl.update_batch(upd, upd_pv)
+        ok_d = nfl.delete_batch(dele)
+        secs = time.perf_counter() - t
+        return secs, ok_u, ok_d, nfl.lookup_batch(dele), nfl.lookup_batch(upd)
+
+    (secs, ok_u, ok_d, got_d, got_u), counts = win.run(drive)
+    truth = res["truth"]
+    truth.update(upd, upd_pv)
+    truth.delete(dele)
+    wrong = {"update_ok": int((~ok_u).sum()), "delete_ok": int((~ok_d).sum()),
+             "deleted_hits": int((got_d != -1).sum()),
+             "updated_reads": int((got_u != upd_pv).sum())}
+    st = nfl.stats()
+    log(f"[sharded] updates {BATCH}, deletes {BATCH}: "
+        f"{2 * BATCH / secs:.0f} writes/s; wrong {wrong}; n_keys "
+        f"{st['n_keys']} (truth {truth.keys.shape[0]}); run {st['run_len']} "
+        f"delta {st['delta_len']}; launches {counts}")
+    if any(wrong.values()) or st["n_keys"] != truth.keys.shape[0]:
+        fail(f"sharded: wrong updates or deletes: {wrong}")
+    res["deleted"] = dele
+    res["writes_per_s"] = 2 * BATCH / secs
+
+
+def straddling_queries(res, zs):
+    """One batch of ``STRADDLE`` ranges per boundary, each starting within
+    100 ranks below the boundary (in z order of the live keys) and
+    ending 2-29 ranks past it."""
+    rng = np.random.default_rng(res["seed"] + 600)
+    rs, lns = [], []
+    for bnd in res["nfl"].index.boundaries:
+        b = int(np.searchsorted(zs, bnd, side="left"))
+        r = b - rng.integers(1, 101, STRADDLE)
+        rs.append(r)
+        lns.append(np.minimum(b - r + rng.integers(2, 30, STRADDLE),
+                              zs.shape[0] - 1 - r))
+    return [(np.concatenate(rs), np.concatenate(lns))]
+
+
+def sharded_profile(res, split_key_bits):
+    """One read batch split into its host steps (feature expansion, the
+    route, the plan, the per-shard issue, the wait for the shards'
+    kernels and copies, the gather), the median over the 64 batches; and
+    one batch under ``torch.profiler``: the kernels' device time, and
+    whether the shards' ``fused_lookup`` launches overlap on the card.
+    Informational: nothing here fails the smoke but a wrong read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.shard_dispatch import fanout_plan
+    nfl = res["nfl"]
+    idx = nfl.index
+    truth = res["truth"]
+    parts = collections.defaultdict(list)
+    for k in res["batches"]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = nfl._feats(k)
+        t1 = time.perf_counter()
+        z, sids = idx._route_flow(feats, nfl._packed_w, nfl._shapes)
+        t2 = time.perf_counter()
+        segs, inv = fanout_plan(sids, idx.n_shards)
+        t3 = time.perf_counter()
+        fins = [sh.lookup_batch_async(z[seg], ikeys=k[seg], stream=st)
+                for sh, st, seg in zip(idx.shards, idx.streams, segs)
+                if seg.shape[0]]
+        t4 = time.perf_counter()
+        got = [f() for f in fins]
+        t5 = time.perf_counter()
+        out = np.concatenate(got)[inv]
+        t6 = time.perf_counter()
+        if not np.array_equal(out, truth.lookup(k)):
+            fail("sharded: the profiled read batch is wrong")
+        for name, a, b in (("features", t0, t1), ("route", t1, t2),
+                           ("plan", t2, t3), ("issue", t3, t4),
+                           ("wait", t4, t5), ("gather", t5, t6),
+                           ("total", t0, t6)):
+            parts[name].append((b - a) * 1e3)
+    split = {name: statistics.median(v) for name, v in parts.items()}
+    k = res["batches"][0]
+    prof_out = {"split_ms": split}
+    try:
+        nfl.lookup_batch(k)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            nfl.lookup_batch(k)
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:          # informational: never fails the smoke
+        log(f"[sharded] read batch profile: not measured ({exc!r})")
+        evs = []
+    if evs:
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in evs)
+        busy, end = 0.0, None
+        for a, b, _n in spans:
+            if end is None or a >= end:
+                busy += b - a
+                end = b
+            elif b > end:
+                busy += b - end
+                end = b
+        look = [(a, b) for a, b, n in spans if "fused_lookup_kernel" in n]
+        overlap = sum(1 for i in range(len(look)) for j in range(i)
+                      if look[j][1] > look[i][0])
+        prof_out.update(
+            device_ops=len(evs),
+            device_busy_ms=busy / 1e3,
+            window_ms=(spans[-1][1] - spans[0][0]) / 1e3,
+            kernels_ms={n[:48]: (b - a) / 1e3 for a, b, n in spans
+                        if "kernel" in n or "vec4" in n},
+            lookup_kernels=len(look), overlapping_pairs=overlap)
+    log(f"[sharded] read batch of {BATCH}, host ms (median of "
+        f"{len(res['batches'])}): "
+        + ", ".join(f"{n_} {v:.3f}" for n_, v in split.items())
+        + f"; under torch.profiler: {json.dumps(prof_out.get('kernels_ms', 'not measured'))}, "
+        f"{prof_out.get('device_ops', 'not measured')} device operations, "
+        f"device busy {prof_out.get('device_busy_ms', 'not measured')} ms "
+        f"of a {prof_out.get('window_ms', 'not measured')} ms window; "
+        f"fused_lookup launches {prof_out.get('lookup_kernels')}, "
+        f"overlapping pairs {prof_out.get('overlapping_pairs')}")
+    return prof_out
+
+
+def sharded_phase(base, m, win, split_key_bits, dev):
+    """Phase 4: sharded serving, ``NFL(shards=4)`` on one card."""
+    res = sharded_load_and_read(base, m, win)
+    nfl = res["nfl"]
+    res["batch_shards"] = [batch_shards(res, m, k) for k in res["batches"]]
+    single = base["read_pay"]
+    res["lookups_per_s"] = sharded_reads(res, win, "fresh index", single)
+    readback(res, res["miss_keys"], win, "misses (unloaded keys)")
+    router_z_check(res, split_key_bits)
+    sharded_async(res, win, single)
+    res["profile"] = sharded_profile(res, split_key_bits)
+    ins_k = busy_shard_writes(res, m, win)
+    readback(res, ins_k, win, "inserted keys read back")
+    del ins_k
+    sharded_update_delete(res, win)
+    sk, zs, ps = scan_truth(res, m, dev)
+    queries = scan_queries(res, m, sk, N_SCAN_BATCHES)
+    res["scan"] = run_scans(res, win, sk, zs, ps, queries, "YCSB E")
+    router = nfl.index._router
+    straddled = router["straddling_ranges"]
+    st_q = straddling_queries(res, zs)
+    run_scans(res, win, sk, zs, ps, st_q, "straddling every boundary")
+    straddled = router["straddling_ranges"] - straddled
+    log(f"[sharded] straddling ranges merged: {straddled} of "
+        f"{st_q[0][0].shape[0]} (need {STRADDLE * (N_SHARDS - 1)})")
+    if straddled < STRADDLE * (N_SHARDS - 1):
+        fail(f"sharded: only {straddled} ranges straddled a boundary")
+    t0 = time.perf_counter()
+    rebuilds0 = [sh.n_rebuilds for sh in nfl.index.shards]
+    _none, counts = win.run(nfl.index.rebuild)
+    st = nfl.stats()
+    log(f"[sharded] rebuild(): {time.perf_counter() - t0:.2f} s; "
+        f"n_rebuilds {rebuilds0} -> "
+        f"{[sh['n_rebuilds'] for sh in st['shards']]}; folds "
+        f"{[sh['last_fold'] for sh in st['shards']]}; launches {counts}")
+    if any(sh["n_rebuilds"] <= r0 or sh["run_len"] != sh["n_shadowed"]
+           for sh, r0 in zip(st["shards"], rebuilds0)):
+        fail("sharded: rebuild did not fold every shard's tiers")
+    sharded_reads(res, win, "after rebuild")
+    readback(res, res["deleted"], win, "deleted keys after rebuild")
+    readback(res, res["miss_keys"], win, "misses after rebuild")
+    run_scans(res, win, sk, zs, ps, queries[:1], "after rebuild")
+    log(f"[sharded] router counters {json.dumps(st['router'])}")
+    log(f"[sharded] end to end against the single index (phase 2): "
+        f"lookups/s {res['lookups_per_s']:.0f} vs {base['lookups_per_s']:.0f};"
+        f" inserts/s {res['write']['inserts_per_s']:.0f} (busy shard) vs "
+        f"{base['write']['inserts'] / base['write']['seconds']:.0f}; "
+        f"scans/s {res['scan']['scans_per_s']:.0f} vs "
+        f"{base['scan']['scans_per_s']:.0f}; max_memory_allocated since the "
+        f"bulkload {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {key: res[key] for key in ("lookups_per_s", "write", "scan",
+                                      "profile", "bulkload_s",
+                                      "writes_per_s")}
 
 
 # ------------------------------------------------- kernels vs plain
@@ -1434,7 +1927,7 @@ def compare_lookup(res, args, kw, k, what):
 
 
 def time_lookup(res, k, split_key_bits, flush_buf):
-    """Phase 4, on the fresh index: fused_lookup against plain on the
+    """Phase 5, on the fresh index: fused_lookup against plain on the
     first read batch, then timed launch by launch over all 64."""
     dev = torch.device("cuda")
     nfl = res["nfl"]
@@ -1541,7 +2034,7 @@ def stream_kw(nfl):
 
 
 def time_streamed(res, k, split_key_bits, flush_buf, look):
-    """Phase 4, on the fresh index: streamed_lookup against plain and the
+    """Phase 5, on the fresh index: streamed_lookup against plain and the
     fused kernel on the first read batch, against the fused kernel on
     all 64, then timed launch by launch over the same 64 batches as
     ``fused_lookup`` (``look``)."""
@@ -1634,7 +2127,7 @@ def time_streamed_tiers(res, k, keys, split_key_bits, flush_buf, look_tiers):
 
 
 def time_probe(res, k, probe_args, flush_buf):
-    """Phase 4: index_probe against plain on all 64 root-probe batches of
+    """Phase 5: index_probe against plain on all 64 root-probe batches of
     s1 (bit-equal), timed launch by launch over them and bounded by the
     sectors its gathers touch plus its inputs and outputs."""
     want = [k.index_probe_plain(*a) for a in probe_args]
@@ -1651,6 +2144,7 @@ def time_probe(res, k, probe_args, flush_buf):
         fail("index_probe disagrees with its plain version")
     a0 = probe_args[0]
     sectors = probe_sectors(*a0[:5], a0[5:])
+    ksectors = probe_sectors(*a0[:5], a0[5:], kernel=True)
     io = BATCH * (12 + 12)
     bound = (sectors * SECTOR + io) / HBM_BYTES_PER_S * 1e3
     fns = [lambda a=a: k.index_probe(*a) for a in probe_args]
@@ -1661,9 +2155,11 @@ def time_probe(res, k, probe_args, flush_buf):
         f"cold L2 (min {min(cold):.5f}, max {max(cold):.5f}), "
         f"{ms_warm:.5f} ms warm L2; host issue {host:.5f} ms/call; plain "
         f"{plain_ms:.3f} ms; {sectors} distinct sectors + {io} B of inputs "
-        f"and outputs; bound {bound:.6f} ms")
+        f"and outputs (the kernel's own gathers touch {ksectors}); bound "
+        f"{bound:.6f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, ms_warm_l2=ms_warm,
-                host_ms_per_call=host, max_abs_err=err)
+                host_ms_per_call=host, max_abs_err=err,
+                sectors_kernel=ksectors)
 
 
 def compare_lookup_tiers(res, k, split_key_bits):
@@ -1767,7 +2263,7 @@ def bf16_ulp(x: float) -> float:
 
 
 def lm_serve(win, seed):
-    """Phase 5: falcon-mamba-7b at full width and depth, random weights on
+    """Phase 6: falcon-mamba-7b at full width and depth, random weights on
     the card, 16 requests through the continuous batcher until drained,
     in one counted window."""
     from repro_torch.configs import get_config
@@ -1952,7 +2448,7 @@ def lm_branches(lm, seed):
     """The kernel path against the chunked path on one prompt of 2,048
     tokens: one mamba_block in f32 with layer 0's weights, and the full
     model's bf16 prefill logits.  Returns the scan inputs of the first
-    ``LM_SCAN_LAYERS`` layers on that prompt (for phase 6)."""
+    ``LM_SCAN_LAYERS`` layers on that prompt (for phase 7)."""
     from repro_torch.models import ssm, transformer as tfm
     from repro_torch.models.layers import rms_norm
     from repro_torch.models.model import build_model
@@ -2027,7 +2523,7 @@ def sfu_per_s() -> float:
 
 
 def scan_row(caps, k, flush_buf):
-    """Phase 6: mamba_scan against plain on layer 0's real inputs and on
+    """Phase 7: mamba_scan against plain on layer 0's real inputs and on
     their first 1,000 positions, timed launch by launch over the captured
     layers, bounded by its bytes or its exponentials."""
     ragged = tuple(t[:, :1000].contiguous() if t.dim() == 3 else t
@@ -2096,7 +2592,7 @@ def flash_decode_inputs(seed):
 
 
 def flash_decode_window(win, ops, q, kc, vc, kv_len):
-    """Phase 5: ``ops.flash_decode`` through its entry point, one call per
+    """Phase 6: ``ops.flash_decode`` through its entry point, one call per
     decode step with each row's length one longer (capped at S), in a
     counted window; each output finite, the empty row 0."""
     dev = q.device
@@ -2152,7 +2648,7 @@ def decode_bytes(kc, kv_len, b, h):
 
 
 def flash_decode_row(k, flush_buf, q, kc, vc, kv_len):
-    """Phase 6: flash_decode against plain with the bf16 cache and an f32
+    """Phase 7: flash_decode against plain with the bf16 cache and an f32
     one, timed launch by launch, bounded by the K/V rows below kv_len
     plus q and o, beside SDPA (timed only); then the same at B 1 over the
     row of length S, where the split plan matters most."""
@@ -2417,8 +2913,16 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del flush_buf
 
+    # ---- sharded serving: the single indexes' tensors go first
+    del ln, idx, sk, zs, ps, queries, ll["nfl"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded = sharded_phase(ll, m, win, split_key_bits, dev)
+    wall("sharded", t0)
+
     # ---- LM serving: the index phases' tensors go first
-    del ll, ln, idx, sk, zs, ps, queries
+    del ll
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2440,6 +2944,7 @@ def main() -> int:
     log("[lm] summary " + json.dumps({key: lm[key] for key in
                                       ("met", "replay", "decode_profile",
                                        "branches")}))
+    log("[sharded] summary " + json.dumps(sharded, default=str))
 
     launches = dict(win.total)
     log(f"main-path launches (every window): {launches}")
@@ -2516,6 +3021,7 @@ def main() -> int:
         "bound_ms": probe["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "ms_warm_l2": probe["ms_warm_l2"],
         "host_ms_per_call": probe["host_ms_per_call"],
+        "sectors_kernel": probe["sectors_kernel"],
     }
     rows.update(lm_rows)
     out = []

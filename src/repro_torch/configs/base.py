@@ -5,7 +5,7 @@ imports nothing of the JAX package.  One frozen dataclass tree per
 architecture; each ported architecture has a module
 ``repro_torch.configs.<arch_id>`` exporting ``CONFIG`` plus a reduced
 ``SMOKE_CONFIG`` for CPU tests.  ``SSMConfig.batch_tp`` is a sharding
-layout of the JAX package and has no effect on one card (ROADMAP A10).
+layout of the JAX package and has no effect on one card (ROADMAP A15b).
 """
 
 from __future__ import annotations

@@ -33,13 +33,19 @@ static keys in rank order (the scan pool) merged with both tiers.
 The set of live identities is a sorted ``uint64`` array, updated per
 batch with array operations.
 
-Not ported yet: re-flow (``start_reflow``, ROADMAP A11), the sharded
-tier hold (A10) and the async lookups (A12).
+Point reads are asynchronous underneath: ``lookup_batch_async`` (and
+its flow twin) launches the kernel and the copy of its payloads into
+pinned host memory, on the current stream or a given one, and returns a
+finisher; ``lookup_batch`` is that finisher called at once.
+
+Not ported yet: re-flow (``start_reflow``) and the tier hold that the
+sharded re-key and boundary migration put on a shard (ROADMAP A11).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import NamedTuple, Optional, Tuple, Union
@@ -93,6 +99,54 @@ def _dedup_newest(pk: np.ndarray, hi: np.ndarray, lo: np.ndarray,
     pk, hi, lo, pv = pk[keep], hi[keep], lo[keep], pv[keep]
     order = np.argsort(pk, kind="stable")
     return pk[order], hi[order], lo[order], pv[order]
+
+
+def _upload(x: np.ndarray, dtype, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` (u32 identity halves as their int32 bit
+    views), copied on the current stream without a stream sync: the
+    driver stages a pageable source before the copy call returns, so the
+    array may go at once, and the host does not wait for the stream's
+    earlier work."""
+    x = np.ascontiguousarray(x)
+    x = x.view(np.int32) if x.dtype == np.uint32 else x.astype(dtype,
+                                                               copy=False)
+    t = torch.from_numpy(x)
+    if device.type != "cuda":
+        return t
+    return t.to(device, non_blocking=True)
+
+
+@contextlib.contextmanager
+def _on_stream(stream, wait: bool = True):
+    """Enqueue the block's device work on ``stream`` (None: the current
+    stream), after the current stream's work so far when ``wait``."""
+    if stream is None:
+        yield
+        return
+    if wait:
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+    with torch.cuda.stream(stream):
+        yield
+
+
+def _fetch_async(t: torch.Tensor):
+    """Start copying ``t`` to the host (on the card: into a pinned
+    buffer, non-blocking, on the current stream) and return a finisher
+    that waits for the copy and returns the numpy array.  The array is
+    copied out of the pinned buffer, so a caller that keeps results does
+    not keep pinned memory."""
+    if t.device.type != "cuda":
+        return t.numpy
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+
+    def finish():
+        done.synchronize()
+        return host.numpy().copy()
+
+    return finish
 
 
 def _tier_window(pk_pool: np.ndarray) -> int:
@@ -823,33 +877,46 @@ class FlatAFLI:
         return (live and budget is not None
                 and self._kernel_pools().nbytes() > budget)
 
-    def _dispatch(self, feats: np.ndarray, hi: np.ndarray, lo: np.ndarray,
-                  flow, tiers: bool, pools=None, max_depth=None,
-                  dense_window=None, verify: bool = False
-                  ) -> Tuple[np.ndarray, np.ndarray]:
-        """Move the batch to the device, launch one point-read kernel,
-        and bring (payloads, z) back.  A fold verifies its new tree by
+    def _launch(self, feats: np.ndarray, hi: np.ndarray, lo: np.ndarray,
+                flow, tiers: bool, pools=None, max_depth=None,
+                dense_window=None, verify: bool = False, stream=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Launch one point-read kernel for the batch and return its
+        (payloads, z) device tensors without waiting.  The pools, tiers
+        and rung are taken on the current stream; with ``stream`` (a
+        ``torch.cuda.Stream``), the batch's uploads, the kernel and
+        whatever the caller enqueues in ``_on_stream`` run there, after
+        the current stream's work.  A fold verifies its new tree by
         passing that tree's pools, depth and window.  Only a live read
         (tiers probed, the serving tree, not a verify) may stream."""
         dev = self.device
         tier_pack = self._tier_pack() if tiers else None
         live = pools is None and tiers and not verify
-        stream = self._serving.stream_pack() if self._streams(live) else None
-        pay, z, path = ops.fused_lookup(
-            self._kernel_pools() if pools is None else pools,
-            torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(hi).view(np.int32)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(lo).view(np.int32)).to(dev),
-            flow=flow,
-            max_depth=self.max_depth if max_depth is None else max_depth,
-            dense_iters=self.cfg.dense_search_iters,
-            bucket_cap=self.cfg.max_bucket,
-            dense_window=(self.dense_window if dense_window is None
-                          else dense_window),
-            tiers=tier_pack, stream=stream)
+        rung = self._serving.stream_pack() if self._streams(live) else None
+        pools = self._kernel_pools() if pools is None else pools
+        with _on_stream(stream):
+            pay, z, path = ops.fused_lookup(
+                pools, _upload(feats, np.float32, dev),
+                _upload(hi, np.int32, dev), _upload(lo, np.int32, dev),
+                flow=flow,
+                max_depth=self.max_depth if max_depth is None else max_depth,
+                dense_iters=self.cfg.dense_search_iters,
+                bucket_cap=self.cfg.max_bucket,
+                dense_window=(self.dense_window if dense_window is None
+                              else dense_window),
+                tiers=tier_pack, stream=rung)
         self.last_dispatch = {"path": path, "n_dispatch": 1,
                               "tier_path": ("kernel" if tier_pack is not None
                                             else "none")}
+        return pay, z
+
+    def _dispatch(self, feats: np.ndarray, hi: np.ndarray, lo: np.ndarray,
+                  flow, tiers: bool, pools=None, max_depth=None,
+                  dense_window=None, verify: bool = False
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """``_launch``, then bring (payloads, z) back."""
+        pay, z = self._launch(feats, hi, lo, flow, tiers, pools, max_depth,
+                              dense_window, verify)
         return pay.cpu().numpy(), z.cpu().numpy()
 
     def _device_lookup(self, pk32: np.ndarray, hi: np.ndarray,
@@ -927,13 +994,17 @@ class FlatAFLI:
         pk = k64.astype(np.float32)
         hi, lo = split_key_bits(ik64)
         self._append_delta(pk, hi, lo, pv)
-        # only identities not live yet count (re-inserts overwrite)
-        ids = np.unique(_ids64(hi, lo))
+        self._add_ids(_ids64(hi, lo))
+        self._advance_write_path(pk.shape[0])
+
+    def _add_ids(self, ids: np.ndarray) -> None:
+        """Add u64 identities to the live set; only identities not live
+        yet count (a re-insert overwrites)."""
+        ids = np.unique(ids)
         fresh = ids[~self._has(ids)]
         self._ids = np.insert(self._ids, np.searchsorted(self._ids, fresh),
                               fresh)
         self.n_keys += int(fresh.shape[0])
-        self._advance_write_path(pk.shape[0])
 
     def delete_batch(self, keys: np.ndarray,
                      ikeys: np.ndarray | None = None) -> np.ndarray:
@@ -1042,27 +1113,55 @@ class FlatAFLI:
             "repro_torch yet (ROADMAP A11)")
 
     # ------------------------------------------------------------- lookup
+    def lookup_batch_async(self, keys: np.ndarray,
+                           ikeys: np.ndarray | None = None, stream=None):
+        """Launch a batched lookup (as ``lookup_batch``) and return a
+        zero-argument finisher that waits for it and returns the
+        payloads.  The kernel and the copy of its payloads into pinned
+        host memory are in flight when this returns, so a caller can
+        dispatch more batches (or, as the sharded index does, every
+        shard's batch, each on its own ``stream``) before finishing any.
+        The kernel reads the tiers as they are at dispatch: a write
+        enqueued after it on the same stream runs after it, and a write
+        to an index served on another stream must first make the
+        current stream wait on that one (``ShardedFlatAFLI`` does)."""
+        k64 = np.asarray(keys, dtype=np.float64)
+        ik64 = k64 if ikeys is None else np.asarray(ikeys, dtype=np.float64)
+        hi, lo = split_key_bits(ik64)
+        pay, _z = self._launch(k64.astype(np.float32).reshape(-1, 1), hi, lo,
+                               None, True, stream=stream)
+        with _on_stream(stream, wait=False):
+            return _fetch_async(pay)
+
     def lookup_batch(self, keys: np.ndarray,
                      ikeys: np.ndarray | None = None) -> np.ndarray:
         """Batched point lookups by positioning keys (-1: not found);
         ``ikeys`` are the identity keys when ``keys`` are transformed."""
-        k64 = np.asarray(keys, dtype=np.float64)
-        ik64 = k64 if ikeys is None else np.asarray(ikeys, dtype=np.float64)
-        hi, lo = split_key_bits(ik64)
-        return self._device_lookup(k64.astype(np.float32), hi, lo)
+        return self.lookup_batch_async(keys, ikeys)()
 
     def _flow_device_lookup(self, feats, hi, lo, packed_w, shapes,
                             verify: bool = False):
         return self._dispatch(np.asarray(feats, np.float32), hi, lo,
                               (packed_w, shapes), True, verify=verify)
 
+    def lookup_batch_flow_async(self, feats: np.ndarray, ikeys: np.ndarray,
+                                packed_w, shapes, stream=None):
+        """Flow-positioned twin of ``lookup_batch_async``: the fused
+        kernel (NF in the kernel, traversal, tier probe) is launched and
+        a finisher returned."""
+        hi, lo = split_key_bits(np.asarray(ikeys, dtype=np.float64))
+        pay, _z = self._launch(np.asarray(feats, np.float32), hi, lo,
+                               (packed_w, shapes), True, stream=stream)
+        with _on_stream(stream, wait=False):
+            return _fetch_async(pay)
+
     def lookup_batch_flow(self, feats: np.ndarray, ikeys: np.ndarray,
                           packed_w, shapes) -> np.ndarray:
         """Single-dispatch serving for flow-positioned indexes: the fused
         kernel runs the NF forward on ``feats`` (f32[n, d] expanded query
         features), the traversal and the tier probe."""
-        hi, lo = split_key_bits(np.asarray(ikeys, dtype=np.float64))
-        return self._flow_device_lookup(feats, hi, lo, packed_w, shapes)[0]
+        return self.lookup_batch_flow_async(feats, ikeys, packed_w,
+                                            shapes)()
 
     def verify_serve_flow(self, feats: np.ndarray, ikeys: np.ndarray,
                           packed_w, shapes, payloads: np.ndarray) -> int:

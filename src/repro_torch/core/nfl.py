@@ -11,10 +11,16 @@ kernel launch (the fused rung, or the streamed rung when the index's
 launch (NF forward included when the flow is on); a write positions its
 keys through the NF kernel and lands in the index's write tiers.
 
+With ``shards=P > 1`` the flat backend is a ``ShardedFlatAFLI``: P
+shards at flow-CDF boundaries on ``shard_mesh(P, device)`` (all on one
+card when there is one), a router launch of the NF kernel per flow-on
+batch, and the per-shard kernels fanned out on CUDA streams.
+``lookup_batch_async`` dispatches a read batch and returns a finisher,
+single or sharded.
+
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP
-item that ports them: the paper's pointer-tree backend (A13), sharded
-serving (A10), drift re-flow and resharding (A11), and the async
-lookups of the front end (A12).
+item that ports them: the paper's pointer-tree backend (A13) and drift
+re-flow and resharding (A11).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from repro_torch.core.conflict import should_use_flow
 from repro_torch.core.feature import expand_features
 from repro_torch.core.flat_afli import FlatAFLI, FlatAFLIConfig
 from repro_torch.core.flow import FlowConfig
+from repro_torch.core.sharded_nfl import ShardedFlatAFLI
 from repro_torch.core.train_flow import FlowTrainConfig, train_flow
 from repro_torch.kernels import ops
 from repro_torch.kernels.backend import resolve_device
@@ -58,7 +65,8 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class NFL:
-    """Two-stage learned index: Numerical NF + FlatAFLI, on one device."""
+    """Two-stage learned index: Numerical NF + FlatAFLI (one, or one per
+    key-space shard)."""
 
     def __init__(self, config: NFLConfig | None = None,
                  device: Optional[Union[str, torch.device]] = None):
@@ -68,14 +76,17 @@ class NFL:
                               "A13")
         if self.cfg.backend != "flat":
             raise ValueError(f"unknown NFL backend: {self.cfg.backend!r}")
-        if self.cfg.shards > 1:
-            raise _not_ported("sharded serving (shards > 1)", "A10")
         if getattr(self.cfg.drift, "enabled", False):
             raise _not_ported("drift telemetry and re-flow", "A11")
         if getattr(self.cfg.reshard, "enabled", False):
             raise _not_ported("dynamic resharding", "A11")
         self.device = resolve_device(device)
-        self.index = FlatAFLI(self.cfg.flat_index, device=self.device)
+        if self.cfg.shards > 1:
+            self.index = ShardedFlatAFLI(self.cfg.flat_index,
+                                         n_shards=self.cfg.shards,
+                                         device=self.device)
+        else:
+            self.index = FlatAFLI(self.cfg.flat_index, device=self.device)
         self.flow_params = None
         self.normalizer = None
         self.use_flow = False
@@ -148,8 +159,16 @@ class NFL:
                                             self._packed_w, self._shapes)
 
     def lookup_batch_async(self, keys: np.ndarray):
-        raise _not_ported("lookup_batch_async (the front end's async "
-                          "dispatch)", "A12")
+        """Dispatch a batched point lookup without waiting for it; returns
+        a zero-argument finisher that returns the payload array.  The
+        kernels read the index as it is at dispatch, so a caller can keep
+        a second batch in flight behind the first, or write in between,
+        and each batch still reads the state it was dispatched into."""
+        keys = np.asarray(keys, dtype=np.float64)
+        if not self.use_flow:
+            return self.index.lookup_batch_async(keys)
+        return self.index.lookup_batch_flow_async(
+            self._feats(keys), keys, self._packed_w, self._shapes)
 
     def _pkeys(self, keys: np.ndarray) -> np.ndarray:
         """Positioning keys of a batch: the keys themselves without the
@@ -211,6 +230,8 @@ class NFL:
     lookup_range = scan_batch
 
     def stats(self):
+        """The index's ``stats()``; sharded, with each shard's block and
+        the router's fan-out counters."""
         return self.index.stats()
 
     def dispatch_stats(self) -> Dict[str, int]:

@@ -1,8 +1,9 @@
-"""Timing of the NF, point-read and range kernels across source trees.
+"""Timing of the NF, point-read, range and node-probe kernels across
+source trees, and of sharded read batches on one card.
 
     python3 src/repro_torch/kernel_ab.py run --tree LABEL=ROOT
             [--tree LABEL=ROOT ...] [--variants LABEL] [--kernels K ...]
-            [--rounds 2]
+            [--rounds 2] [--shard-rounds N] [--read-rounds N]
 
 Each ``ROOT`` is the root of a checkout of the port (``src/repro_torch``).
 One process prepares the inputs the way ``chip_smoke.py`` makes them,
@@ -15,12 +16,14 @@ inserts of each of the 64 ``write_heavy`` batches, the read-back of the
 inserted keys in batches of 65,536 with the run and the delta populated,
 the updates and deletes, and the 16 YCSB-E scan batches of 16,384
 ranges; then ``lognormal`` at 2^22 keys, half loaded, flow off, and its
-64 read batches; the scan pool and its router as each index holds them.
-It saves them under ``build/kernel_ab/``.  Then every tree times
+64 read batches; the scan pool and its router as each index holds them;
+for ``index_probe``, the longlat root node and each read batch's z from
+the fused rung (the smoke's root probe).  It makes only what the chosen
+``--kernels`` time, and saves it under ``build/kernel_ab/``.  Then every tree times
 ``fused_lookup`` (fresh flow on and off, verify chunk, tiered),
 ``streamed_lookup`` (the same fresh and tiered batches), ``nf_forward``
-(2^24 keys, the write batches) and ``fused_range_scan`` through its own
-wrappers (``--kernels`` picks some), each in a process of its own, in
+(2^24 keys, the write batches), ``fused_range_scan`` and ``index_probe``
+through its own wrappers (``--kernels`` picks some), each in a process of its own, in
 turns (``a b ... b a`` for two rounds), every launch timed alone behind
 an L2 flush (cold) or an idle spin (warm), as ``chip_smoke.py`` times
 them.  Each side first checks its kernels against its plain versions on
@@ -36,7 +39,24 @@ streamed kernel (its
 router reads, its tile search, its tiers, all but z) and the first NF
 kernel (all but its loads and stores); ``hopper`` does the same for the
 redesigned ones and tries other block sizes and guess counts of their
-searches, the router in device memory, and the NF one key a thread.
+searches, the router in device memory, the NF one key a thread, and the
+node probe reading all five entry arrays in one round; ``pr19`` times the floor of the probe timing (an empty launch, a copy of
+24 bytes a query) and the one-query-a-thread probe without its entry
+reads.
+
+``--shard-rounds N`` also builds a 4-shard index on the longlat keys'
+own z and flow in the preparing process and times its 64 read batches
+end to end with a CUDA stream per shard and with every shard on one
+stream, in turns (``AB-SHARDS``).
+
+``--read-rounds N`` times the single index's read call on the same 64
+batches (features made beforehand), host ms from the call to its
+payloads on the host, in turns (``AB-READS``): ``async``, the port's
+``FlatAFLI.lookup_batch_flow`` (uploads without a stream sync, the
+payloads copied into pinned memory behind an event); ``sync``, the same
+launch with the payloads brought back by a blocking ``.cpu()``; and
+``parent``, the parent's read call copied here (blocking uploads, the
+payloads and z brought back by ``.cpu()``).
 
 Prints one ``AB {...}`` JSON line per side and a summary line per case
 and tree: the median of the per-process medians.  Needs a CUDA device.
@@ -61,6 +81,7 @@ CASES = {
                         ("s_fresh", "s_fresh_off", "s_tiered")),
     "nf_forward": ("nf_forward", ("nf_full", "nf_batch")),
     "fused_range_scan": ("range_scan", ("range",)),
+    "index_probe": ("index_probe", ("probe",)),
 }
 KERNELS = tuple(CASES)
 WORK = ROOT / "build" / "kernel_ab"
@@ -164,6 +185,49 @@ VARIANTS = {
             ("nf_forward.cu", "  if (kind == NF_DEFAULT && reinterpret_cast",
              "  if (false && kind == NF_DEFAULT && reinterpret_cast"),
         ],
+        # the node probe: all five entry arrays read at every slot in one
+        # round (the payload gate dropped)
+        "probe_all_five": [
+            ("index_probe.cu",
+             "  int pay = -1;\n  if (code == ET_DATA) {",
+             "  int pay = -1;\n  {"),
+            ("index_probe.cu",
+             "    if (hi == qhi && lo == qlo) pay = pv;",
+             "    if (code == ET_DATA && hi == qhi && lo == qlo) pay = pv;"),
+        ],
+    },
+    # the one-query-a-thread node probe (PR 15): the floor this timing
+    # can reach (an empty launch; 24 bytes a query copied), and the
+    # parent with its entry reads cut out (the key round and the stores)
+    "pr19": {
+        "probe_empty": [
+            ("index_probe.cu",
+             "  if (i >= a.B) return;\n",
+             "  if (i >= 0) return;\n"),
+        ],
+        "probe_copy24": [
+            ("index_probe.cu",
+             "  int slot = __float2int_rz(",
+             "  a.out_pay[i] = __float_as_int(q);\n"
+             "  a.out_code[i] = __ldg(a.qhi + i);\n"
+             "  a.out_child[i] = __ldg(a.qlo + i);\n"
+             "  return;\n"
+             "  int slot = __float2int_rz("),
+        ],
+        "probe_no_entries": [
+            ("index_probe.cu",
+             "  const int et = __ldg(a.etype + slot);",
+             "  const int et = slot & 3;"),
+            ("index_probe.cu",
+             "  if (et == ET_DATA && __ldg(a.ehi + slot) == __ldg(a.qhi + i) &&\n"
+             "      __ldg(a.elo + slot) == __ldg(a.qlo + i)) {\n"
+             "    pay = __ldg(a.epay + slot);\n"
+             "  }",
+             "  if (et == ET_DATA) pay = slot;"),
+            ("index_probe.cu",
+             "  a.out_child[i] = __ldg(a.echild + slot);",
+             "  a.out_child[i] = slot;"),
+        ],
     },
     # PR 18's point and range kernels: parts cut out
     "final": {
@@ -209,9 +273,12 @@ def _smoke():
     return chip_smoke
 
 
-def prepare(out: Path, tree: str) -> None:
-    """Make and save every case's kernel inputs (CUDA tensors), serving
-    through ``tree``'s package."""
+def prepare(out: Path, tree: str, kernels=KERNELS,
+            shard_rounds: int = 0, read_rounds: int = 0) -> None:
+    """Make and save the inputs of ``kernels``' cases (CUDA tensors),
+    serving through ``tree``'s package; with ``shard_rounds``, also time
+    the sharded read batches (``shard_streams``), with ``read_rounds``
+    the single index's read call (``read_calls``)."""
     import numpy as np
     import torch
 
@@ -229,6 +296,8 @@ def prepare(out: Path, tree: str) -> None:
             counts["scan_truncated"] = self.ops.fused_range_scan.truncated
             return res, counts
 
+    need = set(kernels)
+    points = bool(need & {"fused_lookup", "streamed_lookup"})
     m = cs.Mods()
     win = Win(m.ops)
     dev = torch.device("cuda")
@@ -249,58 +318,201 @@ def prepare(out: Path, tree: str) -> None:
         return ([t.clone() for t in sp.pool], sp.router.clone(), sp.window)
 
     save = {"kw": cs.lookup_kw(nfl), "packed_w": nfl._packed_w,
-            "pools": list(nfl.index._kernel_pools()),
-            "stream": stream_pack(nfl), "skw": cs.stream_kw(nfl)}
-    save["fresh"] = lookups(ll["batches"])
-    # nf_forward: the bulk load's transform, and the inserts of each
-    # write_heavy batch (NFL._pkeys)
-    save["nf_full"] = torch.from_numpy(nfl._feats(ll["wl"].load_keys))
-    wl = m.make_workload(ll["keys"], m.WorkloadConfig(
-        mix="write_heavy", n_ops=cs.N_WRITE_BATCHES * cs.BATCH,
-        batch_size=cs.BATCH, zipf_s=0.99, seed=ll["seed"]))
-    save["nf_batch"] = [torch.from_numpy(nfl._feats(k[op != 0]))
-                        for op, k, _p in wl.batches]
-    save["nf_shape"] = (nfl._shapes, nfl.cfg.flow.dim)
-    srt = np.sort(ll["wl"].load_keys)
-    step = srt.shape[0] // N_VERIFY_CHUNKS
-    save["verify"] = lookups([srt[i * step:i * step + VERIFY_CHUNK]
-                              for i in range(N_VERIFY_CHUNKS)])
-    ins_k, _ = cs.write_stream(ll, m, win, cs.N_WRITE_BATCHES, False)
-    ins_u = np.unique(ins_k)
-    cs.readback(ll, ins_u, win, "inserted keys read back")
-    save["tiered"] = lookups([ins_u[i:i + cs.BATCH]
-                              for i in range(0, ins_u.shape[0], cs.BATCH)])
-    save["tiered_expect"] = [torch.from_numpy(ll["truth"].lookup(
-        ins_u[i:i + cs.BATCH])) for i in range(0, ins_u.shape[0], cs.BATCH)]
-    tp = nfl.index._tier_pack()
-    save["tiers"] = ([t.clone() for t in tp.pools], tp.run_iters,
-                     tp.run_window, tp.delta_iters, tp.delta_window)
-    save["stream_tiered"] = stream_pack(nfl)
-    cs.update_and_delete(ll, win, ins_k)
-    sk, _zs, _ps = cs.scan_truth(ll, m, dev)
-    queries = cs.scan_queries(ll, m, sk, cs.N_SCAN_BATCHES)
-    args = cs.scan_args(nfl, sk, queries, dev)
-    sp, tp = args[0][3], args[0][4]
-    save["scan"] = [(a[0], a[1]) for a in args]
-    save["scan_pool"] = (list(sp.pool), sp.iters)
-    save["scan_tiers"] = (list(tp.pools), tp.run_iters, tp.run_window,
-                          tp.delta_iters, tp.delta_window)
-    save["scan_kw"] = dict(dim=nfl.cfg.flow.dim, shapes=nfl._shapes,
-                           scan_cap=cs.SCAN_CAP, use_flow=nfl.use_flow)
-    st = nfl.index.stats()
-    save["stats"] = {"run_len": st["run_len"], "delta_len": st["delta_len"],
-                     "serving": st["serving"]}
-    ln = cs.bulkload_and_read("lognormal", cs.LOGNORMAL_KEYS, False, 1, m,
-                              win)
-    save["kw_off"] = cs.lookup_kw(ln["nfl"])
-    save["pools_off"] = list(ln["nfl"].index._kernel_pools())
-    save["stream_off"] = stream_pack(ln["nfl"])
-    save["skw_off"] = cs.stream_kw(ln["nfl"])
-    save["fresh_off"] = [cs.lookup_args(ln["nfl"], k, dev, split_key_bits)[:3]
-                         for k in ln["batches"]]
+            "skw": cs.stream_kw(nfl), "stats": {}}
+    if points:
+        save["pools"] = list(nfl.index._kernel_pools())
+        save["stream"] = stream_pack(nfl)
+        save["fresh"] = lookups(ll["batches"])
+        srt = np.sort(ll["wl"].load_keys)
+        step = srt.shape[0] // N_VERIFY_CHUNKS
+        save["verify"] = lookups([srt[i * step:i * step + VERIFY_CHUNK]
+                                  for i in range(N_VERIFY_CHUNKS)])
+    if "index_probe" in need:
+        # the smoke's root probe: each read batch's z from the fused rung
+        a = nfl.index.arrays
+        size = int(a.node_size[0])
+        pools = nfl.index._kernel_pools()
+        save["probe_node"] = (float(a.node_slope[0]),
+                              float(a.node_intercept[0]),
+                              [getattr(pools, f)[:size].clone() for f in
+                               ("etype", "ehi", "elo", "epayload", "echild")])
+        save["probe"] = []
+        for k in ll["batches"]:
+            _p, z = cs.rung_read(nfl, k, None, split_key_bits)
+            hi, lo = split_key_bits(k)
+            save["probe"].append(tuple(torch.from_numpy(x).to(dev) for x in
+                                       (z, hi.view(np.int32),
+                                        lo.view(np.int32))))
+    if "nf_forward" in need:
+        # the bulk load's transform, and the inserts of each write_heavy
+        # batch (NFL._pkeys)
+        save["nf_full"] = torch.from_numpy(nfl._feats(ll["wl"].load_keys))
+        wl = m.make_workload(ll["keys"], m.WorkloadConfig(
+            mix="write_heavy", n_ops=cs.N_WRITE_BATCHES * cs.BATCH,
+            batch_size=cs.BATCH, zipf_s=0.99, seed=ll["seed"]))
+        save["nf_batch"] = [torch.from_numpy(nfl._feats(k[op != 0]))
+                            for op, k, _p in wl.batches]
+        save["nf_shape"] = (nfl._shapes, nfl.cfg.flow.dim)
+    if shard_rounds:
+        save["stats"]["shards"] = shard_streams(cs, m, ll, shard_rounds)
+    if read_rounds:
+        save["stats"]["reads"] = read_calls(ll, read_rounds)
+    if points or "fused_range_scan" in need:
+        ins_k, _ = cs.write_stream(ll, m, win, cs.N_WRITE_BATCHES, False)
+        ins_u = np.unique(ins_k)
+        cs.readback(ll, ins_u, win, "inserted keys read back")
+        save["tiered"] = lookups([ins_u[i:i + cs.BATCH]
+                                  for i in range(0, ins_u.shape[0],
+                                                 cs.BATCH)])
+        save["tiered_expect"] = [torch.from_numpy(ll["truth"].lookup(
+            ins_u[i:i + cs.BATCH])) for i in range(0, ins_u.shape[0],
+                                                   cs.BATCH)]
+        tp = nfl.index._tier_pack()
+        save["tiers"] = ([t.clone() for t in tp.pools], tp.run_iters,
+                         tp.run_window, tp.delta_iters, tp.delta_window)
+        if points:
+            save["stream_tiered"] = stream_pack(nfl)
+        cs.update_and_delete(ll, win, ins_k)
+        sk, _zs, _ps = cs.scan_truth(ll, m, dev)
+        queries = cs.scan_queries(ll, m, sk, cs.N_SCAN_BATCHES)
+        args = cs.scan_args(nfl, sk, queries, dev)
+        sp, tp = args[0][3], args[0][4]
+        save["scan"] = [(a[0], a[1]) for a in args]
+        save["scan_pool"] = (list(sp.pool), sp.iters)
+        save["scan_tiers"] = (list(tp.pools), tp.run_iters, tp.run_window,
+                              tp.delta_iters, tp.delta_window)
+        save["scan_kw"] = dict(dim=nfl.cfg.flow.dim, shapes=nfl._shapes,
+                               scan_cap=cs.SCAN_CAP, use_flow=nfl.use_flow)
+        st = nfl.index.stats()
+        save["stats"].update(run_len=st["run_len"],
+                             delta_len=st["delta_len"],
+                             serving=st["serving"])
+    if points:
+        ln = cs.bulkload_and_read("lognormal", cs.LOGNORMAL_KEYS, False, 1,
+                                  m, win)
+        save["kw_off"] = cs.lookup_kw(ln["nfl"])
+        save["pools_off"] = list(ln["nfl"].index._kernel_pools())
+        save["stream_off"] = stream_pack(ln["nfl"])
+        save["skw_off"] = cs.stream_kw(ln["nfl"])
+        save["fresh_off"] = [cs.lookup_args(ln["nfl"], k, dev,
+                                            split_key_bits)[:3]
+                             for k in ln["batches"]]
     out.parent.mkdir(parents=True, exist_ok=True)
     torch.save(save, out)
     print("AB-PREPARED " + json.dumps(save["stats"], default=str), flush=True)
+
+
+def shard_streams(cs, m, ll, rounds: int) -> dict:
+    """One sharded read batch at a time with one CUDA stream per shard
+    against every shard on the current stream, in turns (``per_shard``,
+    ``one``, ``one``, ``per_shard``, ...): a ``ShardedFlatAFLI`` of 4
+    shards is built on the longlat index's own positioning keys and flow
+    (no second training) and serves its 64 read batches through
+    ``lookup_batch_flow``, each batch to its result on the host.  Every
+    result is checked against the single index's on the first round.
+    Returns the median host ms per batch of each mode, per round."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.sharded_nfl import ShardedFlatAFLI
+
+    nfl = ll["nfl"]
+    keys, pv = ll["wl"].load_keys, ll["wl"].load_payloads
+    z = m.ops.nf_transform_keys(nfl.flow_params, nfl.normalizer, keys,
+                                nfl.cfg.flow)
+    sh = ShardedFlatAFLI(nfl.cfg.flat_index, n_shards=4)
+    sh.build(z, pv, ikeys=keys)
+    sh.set_serve_flow(nfl.normalizer, nfl.cfg.flow, nfl._packed_w,
+                      nfl._shapes)
+    repaired = sh.verify_serve_flow(nfl._feats(keys), keys, nfl._packed_w,
+                                    nfl._shapes, pv)
+    del z
+    batches = ll["batches"]
+    feats = [nfl._feats(k) for k in batches]
+    want = [nfl.lookup_batch(k) for k in batches]
+    streams = list(sh.streams)
+    out = {"per_shard": [], "one": [], "repaired": repaired,
+           "shard_keys": [s.n_keys for s in sh.shards]}
+    for r in range(rounds):
+        for mode in (("per_shard", "one") if r % 2 == 0
+                     else ("one", "per_shard")):
+            sh.streams = streams if mode == "per_shard" else [None] * 4
+            ms = []
+            for f, k, w in zip(feats, batches, want):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got = sh.lookup_batch_flow(f, k, nfl._packed_w, nfl._shapes)
+                ms.append((time.perf_counter() - t) * 1e3)
+                if r == 0 and not np.array_equal(got, w):
+                    raise SystemExit(f"sharded reads ({mode}) differ from "
+                                     "the single index's")
+            out[mode].append(statistics.median(ms))
+    sh.streams = streams
+    print("AB-SHARDS " + json.dumps(out), flush=True)
+    return out
+
+
+def read_calls(ll, rounds: int) -> dict:
+    """The single index's read call three ways, one batch at a time, in
+    turns (``async``, ``sync``, ``parent``, then reversed, ...): the
+    median host ms per call of each, per round.  Every result is checked
+    against the ground truth on the first round."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.flat_afli import _upload, split_key_bits
+    from repro_torch.kernels import ops
+
+    nfl = ll["nfl"]
+    idx, pw, shapes = nfl.index, nfl._packed_w, nfl._shapes
+    dev = idx.device
+    batches = ll["batches"]
+    feats = [nfl._feats(k) for k in batches]
+    want = [ll["truth"].lookup(k) for k in batches]
+
+    def launch(f, k, up):
+        hi, lo = split_key_bits(k)
+        pay, z, _path = ops.fused_lookup(
+            idx._kernel_pools(), up(f, np.float32), up(hi, np.int32),
+            up(lo, np.int32), flow=(pw, shapes), max_depth=idx.max_depth,
+            dense_iters=idx.cfg.dense_search_iters,
+            bucket_cap=idx.cfg.max_bucket, dense_window=idx.dense_window,
+            tiers=idx._tier_pack(), stream=None)
+        return pay, z
+
+    def sync(f, k):
+        pay, _z = launch(f, k, lambda x, dt: _upload(x, dt, dev))
+        return pay.cpu().numpy()
+
+    def parent(f, k):
+        # the parent's FlatAFLI._dispatch: uploads by a blocking .to(),
+        # payloads and z back by .cpu()
+        pay, z = launch(f, k, lambda x, dt: torch.from_numpy(
+            np.ascontiguousarray(x).view(np.int32) if x.dtype == np.uint32
+            else np.ascontiguousarray(x, dt)).to(dev))
+        return pay.cpu().numpy(), z.cpu().numpy()
+
+    modes = {"async": lambda f, k: idx.lookup_batch_flow(f, k, pw, shapes),
+             "sync": sync, "parent": lambda f, k: parent(f, k)[0]}
+    out = {name: [] for name in modes}
+    for r in range(rounds):
+        order = list(modes) if r % 2 == 0 else list(modes)[::-1]
+        for name in order:
+            ms = []
+            for f, k, w in zip(feats, batches, want):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got = modes[name](f, k)
+                ms.append((time.perf_counter() - t) * 1e3)
+                if r == 0 and not np.array_equal(got, w):
+                    raise SystemExit(f"read call ({name}) is wrong")
+            out[name].append(statistics.median(ms))
+    print("AB-READS " + json.dumps(out), flush=True)
+    return out
 
 
 def time_side(tree: str, label: str, inputs: Path, check: bool,
@@ -325,7 +537,6 @@ def time_side(tree: str, label: str, inputs: Path, check: bool,
 
     info = build.build_all()
     d = torch.load(inputs, map_location="cuda", weights_only=False)
-    pools = KernelPools(*d["pools"])
     pw = d["packed_w"].cpu()
 
     def tiers_of(t):
@@ -334,10 +545,12 @@ def time_side(tree: str, label: str, inputs: Path, check: bool,
     def stream_of(s):
         return StreamPack(ScanPool(*s[0]), s[1], s[2])
 
-    tiers = tiers_of(d["tiers"])
-    pools_off = KernelPools(*d["pools_off"])
-    sp, sp_tiered = stream_of(d["stream"]), stream_of(d["stream_tiered"])
-    sp_off = stream_of(d["stream_off"])
+    if {"fused_lookup", "streamed_lookup"} & set(kernels):
+        pools = KernelPools(*d["pools"])
+        tiers = tiers_of(d["tiers"])
+        pools_off = KernelPools(*d["pools_off"])
+        sp, sp_tiered = stream_of(d["stream"]), stream_of(d["stream_tiered"])
+        sp_off = stream_of(d["stream_off"])
     flush = torch.empty(cs.L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     out = {"label": label, "tree": tree,
            "regs": {n: [ln.strip() for ln in r["log"].splitlines()
@@ -417,6 +630,15 @@ def time_side(tree: str, label: str, inputs: Path, check: bool,
             raise SystemExit(f"{label}: fused_range_scan != plain")
         timed("range", [lambda a=a: fused_range_scan(*a, **skw)
                         for a in sargs])
+    if "index_probe" in kernels:
+        from repro_torch.kernels.index_probe import (index_probe,
+                                                     index_probe_plain)
+        slope, icpt, entries = d["probe_node"]
+        pargs = [(*q, slope, icpt, *entries) for q in d["probe"]]
+        if check and not all(same(index_probe(*a), index_probe_plain(*a))
+                             for a in pargs):
+            raise SystemExit(f"{label}: index_probe != plain")
+        timed("probe", [lambda a=a: index_probe(*a) for a in pargs])
     out["checked"] = check
     return out
 
@@ -441,11 +663,17 @@ def make_variant(src_root: Path, label: str, name: str) -> Path:
 
 
 def patched_kernels(label: str, name: str) -> tuple:
-    """The kernels whose sources variant ``name`` of ``label`` patches."""
+    """The kernels whose sources (or the headers they include) variant
+    ``name`` of ``label`` patches."""
     files = {f for f, _old, _new in VARIANTS[label][name]}
-    return tuple(k for k, (lib, _cases) in CASES.items()
-                 if f"{lib}.cu" in files or any(f.endswith(".cuh")
-                                                for f in files))
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+
+    def patched(lib):
+        text = (csrc / f"{lib}.cu").read_text()
+        return f"{lib}.cu" in files or any(
+            f'#include "{f}"' in text for f in files if f.endswith(".cuh"))
+
+    return tuple(k for k, (lib, _cases) in CASES.items() if patched(lib))
 
 
 def run(args) -> int:
@@ -453,7 +681,10 @@ def run(args) -> int:
     trees = [t.split("=", 1) for t in args.tree]
     kernels = tuple(args.kernels or KERNELS)
     r = subprocess.run([sys.executable, __file__, "prepare", str(inputs),
-                        trees[0][1]], capture_output=True, text=True)
+                        trees[0][1], "--kernels", *kernels,
+                        "--shard-rounds", str(args.shard_rounds),
+                        "--read-rounds", str(args.read_rounds)],
+                       capture_output=True, text=True)
     sys.stdout.write(r.stdout[-4000:])
     if r.returncode:
         sys.stderr.write(r.stderr[-4000:])
@@ -511,9 +742,19 @@ def main() -> int:
     p.add_argument("--kernels", nargs="+", choices=KERNELS,
                    help="the kernels the trees time (default: all)")
     p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--shard-rounds", type=int, default=0,
+                   help="also time a 4-shard index's read batches with a "
+                   "stream per shard and with one, in turns, this many "
+                   "rounds (in the preparing process)")
+    p.add_argument("--read-rounds", type=int, default=0,
+                   help="also time the single index's read call three ways "
+                   "in turns, this many rounds (in the preparing process)")
     p = sub.add_parser("prepare")
     p.add_argument("out")
     p.add_argument("tree")
+    p.add_argument("--kernels", nargs="+", choices=KERNELS, default=KERNELS)
+    p.add_argument("--shard-rounds", type=int, default=0)
+    p.add_argument("--read-rounds", type=int, default=0)
     p = sub.add_parser("time")
     p.add_argument("tree")
     p.add_argument("label")
@@ -522,7 +763,8 @@ def main() -> int:
     p.add_argument("--check", action="store_true")
     args = ap.parse_args()
     if args.cmd == "prepare":
-        prepare(Path(args.out), args.tree)
+        prepare(Path(args.out), args.tree, tuple(args.kernels),
+                args.shard_rounds, args.read_rounds)
         return 0
     if args.cmd == "time":
         out = time_side(args.tree, args.label, Path(args.inputs), args.check,

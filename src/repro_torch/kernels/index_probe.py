@@ -2,8 +2,10 @@
 
 Port of ``repro.kernels.index_probe`` (and its oracle
 ``repro.kernels.ref.index_probe_ref``).  ``index_probe`` launches the
-CUDA kernel (``csrc/index_probe.cu``, one thread per query) on CUDA
-tensors and runs ``index_probe_plain`` on CPU tensors.  Per query:
+CUDA kernel (``csrc/index_probe.cu``: one query a thread, the code and
+child at the slot, then a DATA entry's identity halves and payload in
+one round) on CUDA tensors and runs ``index_probe_plain`` on CPU
+tensors.  Per query:
 ``slot = clamp(rint(slope * q + intercept), 0, S - 1)`` with the multiply
 and the add rounded separately (as the numpy builder places keys), the
 entry code and child id at the slot, and the payload where the entry is
@@ -106,10 +108,8 @@ def index_probe(qkey: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
                                           child.data_ptr())
     a.slope, a.intercept = float(_f32(slope)), float(_f32(intercept))
     a.B, a.S = b, s
-    lib = build.load("index_probe")
-    fn = lib.index_probe_launch
-    fn.argtypes = [ctypes.POINTER(_ProbeArgs), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("index_probe", "index_probe_launch",
+                        [ctypes.POINTER(_ProbeArgs), ctypes.c_void_p])
     build.check(fn(ctypes.byref(a), build.stream_ptr(qkey.device)),
                 "index_probe")
     index_probe.launches += 1

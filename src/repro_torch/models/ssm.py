@@ -12,7 +12,7 @@ is kept as the kernel branch's reference (the JAX parity tests and the
 card smoke compare the two).  Decode is the exact one-token recurrence.
 
 The JAX module's sharding hints (``constrain``) and ``mamba_specs`` have
-no counterpart on one card (ROADMAP A10/A15b).  Its ``remat_chunks``
+no counterpart on one card (ROADMAP A15b).  Its ``remat_chunks``
 argument is dropped: the port runs forward only, so nothing is kept for
 a backward pass.
 """

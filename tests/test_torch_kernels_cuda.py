@@ -371,6 +371,165 @@ def test_index_probe_kernel_matches_plain(cuda):
                           idx.lookup_batch(keys[hit]))
 
 
+def _probe_node(n_entries, seed):
+    """A random model node (codes, identities, payloads, children) and
+    its slope/intercept mapping [0, 1e6) onto it."""
+    rng = np.random.default_rng(seed)
+    etype = rng.integers(0, 4, n_entries).astype(np.int32)
+    ids = rng.integers(-2**31, 2**31, (4, n_entries)).astype(np.int32)
+    slope = np.float32((n_entries - 1) / 1e6)
+    return etype, ids, slope, np.float32(0.25)
+
+
+def _probe_args(dev, qkey, n_entries, seed, match=0.5):
+    """``index_probe`` arguments: queries whose identities equal the
+    entry's at their slot for a ``match`` share of them."""
+    etype, (ehi, elo, epay, echild), slope, icpt = _probe_node(n_entries,
+                                                               seed)
+    epay = np.abs(epay)
+    q = torch.from_numpy(np.asarray(qkey, np.float32))
+    slot = torch.clamp(torch.round(torch.nan_to_num(
+        torch.tensor(slope) * q + torch.tensor(icpt))), 0,
+        n_entries - 1).to(torch.int64).numpy()
+    rng = np.random.default_rng(seed + 1)
+    hit = rng.random(q.shape[0]) < match
+    qhi = np.where(hit, ehi[slot], rng.integers(-2**31, 2**31, q.shape[0])
+                   ).astype(np.int32)
+    qlo = np.where(hit, elo[slot], elo[slot] ^ 1).astype(np.int32)
+    t = [torch.from_numpy(x).to(dev) for x in (q.numpy(), qhi, qlo)]
+    e = [torch.from_numpy(x).to(dev) for x in (etype, ehi, elo, epay,
+                                                echild)]
+    return (*t, slope, icpt, *e)
+
+
+def _probe_equal(args):
+    before = index_probe.launches
+    got = index_probe(*args)
+    want = index_probe_plain(*args)
+    torch.cuda.synchronize()
+    assert index_probe.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("b", [1, 3, 4, 5, 65_537])
+def test_index_probe_batch_sizes(cuda, b):
+    """Bit-equal to plain at B around a multiple of 4 and past a block,
+    and DATA hits where the identities match."""
+    rng = np.random.default_rng(b)
+    got = _probe_equal(_probe_args(cuda, rng.uniform(-1e4, 1.01e6, b),
+                                   20_000, b))
+    if b > 1000:
+        assert (got[0] >= 0).any() and (got[0] == -1).any()
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_index_probe_unaligned_views(cuda, offset):
+    """Query and entry views that start off a 16-byte boundary:
+    bit-equal to plain."""
+    b = 10_001
+    rng = np.random.default_rng(offset)
+    args = _probe_args(cuda, rng.uniform(0, 1e6, b + offset), 9_000 + offset,
+                       offset)
+    q, qhi, qlo, slope, icpt, *e = args
+    views = [t[offset:] for t in (q, qhi, qlo)]
+    assert views[0].data_ptr() % 16 and views[0].is_contiguous()
+    _probe_equal((*views, slope, icpt, *(x[offset:] for x in e)))
+
+
+@pytest.mark.parametrize("n_entries", [1, 2, 4097])
+def test_index_probe_edge_keys(cuda, n_entries):
+    """+-inf, +-0.0, NaN, huge and tiny keys exercise the slot clamp and
+    the saturating conversion; S = 1 maps every key to the one entry."""
+    edge = np.array([np.inf, -np.inf, 0.0, -0.0, np.nan, 3e38, -3e38,
+                     1e-45, -1e-45, 1e6, 999_999.5, 2.1e9, -2.1e9],
+                    np.float32)
+    q = np.tile(edge, 317)[:4001]
+    _probe_equal(_probe_args(cuda, q, n_entries, 7, match=0.7))
+    # a negative slope sends +inf to slot 0 and -inf to the last slot
+    q_t, qhi, qlo, _slope, icpt, *e = _probe_args(cuda, q, n_entries, 8)
+    _probe_equal((q_t, qhi, qlo, np.float32(-0.001), icpt, *e))
+
+
+def _shards_cpu_and_card(cuda, flow):
+    keys = make_dataset("longlat" if flow else "lognormal", 60_000)
+    pv = np.arange(keys.shape[0], dtype=np.int64)
+    out = []
+    for dev in ("cpu", cuda):
+        nfl = NFL(NFLConfig(backend="flat", shards=4, force_flow=flow,
+                            flow_train=FlowTrainConfig(epochs=1)), device=dev)
+        nfl.bulkload(keys[::2], pv[::2])
+        out.append(nfl)
+    return out, keys, pv
+
+
+@pytest.mark.parametrize("flow", [False, True])
+def test_sharded_nfl_on_card_matches_cpu(cuda, flow):
+    """``NFL(shards=4)`` on the card against the CPU port on the same
+    keys: flow off the shards' pools are equal and every read is; flow
+    on (each side trains its own flow) both hold to the ground truth.
+    A read batch launches one router ``nf_forward`` (flow on) and one
+    ``fused_lookup`` per non-empty shard segment."""
+    (cpu, card), keys, pv = _shards_cpu_and_card(cuda, flow)
+    assert [str(d) for d in card.index.devices] == ["cuda:0"] * 4
+    assert all(st is not None for st in card.index.streams)
+    if not flow:
+        assert np.array_equal(cpu.index.boundaries, card.index.boundaries)
+        for a, b in zip(cpu.index.shards, card.index.shards):
+            for f, x, y in zip(a.arrays._fields, a.arrays, b.arrays):
+                assert np.array_equal(x, y), f
+    expect = np.where(pv % 2 == 0, pv, -1)
+    q = keys[np.random.default_rng(0).permutation(keys.shape[0])[:50_000]]
+    want = expect[np.searchsorted(keys, q)]
+    ops.reset_launch_counts()
+    got = card.lookup_batch(q)
+    s = card.dispatch_stats()
+    assert np.array_equal(got, want)
+    assert np.array_equal(cpu.lookup_batch(q), want)
+    segs = np.bincount(card.index._route_points(
+        ops.nf_transform_keys(card.flow_params, card.normalizer, q,
+                              card.cfg.flow, cuda).astype(np.float32)
+        if flow else q.astype(np.float32)), minlength=4)
+    assert s["nf_forward_launches"] == int(flow)
+    assert s["fused_lookup_launches"] == int((segs > 0).sum())
+    # writes, then a scan batch that straddles every boundary
+    new = keys[1::2][:3000]
+    for nfl in (cpu, card):
+        nfl.insert_batch(new, pv[1::2][:3000])
+        assert nfl.delete_batch(keys[::2][:2000]).all()
+    expect[1::2][:3000] = pv[1::2][:3000]
+    expect[::2][:2000] = -1
+    assert np.array_equal(card.lookup_batch(keys), expect)
+    lo, hi = keys[:-200:50], keys[200::50]
+    c1 = cpu.scan_batch(lo, hi, cap=512)
+    c2 = card.scan_batch(lo, hi, cap=512)
+    if not flow:
+        for x, y in zip(c1, c2):
+            assert np.array_equal(x, y)
+        assert card.index._router["straddling_ranges"] >= 3
+
+
+def test_sharded_async_reads_on_card(cuda):
+    """Two sharded batches in flight on the shards' streams with writes
+    issued between dispatch and finish: each reads the state it was
+    dispatched into (the writes wait on the shards' streams)."""
+    (_cpu, card), keys, pv = _shards_cpu_and_card(cuda, True)
+    expect = np.where(pv % 2 == 0, pv, -1)
+    q = keys
+    f1 = card.lookup_batch_async(q)
+    loaded = keys[::2]
+    assert card.update_batch(loaded[:5000], np.arange(5000) + 10**7).all()
+    assert card.delete_batch(loaded[5000:10000]).all()
+    card.insert_batch(keys[1::2], pv[1::2])
+    f2 = card.lookup_batch_async(q)
+    after = pv.copy()
+    after[::2][:5000] = np.arange(5000) + 10**7
+    after[::2][5000:10000] = -1
+    assert np.array_equal(f2(), after)
+    assert np.array_equal(f1(), expect)
+
+
 def test_nfl_serves_streamed_on_card(cuda):
     """``pool_budget=0``: the reads of an NFL on the card launch the
     streamed kernel and are right; the build's verifies stay fused."""

@@ -104,8 +104,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         t_nfl.NFL(t_nfl.NFLConfig(backend="flat"), device="cuda")
 
 
-@pytest.mark.parametrize("kw,item", [({"backend": "afli"}, "A13"),
-                                     ({"backend": "flat", "shards": 2}, "A10")])
+@pytest.mark.parametrize("kw,item", [({"backend": "afli"}, "A13")])
 def test_unported_configs_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         t_nfl.NFL(t_nfl.NFLConfig(**kw), device="cpu")
@@ -116,7 +115,6 @@ def test_unported_operations_raise():
     nfl = t_nfl.NFL(_cfg(force_flow=False), device="cpu")
     nfl.bulkload(keys, np.arange(keys.shape[0]))
     for call, item in [
-            (lambda: nfl.lookup_batch_async(keys[:2]), "A12"),
             (lambda: nfl.index.start_reflow(lambda k: k, None,
                                             lambda: None), "A11")]:
         with pytest.raises(NotImplementedError, match=item):
