@@ -5,7 +5,23 @@
 Phases (any failure exits non-zero before the result lines):
 
 1. device: the card's name and power limit; build every CUDA kernel from
-   ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel).
+   ``src/repro_torch/kernels/csrc`` and the contract checker's fixture
+   kernels from ``src/repro_torch/analysis/csrc`` (one nvcc per source,
+   in parallel).
+1b. the contract checker (``repro_torch.analysis``, ~1 min): its four
+   broken fixture kernels (B8 ``clip_gather``, B9 ``lane_cast``, B10
+   ``batch_loop``, ``f64_upcast``) bit-equal to their plain versions
+   (``batch_loop`` at 1, 33 and 4,096 queries); the self-test, whose
+   launches are the fixtures' launch window (all six fixtures caught at
+   a ``fixtures.cu`` or ``fixtures.py`` line); every contract over the
+   real serving entries in process: host syncs per entry, the recorder
+   against ``torch.cuda.set_sync_debug_mode``; each launch's grid, block,
+   shared memory and registers; the shared-memory model against ptxas
+   and against every profiled launch (the streamed kernel over a 2^25-row
+   pool included); the PTX lints of every source.  Fails on a missed
+   fixture, a blocking finding past ``analysis/allow.txt``, a model
+   drift, or a recorder count below the debug mode's; then each fixture
+   kernel timed cold and warm beside its plain version and bound.
 2. ``longlat`` at 2^25 keys, half (2^24) bulk-loaded through
    ``NFL(NFLConfig(backend="flat"))`` with the default flow and training
    configs and AutoSwitch deciding (rerun with ``force_flow=True`` if it
@@ -46,9 +62,10 @@ Phases (any failure exits non-zero before the result lines):
 4. sharded serving, with the single indexes' tensors freed: phase 2's
    longlat load (same keys, seed and loaded half) through
    ``NFL(NFLConfig(backend="flat", shards=4))``, the four shards on the
-   one card, AutoSwitch deciding as in 2 (each shard's verdict, key
-   count, depth and pool bytes printed, and the sharded verify's
-   repaired keys):
+   one card, its flow trained one epoch (phase 2 trains the default
+   three on the same keys), AutoSwitch deciding as in 2 (each shard's
+   verdict, key count, depth and pool bytes printed, and the sharded
+   verify's repaired keys):
    a. reads: 2a's 64 batches, each in its own launch window (one router
       ``nf_forward``, one ``fused_lookup`` per shard the batch reaches),
       every payload equal to the single index's in 2a, and its misses;
@@ -118,8 +135,9 @@ Phases (any failure exits non-zero before the result lines):
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are zeroed just before each driven step of phases
-2, 3, 4 and 6 and read just after; the kernels' launches in phases 5 and
-7 and those that compute ground truth, replay or compare fall between
+2, 3, 4 and 6 (and the fixtures' before the self-test of 1b) and read
+just after; the kernels' launches in phases 1b's contract run, 5 and 7
+and those that compute ground truth, replay or compare fall between
 those windows and do not count.  Every window outside the streamed steps must
 launch ``streamed_lookup`` 0 times (``pool_budget`` is None there).
 
@@ -130,8 +148,10 @@ repository's sources are missing.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import statistics
 import subprocess
@@ -156,6 +176,9 @@ N_SCAN_BATCHES = 16
 SCAN_CAP = 128
 LONGLAT_KEYS = 1 << 25         # half bulk-loaded
 N_SHARDS = 4                   # phase 4: key-space shards on one card
+# phase 4 trains its flow on phase 2's keys again: one epoch, not the
+# default three, keeps the smoke well inside its time limit on a slow host
+SHARDED_FLOW_EPOCHS = 1
 BUSY_SHARD = 1                 # the shard phase 4's inserts aim at
 MAX_SHARD_WRITE_BATCHES = 96   # write batches allowed for its fold
 STRADDLE = 1024                # phase 4: ranges straddling each boundary
@@ -342,6 +365,128 @@ def phase_build(build):
             + "; ".join(regs))
     log(f"kernel build wall time: {secs:.1f} s")
     return secs
+
+
+# ------------------------------------------------- the contract checker
+# fixture kernel -> the operations of its work on its inputs (its bytes
+# are those of its inputs and output)
+FIXTURE_OPS = {
+    "clip_gather": lambda idx, table: 0,
+    "lane_cast": lambda hi, lo: 0,
+    "batch_loop": lambda q, pool: 2 * q.numel() * pool.numel(),
+    "f64_upcast": lambda pk: 5 * 8 * pk.numel(),
+}
+FP32_FLOPS = 67e12             # H100 SXM, outside the tensor cores
+
+
+def analysis_phase(flush_buf):
+    """Phase 1b: the contract checker (``repro_torch.analysis``) on the
+    card.  The fixture kernels against their plain versions bit for bit
+    (``batch_loop`` at 1, 33 and 4,096 queries); the self-test in a launch
+    window (every fixture caught at a ``fixtures.cu`` or ``fixtures.py``
+    line, each kernel fixture launched); then every contract over the
+    real entries in process (host syncs per entry, recorder against the
+    sync debug mode; launch facts; the shared-memory model against ptxas
+    and every profiled launch, the 2^25-row streamed pool included);
+    then each fixture kernel timed cold and warm beside its plain
+    version and its bound.  Fails on a missed fixture, a blocking
+    finding, a model drift, a recorder count below the debug mode's, or
+    a fixture kernel that differs from its plain version."""
+    from repro_torch.analysis import fixtures as fx
+    from repro_torch.analysis.__main__ import (DEFAULT_ALLOWLIST, run_all,
+                                               run_fixture_selftest,
+                                               _render_facts)
+    from repro_torch.analysis.findings import Report, load_allowlist
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(41)
+    for b in (1, 33, 4096):
+        q = torch.from_numpy(rng.standard_normal(b).astype(np.float32))
+        pool = torch.from_numpy(rng.standard_normal(256).astype(np.float32))
+        got = fx.batch_loop(q.to(dev), pool.to(dev)).cpu()
+        if not torch.equal(got, fx.batch_loop_plain(q, pool)):
+            fail(f"batch_loop disagrees with its plain version at B {b}")
+    errs = {}
+    kernel_fixtures = {n: f for n, f in fx.FIXTURES.items() if f.call}
+    for name, f in kernel_fixtures.items():
+        call = f.call
+        args = fx.fixture_inputs(name, dev)
+        got = call(*args).cpu()
+        want = call(*(a.cpu() for a in args))
+        eq = bit_equal(got, want)
+        errs[name] = float((got.double() - want.double()).abs().max())
+        log(f"[analysis] {name}: kernel vs plain bit-equal {eq}")
+        if not eq:
+            fail(f"{name}: the fixture kernel disagrees with its plain "
+                 "version")
+    fx.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_fixture_selftest(dev)
+    launches = fx.launch_counts()
+    for line in buf.getvalue().splitlines():
+        log(f"[analysis] self-test {line.strip()}")
+    if rc != 0 or buf.getvalue().count("caught  fixture:") != len(
+            fx.FIXTURES):
+        fail("the contract checker missed a fixture")
+    report = Report(allowlist=load_allowlist(DEFAULT_ALLOWLIST))
+    t0 = time.perf_counter()
+    facts = run_all(report, dev)
+    for line in _render_facts(facts).splitlines():
+        log(f"[analysis] {line.strip()}")
+    drift = [f for f in report.findings if f.contract == "smem:model-drift"]
+    under = [n for n, st in facts["syncs"].items()
+             if st["syncs"] < st["debug_syncs"]]
+    log(f"[analysis] python -m repro_torch.analysis in process: "
+        f"{time.perf_counter() - t0:.1f} s; {len(report.blocking())} "
+        f"blocking, {len(report.allowed())} allowlisted, "
+        f"{len(report.advisory())} advisory; model drift {len(drift)}; "
+        f"smem limit {facts['smem_limit']} B; entries where the recorder "
+        f"counts below the debug mode: {under}")
+    for f in report.advisory():
+        log(f"[analysis] info [{f.contract}] {f.entry} @ {f.location}: "
+            f"{f.message}")
+    for f in report.blocking():
+        log(f"[analysis] FAIL [{f.contract}] {f.entry} @ {f.location}: "
+            f"{f.message}")
+    if report.blocking() or drift or under:
+        fail("the contract checker found blocking findings on the real "
+             "entries")
+    del facts
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = {}
+    for name, f in kernel_fixtures.items():
+        call, row = f.call, f.call.__name__
+        args = fx.fixture_inputs(name, dev)
+        nbytes = sum(a.numel() * a.element_size()
+                     for a in (*args, call(*args)))
+        nops = FIXTURE_OPS[row](*args)
+        fns = [lambda a=args: call(*a)] * 16
+        cold, warm, host = timed_launches(fns, flush_buf)
+        plain = getattr(fx, f"{row}_plain")
+        plain_ms = time_ms(lambda: plain(*args), 5, 1)
+        lib = None
+        if row == "f64_upcast":
+            table = fx.f64_table(8).to(dev)
+            lib = time_ms(lambda: torch.searchsorted(table, args[0]), 5, 1)
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = nops / FP32_FLOPS * 1e3
+        rows[row] = {
+            "name": row, "route": "cuda",
+            "source": "src/repro_torch/analysis/csrc/fixtures.cu",
+            "replaces": f.replaces, "launches": launches[row],
+            "max_abs_err": errs[name], "ms": statistics.median(cold),
+            "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "operations" if by_ops > by_bytes else "bytes",
+            "library_ms": lib, "ms_warm_l2": statistics.median(warm),
+            "host_ms_per_call": host}
+        log(f"[analysis] {row}: {rows[row]['ms']:.5f} ms cold, "
+            f"{rows[row]['ms_warm_l2']:.5f} warm, host {host:.5f} ms/call; "
+            f"plain {plain_ms:.4f} ms; library {lib}; bound "
+            f"{rows[row]['bound_ms']:.2e} ms ({rows[row]['bound_by']}); "
+            f"self-test launches {launches[row]}")
+    return rows
 
 
 def touched_sectors(pools, q, qhi, qlo, kw, tiers):
@@ -1365,8 +1510,9 @@ def sharded_load_and_read(base, m, win):
 
     def bulkload(force):
         torch.cuda.reset_peak_memory_stats()
-        nfl = m.NFL(m.NFLConfig(backend="flat", shards=N_SHARDS,
-                                force_flow=force))
+        nfl = m.NFL(m.NFLConfig(
+            backend="flat", shards=N_SHARDS, force_flow=force,
+            flow_train=m.FlowTrainConfig(epochs=SHARDED_FLOW_EPOCHS)))
         t = time.perf_counter()
         nfl.bulkload(wl.load_keys, wl.load_payloads)
         torch.cuda.synchronize()
@@ -2732,12 +2878,14 @@ class Mods:
 
     def __init__(self):
         from repro_torch.core.nfl import NFL, NFLConfig
+        from repro_torch.core.train_flow import FlowTrainConfig
         from repro_torch.data.datasets import make_dataset
         from repro_torch.data.workloads import (WorkloadConfig,
                                                 _zipf_indices, make_workload)
         from repro_torch.kernels import ops
 
         self.NFL, self.NFLConfig = NFL, NFLConfig
+        self.FlowTrainConfig = FlowTrainConfig
         self.make_dataset, self.make_workload = make_dataset, make_workload
         self.WorkloadConfig, self.zipf_indices = WorkloadConfig, _zipf_indices
         self.ops = ops
@@ -2808,6 +2956,11 @@ def main() -> int:
     def wall(tag, t0):
         walls[tag] = time.perf_counter() - t0
         log(f"phase {tag}: {walls[tag]:.1f} s wall")
+
+    # ---- the contract checker and its fixture kernels
+    t0 = time.perf_counter()
+    fixture_rows = analysis_phase(flush_buf)
+    wall("contract checker", t0)
 
     # ---- longlat, flow on
     t0 = time.perf_counter()
@@ -3024,6 +3177,10 @@ def main() -> int:
         "sectors_kernel": probe["sectors_kernel"],
     }
     rows.update(lm_rows)
+    rows.update(fixture_rows)
+    # the fixture kernels' main path is the checker's self-test (phase 1b)
+    launches.update({name: row["launches"]
+                     for name, row in fixture_rows.items()})
     out = []
     for row in rows.values():
         row["launches"] = launches.get(row["name"], 0)

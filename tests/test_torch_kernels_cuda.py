@@ -991,3 +991,86 @@ def test_lm_serves_on_card_through_the_scan(cuda):
                        for a, b in v.items()})
                   for k, v in params.items()}
     assert got == serve(kcfg, "cpu", cpu_params)
+
+
+# ------------------------------------------------------------------
+# the contract checker's broken fixture kernels (analysis/csrc/fixtures.cu)
+def test_fixture_kernels_match_plain_at_the_edges(cuda):
+    from repro_torch.analysis import fixtures as fx
+
+    rng = np.random.default_rng(21)
+    idx = np.arange(-40, 171, dtype=np.int32)            # both clamp edges
+    table = rng.standard_normal(128).astype(np.float32)
+    got = fx.clip_gather(torch.from_numpy(idx).to(cuda),
+                         torch.from_numpy(table).to(cuda)).cpu()
+    want = fx.clip_gather_plain(torch.from_numpy(idx),
+                                torch.from_numpy(table))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    lanes = np.concatenate([[0, 0xFFFFFFFF, 1, 1 << 24, (1 << 24) + 1,
+                             0x80000000],
+                            rng.integers(0, 1 << 32, 4096, dtype=np.uint64)
+                            ]).astype(np.uint32).view(np.int32)
+    hi, lo = torch.from_numpy(lanes), torch.from_numpy(lanes[::-1].copy())
+    got = fx.lane_cast(hi.to(cuda), lo.to(cuda)).cpu()
+    assert torch.equal(got.view(torch.int32),
+                       fx.lane_cast_plain(hi, lo).view(torch.int32))
+    for b in (1, 33, 4096):
+        q = torch.from_numpy(rng.standard_normal(b).astype(np.float32))
+        pool = torch.from_numpy(rng.standard_normal(256).astype(np.float32))
+        q[0] = pool[0]                                   # a tie counts
+        got = fx.batch_loop(q.to(cuda), pool.to(cuda)).cpu()
+        assert torch.equal(got, fx.batch_loop_plain(q, pool))
+    table = fx.f64_table(8).numpy()
+    pk = torch.from_numpy(np.concatenate(
+        [rng.uniform(-0.2, 1.2, 4096), table, np.nextafter(table, 2),
+         np.nextafter(table, -2), [-np.inf, np.inf]]).astype(np.float32))
+    for n in (2, 8, 13):
+        got = fx.f64_upcast(pk.to(cuda), n).cpu()
+        assert torch.equal(got, fx.f64_upcast_plain(pk, n))
+    # a launch counts once; an empty batch launches nothing
+    before = fx.launch_counts()
+    fx.clip_gather(torch.zeros(3, dtype=torch.int32, device=cuda),
+                   torch.ones(4, device=cuda))
+    assert fx.clip_gather(torch.zeros(0, dtype=torch.int32, device=cuda),
+                          torch.ones(4, device=cuda)).shape == (0,)
+    assert fx.launch_counts() == {**before,
+                                  "clip_gather": before["clip_gather"] + 1}
+
+
+def test_contract_checker_self_test_on_card(cuda, capsys):
+    from repro_torch.analysis.__main__ import run_fixture_selftest
+
+    assert run_fixture_selftest(cuda) == 0
+    out = capsys.readouterr().out
+    for name in ("clip-gather", "lane-cast", "batch-loop", "f64-upcast"):
+        assert f"caught  fixture:{name}  @ fixtures.cu:" in out
+    for name in ("host-fetch", "rung-realloc"):
+        assert f"caught  fixture:{name}  @ fixtures.py:" in out
+
+
+def test_committed_fixture_ptx_is_what_nvcc_emits(cuda):
+    from pathlib import Path
+
+    from repro_torch.utils.ptx import compile_ptx, normalize_ptx
+
+    committed = (Path(__file__).resolve().parent / "data"
+                 / "fixtures.ptx").read_text()
+    assert normalize_ptx(compile_ptx("fixtures").read_text()) == committed
+
+
+def test_contract_checker_clean_on_card(cuda):
+    """Every contract over the real entries on the card: no blocking
+    finding past the allowlist, no model drift, and the recorder's sync
+    counts never below the sync debug mode's."""
+    from repro_torch.analysis.__main__ import DEFAULT_ALLOWLIST, run_all
+    from repro_torch.analysis.findings import Report, load_allowlist
+
+    rep = Report(allowlist=load_allowlist(DEFAULT_ALLOWLIST))
+    facts = run_all(rep, cuda)
+    assert rep.ok, rep.render()
+    assert not [f for f in rep.findings if f.contract == "smem:model-drift"]
+    for name, st in facts["syncs"].items():
+        assert st["syncs"] >= st["debug_syncs"], name
+    assert facts["launches"] and facts["smem_launches"]
+    assert any(f["params"].get("capacity") == 1 << 25
+               for f in facts["smem_launches"])
