@@ -183,6 +183,27 @@ BUSY_SHARD = 1                 # the shard phase 4's inserts aim at
 MAX_SHARD_WRITE_BATCHES = 96   # write batches allowed for its fold
 STRADDLE = 1024                # phase 4: ranges straddling each boundary
 LOGNORMAL_KEYS = 1 << 22
+# phase 3r: bench_drift.py's DriftConfig (benchmarks/bench_drift.py:148-151,
+# batches of 256 against a 32,768-key load) scaled to write calls of 52,428
+# inserts against 2^21 loaded keys: a check every write call, the
+# reservoir's time constant and the cooldown a third of the drift (as
+# 4,096 of 12,288 there), the retrain as there (2 epochs of 256-key
+# minibatches over the 1,024-key reservoir, 4 a write call).  The score
+# divides a 1,024-key reservoir's tail by the tail of all 2^21 loaded keys;
+# threshold and min_tail sit above what plain lognormal inserts give and
+# below what 16 micro-clusters give (PERF.md section 4)
+DRIFT_KNOBS = dict(reflow=True, threshold=3.0, min_tail=8, check_every=49_152,
+                   window_keys=262_144, cooldown_keys=262_144, train_epochs=2,
+                   train_batch=256, steps_per_tick=4, seed=7)
+# no regular fold during phase 3r: at the default 0.25 one starts after
+# ~10 of these write calls, runs ~20 more, and the delta it leaves
+# restarts it at once, so a re-flow would be refused throughout (PERF.md
+# section 7)
+DRIFT_REBUILD_FRAC = 1.0
+DRIFT_CONTROL_BATCHES = 2      # plain lognormal write batches first
+DRIFT_MAX_SETTLE = 48          # settle write batches allowed for the swap
+DRIFT_READ_BATCHES = 16        # read-only batches timed before the drift
+DRIFT_INFLIGHT = 4096          # the async batch in flight across a write
 L2_FLUSH_BYTES = 512 << 20     # ten times the H100's 50 MB L2
 SPIN_CYCLES = 400_000          # ~0.2 ms idle spin, longer than a host call
 # exp2 results per SM per clock on compute capability 9.0 (the CUDA C++
@@ -1190,6 +1211,25 @@ def root_probe(res, m, win, fused, split_key_bits):
     return args
 
 
+def timed_checks(nfl):
+    """Time the drift checks of ``nfl``'s re-flow manager (the reservoir's
+    tail under the serving transform, which the default telemetry
+    measures every ``check_every`` inserted keys); returns the list of
+    check ms it fills."""
+    mgr = nfl._reflow
+    real = mgr.serving_tail
+    ms = []
+
+    def timed(sample):
+        t = time.perf_counter()
+        out = real(sample)
+        ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    mgr.serving_tail = timed
+    return ms
+
+
 def write_stream(res, m, win, n_batches, until_fold, alternate=False):
     """Phase 2b / 3b: ``write_heavy`` batches from the read phase's seed
     (so the load split is the one bulk-loaded).  Every read is checked;
@@ -1204,6 +1244,8 @@ def write_stream(res, m, win, n_batches, until_fold, alternate=False):
     if not np.array_equal(wl.load_keys, res["wl"].load_keys):
         fail(f"{name}: the write workload's load split differs")
     folds0 = idx.n_rebuilds
+    checks0 = nfl.dispatch_stats()["drift"]["checks"]
+    check_ms = timed_checks(nfl)
     rec = collections.Counter()
     ins_k, ins_p, ins_ms = [], [], []
     fold_batches = []
@@ -1255,6 +1297,18 @@ def write_stream(res, m, win, n_batches, until_fold, alternate=False):
     if counts["fused_lookup"] == 0 or (nfl.use_flow
                                        and counts["nf_forward"] == 0):
         fail(f"{name}: the write path skipped a kernel")
+    # NF launches: one a flow-on insert batch (its positioning keys) and
+    # one a drift check of the reservoir under the serving flow (the
+    # default telemetry); the reads run the NF inside the point kernels
+    checks = nfl.dispatch_stats()["drift"]["checks"] - checks0
+    want_nf = (len(ins_ms) + checks) if nfl.use_flow else 0
+    log(f"[{name}] drift checks in the write window {checks} (ms median "
+        f"{statistics.median(check_ms) if check_ms else 0:.2f}, max "
+        f"{max(check_ms, default=0):.2f}); nf_forward launches "
+        f"{counts['nf_forward']} (expected {want_nf})")
+    if counts["nf_forward"] != want_nf:
+        fail(f"{name}: nf_forward launched {counts['nf_forward']} times in "
+             f"the write window, expected {want_nf}")
     if until_fold and (idx.n_rebuilds == folds0
                        or rec["mid_fold_reads"] == 0):
         fail(f"{name}: no fold started and completed in-stream with reads "
@@ -1269,7 +1323,9 @@ def write_stream(res, m, win, n_batches, until_fold, alternate=False):
     res["write"] = dict(rec, seconds=secs, batches=len(ins_ms),
                         insert_ms_median=statistics.median(ins_ms),
                         insert_ms_max=max(ins_ms),
-                        fold_batches=fold_batches)
+                        fold_batches=fold_batches,
+                        drift_check_ms=statistics.median(check_ms)
+                        if check_ms else None)
     res["write_batches"] = ins_k
     return np.concatenate(ins_k), np.concatenate(ins_p)
 
@@ -1498,6 +1554,293 @@ def lookup_kw(nfl):
                 dense_iters=idx.cfg.dense_search_iters,
                 bucket_cap=idx.cfg.max_bucket,
                 dense_window=idx.dense_window, use_flow=nfl.use_flow)
+
+
+# ------------------------------------------------- drift and re-flow
+def drift_keys(base, n, seed):
+    """``bench_drift.py``'s drifting inserts at the card's scale: 16
+    micro-clusters at the base's q0.80-q0.999, each key ``c * (1 +
+    U(0, 1e-4))``, absent from the base, shuffled."""
+    rng = np.random.default_rng(seed)
+    centers = np.quantile(base, np.linspace(0.80, 0.999, 16))
+    k = np.unique(np.concatenate(
+        [c * (1 + rng.uniform(0, 1e-4, n // 16)) for c in centers]))
+    k = k[~np.isin(k, base)]
+    return rng.permutation(k)
+
+
+class Live:
+    """Live keys and payloads of phase 3r as appended arrays (every key
+    is written once), sampled for reads: three quarters loaded keys, a
+    quarter among the keys inserted so far."""
+
+    def __init__(self, keys, pv):
+        self.base_k, self.base_p = keys, pv
+        self.ins_k, self.ins_p = [], []
+        self.n_ins = 0
+
+    def add(self, k, p):
+        self.ins_k.append(k)
+        self.ins_p.append(p)
+        self.n_ins += k.shape[0]
+
+    def sample(self, rng, n):
+        n_new = n // 4 if self.n_ins else 0
+        j = rng.integers(0, self.base_k.shape[0], n - n_new)
+        k, p = [self.base_k[j]], [self.base_p[j]]
+        if n_new:
+            ik, ip = np.concatenate(self.ins_k), np.concatenate(self.ins_p)
+            j = rng.integers(0, ik.shape[0], n_new)
+            k.append(ik[j])
+            p.append(ip[j])
+        return np.concatenate(k), np.concatenate(p)
+
+    def all(self):
+        return (np.concatenate([self.base_k, *self.ins_k]),
+                np.concatenate([self.base_p, *self.ins_p]))
+
+
+def drift_phase(ln, m, win, dev, card):
+    """Phase 3r: drift and re-flow on phase 3's lognormal load, the flow
+    forced on and the re-flow enabled (``DRIFT_KNOBS``)."""
+    name = "drift"
+    wl = ln["wl"]
+    load_k, load_p = wl.load_keys, wl.load_payloads
+    rng = np.random.default_rng(ln["seed"] + 600)
+    unloaded = rng.permutation(np.setdiff1d(ln["keys"], load_k,
+                                            assume_unique=True))
+    n_ins = BATCH * 4 // 5
+    n_read = BATCH - n_ins
+    plain = unloaded[:DRIFT_CONTROL_BATCHES * n_ins]
+    miss = unloaded[DRIFT_CONTROL_BATCHES * n_ins:][:BATCH]
+    n_drift = 3 * load_k.shape[0] // 8
+    pool = drift_keys(load_k, n_drift + DRIFT_MAX_SETTLE * n_ins,
+                      ln["seed"] + 700)
+    pool = pool[~np.isin(pool, unloaded)]
+    drift, settle = pool[:n_drift], pool[n_drift:]
+    t_phase = time.perf_counter()
+
+    def bulk():
+        nfl = m.NFL(m.NFLConfig(
+            backend="flat", force_flow=True,
+            flow_train=m.FlowTrainConfig(epochs=1),
+            flat_index=m.FlatAFLIConfig(rebuild_frac=DRIFT_REBUILD_FRAC),
+            drift=m.DriftConfig(**DRIFT_KNOBS)))
+        t = time.perf_counter()
+        nfl.bulkload(load_k, load_p)
+        torch.cuda.synchronize()
+        return nfl, time.perf_counter() - t
+
+    (nfl, t_bulk), counts = win.run(bulk)
+    idx, mgr = nfl.index, nfl._reflow
+    check_ms = timed_checks(nfl)
+    mt = nfl.metrics
+    baseline = mgr.baseline_tail
+    log(f"[{name}] {load_k.shape[0]} lognormal keys bulk-loaded (phase 3's "
+        f"load) with the flow forced on, drift {DRIFT_KNOBS}: "
+        f"{t_bulk:.2f} s (train {mt['flow_train_s']:.2f} s, build "
+        f"{mt['index_build_s']:.2f} s); tails original "
+        f"{mt['tail_conflict_original']:.0f}, transformed (the baseline, "
+        f"over all {load_k.shape[0]} keys) {baseline}; shadowed "
+        f"{idx.n_shadowed}; launches {counts}")
+    live = Live(load_k, load_p)
+    rec = collections.Counter()
+    lps = {}
+
+    def read(k, want, streamed, what):
+        set_rung(nfl, 0 if streamed else None)
+        t = time.perf_counter()
+        got, c = win.run(lambda: nfl.lookup_batch(k), streamed=streamed)
+        secs = time.perf_counter() - t
+        set_rung(nfl, None)
+        bad = int((got != want).sum())
+        rec[f"wrong_{what}"] += bad
+        rec["reads"] += k.shape[0]
+        if streamed and c["streamed_lookup"] != 1:
+            fail(f"{name}: a streamed read launched {c}")
+        return secs
+
+    # reads before the drift, and the misses
+    secs = sum(read(k, p, False, "before") for _op, k, p in
+               wl.batches[:DRIFT_READ_BATCHES])
+    lps["before"] = DRIFT_READ_BATCHES * BATCH / secs
+    read(miss, np.full(miss.shape[0], -1), False, "misses")
+    read(miss, np.full(miss.shape[0], -1), True, "misses")
+
+    ins_ms = {"control": [], "drift": [], "settle": []}
+    trace = []          # per write call: what the manager and the fold did
+    swap = {}
+    fold_read = [0, 0.0]
+
+    def write_call(b, kind, k, p):
+        """One ``write_heavy`` batch: reads over the live keys (odd
+        batches on the streamed rung), then ``insert_batch``, with an
+        async read batch in flight across it while a re-flow runs."""
+        st0 = mgr.stats()
+        fold0 = idx._fold
+        active = fold0 is not None and fold0.reflow is not None
+        q, want = live.sample(rng, n_read)
+        s = read(q, want, b % 2 == 1, "during")
+        if active:
+            fold_read[0] += q.shape[0]
+            fold_read[1] += s
+        qi = wi = None
+        if active:
+            qi, wi = live.sample(rng, DRIFT_INFLIGHT - 1024)
+            qi = np.concatenate([qi, miss[:1024]])
+            wi = np.concatenate([wi, np.full(1024, -1)])
+        chunks0 = fold0.report["verify_chunks"] if active else 0
+        phase0 = fold0.phase if active else None
+        reflows0 = idx.n_reflows
+
+        def drive():
+            # the async batch reads the state at its dispatch, whatever
+            # the write call does while it is in flight
+            finish = nfl.lookup_batch_async(qi) if active else None
+            t = time.perf_counter()
+            nfl.insert_batch(k, p)
+            return finish, (time.perf_counter() - t) * 1e3
+
+        (finish, ms), c = win.run(drive)
+        ins_ms[kind].append(ms)
+        live.add(k, p)
+        if finish is not None:
+            rec["wrong_inflight"] += int((finish() != wi).sum())
+            rec["inflight_batches"] += 1
+        st1 = mgr.stats()
+        row = {"b": b, "kind": kind, "ms": round(ms, 1),
+               "state": f"{st0['state']}->{st1['state']}",
+               "checks": st1["checks"] - st0["checks"],
+               "launches": {key: c[key] for key in ("nf_forward",
+                                                    "fused_lookup")}}
+        if st1["triggers"] > st0["triggers"]:
+            row["trigger"] = {"serving_tail": st1["last_serving_tail"],
+                              "score": st1["last_score"]}
+        if st1["reflows_started"] > st0["reflows_started"]:
+            row["applied"] = True
+            swap["t_apply"] = time.perf_counter() - ms / 1e3
+            swap["apply_ms"] = ms
+            swap["apply_b"] = b
+        if active:
+            fold1 = idx._fold
+            row["fold"] = f"{phase0}->{fold1.phase if fold1 else 'swapped'}"
+            row["verify_chunks"] = (fold1.report if fold1 is not None
+                                    else idx.last_fold)["verify_chunks"] \
+                - chunks0
+        if idx.n_reflows > reflows0:
+            row["swapped"] = True
+            swap["t_swap"] = time.perf_counter()
+            swap["swap_b"] = b
+            swap["swap_inflight"] = finish is not None
+        if c["streamed_lookup"]:
+            fail(f"{name}: a write call launched streamed_lookup ({c})")
+        trace.append(row)
+        return row, c
+
+    # plain lognormal inserts first (phase 3's traffic): no trigger
+    b = 0
+    for i in range(DRIFT_CONTROL_BATCHES):
+        k = plain[i * n_ins:(i + 1) * n_ins]
+        write_call(b, "control", k, (1 << 26) + b * n_ins
+                   + np.arange(k.shape[0]))
+        b += 1
+    control = mgr.stats()
+    log(f"[{name}] {DRIFT_CONTROL_BATCHES} batches of plain lognormal "
+        f"inserts: reservoir tail {control['last_serving_tail']} (score "
+        f"{control['last_score']:.2f}, {control['checks']} checks), "
+        f"triggers {control['triggers']}")
+    if control["triggers"] or not control["checks"]:
+        fail(f"{name}: plain lognormal inserts triggered the re-flow (or "
+             "no check ran)")
+    window_checked = None
+    for kind, keys in (("drift", drift), ("settle", settle)):
+        for i in range(0, keys.shape[0], n_ins):
+            if kind == "settle" and idx.n_reflows:
+                break
+            k = keys[i:i + n_ins]
+            row, c = write_call(b, kind, k, (1 << 27) + b * n_ins
+                                + np.arange(k.shape[0]))
+            b += 1
+            # one write call that only advances the fold's verify: its
+            # launches are its insert's NF and one fused_lookup a chunk
+            if (window_checked is None and row.get("fold") == "verify->verify"
+                    and row["verify_chunks"] > 0):
+                window_checked = dict(row)
+                # one more fused_lookup: the batch in flight
+                want = {"nf_forward": 1,
+                        "fused_lookup": row["verify_chunks"] + 1}
+                if row["launches"] != want:
+                    fail(f"{name}: a write call advancing the verify "
+                         f"launched {row['launches']}, expected {want}")
+        if idx.n_reflows:
+            break
+    st = mgr.stats()
+    if not idx.n_reflows or st["reflows_completed"] < 1:
+        fail(f"{name}: no re-flow completed ({st}); trace {trace}")
+    if window_checked is None:
+        fail(f"{name}: no write call advanced the verify alone")
+    if not swap.get("swap_inflight") or not rec["inflight_batches"]:
+        fail(f"{name}: no read was in flight across the swap")
+    reflow_s = swap["t_swap"] - swap["t_apply"]
+    n_calls = swap["swap_b"] - swap["apply_b"] + 1
+    fold = dict(idx.last_fold)
+    sig = idx.drift_signals()
+    trig = next(r for r in trace if "trigger" in r)
+    train_ticks = sum(1 for r in trace if r["state"].startswith("training"))
+    log(f"[{name}] trace of the write calls: {json.dumps(trace)}")
+    log(f"[{name}] baseline tail {baseline}; serving tail at the trigger "
+        f"{trig['trigger']['serving_tail']} (score "
+        f"{trig['trigger']['score']:.2f}, batch {trig['b']}); accepted "
+        f"tail {st['baseline_tail']}; training ticks {train_ticks}; "
+        f"identity switches {st['identity_switches']}; AutoSwitch over the "
+        f"re-keyed snapshot {sig['autoswitch']}")
+    log(f"[{name}] re-flow: {reflow_s:.2f} s from apply (batch "
+        f"{swap['apply_b']}, the call that takes the snapshot and re-keys "
+        f"all of it: {swap['apply_ms']:.1f} ms) to swap (batch "
+        f"{swap['swap_b']}), {n_calls} write calls; last_fold {fold}; "
+        f"shadowed {idx.n_shadowed}; drift signals {sig} ({card})")
+    log(f"[{name}] insert_batch ms median / max: plain "
+        f"{statistics.median(ins_ms['control']):.1f} / "
+        f"{max(ins_ms['control']):.1f}; drift and settle "
+        f"{statistics.median(ins_ms['drift'] + ins_ms['settle']):.1f} / "
+        f"{max(ins_ms['drift'] + ins_ms['settle']):.1f}; drift checks "
+        f"{len(check_ms)}, ms median {statistics.median(check_ms):.2f} max "
+        f"{max(check_ms):.2f} ({card})")
+    lps["during_fold"] = fold_read[0] / fold_read[1]
+
+    # after the swap: every live key on both rungs, the misses, a scan
+    keys, pv = live.all()
+    res = {"name": name, "nfl": nfl, "seed": ln["seed"],
+           "truth": Truth(keys, pv)}
+    for streamed in (False, True):
+        secs = sum(read(keys[i:i + BATCH], pv[i:i + BATCH], streamed,
+                        "after") for i in range(0, keys.shape[0], BATCH))
+        if not streamed:
+            lps["after"] = keys.shape[0] / secs
+        read(miss, np.full(miss.shape[0], -1), streamed, "misses")
+    sk, zs, ps = scan_truth(res, m, dev)
+    queries = scan_queries(res, m, sk, 1)
+    scan = run_scans(res, win, sk, zs, ps, queries, "after the re-flow")
+    wrong = {key: v for key, v in rec.items() if key.startswith("wrong")}
+    secs = time.perf_counter() - t_phase
+    log(f"[{name}] reads {rec['reads']} wrong {wrong}; in flight across "
+        f"write calls {rec['inflight_batches']} batches; lookups/s before "
+        f"the drift {lps['before']:.0f}, during the fold "
+        f"{lps['during_fold']:.0f}, after the swap {lps['after']:.0f}; "
+        f"{keys.shape[0]} live keys; phase {secs:.1f} s ({card})")
+    if any(wrong.values()):
+        fail(f"{name}: wrong reads {wrong}")
+    return {"baseline_tail": baseline,
+            "trigger": trig, "accepted_tail": st["baseline_tail"],
+            "training_ticks": train_ticks, "reflow_s": reflow_s,
+            "reflow_write_calls": n_calls, "apply_ms": swap["apply_ms"],
+            "last_fold": fold, "shadowed": idx.n_shadowed,
+            "insert_ms": {kind: (statistics.median(v), max(v))
+                          for kind, v in ins_ms.items() if v},
+            "check_ms": (statistics.median(check_ms), max(check_ms)),
+            "lookups_per_s": lps, "scan": scan, "seconds": secs,
+            "wrong": wrong, "drift_keys": int(drift.shape[0]),
+            "write_calls": len(trace), "stats": st}
 
 
 # ------------------------------------------------------ sharded serving
@@ -2877,6 +3220,8 @@ class Mods:
     """The port's modules the smoke drives (imported after the checks)."""
 
     def __init__(self):
+        from repro_torch.core.drift import DriftConfig
+        from repro_torch.core.flat_afli import FlatAFLIConfig
         from repro_torch.core.nfl import NFL, NFLConfig
         from repro_torch.core.train_flow import FlowTrainConfig
         from repro_torch.data.datasets import make_dataset
@@ -2885,6 +3230,7 @@ class Mods:
         from repro_torch.kernels import ops
 
         self.NFL, self.NFLConfig = NFL, NFLConfig
+        self.DriftConfig, self.FlatAFLIConfig = DriftConfig, FlatAFLIConfig
         self.FlowTrainConfig = FlowTrainConfig
         self.make_dataset, self.make_workload = make_dataset, make_workload
         self.WorkloadConfig, self.zipf_indices = WorkloadConfig, _zipf_indices
@@ -3066,8 +3412,16 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del flush_buf
 
+    # ---- drift and re-flow on phase 3's load, its index freed first
+    del ln["nfl"], sk, zs, ps, queries
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    drifted = drift_phase(ln, m, win, dev, card)
+    wall("drift and re-flow", t0)
+
     # ---- sharded serving: the single indexes' tensors go first
-    del ln, idx, sk, zs, ps, queries, ll["nfl"]
+    del ln, idx, ll["nfl"]
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3098,6 +3452,7 @@ def main() -> int:
                                       ("met", "replay", "decode_profile",
                                        "branches")}))
     log("[sharded] summary " + json.dumps(sharded, default=str))
+    log("[drift] summary " + json.dumps(drifted, default=str))
 
     launches = dict(win.total)
     log(f"main-path launches (every window): {launches}")

@@ -9,7 +9,9 @@ and drives a miniature serving world through the public API
 (``exercise_serving_world``: a flow-off index with build, reads,
 inserts, scans and deletes; the streamed rung forced by
 ``pool_budget``; a flow-on ``NFL(shards=2)`` with inserts, async reads
-and scans).  An entry the world never dispatches is a finding.
+and scans; a flow-on ``NFL`` with the re-flow on, driven through one
+drift episode to its swap).  An entry the world never dispatches is a
+finding.
 
 **Host sync.**  For the span of each entry call, the recorder patches the
 calls that block the host on the card: ``Tensor.cpu``, ``.item``,
@@ -160,6 +162,7 @@ class EntryPoint:
 
 _FL, _SD = "repro_torch.core.flat_afli", "repro_torch.core.sharded_nfl"
 _OPS = "repro_torch.kernels.ops"
+_DRIFT = "repro_torch.core.drift"
 
 ENTRY_POINTS: Tuple[EntryPoint, ...] = (
     EntryPoint("ops.fused_lookup[fused]", _OPS, "fused_lookup", budget=0,
@@ -193,6 +196,12 @@ ENTRY_POINTS: Tuple[EntryPoint, ...] = (
                finish_budget=1, extent=_arg(1)),
     EntryPoint("ShardedFlatAFLI._fanout_scan", _SD,
                "ShardedFlatAFLI._fanout_scan", budget=1, extent=_arg(1)),
+    # the re-flow (DESIGN.md §14): a re-key brings the re-keyed z back
+    # once, a drift tick the sample's z once
+    EntryPoint("FlatAFLI.start_reflow", _FL, "FlatAFLI.start_reflow",
+               budget=1),
+    EntryPoint("ReflowManager.tick", _DRIFT, "ReflowManager.tick",
+               budget=1),
 )
 
 
@@ -455,9 +464,10 @@ def exercise_serving_world(device):
     reads, inserts, a scan batch, deletes); a larger flow-off index read
     on the streamed rung, forced by ``pool_budget=0``, before and after
     inserts; then a flow-on ``NFL(shards=2)`` with inserts, async reads
-    and scans.  The JAX world's oracle index has no counterpart (not
-    ported, by design); its reshard (ROADMAP A11b) and front end (A12)
-    join this world with those items."""
+    and scans; then one re-flow episode (``reflow_episode``).  The JAX
+    world's oracle index has no counterpart (not ported, by design); its
+    reshard (ROADMAP A11b) and front end (A12) join this world with
+    those items."""
     from repro_torch.core.flat_afli import FlatAFLI, FlatAFLIConfig
     from repro_torch.core.nfl import NFL, NFLConfig
     from repro_torch.core.train_flow import FlowTrainConfig
@@ -499,7 +509,47 @@ def exercise_serving_world(device):
     finish = nfl.lookup_batch_async(np.concatenate([keys2[:32], new2[:16]]))
     finish()
     nfl.scan_batch(keys2[:8], keys2[8:16])
+    reflow_episode(device, rng)
     return idx, nfl
+
+
+def reflow_episode(device, rng):
+    """One drift episode on a flow-on ``NFL`` with the re-flow on, driven
+    through the public API to its swap: inserts in tight micro-clusters
+    at high quantiles of the loaded keys (``bench_drift.py``'s traffic),
+    which the stale flow packs into a few slots and a flow retrained on
+    the reservoir spreads; no threshold, so the first check triggers.
+    Returns the NFL."""
+    from repro_torch.core.drift import DriftConfig
+    from repro_torch.core.flat_afli import FlatAFLIConfig
+    from repro_torch.core.nfl import NFL, NFLConfig
+    from repro_torch.core.train_flow import FlowTrainConfig
+
+    nfl = NFL(NFLConfig(
+        backend="flat", force_flow=True,
+        flow_train=FlowTrainConfig(epochs=1),
+        flat_index=FlatAFLIConfig(fold_step_keys=256),
+        drift=DriftConfig(reflow=True, threshold=0.0, min_tail=0,
+                          check_every=512, sample_size=512,
+                          window_keys=1024, cooldown_keys=512,
+                          train_epochs=1, train_batch=128,
+                          steps_per_tick=8, conflicts_decay=0.0)),
+              device=device)
+    keys = np.unique(rng.lognormal(0.0, 2.0, 2 * WORLD_KEYS))[:WORLD_KEYS]
+    nfl.bulkload(keys, np.arange(keys.shape[0], dtype=np.int64))
+    centers = np.quantile(keys, np.linspace(0.80, 0.999, 16))
+    for b in range(64):
+        new = np.unique(np.repeat(centers, 16)
+                        * (1 + rng.uniform(0, 1e-4, 256)))
+        nfl.insert_batch(new, np.arange(new.shape[0], dtype=np.int64)
+                         + 50_000 + 1_000 * b)
+        if nfl._reflow.reflows_completed:
+            break
+    if not nfl._reflow.reflows_completed:
+        raise RuntimeError(f"the re-flow episode did not swap: "
+                           f"{nfl._reflow.stats()}")
+    nfl.lookup_batch(keys[:64])
+    return nfl
 
 
 # --------------------------------------------------------- launch facts

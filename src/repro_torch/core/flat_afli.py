@@ -38,8 +38,16 @@ its flow twin) launches the kernel and the copy of its payloads into
 pinned host memory, on the current stream or a given one, and returns a
 finisher; ``lookup_batch`` is that finisher called at once.
 
-Not ported yet: re-flow (``start_reflow``) and the tier hold that the
-sharded re-key and boundary migration put on a shard (ROADMAP A11).
+Re-flow (DESIGN.md §14): ``start_reflow`` re-keys the whole index under
+a new positioning transform (a candidate flow, or the identity).  The
+re-key is a fold over the snapshot re-transformed through
+``transform_fn`` (on the card, the NF kernel): the old tree and the
+frozen tiers keep serving, the new tree is verified through the
+candidate's serve context, and the swap installs the tree, the serve
+flow and the re-keyed delta in one step.  ``serving_telemetry``,
+``drift_signals`` and ``reset_telemetry`` feed ``NFL.dispatch_stats``.
+The tier hold (``_tier_hold``) that the sharded re-key and boundary
+migration put on a shard is ROADMAP A11b; a single index never sets it.
 """
 
 from __future__ import annotations
@@ -606,14 +614,24 @@ class _Fold:
     the new tree and scan pool go in together, the run becomes the
     shadows, the active delta (which only grew during the fold, so its
     entries stay newest) carries over untouched, and the capacity floors
-    are pinned again."""
+    are pinned again.
 
-    def __init__(self, idx: "FlatAFLI", pk, hi, lo, pv):
+    A re-flow fold (``reflow=(transform_fn, serve_flow, on_swap)``,
+    ``FlatAFLI.start_reflow``) gets a snapshot already re-keyed under the
+    candidate transform: it verifies against the candidate's serve
+    context, not the live one, and at the swap re-keys the delta that
+    filled during the fold (those writes carry old-transform keys),
+    installs the serve flow and the AutoSwitch verdict over the re-keyed
+    snapshot, and calls ``on_swap`` strictly last."""
+
+    def __init__(self, idx: "FlatAFLI", pk, hi, lo, pv, reflow=None):
         self.idx = idx
         self.pk, self.hi, self.lo, self.pv = pk, hi, lo, pv
         self.n = int(pk.shape[0])
         self.step = max(int(idx.cfg.fold_step_keys), 1)
-        self.serve_flow = idx._serve_flow
+        self.reflow = reflow
+        self.autoswitch_new = None     # re-flow: the verdict the swap installs
+        self.serve_flow = reflow[1] if reflow is not None else idx._serve_flow
         self.builder = _Builder(idx.cfg, idx.d_tail)
         self._levels = self.builder.build_steps(pk, hi, lo, pv,
                                                 self.step)
@@ -626,7 +644,7 @@ class _Fold:
         self.shadow = []   # [(pk, hi, lo, pv)] chunks for the new run
         # host seconds per phase and write calls that advanced the fold
         self.report = {"keys": self.n, "ticks": 0, "build_s": 0.0,
-                       "pack_s": 0.0, "verify_s": 0.0}
+                       "pack_s": 0.0, "verify_s": 0.0, "verify_chunks": 0}
 
     def tick(self, budget: int) -> bool:
         """Work under ``budget`` keys (at least one step a call).
@@ -650,6 +668,7 @@ class _Fold:
                     return True
                 kind, a, b = self.chunks.popleft()
                 self._verify_chunk(a, b, flow=kind == "verify_flow")
+                self.report["verify_chunks"] += 1
                 budget -= max(b - a, 1)
             self.report[f"{phase}_s"] += time.perf_counter() - t0
         return False
@@ -693,6 +712,14 @@ class _Fold:
         idx.arrays = self.arrays_new
         idx.max_depth = self.max_depth_new
         idx.dense_window = self.dense_window_new
+        if self.reflow is not None:
+            # writes made during the fold carry old-transform keys: re-key
+            # them by identity, so the delta, the run and the tree speak
+            # the new z from the same instant
+            idx._rekey_delta(self.reflow[0])
+            idx._sync_delta()
+            idx._serve_flow = self.reflow[1]
+            idx.autoswitch = dict(self.autoswitch_new)
         idx._serving.set_tree(self.arrays_new, self.pools_new)
         # the snapshot IS the new structure's keys in rank order
         idx._set_scan_pool(self.pk, self.hi, self.lo, self.pv)
@@ -715,6 +742,9 @@ class _Fold:
         idx.last_fold = dict(self.report, shadowed=idx.n_shadowed,
                              swap_s=time.perf_counter() - t0)
         idx._fold = None
+        if self.reflow is not None:
+            idx.n_reflows += 1
+            self.reflow[2]()  # on_swap: the owner's bookkeeping, strictly last
 
 
 class FlatAFLI:
@@ -735,6 +765,10 @@ class FlatAFLI:
         self.n_keys = 0
         self.n_shadowed = 0            # keys shadowed into the run tier
         self.n_rebuilds = 0
+        self.n_reflows = 0             # re-key folds completed (§14)
+        # the sharded re-key's and migration's hold on a shard (ROADMAP
+        # A11b): writes buffer in the tiers, no fold or merge starts
+        self._tier_hold = False
         self.last_fold = {}            # _Fold.report of the last swap
         self._ids = np.empty(0, np.uint64)   # sorted live identities
         self._serve_flow = None        # (normalizer, flow_cfg, packed_w, shapes)
@@ -1042,6 +1076,8 @@ class FlatAFLI:
         into."""
         budget = max(int(self.cfg.fold_step_keys),
                      int(self.cfg.fold_work_factor * max(n_batch, 1)))
+        if self._tier_hold:
+            return
         if self._fold is not None:
             self._fold_tick(budget)
         if self._fold is None:
@@ -1107,10 +1143,74 @@ class FlatAFLI:
         while self._fold is not None:
             self._fold_tick(1 << 62)
 
+    # ------------------------------------------------------------ re-flow
+    @staticmethod
+    def _rekeyed(transform_fn, hi, lo, pv):
+        """A tier's entries under a new transform: positioning keys from
+        the identities, re-sorted stably by the new key (identities and
+        payloads, tombstones included, stay)."""
+        pk = np.asarray(transform_fn(_ids64(hi, lo).view(np.float64)),
+                        np.float64).astype(np.float32)
+        order = np.argsort(pk, kind="stable")
+        return pk[order], hi[order], lo[order], pv[order]
+
+    def _rekey_delta(self, transform_fn) -> None:
+        """Re-key the active delta; the caller ships it (``_sync_delta``)."""
+        if self._delta_pk.shape[0]:
+            (self._delta_pk, self._delta_hi, self._delta_lo,
+             self._delta_pv) = self._rekeyed(transform_fn, self._delta_hi,
+                                             self._delta_lo, self._delta_pv)
+
+    def _rekey_tiers(self, transform_fn) -> None:
+        """Re-key both write tiers in place and ship them (an index with
+        nothing to fold adopts a new transform this way)."""
+        self._rekey_delta(transform_fn)
+        if self._run_pk.shape[0]:
+            (self._run_pk, self._run_hi, self._run_lo,
+             self._run_pv) = self._rekeyed(transform_fn, self._run_hi,
+                                           self._run_lo, self._run_pv)
+        self._sync_run()
+        self._sync_delta()
+
     def start_reflow(self, transform_fn, serve_flow, on_swap) -> bool:
-        raise NotImplementedError(
-            "FlatAFLI.start_reflow (re-keying folds) is not ported to "
-            "repro_torch yet (ROADMAP A11)")
+        """Begin an atomic re-key of the whole index under a new
+        positioning transform (DESIGN.md §14).
+
+        ``transform_fn(ik64) -> z`` maps raw identity keys to the new
+        positioning keys (the candidate flow through the NF kernel, or
+        the identity); ``serve_flow`` is the new serve context
+        ``(normalizer, flow_cfg, packed_w, shapes)`` or None;
+        ``on_swap()`` runs once, after the swap.  Returns False (the
+        caller retries) while a fold or a tier hold is active.  The
+        re-key is a fold over the re-transformed snapshot, advanced by
+        the write calls: the old tree and the frozen tiers serve until
+        the verified swap.  With nothing live to fold, the tiers are
+        re-keyed in place and the transform adopted at once."""
+        if self._fold is not None or self._tier_hold:
+            return False
+        t0 = time.perf_counter()
+        pk, hi, lo, pv = self._snapshot_live()
+        if not pk.shape[0]:
+            self._rekey_tiers(transform_fn)
+            self._serve_flow = serve_flow
+            self.n_reflows += 1
+            on_swap()
+            return True
+        t1 = time.perf_counter()
+        pk, hi, lo, pv = self._rekeyed(transform_fn, hi, lo, pv)
+        self._fold = _Fold(self, pk, hi, lo, pv,
+                           reflow=(transform_fn, serve_flow, on_swap))
+        # the AutoSwitch verdict over the re-keyed snapshot (an identity
+        # candidate ties and reports use_flow=False)
+        use, t_orig, t_new = should_use_flow(
+            _ids64(hi, lo).view(np.float64), pk, self.cfg.gamma)
+        self._fold.autoswitch_new = {"use_flow": bool(use),
+                                     "tail_original": int(t_orig),
+                                     "tail_transformed": int(t_new)}
+        self._fold.report.update(snapshot_s=t1 - t0,
+                                 rekey_s=time.perf_counter() - t1,
+                                 reflow=True)
+        return True
 
     # ------------------------------------------------------------- lookup
     def lookup_batch_async(self, keys: np.ndarray,
@@ -1224,8 +1324,48 @@ class FlatAFLI:
             "tier_path": "kernel" if tiers is not None else "none"}
         return pv.cpu().numpy(), cnt.cpu().numpy(), tot
 
+    # ----------------------------------------------------------- telemetry
+    @property
+    def _reflow_active(self) -> bool:
+        return self._fold is not None and self._fold.reflow is not None
+
+    def serving_telemetry(self) -> dict:
+        """The serving slice of ``NFL.dispatch_stats()``: the
+        serving-state counters and gauges, with the traversal depth bound
+        and the dense window every launch is given, and the AutoSwitch
+        verdict."""
+        return {"serving": {**self._serving.stats(),
+                            "static_max_depth": self.max_depth,
+                            "static_dense_window": self.dense_window},
+                "autoswitch": dict(self.autoswitch)}
+
+    def drift_signals(self) -> dict:
+        """The structural drift indicators (DESIGN.md §14) beside the
+        AutoSwitch verdict: probe geometry, tier pressure, fold cadence.
+        The drift monitor's score is the trigger; these corroborate."""
+        s = self._serving
+        return {
+            "max_depth": int(self.max_depth),
+            "static_max_depth": int(self.max_depth),
+            "static_dense_window": int(self.dense_window),
+            "run_window": int(s.run.window),
+            "delta_window": int(s.delta.window),
+            "delta_len": int(self._delta_pk.shape[0]),
+            "run_len": int(self._run_pk.shape[0]),
+            "run_ratio": float(self._run_pk.shape[0] / max(self.n_keys, 1)),
+            "fold_active": self._fold is not None,
+            "reflow_active": self._reflow_active,
+            "n_rebuilds": int(self.n_rebuilds),
+            "n_reflows": int(self.n_reflows),
+            "autoswitch": dict(self.autoswitch),
+        }
+
+    def reset_telemetry(self) -> None:
+        """Zero the serving-state counters (gauges are state and stay)."""
+        self._serving.reset_stats()
+
     def stats(self):
-        """Structure sizes, tier lengths, fold state and the
+        """Structure sizes, tier lengths, fold and re-flow state and the
         serving-state counters."""
         a = self.arrays
         return {
@@ -1239,6 +1379,8 @@ class FlatAFLI:
             "run_len": int(self._run_pk.shape[0]),
             "fold_active": self._fold is not None,
             "n_rebuilds": self.n_rebuilds,
+            "n_reflows": self.n_reflows,
+            "reflow_active": self._reflow_active,
             "last_fold": dict(self.last_fold),
             "scan_pool_len": self._serving.scan.length,
             "serving": self._serving.stats(),

@@ -18,26 +18,43 @@ batch, and the per-shard kernels fanned out on CUDA streams.
 ``lookup_batch_async`` dispatches a read batch and returns a finisher,
 single or sharded.
 
+Drift (DESIGN.md §14): ``NFLConfig.drift`` keeps the telemetry on by
+default, as in the JAX package.  Every ``insert_batch`` feeds a decayed
+reservoir of the inserted keys (``core.drift.DriftMonitor``) and ticks a
+``ReflowManager``, which every ``check_every`` keys measures the
+reservoir's tail conflict degree under the serving transform (through
+the NF kernel when the flow serves).  With ``drift.reflow`` on, a score
+past ``threshold`` trains a candidate flow a few minibatches per write
+call, validates it against the identity and the serving tail, and
+starts ``FlatAFLI.start_reflow``: a re-keying fold the write calls
+advance while the index serves, whose swap installs the new tree, serve
+flow and re-keyed delta in one step.  ``dispatch_stats()["drift"]``
+reports the manager's counters and the index's drift signals.
+
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP
-item that ports them: the paper's pointer-tree backend (A13) and drift
-re-flow and resharding (A11).
+item that ports them: the paper's pointer-tree backend (A13), and the
+sharded re-flow and resharding (A11b).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.conflict import should_use_flow
+from repro_torch.core.conflict import dataset_tail_conflict, should_use_flow
+from repro_torch.core.drift import (DriftConfig, DriftMonitor, ExclusionLock,
+                                    ReflowManager)
 from repro_torch.core.feature import expand_features
 from repro_torch.core.flat_afli import FlatAFLI, FlatAFLIConfig
 from repro_torch.core.flow import FlowConfig
 from repro_torch.core.sharded_nfl import ShardedFlatAFLI
-from repro_torch.core.train_flow import FlowTrainConfig, train_flow
+from repro_torch.core.train_flow import (FlowTrainConfig, FlowTrainer,
+                                         train_flow)
 from repro_torch.kernels import ops
 from repro_torch.kernels.backend import resolve_device
 
@@ -55,8 +72,10 @@ class NFLConfig:
     force_flow: Optional[bool] = None  # None -> paper's switching mechanism
     backend: str = "afli"              # "afli" (paper tree) | "flat" (fused)
     shards: int = 1                    # flat backend: key-space shards
-    drift: Any = None                  # drift telemetry config (ROADMAP A11)
-    reshard: Any = None                # resharding config (ROADMAP A11)
+    drift: DriftConfig = dataclasses.field(default_factory=DriftConfig)
+                                       # drift telemetry + background
+                                       # re-flow (§14)
+    reshard: Any = None                # resharding config (ROADMAP A11b)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -76,10 +95,11 @@ class NFL:
                               "A13")
         if self.cfg.backend != "flat":
             raise ValueError(f"unknown NFL backend: {self.cfg.backend!r}")
-        if getattr(self.cfg.drift, "enabled", False):
-            raise _not_ported("drift telemetry and re-flow", "A11")
+        if self.cfg.drift.reflow and self.cfg.shards > 1:
+            raise _not_ported("the sharded re-flow (drift.reflow with "
+                              "shards > 1)", "A11b")
         if getattr(self.cfg.reshard, "enabled", False):
-            raise _not_ported("dynamic resharding", "A11")
+            raise _not_ported("dynamic resharding", "A11b")
         self.device = resolve_device(device)
         if self.cfg.shards > 1:
             self.index = ShardedFlatAFLI(self.cfg.flat_index,
@@ -93,6 +113,24 @@ class NFL:
         self.metrics: Dict[str, float] = {}
         self._packed_w = None   # pack_flow_weights row (CPU)
         self._shapes = ()
+        # drift telemetry + background re-flow (§14).  The lock serializes
+        # the tick on the write path against a dispatch_stats(reset=True)
+        # from another thread (RLock: the tick's callables may read
+        # stats); the exclusion token is the one a reshard manager will
+        # share (ROADMAP A11b)
+        self._telemetry_lock = threading.RLock()
+        self._exclusion = ExclusionLock()
+        self._drift: Optional[DriftMonitor] = None
+        self._reflow: Optional[ReflowManager] = None
+        if self.cfg.drift.enabled:
+            self._drift = DriftMonitor(self.cfg.drift)
+            self._reflow = ReflowManager(
+                self.cfg.drift, self._drift,
+                serving_tail=self._drift_serving_tail,
+                train_factory=self._drift_train_factory,
+                evaluate=self._drift_evaluate,
+                apply=self._drift_apply,
+                exclusion=self._exclusion)
 
     # ------------------------------------------------------------ bulkload
     def bulkload(self, keys: np.ndarray, payloads: np.ndarray) -> None:
@@ -133,6 +171,14 @@ class NFL:
             self.index.build(keys, payloads)
         t_build = time.perf_counter() - t0
 
+        if self._drift is not None:
+            # prime the reservoir with the build distribution and anchor
+            # the score at the accepted transform's tail over all the
+            # bulk-loaded keys
+            self._drift.seed(keys)
+            self._reflow.set_baseline(tail_flow if self.use_flow
+                                      else tail_orig)
+
         self.metrics = {
             **{f"flow_{k}": v for k, v in train_metrics.items()},
             "flow_train_s": t_train,
@@ -147,6 +193,85 @@ class NFL:
     def _pack_weights(self, params):
         """The flow's ``pack_flow_weights`` row (fused-kernel serve input)."""
         return ops.pack_params(params, self.cfg.flow)
+
+    # ----------------------------------------------- drift callbacks (§14)
+    def _drift_serving_tail(self, sample: np.ndarray) -> int:
+        """Tail conflict degree of the reservoir sample under the
+        transform now serving: z from the NF kernel when the flow
+        serves, the keys themselves when it does not."""
+        sample = np.asarray(sample, dtype=np.float64)
+        if self.use_flow:
+            z = ops.nf_transform_keys(self.flow_params, self.normalizer,
+                                      sample, self.cfg.flow, self.device)
+            if not np.all(np.isfinite(z)):
+                raise ValueError("serving flow produced non-finite z on "
+                                 "the drift sample")
+            return dataset_tail_conflict(z, self.cfg.drift.gamma)
+        return dataset_tail_conflict(sample, self.cfg.drift.gamma)
+
+    def _drift_train_factory(self, sample: np.ndarray, attempt: int):
+        """A step-wise retrainer over the reservoir sample, on the
+        index's device; the attempt index perturbs the seed so a failed
+        episode does not repeat itself."""
+        d = self.cfg.drift
+        tcfg = FlowTrainConfig(
+            sample_frac=1.0,
+            epochs=max(int(d.train_epochs), 1),
+            batch_size=max(min(int(d.train_batch), len(sample)), 1),
+            lr=self.cfg.flow_train.lr,
+            seed=int(d.seed) + int(attempt),
+            feature_standardize=self.cfg.flow_train.feature_standardize)
+        return FlowTrainer(np.asarray(sample, np.float64), self.cfg.flow,
+                           tcfg, device=self.device)
+
+    def _drift_evaluate(self, trainer, sample: np.ndarray):
+        """Finish the retrained flow into a candidate and measure its
+        tail on the sample through the NF kernel.  Raises on non-finite
+        z: an unusable candidate is a failed episode, never a served
+        transform."""
+        params, normalizer, _metrics = trainer.result()
+        z = ops.nf_transform_keys(params, normalizer,
+                                  np.asarray(sample, np.float64),
+                                  self.cfg.flow, self.device)
+        if not np.all(np.isfinite(z)):
+            raise ValueError("candidate flow produced non-finite z")
+        return (dataset_tail_conflict(z, self.cfg.drift.gamma),
+                (params, normalizer))
+
+    def _drift_apply(self, candidate, use_flow: bool,
+                     accepted_tail: int) -> bool:
+        """Start the re-key under the accepted candidate (flow or
+        identity).  The index owns the atomicity; ``on_swap`` installs
+        this object's flow state at the instant the structure adopts the
+        new positioning keys, then closes the manager's episode."""
+        if use_flow:
+            params, normalizer = candidate
+            packed_w, shapes = self._pack_weights(params)
+            flow_cfg, dev = self.cfg.flow, self.device
+
+            def transform_fn(k64):
+                return ops.nf_transform_keys(params, normalizer, k64,
+                                             flow_cfg, dev)
+
+            serve_ctx = (normalizer, flow_cfg, packed_w, shapes)
+
+            def on_swap():
+                self.use_flow = True
+                self.flow_params = params
+                self.normalizer = normalizer
+                self._packed_w, self._shapes = packed_w, shapes
+                self._reflow.note_swap()
+        else:  # flow -> identity: position by the raw keys again
+            def transform_fn(k64):
+                return np.asarray(k64, np.float64)
+
+            serve_ctx = None
+
+            def on_swap():
+                self.use_flow = False
+                self._reflow.note_swap()
+
+        return self.index.start_reflow(transform_fn, serve_ctx, on_swap)
 
     # ------------------------------------------------------------ batch ops
     def lookup_batch(self, keys: np.ndarray) -> np.ndarray:
@@ -189,6 +314,10 @@ class NFL:
         payloads = np.asarray(payloads, dtype=np.int64)
         self.index.insert_batch(self._pkeys(keys), payloads,
                                 ikeys=keys if self.use_flow else None)
+        if self._drift is not None:
+            with self._telemetry_lock:
+                self._drift.observe(keys)
+                self._reflow.tick()
 
     def update_batch(self, keys: np.ndarray,
                      payloads: np.ndarray) -> np.ndarray:
@@ -234,15 +363,39 @@ class NFL:
         the router's fan-out counters."""
         return self.index.stats()
 
-    def dispatch_stats(self) -> Dict[str, int]:
-        """Kernel launch counters and truncated range queries
-        (process-wide, since the last ``ops.reset_launch_counts``), and
-        this index's shadowed keys and completed folds."""
-        counts = ops.launch_counts()
-        return {"nf_forward_launches": counts["nf_forward"],
+    def dispatch_stats(self, reset: bool = False) -> Dict[str, Any]:
+        """Serving telemetry: the kernel launch counters and truncated
+        range queries (process-wide, since the last
+        ``ops.reset_launch_counts``), this index's shadowed keys and
+        completed folds, the serving-state block (``serving``; sharded,
+        the shards' aggregate beside ``shards`` and ``router``), the
+        drift block (``drift``: the re-flow manager's state and counters
+        and the index's drift signals) and ``reshard`` (not ported,
+        ROADMAP A11b).
+
+        ``reset=True`` zeroes the counters after the snapshot: the
+        launch counters, the serving-state and router counters.  Gauges
+        (capacities, windows) and the drift episode counters are state
+        and stay."""
+        with self._telemetry_lock:
+            counts = ops.launch_counts()
+            out: Dict[str, Any] = {
+                "nf_forward_launches": counts["nf_forward"],
                 "fused_lookup_launches": counts["fused_lookup"],
                 "streamed_lookup_launches": counts["streamed_lookup"],
                 "fused_range_scan_launches": counts["fused_range_scan"],
                 "scan_truncated": ops.fused_range_scan.truncated,
                 "shadowed": int(self.index.n_shadowed),
                 "rebuilds": int(self.index.n_rebuilds)}
+            out.update(self.index.serving_telemetry())
+            if self._reflow is not None:
+                out["drift"] = {"enabled": True, "use_flow": self.use_flow,
+                                **self._reflow.stats(),
+                                "signals": self.index.drift_signals()}
+            else:
+                out["drift"] = {"enabled": False}
+            out["reshard"] = {"enabled": False}
+            if reset:
+                ops.reset_launch_counts()
+                self.index.reset_telemetry()
+        return out

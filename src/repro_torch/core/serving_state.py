@@ -19,8 +19,9 @@ Port of ``repro.core.serving_state``:
   resident; the scan pool is refreshed only at build and fold swap;
 * **one router per scan pool** — the streamed rung reads the scan
   pool's buffers and a router of its tile heads; the router is rebuilt
-  only when the pool's ``(uploads, capacity)`` changes (build, fold
-  swap, capacity growth) and reused by every other read.
+  only when the pool's buffers change (build, fold swap, capacity
+  growth: the tier's ``generation``, which a counter reset leaves
+  alone) and reused by every other read.
 
 The traversal depth bound and the duplicate windows are passed to the
 kernel as they are: the card compiles nothing per shape, so the JAX
@@ -58,6 +59,7 @@ class DeviceTier:
         self.window = 1            # longest run of equal keys
         self.pk = self.hi = self.lo = self.pv = self.plen = None
         self.min_capacity = 0
+        self.generation = 0        # bumped by every write; never reset
         self.uploads = 0
         self.upload_bytes = 0
         self.repacks = 0
@@ -83,6 +85,7 @@ class DeviceTier:
         if self.plen is None:
             self.plen = torch.zeros(1, dtype=torch.int32, device=dev)
         self.capacity = cap
+        self.generation += 1
         self.repacks += 1
 
     def refresh(self, pk: np.ndarray, hi: np.ndarray, lo: np.ndarray,
@@ -112,6 +115,7 @@ class DeviceTier:
             self.pv[:m] = torch.from_numpy(ppv).to(self.device)
         self.plen.fill_(n)
         self.length = n
+        self.generation += 1
         self.uploads += 1
         self.upload_bytes += 16 * m + 4
 
@@ -134,7 +138,7 @@ class ServingState:
         self.tier_reuses = 0
         self.scan_reuses = 0
         self._router = None
-        self._router_for = None    # the scan pool's (uploads, capacity)
+        self._router_for = None    # the scan pool's generation
         self.router_builds = 0
         self.stream_reuses = 0
 
@@ -176,7 +180,7 @@ class ServingState:
     def stream_pack(self):
         """The resident ``StreamPack``: the scan pool's buffers (shared
         with ``scan_pack``), its router and its window.  The router is
-        rebuilt only when the pool's ``(uploads, capacity)`` changes.
+        rebuilt only when the pool's ``generation`` changes.
         Before the first build the pool is empty and every read resolves
         from the write tiers alone."""
         from repro_torch.kernels.streamed_lookup import (StreamPack,
@@ -184,10 +188,9 @@ class ServingState:
 
         pool = self._scan_pool()
         s = self.scan
-        key = (s.uploads, s.capacity)
-        if self._router_for != key:
+        if self._router_for != s.generation:
             self._router = build_router(s.pk)
-            self._router_for = key
+            self._router_for = s.generation
             self.router_builds += 1
         else:
             self.stream_reuses += 1
@@ -229,6 +232,18 @@ class ServingState:
                             dl_pv=d.pv, dl_len=d.plen),
             run_iters=r.iters, run_window=r.window,
             delta_iters=d.iters, delta_window=d.window)
+
+    def reset_stats(self) -> None:
+        """Zero the counters (packs, uploads, repacks, reuses, router
+        builds); the gauges (capacities, windows, pool bytes) describe
+        resident state and stay."""
+        for t in (self.run, self.delta, self.scan):
+            t.uploads = t.upload_bytes = t.repacks = 0
+        self.tree_packs = 0
+        self.tier_reuses = 0
+        self.scan_reuses = 0
+        self.router_builds = 0
+        self.stream_reuses = 0
 
     def stats(self) -> dict:
         return {

@@ -37,10 +37,12 @@ a read still in flight reads the state it was dispatched into, and no
 tier buffer is rewritten or freed under it.  That is an ordering on the
 device, not a host sync.
 
-Not ported yet (ROADMAP A11), and raising ``NotImplementedError``: the
-cross-shard re-key and the boundary migration (``start_reflow``,
-``start_reshard``), their load gauges (``load_snapshot``), and the
-serving telemetry and drift signals.
+``serving_telemetry`` and ``drift_signals`` aggregate the shards' blocks
+(counters summed, gauges the largest shard's) for ``NFL.dispatch_stats``
+and its default drift telemetry.  Not ported yet (ROADMAP A11b), and
+raising ``NotImplementedError``: the cross-shard re-key and the boundary
+migration (``start_reflow``, ``start_reshard``) and their load gauges
+(``load_snapshot``).
 """
 
 from __future__ import annotations
@@ -63,12 +65,24 @@ __all__ = ["ShardedFlatAFLI"]
 # when the shards' serving blocks are summed (a summed capacity describes
 # no buffer anywhere)
 _GAUGES = {"run_capacity", "delta_capacity", "scan_capacity", "run_window",
-           "delta_window", "scan_window"}
+           "delta_window", "scan_window", "static_max_depth",
+           "static_dense_window"}
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A11)")
+        f"{what} is not ported to repro_torch yet (ROADMAP A11b)")
+
+
+def _aggregate(blocks) -> dict:
+    """Sum the shards' serving blocks; a gauge takes the largest shard's
+    value (a summed capacity describes no buffer anywhere)."""
+    out: dict = {}
+    for block in blocks:
+        for k, v in block.items():
+            out[k] = (max(out.get(k, 0), v) if k in _GAUGES
+                      else out.get(k, 0) + v)
+    return out
 
 
 class ShardedFlatAFLI:
@@ -144,13 +158,54 @@ class ShardedFlatAFLI:
         raise _not_ported("the migration's load gauges (load_snapshot)")
 
     def serving_telemetry(self) -> dict:
-        raise _not_ported("serving_telemetry")
+        """The serving slice of ``NFL.dispatch_stats()``: the shards'
+        serving blocks aggregated, each shard's own, and the router's
+        fan-out counters.  (The per-shard load gauges come with the
+        migration, ROADMAP A11b.)"""
+        per = [idx.serving_telemetry() for idx in self.shards]
+        return {
+            "serving": _aggregate(t["serving"] for t in per),
+            "shards": per,
+            "router": {k: (list(v) if isinstance(v, list) else v)
+                       for k, v in self._router.items()},
+        }
 
     def drift_signals(self) -> dict:
-        raise _not_ported("drift_signals")
+        """The shards' drift signals aggregated as the serving telemetry
+        is (gauges the worst shard, counters summed), with the per-shard
+        breakdown, so a drifting sub-distribution is attributable.  No
+        sharded re-key or migration runs here (ROADMAP A11b): their
+        fields read inactive and zero."""
+        per = [idx.drift_signals() for idx in self.shards]
+        return {
+            "max_depth": max(p["max_depth"] for p in per),
+            "static_max_depth": max(p["static_max_depth"] for p in per),
+            "static_dense_window": max(p["static_dense_window"]
+                                       for p in per),
+            "run_window": max(p["run_window"] for p in per),
+            "delta_window": max(p["delta_window"] for p in per),
+            "delta_len": sum(p["delta_len"] for p in per),
+            "run_len": sum(p["run_len"] for p in per),
+            "run_ratio": max(p["run_ratio"] for p in per),
+            "fold_active": any(p["fold_active"] for p in per),
+            "reflow_active": False,
+            "reshard_active": False,
+            "n_rebuilds": sum(p["n_rebuilds"] for p in per),
+            "n_reflows": 0,
+            "n_reshards": 0,
+            "n_reshard_aborts": 0,
+            "autoswitch": [p["autoswitch"] for p in per],
+            "shards": per,
+        }
 
     def reset_telemetry(self) -> None:
-        raise _not_ported("reset_telemetry")
+        """Zero each shard's serving counters and the router's fan-out
+        counters (gauges stay)."""
+        for idx in self.shards:
+            idx.reset_telemetry()
+        for k, v in self._router.items():
+            self._router[k] = [0] * self.n_shards if isinstance(v, list) \
+                else 0
 
     # -------------------------------------------------------------- build
     def build(self, pkeys: np.ndarray, payloads: np.ndarray,
@@ -446,11 +501,7 @@ class ShardedFlatAFLI:
             st = idx.stats()
             st["autoswitch"] = dict(idx.autoswitch)
             per.append(st)
-        serving: dict = {}
-        for st in per:
-            for k, v in st["serving"].items():
-                serving[k] = (max(serving.get(k, 0), v) if k in _GAUGES
-                              else serving.get(k, 0) + v)
+        serving = _aggregate(st["serving"] for st in per)
         return {
             "n_shards": self.n_shards,
             "n_keys": self.n_keys,

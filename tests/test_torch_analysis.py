@@ -482,7 +482,39 @@ def test_host_sync_contract_clean_on_the_real_tree_cpu():
     assert st["ops.fused_range_scan"]["max_per_call"] == 1
     assert {f.key() for f in rep.allowed()} >= {
         "host-sync ops.fused_range_scan ops.py:122",
-        "host-sync FlatAFLI.scan_batch flat_afli.py:1220"}
+        "host-sync FlatAFLI.scan_batch flat_afli.py:1320"}
+
+
+def test_reflow_episode_syncs_counted_and_allowlisted():
+    """The world's re-flow episode dispatches both re-flow entries; their
+    syncs (the re-key through the NF kernel, the retrainer's steps, the
+    snapshot's tier refresh) are counted per call and every one is
+    allowlisted with its ROADMAP item."""
+    names = ("FlatAFLI.start_reflow", "ReflowManager.tick")
+    entries = tuple(e for e in contracts.ENTRY_POINTS if e.name in names)
+    assert len(entries) == 2 and all(e.budget == 1 for e in entries)
+    rep = tfind.Report(allowlist=tfind.load_allowlist(DEFAULT_ALLOWLIST))
+    seen = {}
+
+    def world():
+        seen["nfl"] = contracts.reflow_episode(
+            "cpu", np.random.default_rng(contracts.WORLD_SEED))
+
+    out = contracts.run_host_sync_checks(rep, "cpu", entries=entries,
+                                         world=world, profile=False)
+    assert rep.ok, rep.render()
+    st = out["syncs"]
+    nfl = seen["nfl"]
+    assert st["FlatAFLI.start_reflow"]["calls"] == \
+        nfl._reflow.reflows_started == nfl.index.n_reflows == 1
+    assert st["ReflowManager.tick"]["calls"] >= nfl._reflow.checks
+    for name in names:
+        assert st[name]["max_per_call"] > 1, name      # over its budget
+    keys = {f.key() for f in rep.allowed()}
+    assert {"host-sync FlatAFLI.start_reflow ops.py:68",
+            "host-sync ReflowManager.tick ops.py:68",
+            "host-sync ReflowManager.tick train_flow.py:135"} <= keys
+    assert all(f.entry in names for f in rep.allowed())
 
 
 def test_recorder_counts_a_fetch_once_and_nothing_in_plain_versions():
@@ -783,7 +815,7 @@ def test_cli_json_on_the_cpu():
     assert facts["alloc"]["allocs"] == {"run": [1024], "delta": [1024],
                                         "scan": [2048]}
     keys = {f["key"] for f in payload["findings"]}
-    assert "host-sync DeviceTier.refresh serving_state.py:109" in keys
+    assert "host-sync DeviceTier.refresh serving_state.py:112" in keys
 
 
 def test_cli_without_a_card_raises_and_rejects_unknown_contracts():

@@ -13,7 +13,7 @@ from repro_torch.core.feature import KeyNormalizer, expand_features
 from repro_torch.core.flat_afli import FlatAFLI, FlatAFLIConfig, split_key_bits
 from repro_torch.core.flow import FlowConfig, init_flow
 from repro_torch.core.nfl import NFL, NFLConfig
-from repro_torch.core.train_flow import FlowTrainConfig, FlowTrainer
+from repro_torch.core.train_flow import FlowTrainConfig, FlowTrainer, train_flow
 from repro_torch.data.datasets import make_dataset
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import (DecodePlan, device_plan,
@@ -639,6 +639,110 @@ def test_nfl_serves_through_kernels(cuda):
     assert s["nf_forward_launches"] == 1
     assert s["fused_lookup_launches"] == 3  # self-verify, serve verify, read
     assert s["shadowed"] == 0
+
+
+def _params_on(params, dev):
+    return {k: ([{n: t.to(dev) for n, t in layer.items()} for layer in v]
+                if k == "layers" else v.to(dev)) for k, v in params.items()}
+
+
+@pytest.mark.parametrize("candidate", ["flow", "identity"])
+def test_reflow_on_card_matches_cpu(cuda, candidate):
+    """``FlatAFLI.start_reflow`` under a second flow (or the identity) on
+    the card and on the CPU, with the same flows and the same writes:
+    every read before, during and after the re-keying fold, and every
+    live key after it, as the oracle answers on both devices (one async
+    batch in flight across the write call that swaps); after the swap the
+    card's served z equals the re-key's z (``ops.nf_transform_keys``, the
+    NF kernel) bit for bit, and the fold verified through
+    ``fused_lookup`` under the candidate's weights."""
+    keys = make_dataset("lognormal", 60_000)
+    base, fresh = keys[::2], keys[1::2]
+    cfg = FlowConfig()
+    p1, n1, _ = train_flow(base, cfg, FlowTrainConfig(epochs=1),
+                           device="cpu")
+    p2, n2, _ = train_flow(base[::3], cfg,
+                           FlowTrainConfig(epochs=1, seed=5), device="cpu")
+    sides = {}
+    for dev in ("cpu", cuda):
+        a, b = _params_on(p1, dev), _params_on(p2, dev)
+        w1, shapes = ops.pack_params(a, cfg)
+        w2, _ = ops.pack_params(b, cfg)
+        idx = FlatAFLI(FlatAFLIConfig(fold_step_keys=4096), device=dev)
+        idx.build(ops.nf_transform_keys(a, n1, base, cfg, dev),
+                  np.arange(base.shape[0]), ikeys=base)
+        idx.set_serve_flow(n1, cfg, w1, shapes)
+        if candidate == "flow":
+            def fn(k, b=b, dev=dev):
+                return ops.nf_transform_keys(b, n2, k, cfg, dev)
+            new_ctx = (n2, cfg, w2, shapes)
+        else:
+            def fn(k):
+                return np.asarray(k, np.float64)
+            new_ctx = None
+        sides[str(dev)] = dict(idx=idx, old=(a, n1, w1), fn=fn,
+                               ctx=new_ctx, swaps=[])
+    oracle = dict(zip(base.tolist(), range(base.shape[0])))
+
+    def read(side, q):
+        idx = side["idx"]
+        if idx._serve_flow is None:
+            return idx.lookup_batch_async(q.astype(np.float32), ikeys=q)
+        norm, fcfg, w, shp = idx._serve_flow
+        feats = expand_features(q, norm, fcfg.dim, fcfg.theta,
+                                dtype=np.float32)
+        return idx.lookup_batch_flow_async(feats, q, w, shp)
+
+    def pkeys(side, k):
+        if side["swaps"]:
+            return side["fn"](k)
+        a, norm, _w = side["old"]
+        return ops.nf_transform_keys(a, norm, k, cfg, side["idx"].device)
+
+    ops.reset_launch_counts()
+    for side in sides.values():
+        assert side["idx"].start_reflow(side["fn"], side["ctx"],
+                                        lambda s=side: s["swaps"].append(1))
+        assert not side["idx"].start_reflow(side["fn"], side["ctx"],
+                                            lambda: None)
+    rng = np.random.default_rng(3)
+    step, batch = 0, 2048
+    while not all(s["swaps"] for s in sides.values()):
+        assert step < 64, "the re-flow did not swap"
+        k = fresh[step * batch:(step + 1) * batch]
+        v = np.arange(k.shape[0]) + 100_000 * (step + 1)
+        q = rng.choice(np.array(sorted(oracle)), 4096, replace=False)
+        want = np.array([oracle[x] for x in q.tolist()])
+        for side in sides.values():
+            inflight = read(side, q)
+            side["idx"].insert_batch(pkeys(side, k), v, ikeys=k)
+            assert np.array_equal(inflight(), want), f"write {step}"
+        oracle.update(zip(k.tolist(), v.tolist()))
+        step += 1
+    counts = ops.launch_counts()
+    assert counts["fused_lookup"] > 0 and counts["streamed_lookup"] == 0
+    assert counts["nf_forward"] > int(candidate == "flow")
+    live = np.array(sorted(oracle))
+    want = np.array([oracle[x] for x in live.tolist()])
+    got = {d: read(s, live)() for d, s in sides.items()}
+    for d, g in got.items():
+        assert np.array_equal(g, want), d
+    card = sides[str(cuda)]["idx"]
+    assert card.n_reflows == 1 and card.last_fold["reflow"]
+    hi, lo = split_key_bits(live)
+    if candidate == "flow":
+        norm, fcfg, w, shp = card._serve_flow
+        feats = expand_features(live, norm, fcfg.dim, fcfg.theta,
+                                dtype=np.float32)
+        _pay, z = card._flow_device_lookup(feats, hi, lo, w, shp)
+        zk = sides[str(cuda)]["fn"](live).astype(np.float32)
+        assert np.array_equal(z.view(np.int32), zk.view(np.int32))
+    else:
+        assert card._serve_flow is None
+        for d, s in sides.items():
+            _pay, z = s["idx"]._dispatch(live.astype(np.float32)
+                                         .reshape(-1, 1), hi, lo, None, True)
+            assert np.array_equal(z, live.astype(np.float32)), d
 
 
 def test_trainer_on_card_matches_cpu(cuda):

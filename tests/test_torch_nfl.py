@@ -3,6 +3,8 @@ bulkload and lookups against ground truth, the AutoSwitch verdict against
 the JAX package given the same flow, and the device rules of the entry
 points."""
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ from repro.core.flow import FlowConfig as JFlowConfig
 from repro.core.train_flow import FlowTrainConfig as JTrainConfig
 
 import repro_torch.core.nfl as t_nfl
+from repro_torch.core.drift import DriftConfig
 from repro_torch.core.flat_afli import FlatAFLI
 from repro_torch.core.flow import FlowConfig, init_flow
 from repro_torch.core.train_flow import FlowTrainConfig, FlowTrainer, train_flow
@@ -22,6 +25,13 @@ from repro_torch.kernels import ops
 from repro_torch.weights import params_from_numpy
 
 torch.set_num_threads(1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReshardStub:
+    """A reshard config that asks for the migration (ROADMAP A11b)."""
+
+    enabled: bool = False
 
 
 def _cfg(**kw):
@@ -46,10 +56,17 @@ def test_bulkload_and_lookup_ground_truth(name, force_flow):
     unloaded = np.setdiff1d(keys, wl.load_keys)
     assert (nfl.lookup_batch(unloaded) == -1).all()
     stats = nfl.dispatch_stats()
-    assert stats == {"nf_forward_launches": 0, "fused_lookup_launches": 0,
-                     "streamed_lookup_launches": 0,
-                     "fused_range_scan_launches": 0, "scan_truncated": 0,
-                     "shadowed": 0, "rebuilds": 0}
+    counts = {"nf_forward_launches": 0, "fused_lookup_launches": 0,
+              "streamed_lookup_launches": 0, "fused_range_scan_launches": 0,
+              "scan_truncated": 0, "shadowed": 0, "rebuilds": 0}
+    assert {k: stats[k] for k in counts} == counts
+    # the serving block, the default drift telemetry (re-flow off) and
+    # the reshard block, as the JAX package reports them
+    assert set(stats) == {*counts, "serving", "autoswitch", "drift",
+                          "reshard"}
+    assert stats["drift"]["enabled"] and stats["drift"]["state"] == "idle"
+    assert stats["drift"]["use_flow"] is force_flow
+    assert stats["reshard"] == {"enabled": False}
 
 
 def _shared_flow(keys):
@@ -104,21 +121,31 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         t_nfl.NFL(t_nfl.NFLConfig(backend="flat"), device="cuda")
 
 
-@pytest.mark.parametrize("kw,item", [({"backend": "afli"}, "A13")])
+@pytest.mark.parametrize("kw,item", [
+    ({"backend": "afli"}, "A13"),
+    ({"backend": "flat", "shards": 2,
+      "drift": DriftConfig(reflow=True)}, "A11b"),
+    ({"backend": "flat", "reshard": ReshardStub(enabled=True)}, "A11b")])
 def test_unported_configs_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         t_nfl.NFL(t_nfl.NFLConfig(**kw), device="cpu")
 
 
 def test_unported_operations_raise():
+    """The single index re-keys (A11a); the sharded re-key, the boundary
+    migration and its load gauges wait for A11b."""
     keys = make_dataset("lognormal", 3000)
-    nfl = t_nfl.NFL(_cfg(force_flow=False), device="cpu")
+    nfl = t_nfl.NFL(_cfg(force_flow=False, shards=2), device="cpu")
     nfl.bulkload(keys, np.arange(keys.shape[0]))
-    for call, item in [
-            (lambda: nfl.index.start_reflow(lambda k: k, None,
-                                            lambda: None), "A11")]:
-        with pytest.raises(NotImplementedError, match=item):
+    for call in (lambda: nfl.index.start_reflow(lambda k: k, None,
+                                                lambda: None),
+                 lambda: nfl.index.start_reshard(0, 1, None),
+                 nfl.index.load_snapshot):
+        with pytest.raises(NotImplementedError, match="A11b"):
             call()
+    single = t_nfl.NFL(_cfg(force_flow=False), device="cpu")
+    single.bulkload(keys, np.arange(keys.shape[0]))
+    assert single.index.start_reflow(lambda k: k, None, lambda: None)
 
 
 def test_bulkload_metrics_and_pack():
