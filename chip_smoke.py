@@ -23,9 +23,11 @@ Phases (any failure exits non-zero before the result lines):
    drift, or a recorder count below the debug mode's; then each fixture
    kernel timed cold and warm beside its plain version and bound.
 2. ``longlat`` at 2^25 keys, half (2^24) bulk-loaded through
-   ``NFL(NFLConfig(backend="flat"))`` with the default flow and training
-   configs and AutoSwitch deciding (rerun with ``force_flow=True`` if it
-   declines the flow, so the in-kernel NF serves):
+   ``NFL(NFLConfig(backend="flat"))`` with the default flow config, its
+   training cut from three epochs to one (``LONGLAT_FLOW_EPOCHS``: flow
+   training is host-bound, and the smoke must fit its time limit on a
+   slow host), and AutoSwitch deciding (rerun with ``force_flow=True`` if
+   it declines the flow, so the in-kernel NF serves):
    a. reads: the paper's read-only workload (zipf 0.99), 64 batches of
       65,536, plus one batch of unloaded keys;
    b. writes: the paper's ``write_heavy`` mix (20% reads, 80% inserts of
@@ -59,11 +61,45 @@ Phases (any failure exits non-zero before the result lines):
    included: the phase fails unless streamed reads were served while the
    fold ran and the streamed launches equal the odd batches' read calls
    (no fold verify streamed); 1,024 deletes; one scan batch.
+3r. drift and re-flow: phase 3's load again, the flow forced on and
+   ``DriftConfig(**DRIFT_KNOBS)`` (``rebuild_frac=1.0``): two plain write
+   batches, then 786,432 micro-cluster inserts in ``write_heavy``
+   batches and settle batches until a re-flow swaps, an async read in
+   flight across every write call of its fold; every live key on both
+   rungs and a scan batch in the new z order after it.
+4m. boundary migration: phase 3's load through ``NFL(shards=4)``, the
+   flow forced on, ``ReshardConfig(**MIGRATE_KNOBS)``; reads of 65,536,
+   60% aimed at shard 0, in turns with 786,432 jittered shard-0 inserts
+   in batches of 65,536, until the reshard manager migrates ``[0, 1]``;
+   an async read in flight across every call; each call inside the
+   episode launches exactly one ``fused_lookup`` a verify chunk plus one
+   a shard its reads reach; ``B[1]``, ``B[2]`` bit-identical across the
+   swap, shards 2 and 3 the same objects with no repack or upload; the
+   router's shard ids after the splice equal the host's route of the
+   ground-truth z; 1,024 ranges straddling ``B[0]`` before, during and
+   after; then a migration whose folds fault (``_reshard_fault =
+   "fold"``), rolled back; the card test's swap and freeze under reads
+   held on the old shards' streams, in a child process with 32 hardware
+   queues (``swap_under_reads_check``: in this process the legacy
+   default stream and shared queues would let the reads finish first,
+   so the in-flight checks of 4m and 4r cannot see a stream-ordering
+   fault); every live key read back.
+4r. cross-shard re-flow: phase 3r's drift stream through
+   ``NFL(shards=4)``, the flow forced on, ``DriftConfig(**DRIFT_KNOBS)``
+   at the default ``rebuild_frac`` (the shards fold on their own; the
+   freeze drops those folds), until the re-key swaps; an async read in
+   flight across every write call of the episode; the three boundaries
+   equal ``choose_boundaries`` of the freeze's live keys under the
+   accepted flow (one ``ops.nf_transform_keys`` call), the router's z
+   bit-equal to ``nf_forward`` under the new weights, each shard an
+   AutoSwitch verdict, every live key read and a scan batch in the new
+   z order.  4m and 4r are a cut in depth: 2^21 keys, not phase 4's
+   2^24, so the smoke fits its time limit.
 4. sharded serving, with the single indexes' tensors freed: phase 2's
    longlat load (same keys, seed and loaded half) through
    ``NFL(NFLConfig(backend="flat", shards=4))``, the four shards on the
-   one card, its flow trained one epoch (phase 2 trains the default
-   three on the same keys), AutoSwitch deciding as in 2 (each shard's
+   one card, its flow trained one epoch (phase 2 trains two on the same
+   keys), AutoSwitch deciding as in 2 (each shard's
    verdict, key count, depth and pool bytes printed, and the sharded
    verify's repaired keys):
    a. reads: 2a's 64 batches, each in its own launch window (one router
@@ -153,6 +189,7 @@ import dataclasses
 import gc
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -176,8 +213,10 @@ N_SCAN_BATCHES = 16
 SCAN_CAP = 128
 LONGLAT_KEYS = 1 << 25         # half bulk-loaded
 N_SHARDS = 4                   # phase 4: key-space shards on one card
-# phase 4 trains its flow on phase 2's keys again: one epoch, not the
-# default three, keeps the smoke well inside its time limit on a slow host
+# phases 2 and 4 train their flows one epoch on the same keys, not the
+# default three: the smoke stays well inside its time limit on a slow
+# host (flow training is host-bound)
+LONGLAT_FLOW_EPOCHS = 1
 SHARDED_FLOW_EPOCHS = 1
 BUSY_SHARD = 1                 # the shard phase 4's inserts aim at
 MAX_SHARD_WRITE_BATCHES = 96   # write batches allowed for its fold
@@ -204,6 +243,16 @@ DRIFT_CONTROL_BATCHES = 2      # plain lognormal write batches first
 DRIFT_MAX_SETTLE = 48          # settle write batches allowed for the swap
 DRIFT_READ_BATCHES = 16        # read-only batches timed before the drift
 DRIFT_INFLIGHT = 4096          # the async batch in flight across a write
+# phase 4m: bench_resharding.py's ReshardConfig (benchmarks/
+# bench_resharding.py:62-70, batches of 256 against a 32,768-key load)
+# with its spans scaled by 256 to batches of 65,536: checks, the load
+# floor, the gauges' decay window and the cooldown (PERF.md section 4)
+MIGRATE_KNOBS = dict(enabled=True, migrate=True, hot_frac=2.0, neighbors=1,
+                     min_keys=1024, check_every=131_072, min_load=65_536.0,
+                     load_window_keys=1_048_576, cooldown_keys=2_097_152)
+HOT_READ_FRAC = 0.6            # phase 4m: reads aimed at shard 0, as there
+MAX_MIGRATE_CALLS = 96         # phase 4m: calls allowed for the swap
+MIGRATE_AFTER = 8              # phase 4m: read calls after the swap
 L2_FLUSH_BYTES = 512 << 20     # ten times the H100's 50 MB L2
 SPIN_CYCLES = 400_000          # ~0.2 ms idle spin, longer than a host call
 # exp2 results per SM per clock on compute capability 9.0 (the CUDA C++
@@ -1007,9 +1056,10 @@ def timed_launches(fns, flush_buf):
 
 
 # ------------------------------------------------------ the main path
-def bulkload_and_read(name, n_keys, force_flow, seed, m, win):
-    """Phase 2a / 3a: bulk load, the read-only batches and one batch of
-    unloaded keys, all checked."""
+def bulkload_and_read(name, n_keys, force_flow, seed, m, win, epochs=None):
+    """Phase 2a / 3a: bulk load (the flow trained ``epochs``, or the
+    default), the read-only batches and one batch of unloaded keys, all
+    checked."""
     t0 = time.perf_counter()
     keys = m.make_dataset(name, n_keys)
     wl = m.make_workload(keys, m.WorkloadConfig(
@@ -1023,7 +1073,10 @@ def bulkload_and_read(name, n_keys, force_flow, seed, m, win):
 
     def bulkload(force):
         torch.cuda.reset_peak_memory_stats()
-        nfl = m.NFL(m.NFLConfig(backend="flat", force_flow=force))
+        train = (m.FlowTrainConfig() if epochs is None
+                 else m.FlowTrainConfig(epochs=epochs))
+        nfl = m.NFL(m.NFLConfig(backend="flat", force_flow=force,
+                                flow_train=train))
         t = time.perf_counter()
         nfl.bulkload(wl.load_keys, wl.load_payloads)
         torch.cuda.synchronize()
@@ -1843,6 +1896,576 @@ def drift_phase(ln, m, win, dev, card):
             "write_calls": len(trace), "stats": st}
 
 
+# ------------------------------------- sharded migration and re-flow
+def inflight_batch(rng, load_k, load_p, z_load, miss, z_miss):
+    """The async batch kept in flight across a call: ``DRIFT_INFLIGHT``
+    keys, a quarter of them misses; returns keys, payloads and z."""
+    j = rng.integers(0, load_k.shape[0], DRIFT_INFLIGHT - 1024)
+    return (np.concatenate([load_k[j], miss[:1024]]),
+            np.concatenate([load_p[j], np.full(1024, -1)]),
+            np.concatenate([z_load[j], z_miss[:1024]]))
+
+
+def watch_freeze(idx, method):
+    """Record, at each call of the sharded index's ``method`` (the start
+    of an episode), which shards had a fold of their own in flight (the
+    freeze drops them); returns the list it appends to."""
+    seen = []
+    real = getattr(idx, method)
+
+    def start(*a, **k):
+        seen.append([sh._fold is not None for sh in idx.shards])
+        return real(*a, **k)
+
+    setattr(idx, method, start)
+    return seen
+
+
+def swap_under_reads_check() -> str:
+    """The card test's ``swap_under_reads`` (tests/test_torch_kernels_cuda
+    .py) in a child process with ``CUDA_DEVICE_MAX_CONNECTIONS=32``: a
+    migration swap, and then a freeze that reallocates a shard's run
+    tier, each while the window's reads are held on their streams, the
+    freed blocks overwritten at once from the caller's stream.  In this process the hazard cannot show: the driven calls
+    run on the legacy default stream, and with the default 8 hardware
+    queues a stream can wait for another that shares its queue, so the
+    reads finish before the swap frees anything.  Returns the child's
+    summary line."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, CUDA_DEVICE_MAX_CONNECTIONS="32",
+               PYTHONPATH=os.pathsep.join([str(root / "tests"),
+                                           str(root / "src")]))
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", "import test_torch_kernels_cuda as t; "
+         "t.swap_under_reads(100_000)"], env=env, capture_output=True,
+        text=True, timeout=600)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith(("swap under reads", "freeze under reads"))]
+    line = "; ".join(lines) or "no output"
+    log(f"[migrate] {line} (child process, {time.perf_counter() - t:.1f} "
+        f"s, rc {out.returncode})")
+    if out.returncode:
+        fail(f"migrate: the swap under reads in flight failed: "
+             f"{out.stderr[-2000:]}")
+    return line
+
+
+def reached(z, boundaries) -> int:
+    """How many shards a point batch with ground-truth z reaches."""
+    from repro_torch.kernels.shard_dispatch import route
+    return int(np.unique(route(z, boundaries)).shape[0])
+
+
+def fold_chunks(ep) -> int:
+    """Verify chunks the candidate folds of a sharded episode have run."""
+    if ep is None:
+        return 0
+    return sum(f.report["verify_chunks"] if f is not None
+               else c.last_fold.get("verify_chunks", 0)
+               for f, c in zip(ep.folds, ep.candidates))
+
+
+def shard_counters(sh) -> tuple:
+    """A shard's repack and upload counters (pools, tiers, scan pool)."""
+    s = sh._serving.stats()
+    return tuple(s[k] for k in ("tree_packs", "tier_uploads", "tier_repacks",
+                                "scan_uploads", "scan_repacks"))
+
+
+def straddle_scan(nfl, win, keys, pv, z, bnd, seed, what):
+    """``STRADDLE`` ranges over the live keys in z order, each starting
+    within 100 ranks below ``bnd`` and ending 2-29 ranks past it, through
+    ``NFL.scan_batch`` and held to the ground truth (``run_scans``);
+    fails unless every one of them was split at a boundary."""
+    order = np.argsort(z, kind="stable")
+    sk, zs, ps = keys[order], z[order], pv[order]
+    q = straddling_queries({"nfl": nfl}, zs, [bnd], seed)
+    before = nfl.index._router["straddling_ranges"]
+    run_scans({"name": "migrate", "nfl": nfl}, win, sk, zs, ps, q, what)
+    n = nfl.index._router["straddling_ranges"] - before
+    if n < STRADDLE:
+        fail(f"migrate: {n} of {STRADDLE} ranges straddled B[0] ({what})")
+    return n
+
+
+def migration_phase(ln, m, win, dev, card):
+    """Phase 4m: ``bench_resharding.py``'s pathology on phase 3's
+    lognormal load through ``NFL(shards=4)``, flow forced on: reads aimed
+    60% at shard 0 and an insert storm of jittered shard-0 keys, until the
+    reshard manager migrates the window [0, 1]; then a migration whose
+    folds fault, rolled back."""
+    from repro_torch.kernels.shard_dispatch import route
+    name = "migrate"
+    wl = ln["wl"]
+    load_k, load_p = wl.load_keys, wl.load_payloads
+    t_phase = time.perf_counter()
+
+    def bulk():
+        nfl = m.NFL(m.NFLConfig(
+            backend="flat", shards=N_SHARDS, force_flow=True,
+            flow_train=m.FlowTrainConfig(epochs=1),
+            reshard=m.ReshardConfig(**MIGRATE_KNOBS)))
+        t = time.perf_counter()
+        nfl.bulkload(load_k, load_p)
+        torch.cuda.synchronize()
+        return nfl, time.perf_counter() - t
+
+    (nfl, t_bulk), counts = win.run(bulk)
+    idx, mgr = nfl.index, nfl._reshard
+    b0 = idx.boundaries.copy()
+    freeze = watch_freeze(idx, "start_reshard")
+
+    def z_of(k):
+        return m.ops.nf_transform_keys(nfl.flow_params, nfl.normalizer, k,
+                                       nfl.cfg.flow, dev).astype(np.float32)
+
+    z_load = z_of(load_k)
+    miss = ln["miss_keys"]
+    z_miss = z_of(miss)
+    hot = np.flatnonzero(z_load < b0[0])
+    cold = np.flatnonzero(z_load >= b0[0])
+    rng = np.random.default_rng(ln["seed"] + 800)
+    n_storm = 3 * load_k.shape[0] // 8
+    storm = np.unique(rng.choice(load_k[hot], n_storm)
+                      * (1.0 + rng.uniform(1e-6, 1e-4, n_storm)))
+    storm = rng.permutation(storm[~np.isin(storm, ln["keys"])])
+    storm_p = (1 << 28) + np.arange(storm.shape[0], dtype=np.int64)
+    z_storm = z_of(storm)
+    log(f"[{name}] {load_k.shape[0]} lognormal keys bulk-loaded (phase 3's "
+        f"load) on {N_SHARDS} shards, flow forced on, reshard "
+        f"{MIGRATE_KNOBS}: {t_bulk:.2f} s; boundaries {b0.tolist()}; shard 0 "
+        f"holds {hot.shape[0]} loaded keys; storm {storm.shape[0]} keys, "
+        f"{int((z_storm < b0[0]).sum())} of them below B[0]; launches "
+        f"{counts}")
+    n_ins = [0]
+
+    def live():
+        k = storm[:n_ins[0]]
+        return (np.concatenate([load_k, k]),
+                np.concatenate([load_p, storm_p[:n_ins[0]]]),
+                np.concatenate([z_load, z_storm[:n_ins[0]]]))
+
+    straddled = {"before": straddle_scan(nfl, win, *live(), b0[0],
+                                         ln["seed"] + 810, "straddling B[0] "
+                                         "before the episode")}
+    rec = collections.Counter()
+    trace, lps, share = [], collections.defaultdict(list), {}
+    ep_ref, swap, frozen = [None], {}, {}
+    router = idx._router
+
+    def call(kind, k, p, z, regime):
+        """One call of ``kind`` ("read": a batch of 65,536 reads; "write":
+        a storm batch) with an async read batch in flight across it, in
+        its own launch window."""
+        qi, wi, zi = inflight_batch(rng, load_k, load_p, z_load, miss,
+                                    z_miss)
+        bnd = idx.boundaries.copy()
+        ep0 = idx._reshard
+        v0 = fold_chunks(ep0)
+        checks0 = nfl._reflow.checks
+        eps0, done0 = mgr.resharding_episodes, idx.n_reshards
+        pts0 = list(router["per_shard_points"])
+
+        def drive():
+            t0 = time.perf_counter()
+            fin = nfl.lookup_batch_async(qi)
+            mid = idx.boundaries.copy()
+            t = time.perf_counter()
+            if kind == "read":
+                got = nfl.lookup_batch(k)
+            else:
+                nfl.insert_batch(k, p)
+                got = None
+            t1 = time.perf_counter()
+            return fin, got, t1 - t, t1 - t0, mid
+
+        (fin, got, secs, total, mid), c = win.run(drive)
+        rec["wrong_inflight"] += int((fin() != wi).sum())
+        rec["inflight_batches"] += 1
+        if mgr.resharding_episodes > eps0 and regime == "before":
+            regime = "apply"        # the call that freezes the window
+        if got is not None:
+            rec[f"wrong_{regime}"] += int((got != p).sum())
+            rec["reads"] += k.shape[0]
+            lps[regime].append((k.shape[0], secs))
+            share.setdefault(regime, np.zeros(N_SHARDS))
+            share[regime] += np.asarray(router["per_shard_points"]) \
+                - np.asarray(pts0)
+        ep1 = idx._reshard
+        if ep1 is not None and ep_ref[0] is None:
+            ep_ref[0] = ep1
+        row = {"b": len(trace), "kind": kind, "ms": round(total * 1e3, 1),
+               "launches": {key: c[key] for key in ("nf_forward",
+                                                    "fused_lookup")}}
+        if mgr.resharding_episodes > eps0:
+            row["trigger"] = {"hot_shard": mgr.last_hot_shard,
+                              "share": round(mgr.last_hot_share, 4),
+                              "window": list(mgr.last_window),
+                              "shard_folds_at_freeze": freeze[-1]}
+            swap.update(t_apply=time.perf_counter() - total,
+                        apply_ms=total * 1e3, apply_b=row["b"])
+            frozen.update(bnd=bnd.copy(), ids=[id(sh) for sh in idx.shards],
+                          counters=[shard_counters(sh)
+                                    for sh in idx.shards[2:]])
+        ep = ep1 or ep0 or ep_ref[0]
+        if ep0 is not None or ep1 is not None:
+            dv = fold_chunks(ep) - v0
+            row["verify_chunks"] = dv
+            if ep0 is not None:
+                # a call inside the episode: its launches are exact
+                # the main read fans out over the boundaries left by
+                # the batch in flight (a swap may come in its call)
+                want_l = (reached(zi, bnd) + dv + (reached(z, mid)
+                                                   if kind == "read" else 0))
+                want_n = 1 + (1 if kind == "read" else
+                              1 + nfl._reflow.checks - checks0)
+                if (c["fused_lookup"], c["nf_forward"],
+                        c["streamed_lookup"], c["fused_range_scan"]) \
+                        != (want_l, want_n, 0, 0):
+                    rec["windows_off"] += 1
+                    row["want"] = {"fused_lookup": want_l,
+                                   "nf_forward": want_n}
+        if idx.n_reshards > done0:
+            row["swapped"] = True
+            swap.update(t_swap=time.perf_counter(), swap_b=row["b"])
+        trace.append(row)
+
+    def read_call(regime):
+        n_hot = int(BATCH * HOT_READ_FRAC)
+        j = np.concatenate([rng.choice(hot, n_hot),
+                            rng.choice(cold, BATCH - n_hot)])
+        call("read", load_k[j], load_p[j], z_load[j], regime)
+
+    # before: reads and storm writes in turns until the trigger
+    i = 0
+    during_scan = None
+    while len(trace) < MAX_MIGRATE_CALLS and not idx.n_reshards:
+        regime = "before" if ep_ref[0] is None else "during"
+        if i < storm.shape[0]:
+            k = storm[i:i + BATCH]
+            call("write", k, storm_p[i:i + BATCH], z_storm[i:i + BATCH],
+                 regime)
+            n_ins[0] = i = i + k.shape[0]
+        if idx.n_reshards:
+            break
+        if ep_ref[0] is not None and during_scan is None:
+            straddled["during"] = straddle_scan(
+                nfl, win, *live(), frozen["bnd"][0], ln["seed"] + 811,
+                "straddling B[0] during the episode")
+            during_scan = True
+        read_call("before" if ep_ref[0] is None else "during")
+    if not idx.n_reshards or ep_ref[0] is None:
+        fail(f"{name}: no migration swapped in {len(trace)} calls; trace "
+             f"{json.dumps(trace)}")
+    ep = ep_ref[0]
+    b1 = idx.boundaries.copy()
+    trig = next(r for r in trace if "trigger" in r)
+    log(f"[{name}] trace of the calls: {json.dumps(trace)}")
+    # the splice moved B[0] only; shards 2 and 3 untouched
+    same = [id(sh) for sh in idx.shards[2:]] == frozen["ids"][2:]
+    untouched = [shard_counters(sh) for sh in idx.shards[2:]] \
+        == frozen["counters"]
+    log(f"[{name}] boundaries at the freeze {frozen['bnd'].tolist()} -> "
+        f"{b1.tolist()} (interior {ep.interior.tolist()}); B[1], B[2] "
+        f"bit-identical {np.array_equal(b1[1:].view(np.int32), frozen['bnd'][1:].view(np.int32))}; "
+        f"shards 2 and 3 the same objects {same}, no repack or upload "
+        f"{untouched}; candidates {[c.n_keys for c in ep.candidates]} keys, "
+        f"d_tail {[c.d_tail for c in ep.candidates]}, AutoSwitch "
+        f"{[c.autoswitch for c in ep.candidates]}, last_fold "
+        f"{[c.last_fold for c in ep.candidates]}")
+    if not np.array_equal(b1[1:].view(np.int32),
+                          frozen["bnd"][1:].view(np.int32)) \
+            or b1[0] == frozen["bnd"][0]:
+        fail(f"{name}: the splice did not move B[0] alone")
+    if not (same and untouched):
+        fail(f"{name}: the migration touched shard 2 or 3")
+    if rec["windows_off"]:
+        fail(f"{name}: {rec['windows_off']} calls of the episode launched "
+             "other than one fused_lookup a verify chunk plus the reads")
+    # after the splice: the router's shard ids are the host's route of
+    # the ground-truth z, its z bit-equal to it
+    off = 0
+    for _ in range(MIGRATE_AFTER):
+        read_call("after")
+        j = rng.integers(0, load_k.shape[0], BATCH)
+        zr, sids = idx._route_flow(nfl._feats(load_k[j]), nfl._packed_w,
+                                   nfl._shapes)
+        off += int((sids != route(z_load[j], idx.boundaries)).sum()) \
+            + int((zr.view(np.int32) != z_load[j].view(np.int32)).sum())
+    if off:
+        fail(f"{name}: the router disagrees with the host route after the "
+             f"splice ({off} keys)")
+    straddled["after"] = straddle_scan(nfl, win, *live(), b1[0],
+                                       ln["seed"] + 812,
+                                       "straddling the new B[0]")
+    # a migration whose folds fault: rolled back, the old boundaries serve
+    aborts, swaps = [], []
+    (ok, c_start) = win.run(lambda: idx.start_reshard(
+        0, 1, on_swap=lambda: swaps.append(1),
+        on_abort=lambda: aborts.append(1)))
+    idx._reshard_fault = "fold"
+    read_call("fault")
+    idx._reshard_fault = None
+    held = [sh._tier_hold for sh in idx.shards]
+    log(f"[{name}] injected fold fault: started {ok}, aborted {aborts}, "
+        f"swapped {swaps}, n_reshard_aborts {idx.n_reshard_aborts}, "
+        f"boundaries {idx.boundaries.tolist()}, holds {held}")
+    if not ok or aborts != [1] or swaps or idx.n_reshard_aborts != 1 \
+            or idx._reshard is not None or any(held) \
+            or not np.array_equal(idx.boundaries, b1):
+        fail(f"{name}: the faulted migration did not roll back")
+    for _ in range(2):
+        read_call("fault")
+    hazard = swap_under_reads_check()
+    keys, pv, _z = live()
+    res = {"name": name, "nfl": nfl, "truth": Truth(keys, pv)}
+    readback(res, keys, win, "every live key after the episodes")
+    wrong = {key: v for key, v in rec.items() if key.startswith("wrong")}
+    rates = {g: sum(n for n, _s in v) / sum(s for _n, s in v)
+             for g, v in lps.items()}
+    shares = {g: (v / max(v.sum(), 1)).round(4).tolist()
+              for g, v in share.items()}
+    secs = time.perf_counter() - t_phase
+    st = mgr.stats()
+    out = {"bulkload_s": t_bulk, "trigger_call": trig["b"],
+           "trigger": trig["trigger"], "apply_ms": swap["apply_ms"],
+           "apply_to_swap_s": swap["t_swap"] - swap["t_apply"],
+           "apply_to_swap_calls": swap["swap_b"] - swap["apply_b"] + 1,
+           "lookups_per_s": rates, "shard_shares": shares,
+           "straddled": straddled, "boundaries": [b0.tolist(),
+                                                  b1.tolist()],
+           "manager": st, "wrong": wrong, "calls": len(trace),
+           "swap_under_reads": hazard, "seconds": secs}
+    log(f"[{name}] trigger at call {trig['b']} ({trig['kind']}, hot shard "
+        f"{trig['trigger']['hot_shard']} at share "
+        f"{trig['trigger']['share']}), apply call {swap['apply_ms']:.1f} "
+        f"ms, {out['apply_to_swap_s']:.2f} s and "
+        f"{out['apply_to_swap_calls']} calls from apply to swap; lookups/s "
+        f"{json.dumps({g: round(v) for g, v in rates.items()})}; routed "
+        f"shares per shard {shares}; reads {rec['reads']} wrong {wrong}, "
+        f"{rec['inflight_batches']} batches in flight across calls; "
+        f"manager {st}; phase {secs:.1f} s ({card})")
+    if any(wrong.values()):
+        fail(f"{name}: wrong reads {wrong}")
+    return out
+
+
+def sharded_reflow_phase(ln, m, win, dev, card, single):
+    """Phase 4r: phase 3r's drift stream on phase 3's lognormal load
+    through ``NFL(shards=4)``, flow forced on, ``DriftConfig(**
+    DRIFT_KNOBS)`` at the default ``rebuild_frac`` (the shards fold on
+    their own), until a cross-shard re-key swaps; ``single`` is phase
+    3r's record, printed beside."""
+    from repro_torch.kernels.shard_dispatch import choose_boundaries, route
+    name = "sharded re-flow"
+    wl = ln["wl"]
+    load_k, load_p = wl.load_keys, wl.load_payloads
+    rng = np.random.default_rng(ln["seed"] + 600)
+    unloaded = rng.permutation(np.setdiff1d(ln["keys"], load_k,
+                                            assume_unique=True))
+    n_ins = BATCH * 4 // 5
+    n_read = BATCH - n_ins
+    plain = unloaded[:DRIFT_CONTROL_BATCHES * n_ins]
+    miss = unloaded[DRIFT_CONTROL_BATCHES * n_ins:][:BATCH]
+    n_drift = 3 * load_k.shape[0] // 8
+    pool = drift_keys(load_k, n_drift + DRIFT_MAX_SETTLE * n_ins,
+                      ln["seed"] + 700)
+    pool = pool[~np.isin(pool, unloaded)]
+    drift, settle = pool[:n_drift], pool[n_drift:]
+    t_phase = time.perf_counter()
+
+    def bulk():
+        nfl = m.NFL(m.NFLConfig(
+            backend="flat", shards=N_SHARDS, force_flow=True,
+            flow_train=m.FlowTrainConfig(epochs=1),
+            drift=m.DriftConfig(**DRIFT_KNOBS)))
+        t = time.perf_counter()
+        nfl.bulkload(load_k, load_p)
+        torch.cuda.synchronize()
+        return nfl, time.perf_counter() - t
+
+    (nfl, t_bulk), counts = win.run(bulk)
+    idx, mgr = nfl.index, nfl._reflow
+    b0 = idx.boundaries.copy()
+    freeze = watch_freeze(idx, "start_reflow")
+    baseline = mgr.baseline_tail
+    log(f"[{name}] {load_k.shape[0]} lognormal keys bulk-loaded on "
+        f"{N_SHARDS} shards, flow forced on, drift {DRIFT_KNOBS}, "
+        f"rebuild_frac {idx.cfg.rebuild_frac}: {t_bulk:.2f} s; baseline "
+        f"tail {baseline}; boundaries {b0.tolist()}; launches {counts}")
+    live = Live(load_k, load_p)
+    rec = collections.Counter()
+    lps = {}
+
+    def read(k, want, what):
+        t = time.perf_counter()
+        got, _c = win.run(lambda: nfl.lookup_batch(k))
+        secs = time.perf_counter() - t
+        rec[f"wrong_{what}"] += int((got != want).sum())
+        rec["reads"] += k.shape[0]
+        return secs
+
+    secs = sum(read(k, p, "before") for _op, k, p in
+               wl.batches[:DRIFT_READ_BATCHES])
+    lps["before"] = DRIFT_READ_BATCHES * BATCH / secs
+    read(miss, np.full(miss.shape[0], -1), "misses")
+    ins_ms = {"control": [], "drift": [], "settle": []}
+    trace, swap, at_apply = [], {}, {}
+    fold_read = [0, 0.0]
+
+    def write_call(b, kind, k, p):
+        st0 = mgr.stats()
+        active = idx._reflow is not None
+        q, want = live.sample(rng, n_read)
+        s = read(q, want, "during" if active else "writes")
+        if active:
+            fold_read[0] += q.shape[0]
+            fold_read[1] += s
+        qi = wi = None
+        if active:
+            qi, wi = live.sample(rng, DRIFT_INFLIGHT - 1024)
+            qi = np.concatenate([qi, miss[:1024]])
+            wi = np.concatenate([wi, np.full(1024, -1)])
+        reflows0 = idx.n_reflows
+
+        def drive():
+            finish = nfl.lookup_batch_async(qi) if active else None
+            t = time.perf_counter()
+            nfl.insert_batch(k, p)
+            return finish, (time.perf_counter() - t) * 1e3
+
+        (finish, ms), c = win.run(drive)
+        ins_ms[kind].append(ms)
+        live.add(k, p)
+        if finish is not None:
+            rec["wrong_inflight"] += int((finish() != wi).sum())
+            rec["inflight_batches"] += 1
+        st1 = mgr.stats()
+        row = {"b": b, "kind": kind, "ms": round(ms, 1),
+               "state": f"{st0['state']}->{st1['state']}",
+               "launches": {key: c[key] for key in ("nf_forward",
+                                                    "fused_lookup")}}
+        if st1["triggers"] > st0["triggers"]:
+            row["trigger"] = {"serving_tail": st1["last_serving_tail"],
+                              "score": st1["last_score"]}
+        if st1["reflows_started"] > st0["reflows_started"]:
+            row["applied"] = {"shard_folds_at_freeze": freeze[-1]}
+            swap.update(t_apply=time.perf_counter() - ms / 1e3,
+                        apply_ms=ms, apply_b=b)
+            # the freeze's live keys: every key written so far, this
+            # call's batch included (the tick follows its inserts)
+            at_apply["keys"] = live.all()[0]
+        if idx.n_reflows > reflows0:
+            row["swapped"] = True
+            swap.update(t_swap=time.perf_counter(), swap_b=b,
+                        swap_inflight=finish is not None)
+        if c["streamed_lookup"]:
+            fail(f"{name}: a write call launched streamed_lookup ({c})")
+        trace.append(row)
+
+    b = 0
+    for i in range(DRIFT_CONTROL_BATCHES):
+        k = plain[i * n_ins:(i + 1) * n_ins]
+        write_call(b, "control", k, (1 << 26) + b * n_ins
+                   + np.arange(k.shape[0]))
+        b += 1
+    if mgr.triggers:
+        fail(f"{name}: plain lognormal inserts triggered the re-flow")
+    for kind, keys in (("drift", drift), ("settle", settle)):
+        for i in range(0, keys.shape[0], n_ins):
+            if kind == "settle" and idx.n_reflows:
+                break
+            k = keys[i:i + n_ins]
+            write_call(b, kind, k, (1 << 27) + b * n_ins
+                       + np.arange(k.shape[0]))
+            b += 1
+        if idx.n_reflows:
+            break
+    st = mgr.stats()
+    log(f"[{name}] trace of the write calls: {json.dumps(trace)}")
+    if not idx.n_reflows or st["reflows_completed"] < 1:
+        fail(f"{name}: no sharded re-flow completed ({st})")
+    if not swap.get("swap_inflight") or not rec["inflight_batches"]:
+        fail(f"{name}: no read was in flight across the swap")
+    trig = next(r for r in trace if "trigger" in r)
+    b1 = idx.boundaries.copy()
+    # the boundaries: the equal-mass quantiles of the freeze's live keys
+    # under the accepted transform, one ops.nf_transform_keys call
+    zk = (m.ops.nf_transform_keys(nfl.flow_params, nfl.normalizer,
+                                  at_apply["keys"], nfl.cfg.flow, dev)
+          if nfl.use_flow else at_apply["keys"]).astype(np.float32)
+    want_b = choose_boundaries(np.sort(zk, kind="stable"), N_SHARDS)
+    keys, pv = live.all()
+    j = rng.integers(0, keys.shape[0], BATCH)
+    zr, sids = idx._route_flow(nfl._feats(keys[j]), nfl._packed_w,
+                               nfl._shapes)
+    zt = m.ops.nf_transform_keys(nfl.flow_params, nfl.normalizer, keys[j],
+                                 nfl.cfg.flow, dev).astype(np.float32)
+    z_off = int((zr.view(np.int32) != zt.view(np.int32)).sum())
+    sid_off = int((sids != route(zt, b1)).sum())
+    verdicts = [sh.autoswitch for sh in idx.shards]
+    log(f"[{name}] boundaries {b0.tolist()} -> {b1.tolist()}; the freeze's "
+        f"{at_apply['keys'].shape[0]} live keys under the accepted flow "
+        f"give {want_b.tolist()} (bit-equal "
+        f"{np.array_equal(b1.view(np.int32), want_b.view(np.int32))}); "
+        f"router z vs nf_forward under the new weights: {z_off} of {BATCH} "
+        f"differ, shard ids vs the host route: {sid_off}; use_flow "
+        f"{nfl.use_flow}; shards' keys {[sh.n_keys for sh in idx.shards]}, "
+        f"AutoSwitch {verdicts}, last_fold "
+        f"{[sh.last_fold for sh in idx.shards]}")
+    if not np.array_equal(b1.view(np.int32), want_b.view(np.int32)) \
+            or np.array_equal(b1, b0):
+        fail(f"{name}: the boundaries were not re-derived from the new "
+             "flow's z")
+    if z_off or sid_off:
+        fail(f"{name}: the router disagrees with nf_forward after the swap")
+    if any(v.get("use_flow") is None for v in verdicts):
+        fail(f"{name}: a shard carries no AutoSwitch verdict")
+    reflow_s = swap["t_swap"] - swap["t_apply"]
+    n_calls = swap["swap_b"] - swap["apply_b"] + 1
+    lps["during_episode"] = fold_read[0] / fold_read[1]
+    secs = sum(read(keys[i:i + BATCH], pv[i:i + BATCH], "after")
+               for i in range(0, keys.shape[0], BATCH))
+    lps["after"] = keys.shape[0] / secs
+    read(miss, np.full(miss.shape[0], -1), "misses")
+    res = {"name": name, "nfl": nfl, "seed": ln["seed"],
+           "truth": Truth(keys, pv)}
+    sk, zs, ps = scan_truth(res, m, dev)
+    scan = run_scans(res, win, sk, zs, ps, scan_queries(res, m, sk, 1),
+                     "after the sharded re-flow")
+    wrong = {key: v for key, v in rec.items() if key.startswith("wrong")}
+    secs = time.perf_counter() - t_phase
+    med = statistics.median(ins_ms["drift"] + ins_ms["settle"])
+    out = {"bulkload_s": t_bulk, "baseline_tail": baseline,
+           "trigger": trig, "ticks_trigger_to_apply":
+           swap["apply_b"] - trig["b"], "accepted_tail": st["baseline_tail"],
+           "reflow_s": reflow_s, "reflow_write_calls": n_calls,
+           "apply_ms": swap["apply_ms"],
+           "insert_ms": {kind: (statistics.median(v), max(v))
+                         for kind, v in ins_ms.items() if v},
+           "lookups_per_s": lps, "scan": scan, "seconds": secs,
+           "wrong": wrong, "boundaries": [b0.tolist(), b1.tolist()],
+           "write_calls": len(trace), "stats": st}
+    log(f"[{name}] trigger on batch {trig['b']} (serving tail "
+        f"{trig['trigger']['serving_tail']}, score "
+        f"{trig['trigger']['score']:.2f}; baseline {baseline}), applied "
+        f"{out['ticks_trigger_to_apply']} ticks later (batch "
+        f"{swap['apply_b']}, {swap['apply_ms']:.1f} ms), accepted tail "
+        f"{st['baseline_tail']}; {reflow_s:.2f} s and {n_calls} write calls "
+        f"from apply to swap (single index, phase 3r: "
+        f"{single['reflow_s']:.2f} s, {single['reflow_write_calls']} calls, "
+        f"apply {single['apply_ms']:.1f} ms); insert_batch ms median "
+        f"{med:.1f} (phase 3r {single['insert_ms']['drift'][0]:.1f}); "
+        f"lookups/s {json.dumps({g: round(v) for g, v in lps.items()})} "
+        f"(phase 3r {json.dumps({g: round(v) for g, v in single['lookups_per_s'].items()})}); "
+        f"reads {rec['reads']} wrong {wrong}, {rec['inflight_batches']} "
+        f"batches in flight across write calls; phase {secs:.1f} s ({card})")
+    if any(wrong.values()):
+        fail(f"{name}: wrong reads {wrong}")
+    return out
+
+
 # ------------------------------------------------------ sharded serving
 def sharded_load_and_read(base, m, win):
     """Phase 4a: the longlat load of phase 2 (same keys, seed and loaded
@@ -2110,13 +2733,14 @@ def sharded_update_delete(res, win):
     res["writes_per_s"] = 2 * BATCH / secs
 
 
-def straddling_queries(res, zs):
-    """One batch of ``STRADDLE`` ranges per boundary, each starting within
-    100 ranks below the boundary (in z order of the live keys) and
-    ending 2-29 ranks past it."""
-    rng = np.random.default_rng(res["seed"] + 600)
+def straddling_queries(res, zs, boundaries=None, seed=None):
+    """One batch of ``STRADDLE`` ranges per boundary (by default the
+    index's), each starting within 100 ranks below the boundary (in z
+    order of the live keys) and ending 2-29 ranks past it."""
+    rng = np.random.default_rng(res["seed"] + 600 if seed is None else seed)
     rs, lns = [], []
-    for bnd in res["nfl"].index.boundaries:
+    for bnd in (res["nfl"].index.boundaries if boundaries is None
+                else boundaries):
         b = int(np.searchsorted(zs, bnd, side="left"))
         r = b - rng.integers(1, 101, STRADDLE)
         rs.append(r)
@@ -3220,7 +3844,7 @@ class Mods:
     """The port's modules the smoke drives (imported after the checks)."""
 
     def __init__(self):
-        from repro_torch.core.drift import DriftConfig
+        from repro_torch.core.drift import DriftConfig, ReshardConfig
         from repro_torch.core.flat_afli import FlatAFLIConfig
         from repro_torch.core.nfl import NFL, NFLConfig
         from repro_torch.core.train_flow import FlowTrainConfig
@@ -3231,6 +3855,7 @@ class Mods:
 
         self.NFL, self.NFLConfig = NFL, NFLConfig
         self.DriftConfig, self.FlatAFLIConfig = DriftConfig, FlatAFLIConfig
+        self.ReshardConfig = ReshardConfig
         self.FlowTrainConfig = FlowTrainConfig
         self.make_dataset, self.make_workload = make_dataset, make_workload
         self.WorkloadConfig, self.zipf_indices = WorkloadConfig, _zipf_indices
@@ -3310,7 +3935,8 @@ def main() -> int:
 
     # ---- longlat, flow on
     t0 = time.perf_counter()
-    ll = bulkload_and_read("longlat", LONGLAT_KEYS, None, 0, m, win)
+    ll = bulkload_and_read("longlat", LONGLAT_KEYS, None, 0, m, win,
+                           epochs=LONGLAT_FLOW_EPOCHS)
     if not ll["use_flow"]:
         fail("longlat phase did not serve with the flow on")
     wall("longlat reads", t0)
@@ -3420,6 +4046,14 @@ def main() -> int:
     drifted = drift_phase(ln, m, win, dev, card)
     wall("drift and re-flow", t0)
 
+    # ---- the sharded episodes on phase 3's load
+    t0 = time.perf_counter()
+    migrated = migration_phase(ln, m, win, dev, card)
+    wall("sharded migration", t0)
+    t0 = time.perf_counter()
+    reflowed = sharded_reflow_phase(ln, m, win, dev, card, drifted)
+    wall("sharded re-flow", t0)
+
     # ---- sharded serving: the single indexes' tensors go first
     del ln, idx, ll["nfl"]
     gc.collect()
@@ -3453,6 +4087,8 @@ def main() -> int:
                                        "branches")}))
     log("[sharded] summary " + json.dumps(sharded, default=str))
     log("[drift] summary " + json.dumps(drifted, default=str))
+    log("[migrate] summary " + json.dumps(migrated, default=str))
+    log("[sharded re-flow] summary " + json.dumps(reflowed, default=str))
 
     launches = dict(win.total)
     log(f"main-path launches (every window): {launches}")

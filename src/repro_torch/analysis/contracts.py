@@ -8,9 +8,10 @@ calls: it patches each registered binding with a transparent recorder
 and drives a miniature serving world through the public API
 (``exercise_serving_world``: a flow-off index with build, reads,
 inserts, scans and deletes; the streamed rung forced by
-``pool_budget``; a flow-on ``NFL(shards=2)`` with inserts, async reads
-and scans; a flow-on ``NFL`` with the re-flow on, driven through one
-drift episode to its swap).  An entry the world never dispatches is a
+``pool_budget``; a flow-on ``NFL(shards=2)`` with the reshard telemetry
+on, inserts, async reads, scans and one boundary migration; a flow-on
+``NFL`` with the re-flow on, driven through one drift episode to its
+swap, single and sharded).  An entry the world never dispatches is a
 finding.
 
 **Host sync.**  For the span of each entry call, the recorder patches the
@@ -202,6 +203,18 @@ ENTRY_POINTS: Tuple[EntryPoint, ...] = (
                budget=1),
     EntryPoint("ReflowManager.tick", _DRIFT, "ReflowManager.tick",
                budget=1),
+    # the sharded episodes (DESIGN.md §14, §18): a cross-shard re-key
+    # brings the re-keyed z back once; a migration's freeze and its
+    # boundary splice bring nothing back (the splice uploads P-1 floats
+    # without a sync), nor does a reshard tick
+    EntryPoint("ShardedFlatAFLI.start_reflow", _SD,
+               "ShardedFlatAFLI.start_reflow", budget=1),
+    EntryPoint("ShardedFlatAFLI.start_reshard", _SD,
+               "ShardedFlatAFLI.start_reshard", budget=0),
+    EntryPoint("ShardedFlatAFLI._refresh_boundaries", _SD,
+               "ShardedFlatAFLI._refresh_boundaries", budget=0),
+    EntryPoint("ReshardManager.tick", _DRIFT, "ReshardManager.tick",
+               budget=0),
 )
 
 
@@ -464,10 +477,14 @@ def exercise_serving_world(device):
     reads, inserts, a scan batch, deletes); a larger flow-off index read
     on the streamed rung, forced by ``pool_budget=0``, before and after
     inserts; then a flow-on ``NFL(shards=2)`` with inserts, async reads
-    and scans; then one re-flow episode (``reflow_episode``).  The JAX
-    world's oracle index has no counterpart (not ported, by design); its
-    reshard (ROADMAP A11b) and front end (A12) join this world with
-    those items."""
+    and scans, its reshard manager ticking (telemetry only: the
+    migration is started by hand), then the JAX world's migration step
+    (``start_reshard(0, shards - 1)``, ``rebuild()``, a read); then one
+    re-flow episode on a single index and one on ``shards=2``
+    (``reflow_episode``).  The JAX world's oracle index has no
+    counterpart (not ported, by design); its front end (ROADMAP A12)
+    joins this world with that item."""
+    from repro_torch.core.drift import ReshardConfig
     from repro_torch.core.flat_afli import FlatAFLI, FlatAFLIConfig
     from repro_torch.core.nfl import NFL, NFLConfig
     from repro_torch.core.train_flow import FlowTrainConfig
@@ -500,7 +517,9 @@ def exercise_serving_world(device):
     sidx.lookup_batch(np.concatenate([keys4[:24], snew[:8]]))
 
     nfl = NFL(NFLConfig(backend="flat", shards=WORLD_SHARDS, force_flow=True,
-                        flow_train=FlowTrainConfig(epochs=2)), device=device)
+                        flow_train=FlowTrainConfig(epochs=2),
+                        reshard=ReshardConfig(enabled=True, migrate=False)),
+              device=device)
     keys2 = np.unique(rng.normal(5e5, 1e5, 2 * n_build))[:n_build]
     nfl.bulkload(keys2, np.arange(keys2.shape[0], dtype=np.int64))
     nfl.lookup_batch(keys2[:128])
@@ -509,24 +528,34 @@ def exercise_serving_world(device):
     finish = nfl.lookup_batch_async(np.concatenate([keys2[:32], new2[:16]]))
     finish()
     nfl.scan_batch(keys2[:8], keys2[8:16])
+    # the migration: the swap's boundary splice runs between two serving
+    # batches; rebuild() drives the window's folds to the swap
+    if not nfl.index.start_reshard(0, WORLD_SHARDS - 1, on_swap=lambda: None):
+        raise RuntimeError("the world's migration did not start")
+    nfl.index.rebuild()
+    if nfl.index.n_reshards != 1:
+        raise RuntimeError("the world's migration did not swap")
+    nfl.lookup_batch(keys2[:32])
     reflow_episode(device, rng)
+    reflow_episode(device, rng, shards=WORLD_SHARDS)
     return idx, nfl
 
 
-def reflow_episode(device, rng):
+def reflow_episode(device, rng, shards: int = 1):
     """One drift episode on a flow-on ``NFL`` with the re-flow on, driven
     through the public API to its swap: inserts in tight micro-clusters
     at high quantiles of the loaded keys (``bench_drift.py``'s traffic),
     which the stale flow packs into a few slots and a flow retrained on
     the reservoir spreads; no threshold, so the first check triggers.
-    Returns the NFL."""
+    With ``shards > 1`` the episode is the cross-shard re-key.  Returns
+    the NFL."""
     from repro_torch.core.drift import DriftConfig
     from repro_torch.core.flat_afli import FlatAFLIConfig
     from repro_torch.core.nfl import NFL, NFLConfig
     from repro_torch.core.train_flow import FlowTrainConfig
 
     nfl = NFL(NFLConfig(
-        backend="flat", force_flow=True,
+        backend="flat", shards=shards, force_flow=True,
         flow_train=FlowTrainConfig(epochs=1),
         flat_index=FlatAFLIConfig(fold_step_keys=256),
         drift=DriftConfig(reflow=True, threshold=0.0, min_tail=0,

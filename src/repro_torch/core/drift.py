@@ -36,8 +36,14 @@ the re-key drops the flow.
 
 The monitor's random stream, the state names, the counters and the
 ``stats()`` keys are the JAX package's, so both managers take the same
-transitions on the same inputs.  The reshard half (``ReshardConfig``,
-``ReshardManager``) is ROADMAP A11b.
+transitions on the same inputs.
+
+The reshard half (DESIGN.md §18): ``ReshardManager`` watches the sharded
+router's decayed per-shard load gauges and, when one shard takes more
+than ``hot_frac / P`` of the load, starts a boundary migration of the
+window of shards around it.  It shares one ``ExclusionLock`` with the
+``ReflowManager``, so a migration and a cross-shard re-key never
+interleave.
 """
 
 from __future__ import annotations
@@ -51,7 +57,8 @@ import numpy as np
 from repro_torch.core.conflict import accept_candidate, dataset_tail_conflict
 
 __all__ = ["DriftConfig", "DriftMonitor", "ExclusionLock",
-           "LockDisciplineError", "ReflowManager"]
+           "LockDisciplineError", "ReflowManager", "ReshardConfig",
+           "ReshardManager"]
 
 
 class LockDisciplineError(RuntimeError):
@@ -211,7 +218,7 @@ class ReflowManager:
       actually swaps in.
 
     ``exclusion`` is the shared :class:`ExclusionLock` serializing
-    structural episodes against a reshard manager (§18, ROADMAP A11b): the
+    structural episodes against a :class:`ReshardManager` (§18): the
     re-key acquires it before ``apply`` and holds it until the swap (or
     failure), so a boundary migration can never interleave with a
     cross-shard re-key.
@@ -474,3 +481,230 @@ class ReflowManager:
             self.state = self.IDLE
         self.exclusion.release("reflow")
 
+
+# ---------------------------------------------------------------- reshard
+@dataclasses.dataclass(frozen=True)
+class ReshardConfig:
+    """Knobs for hot-shard detection and online boundary migration
+    (DESIGN.md §18).  ``enabled`` turns on the load checks; ``migrate``
+    additionally lets the manager *act* — with it off, the hot-shard
+    score is telemetry only (``dispatch_stats()["reshard"]``), mirroring
+    ``DriftConfig.reflow``'s opt-in split."""
+
+    enabled: bool = False
+    migrate: bool = True           # False: detect + report, never migrate
+    hot_frac: float = 2.0          # hot when share >= hot_frac / n_shards
+    min_load: float = 256.0        # decayed key mass before shares count
+    min_keys: int = 1024           # ignore while the table is tiny
+    check_every: int = 512         # routed keys between load checks
+    cooldown_keys: int = 4096      # base cooldown span after an episode
+    neighbors: int = 1             # cold neighbors on each side of the
+    #                                hot shard in the migration window
+    load_window_keys: int = 4096   # router load-gauge decay constant
+    max_backoff: int = 64          # cooldown doubling cap (x cooldown_keys)
+
+
+class ReshardManager:
+    """Load-triggered boundary-migration control (DESIGN.md §18).
+
+    The structural sibling of :class:`ReflowManager`: same single-owner
+    tick discipline (reentrancy raises :class:`LockDisciplineError`),
+    same ``_commit()`` mutation windows, same monotone episode counters
+    that survive ``dispatch_stats(reset=True)``, and the same
+    degradation ladder — a migration that fails mid-flight leaves
+    serving untouched and backs off with a doubling cooldown.  Unlike a
+    re-flow there is no training phase: the trigger *is* the plan (a
+    contiguous shard window around the hot shard), so the machine has
+    two states:
+
+        idle --(hot shard detected)--> migrating --(swap)--> idle
+          ^                                |
+          +------ cooldown w/ backoff <----+  (abort / busy / refused)
+
+    Injected callables:
+
+    - ``load_snapshot() -> dict``: the router's decayed per-shard load
+      gauges (``reads``/``writes`` f64[P]) plus per-shard key counts.
+    - ``start_migration(lo, hi) -> bool``: freeze shards ``lo..hi`` and
+      begin the localized migration.  ``False`` means the index is busy
+      (a re-flow or another migration in flight); raising means the
+      freeze itself failed.  Both leave serving untouched and count as a
+      failed episode.  The owner calls :meth:`note_swap` when the
+      migration swaps in, :meth:`note_failure` if a later fold tick
+      aborts it.
+
+    ``exclusion`` is the :class:`ExclusionLock` shared with the
+    :class:`ReflowManager`: acquired before ``start_migration``, held
+    until swap or failure, so a migration and a re-flow can never
+    interleave — a re-flow re-derives *all* boundaries, and a migration
+    moves a window of them.
+    """
+
+    IDLE, MIGRATING = "idle", "migrating"
+
+    def __init__(self, cfg: ReshardConfig, *,
+                 load_snapshot: Callable[[], dict],
+                 start_migration: Callable[[int, int], bool],
+                 exclusion: Optional[ExclusionLock] = None):
+        self.cfg = cfg
+        self.load_snapshot = load_snapshot
+        self.start_migration = start_migration
+        self.exclusion = exclusion if exclusion is not None \
+            else ExclusionLock()
+        self.state = self.IDLE
+        self.keys_routed = 0
+        self._last_check_at = 0
+        self.cooldown_until = 0
+        self._cooldown_span = int(cfg.cooldown_keys)
+        self.last_hot_shard = -1
+        self.last_hot_share = 0.0
+        self.last_window = (-1, -1)
+        self._in_tick = False          # reentrancy guard (lock discipline)
+        self._commit_depth = 0         # stats() barred inside _commit()
+        # counters (monotone; NOT reset by dispatch_stats(reset=True))
+        self.checks = 0
+        self.resharding_episodes = 0
+        self.migrations_completed = 0
+        self.migrations_failed = 0
+
+    # -- public surface -------------------------------------------------
+    def observe(self, n_keys: int) -> None:
+        """Count routed traffic (reads AND writes — read skew is the
+        canonical trigger); drives the check cadence."""
+        self.keys_routed += int(n_keys)
+
+    def tick(self) -> None:
+        """One bounded unit of reshard control work, called per routed
+        batch.  While a migration is in flight the index advances its
+        own candidate folds (charged to routed traffic); the manager
+        just waits for ``note_swap`` / ``note_failure``."""
+        if self._in_tick:
+            raise LockDisciplineError(
+                "tick() re-entered from within an injected callable: "
+                "the manager is single-owner and its callables must "
+                "not drive the state machine recursively")
+        self._in_tick = True
+        try:
+            if self.state == self.IDLE:
+                self._check()
+        finally:
+            self._in_tick = False
+
+    def note_swap(self) -> None:
+        """The migration swapped in: the window's candidates now serve."""
+        with self._commit():
+            self.migrations_completed += 1
+            self._cooldown_span = int(self.cfg.cooldown_keys)
+            self.cooldown_until = self.keys_routed + self._cooldown_span
+            self.state = self.IDLE
+        self.exclusion.release("reshard")
+
+    def note_failure(self) -> None:
+        """A mid-flight migration aborted (candidate fold raised): the
+        index rolled the freeze back and serving is untouched — close
+        the episode through the backoff ladder."""
+        self._fail()
+
+    def stats(self) -> dict:
+        if self._commit_depth:
+            raise LockDisciplineError(
+                "stats() read inside a commit window: the episode "
+                "counters are mid-transition and would be mutually "
+                "inconsistent")
+        return {
+            "state": self.state,
+            "checks": self.checks,
+            "resharding_episodes": self.resharding_episodes,
+            "migrations_completed": self.migrations_completed,
+            "migrations_failed": self.migrations_failed,
+            "last_hot_shard": self.last_hot_shard,
+            "last_hot_share": self.last_hot_share,
+            "last_window": list(self.last_window),
+            "cooldown_until": self.cooldown_until,
+            "cooldown_span": self._cooldown_span,
+            "keys_routed": self.keys_routed,
+        }
+
+    # -- state machine --------------------------------------------------
+    @contextlib.contextmanager
+    def _commit(self):
+        if self._commit_depth:
+            raise LockDisciplineError(
+                "nested commit window: an episode transition ran inside "
+                "another transition's mutation section")
+        self._commit_depth += 1
+        try:
+            yield
+        finally:
+            self._commit_depth -= 1
+
+    def _check(self) -> None:
+        if self.keys_routed - self._last_check_at < self.cfg.check_every:
+            return
+        self._last_check_at = self.keys_routed
+        self.checks += 1
+        try:
+            snap = self.load_snapshot()
+            reads = np.asarray(snap["reads"], np.float64)
+            writes = np.asarray(snap["writes"], np.float64)
+            n_keys = int(np.sum(snap["n_keys"]))
+        except LockDisciplineError:
+            raise
+        except Exception:
+            return  # measurement failure is never a serving-path error
+        P = reads.shape[0]
+        load = reads + writes
+        total = float(load.sum())
+        if P < 2 or total <= 0.0:
+            return
+        hot = int(np.argmax(load))
+        share = float(load[hot] / total)
+        with self._commit():
+            self.last_hot_shard = hot
+            self.last_hot_share = share
+        if not self.cfg.migrate:
+            return
+        if (total < self.cfg.min_load
+                or n_keys < self.cfg.min_keys
+                or share < self.cfg.hot_frac / float(P)
+                or self.keys_routed < self.cooldown_until):
+            return
+        k = max(int(self.cfg.neighbors), 1)
+        lo = max(hot - k, 0)
+        hi = min(hot + k, P - 1)
+        if hi <= lo:
+            return  # single-shard window: nothing to rebalance
+        self.resharding_episodes += 1
+        with self._commit():
+            self.last_window = (lo, hi)
+        if not self.exclusion.acquire("reshard"):
+            self._fail()   # a re-flow owns the structure: back off
+            return
+        epoch = self.migrations_completed + self.migrations_failed
+        try:
+            started = bool(self.start_migration(lo, hi))
+        except LockDisciplineError:
+            raise
+        except Exception:
+            self._fail()
+            return
+        if not started:
+            self._fail()   # index busy (fold/re-flow in flight): back off
+            return
+        if self.migrations_completed + self.migrations_failed == epoch:
+            with self._commit():
+                self.state = self.MIGRATING
+        # else: the migration swapped (or aborted) synchronously — an
+        # empty window folds nothing — and note_swap/note_failure
+        # already closed the episode
+
+    def _fail(self) -> None:
+        with self._commit():
+            self.migrations_failed += 1
+            self._cooldown_span = min(
+                self._cooldown_span * 2,
+                max(int(self.cfg.max_backoff), 1)
+                * int(self.cfg.cooldown_keys))
+            self.cooldown_until = self.keys_routed + self._cooldown_span
+            self.state = self.IDLE
+        self.exclusion.release("reshard")

@@ -46,8 +46,8 @@ frozen tiers keep serving, the new tree is verified through the
 candidate's serve context, and the swap installs the tree, the serve
 flow and the re-keyed delta in one step.  ``serving_telemetry``,
 ``drift_signals`` and ``reset_telemetry`` feed ``NFL.dispatch_stats``.
-The tier hold (``_tier_hold``) that the sharded re-key and boundary
-migration put on a shard is ROADMAP A11b; a single index never sets it.
+The sharded re-key and boundary migration put a tier hold
+(``_tier_hold``) on a shard; a single index never sets it.
 """
 
 from __future__ import annotations
@@ -191,6 +191,12 @@ class FlatAFLIConfig:
     scan_cap: int = 128               # range-scan output lanes per query
     pool_budget: Optional[int] = None  # tree-pool bytes above which live
                                        # reads stream; None: never
+
+    def fold_budget(self, n_batch: int) -> int:
+        """Fold work (keys) one call of ``n_batch`` keys pays for: a
+        shard's own fold and a sharded episode's candidates alike."""
+        return max(int(self.fold_step_keys),
+                   int(self.fold_work_factor * max(n_batch, 1)))
 
 
 class FlatArrays(NamedTuple):
@@ -622,7 +628,14 @@ class _Fold:
     context, not the live one, and at the swap re-keys the delta that
     filled during the fold (those writes carry old-transform keys),
     installs the serve flow and the AutoSwitch verdict over the re-keyed
-    snapshot, and calls ``on_swap`` strictly last."""
+    snapshot, and calls ``on_swap`` strictly last.
+
+    The sharded re-key and migration build each candidate shard with a
+    fold into a ``FlatAFLI`` that was never built (``sharded_nfl.
+    _seed_candidate`` sets its bucket tail and verdict): it has no serve
+    flow, so only the non-flow verify runs, and its swap installs its
+    first tree; the coordinator then lands the held writes and the live
+    identities."""
 
     def __init__(self, idx: "FlatAFLI", pk, hi, lo, pv, reflow=None):
         self.idx = idx
@@ -766,8 +779,8 @@ class FlatAFLI:
         self.n_shadowed = 0            # keys shadowed into the run tier
         self.n_rebuilds = 0
         self.n_reflows = 0             # re-key folds completed (§14)
-        # the sharded re-key's and migration's hold on a shard (ROADMAP
-        # A11b): writes buffer in the tiers, no fold or merge starts
+        # the sharded re-key's and migration's hold on a shard: writes
+        # buffer in the tiers, no fold or merge starts
         self._tier_hold = False
         self.last_fold = {}            # _Fold.report of the last swap
         self._ids = np.empty(0, np.uint64)   # sorted live identities
@@ -1074,8 +1087,7 @@ class FlatAFLI:
         O(n) merge and sort), and ticks only with what is left.  An
         index never built keeps buffering: there is no tree to fold
         into."""
-        budget = max(int(self.cfg.fold_step_keys),
-                     int(self.cfg.fold_work_factor * max(n_batch, 1)))
+        budget = self.cfg.fold_budget(n_batch)
         if self._tier_hold:
             return
         if self._fold is not None:

@@ -29,11 +29,22 @@ call, validates it against the identity and the serving tail, and
 starts ``FlatAFLI.start_reflow``: a re-keying fold the write calls
 advance while the index serves, whose swap installs the new tree, serve
 flow and re-keyed delta in one step.  ``dispatch_stats()["drift"]``
-reports the manager's counters and the index's drift signals.
+reports the manager's counters and the index's drift signals.  With
+``shards > 1`` the re-flow is the cross-shard re-key
+(``ShardedFlatAFLI.start_reflow``), which also re-derives the shard
+boundaries from the new flow.
+
+Resharding (DESIGN.md §18): with ``NFLConfig.reshard.enabled`` (sharded
+only) every routed batch, reads and writes alike, feeds a
+``ReshardManager``, which every ``check_every`` keys reads the router's
+decayed per-shard load gauges and, when one shard takes ``hot_frac / P``
+of the load, starts a boundary migration of the window around it
+(``ShardedFlatAFLI.start_reshard``).  The two managers share one
+exclusion token, so a migration and a re-key never interleave.
+``dispatch_stats()["reshard"]`` reports the manager and the gauges.
 
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP
-item that ports them: the paper's pointer-tree backend (A13), and the
-sharded re-flow and resharding (A11b).
+item that ports it: the paper's pointer-tree backend (A13).
 """
 
 from __future__ import annotations
@@ -48,7 +59,8 @@ import torch
 
 from repro_torch.core.conflict import dataset_tail_conflict, should_use_flow
 from repro_torch.core.drift import (DriftConfig, DriftMonitor, ExclusionLock,
-                                    ReflowManager)
+                                    ReflowManager, ReshardConfig,
+                                    ReshardManager)
 from repro_torch.core.feature import expand_features
 from repro_torch.core.flat_afli import FlatAFLI, FlatAFLIConfig
 from repro_torch.core.flow import FlowConfig
@@ -75,7 +87,10 @@ class NFLConfig:
     drift: DriftConfig = dataclasses.field(default_factory=DriftConfig)
                                        # drift telemetry + background
                                        # re-flow (§14)
-    reshard: Any = None                # resharding config (ROADMAP A11b)
+    reshard: ReshardConfig = dataclasses.field(
+        default_factory=ReshardConfig)
+                                       # hot-shard load telemetry +
+                                       # boundary migration (sharded, §18)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -95,11 +110,10 @@ class NFL:
                               "A13")
         if self.cfg.backend != "flat":
             raise ValueError(f"unknown NFL backend: {self.cfg.backend!r}")
-        if self.cfg.drift.reflow and self.cfg.shards > 1:
-            raise _not_ported("the sharded re-flow (drift.reflow with "
-                              "shards > 1)", "A11b")
-        if getattr(self.cfg.reshard, "enabled", False):
-            raise _not_ported("dynamic resharding", "A11b")
+        if self.cfg.reshard.enabled and self.cfg.shards < 2:
+            raise ValueError("reshard.enabled requires backend='flat' "
+                             "with shards > 1 (boundary migration moves "
+                             "the sharded router's boundaries)")
         self.device = resolve_device(device)
         if self.cfg.shards > 1:
             self.index = ShardedFlatAFLI(self.cfg.flat_index,
@@ -113,15 +127,17 @@ class NFL:
         self.metrics: Dict[str, float] = {}
         self._packed_w = None   # pack_flow_weights row (CPU)
         self._shapes = ()
-        # drift telemetry + background re-flow (§14).  The lock serializes
-        # the tick on the write path against a dispatch_stats(reset=True)
-        # from another thread (RLock: the tick's callables may read
-        # stats); the exclusion token is the one a reshard manager will
-        # share (ROADMAP A11b)
+        # drift telemetry + background re-flow (§14) and resharding
+        # (§18).  The lock serializes the ticks on the serving path
+        # against a dispatch_stats(reset=True) from another thread
+        # (RLock: the ticks' callables may read stats); one exclusion
+        # token, shared by both managers, keeps a re-key and a migration
+        # from interleaving
         self._telemetry_lock = threading.RLock()
         self._exclusion = ExclusionLock()
         self._drift: Optional[DriftMonitor] = None
         self._reflow: Optional[ReflowManager] = None
+        self._reshard: Optional[ReshardManager] = None
         if self.cfg.drift.enabled:
             self._drift = DriftMonitor(self.cfg.drift)
             self._reflow = ReflowManager(
@@ -130,6 +146,14 @@ class NFL:
                 train_factory=self._drift_train_factory,
                 evaluate=self._drift_evaluate,
                 apply=self._drift_apply,
+                exclusion=self._exclusion)
+        if self.cfg.reshard.enabled:
+            self.index.load_window_keys = int(
+                self.cfg.reshard.load_window_keys)
+            self._reshard = ReshardManager(
+                self.cfg.reshard,
+                load_snapshot=self.index.load_snapshot,
+                start_migration=self._reshard_apply,
                 exclusion=self._exclusion)
 
     # ------------------------------------------------------------ bulkload
@@ -273,15 +297,37 @@ class NFL:
 
         return self.index.start_reflow(transform_fn, serve_ctx, on_swap)
 
+    # -------------------------------------------- reshard callbacks (§18)
+    def _reshard_apply(self, lo: int, hi: int) -> bool:
+        """Start the boundary migration of the shard window ``[lo, hi]``.
+        The index owns the atomicity and the rollback; its swap and abort
+        callbacks close the manager's episode."""
+        return self.index.start_reshard(
+            lo, hi, on_swap=self._reshard.note_swap,
+            on_abort=self._reshard.note_failure)
+
+    def _reshard_note(self, n_keys: int) -> None:
+        """Feed one routed batch (reads and writes alike: read skew is
+        the trigger) to the reshard manager and give it one tick, under
+        the lock the drift tick takes."""
+        if self._reshard is None:
+            return
+        with self._telemetry_lock:
+            self._reshard.observe(int(n_keys))
+            self._reshard.tick()
+
     # ------------------------------------------------------------ batch ops
     def lookup_batch(self, keys: np.ndarray) -> np.ndarray:
         """Batched point lookups; -1 marks not-found.  One fused kernel
         launch per call (NF forward in-kernel when the flow is on)."""
         keys = np.asarray(keys, dtype=np.float64)
         if not self.use_flow:
-            return self.index.lookup_batch(keys)
-        return self.index.lookup_batch_flow(self._feats(keys), keys,
-                                            self._packed_w, self._shapes)
+            res = self.index.lookup_batch(keys)
+        else:
+            res = self.index.lookup_batch_flow(self._feats(keys), keys,
+                                               self._packed_w, self._shapes)
+        self._reshard_note(keys.shape[0])
+        return res
 
     def lookup_batch_async(self, keys: np.ndarray):
         """Dispatch a batched point lookup without waiting for it; returns
@@ -291,9 +337,13 @@ class NFL:
         and each batch still reads the state it was dispatched into."""
         keys = np.asarray(keys, dtype=np.float64)
         if not self.use_flow:
-            return self.index.lookup_batch_async(keys)
-        return self.index.lookup_batch_flow_async(
-            self._feats(keys), keys, self._packed_w, self._shapes)
+            finish = self.index.lookup_batch_async(keys)
+        else:
+            finish = self.index.lookup_batch_flow_async(
+                self._feats(keys), keys, self._packed_w, self._shapes)
+        # the kernels are in flight: the reshard tick overlaps them
+        self._reshard_note(keys.shape[0])
+        return finish
 
     def _pkeys(self, keys: np.ndarray) -> np.ndarray:
         """Positioning keys of a batch: the keys themselves without the
@@ -318,6 +368,7 @@ class NFL:
             with self._telemetry_lock:
                 self._drift.observe(keys)
                 self._reflow.tick()
+        self._reshard_note(keys.shape[0])
 
     def update_batch(self, keys: np.ndarray,
                      payloads: np.ndarray) -> np.ndarray:
@@ -335,8 +386,10 @@ class NFL:
         Deleted keys vanish from point and range results at once and are
         dropped from the tree by the next fold."""
         keys = np.asarray(keys, dtype=np.float64)
-        return self.index.delete_batch(self._pkeys(keys),
-                                       ikeys=keys if self.use_flow else None)
+        res = self.index.delete_batch(self._pkeys(keys),
+                                      ikeys=keys if self.use_flow else None)
+        self._reshard_note(keys.shape[0])
+        return res
 
     def scan_batch(self, lo_keys: np.ndarray, hi_keys: np.ndarray,
                    cap: int | None = None):
@@ -350,10 +403,13 @@ class NFL:
         lo_keys = np.asarray(lo_keys, dtype=np.float64)
         hi_keys = np.asarray(hi_keys, dtype=np.float64)
         if not self.use_flow:
-            return self.index.scan_batch(lo_keys, hi_keys, cap=cap)
-        return self.index.scan_batch_flow(
-            self._feats(lo_keys), self._feats(hi_keys), self._packed_w,
-            self._shapes, cap=cap)
+            res = self.index.scan_batch(lo_keys, hi_keys, cap=cap)
+        else:
+            res = self.index.scan_batch_flow(
+                self._feats(lo_keys), self._feats(hi_keys), self._packed_w,
+                self._shapes, cap=cap)
+        self._reshard_note(lo_keys.shape[0])
+        return res
 
     # the established range-query spelling beside the batched name
     lookup_range = scan_batch
@@ -370,13 +426,14 @@ class NFL:
         completed folds, the serving-state block (``serving``; sharded,
         the shards' aggregate beside ``shards`` and ``router``), the
         drift block (``drift``: the re-flow manager's state and counters
-        and the index's drift signals) and ``reshard`` (not ported,
-        ROADMAP A11b).
+        and the index's drift signals) and the reshard block
+        (``reshard``: the migration manager's state and counters and the
+        router's load gauges).
 
         ``reset=True`` zeroes the counters after the snapshot: the
         launch counters, the serving-state and router counters.  Gauges
-        (capacities, windows) and the drift episode counters are state
-        and stay."""
+        (capacities, windows, the load gauges) and the episode counters
+        of both managers are state and stay."""
         with self._telemetry_lock:
             counts = ops.launch_counts()
             out: Dict[str, Any] = {
@@ -394,7 +451,11 @@ class NFL:
                                 "signals": self.index.drift_signals()}
             else:
                 out["drift"] = {"enabled": False}
-            out["reshard"] = {"enabled": False}
+            if self._reshard is not None:
+                out["reshard"] = {"enabled": True, **self._reshard.stats(),
+                                  "load": self.index.load_snapshot()}
+            else:
+                out["reshard"] = {"enabled": False}
             if reset:
                 ops.reset_launch_counts()
                 self.index.reset_telemetry()

@@ -37,12 +37,35 @@ a read still in flight reads the state it was dispatched into, and no
 tier buffer is rewritten or freed under it.  That is an ordering on the
 device, not a host sync.
 
-``serving_telemetry`` and ``drift_signals`` aggregate the shards' blocks
-(counters summed, gauges the largest shard's) for ``NFL.dispatch_stats``
-and its default drift telemetry.  Not ported yet (ROADMAP A11b), and
-raising ``NotImplementedError``: the cross-shard re-key and the boundary
-migration (``start_reflow``, ``start_reshard``) and their load gauges
-(``load_snapshot``).
+Two structural episodes move the shards while they serve (DESIGN.md
+§14 sharded form, §18), each coordinated here and built by bounded
+folds (``flat_afli._Fold``) into fresh candidate ``FlatAFLI`` objects
+while the old shards keep serving:
+
+* the **cross-shard re-key** (``start_reflow``): every shard is frozen
+  (its live keys snapshotted, its tiers held, its own fold dropped), all
+  live identities are re-keyed under the candidate transform (on the
+  card, the NF kernel), the P-1 boundaries are re-derived from the new
+  z, and one candidate a shard is folded under the write calls' budget;
+  the swap re-keys the writes held since the freeze, then publishes
+  shards, boundaries and serve flow in one block;
+* the **boundary migration** (``start_reshard``): a window of shards
+  ``[lo, hi]`` is frozen, its new interior boundaries are the
+  load-weighted quantiles of its keys (``_note_load``'s decayed
+  per-shard gauges, read by ``load_snapshot``), and its candidates fold
+  under the budget of reads and writes; the swap routes the held writes
+  by the new interior boundaries and splices them into the boundary
+  vector by value (``_refresh_boundaries``).
+
+Before a swap drops a shard, the current stream waits on that shard's
+stream, so a read still in flight there finishes before the caching
+allocator can hand the shard's pools to new work.  The router's
+boundaries are published as a new device tensor, never written in place.
+
+``serving_telemetry`` (with each shard's load gauges) and
+``drift_signals`` aggregate the shards' blocks (counters summed, gauges
+the largest shard's) for ``NFL.dispatch_stats`` and its drift
+telemetry.
 """
 
 from __future__ import annotations
@@ -52,11 +75,15 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.core.flat_afli import (FlatAFLI, FlatAFLIConfig, _ids64,
+from repro_torch.core.conflict import (conflict_degrees, fit_linear_model,
+                                       should_use_flow, tail_conflict_degree)
+from repro_torch.core.flat_afli import (TOMBSTONE, FlatAFLI, FlatAFLIConfig,
+                                        _Fold, _ids64, _upload,
                                         split_key_bits)
 from repro_torch.dist.sharding import shard_mesh
 from repro_torch.kernels.shard_dispatch import (choose_boundaries,
-                                                fanout_plan, route,
+                                                fanout_plan,
+                                                refresh_boundaries, route,
                                                 route_flow, split_ranges)
 
 __all__ = ["ShardedFlatAFLI"]
@@ -69,9 +96,259 @@ _GAUGES = {"run_capacity", "delta_capacity", "scan_capacity", "run_window",
            "static_dense_window"}
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A11b)")
+def _seed_candidate(parent: "ShardedFlatAFLI", cand: FlatAFLI, spk, shi,
+                    slo, spv) -> _Fold:
+    """Configure a fresh candidate ``FlatAFLI`` over its snapshot segment
+    (sorted f32 positioning keys ``spk`` and their identities and
+    payloads) and start its fold.  A candidate is built by the fold
+    alone, never by ``build()``, so the two things a build decides land
+    here: the conflict bucket tail, fitted on the candidate's own keys,
+    and the AutoSwitch verdict over its identities and positioning
+    keys.  The candidate has no serve flow: a shard is probed by the
+    routed z, so its fold verifies on the non-flow route only."""
+    cfg = parent.cfg
+    model = fit_linear_model(spk.astype(np.float64))
+    if spk.shape[0] >= 2 and model.slope > 0:
+        d = tail_conflict_degree(
+            conflict_degrees(spk.astype(np.float64), model), cfg.gamma)
+    else:
+        d = cfg.max_bucket
+    cand.d_tail = int(np.clip(d, cfg.min_bucket, cfg.max_bucket))
+    use, t_orig, t_new = should_use_flow(_ids64(shi, slo).view(np.float64),
+                                         spk, cfg.gamma)
+    cand.autoswitch = {"use_flow": bool(use), "tail_original": int(t_orig),
+                       "tail_transformed": int(t_new)}
+    return _Fold(cand, spk, shi, slo, spv.astype(np.int64))
+
+
+class _Episode:
+    """What the cross-shard re-key and the boundary migration share: one
+    fresh candidate ``FlatAFLI`` per slot of the window ``[lo, hi]``, each
+    folded from its snapshot segment, advanced round robin under the
+    caller's budget, and the swap that lands the writes held since the
+    freeze in the candidates and drops the old shards."""
+
+    def _freeze(self, s: int):
+        """Snapshot shard ``s``'s live keys and hold its tiers: its delta
+        keeps taking writes, but no fold or merge of its own may consume
+        what the snapshot owns.  The shard's own fold is dropped (the
+        candidate supersedes it); its new pools were never installed, so
+        the shard serves its old ones.  The snapshot's merge rewrites the
+        shard's tiers in place, or reallocates them and frees the old
+        buffers, on the current stream, so that stream first waits for
+        the reads in flight on the shard's stream."""
+        self.parent._write_barrier(s)
+        idx = self.parent.shards[s]
+        snap = idx._snapshot_live()
+        idx._fold = None
+        idx._tier_hold = True
+        return snap
+
+    def _seed(self, pk, hi, lo, pv, boundaries):
+        """Route the sorted snapshot by ``boundaries`` into the window's
+        slots and start a candidate fold for each non-empty one."""
+        parent = self.parent
+        k = self.hi - self.lo + 1
+        segs, _inv = fanout_plan(route(pk, boundaries), k)
+        self.candidates = [FlatAFLI(parent.cfg,
+                                    device=parent.devices[self.lo + j])
+                           for j in range(k)]
+        self.folds: List[Optional[_Fold]] = []
+        self.ids = []
+        for j, seg in enumerate(segs):
+            self.ids.append(np.unique(_ids64(hi[seg], lo[seg])))
+            self.folds.append(_seed_candidate(
+                parent, self.candidates[j], pk[seg], hi[seg], lo[seg],
+                pv[seg]) if seg.shape[0] else None)
+
+    def tick(self, budget: int) -> bool:
+        """Advance the pending candidate folds round robin, each an equal
+        share of ``budget``; returns True once the swap has happened."""
+        pending = [(j, f) for j, f in enumerate(self.folds) if f is not None]
+        if pending:
+            share = max(budget // len(pending), 1)
+            for j, f in pending:
+                if f.tick(share):
+                    self.folds[j] = None
+        if any(f is not None for f in self.folds):
+            return False
+        self._swap()
+        return True
+
+    def _land_held(self, transform_fn, boundaries) -> None:
+        """Land the writes the window's old shards took since the freeze
+        in the candidates: one copy per identity (each old delta keeps
+        the newest, and an identity routes to one old shard), positioned
+        under ``transform_fn`` (None: as they are) and routed by
+        ``boundaries``.  Then each candidate adopts its live identities
+        (its snapshot segment's, plus the held inserts, less the held
+        tombstones); its tiers are current, the run shipped by its
+        fold's swap and the delta by the append."""
+        parent = self.parent
+        k = self.hi - self.lo + 1
+        held = [idx for idx in parent.shards[self.lo:self.hi + 1]
+                if idx._delta_pk.shape[0]]
+        if held:
+            hi = np.concatenate([idx._delta_hi for idx in held])
+            lo = np.concatenate([idx._delta_lo for idx in held])
+            pv = np.concatenate([idx._delta_pv for idx in held])
+            if transform_fn is None:
+                pk = np.concatenate([idx._delta_pk for idx in held])
+            else:
+                pk = np.asarray(transform_fn(_ids64(hi, lo).view(np.float64)),
+                                np.float64).astype(np.float32)
+            segs, _inv = fanout_plan(route(pk, boundaries), k)
+            for j, seg in enumerate(segs):
+                if not seg.shape[0]:
+                    continue
+                self.candidates[j]._append_delta(pk[seg], hi[seg], lo[seg],
+                                                 pv[seg].astype(np.int32))
+                u = _ids64(hi[seg], lo[seg])
+                dead = pv[seg] == TOMBSTONE
+                self.ids[j] = np.setdiff1d(np.union1d(self.ids[j], u[~dead]),
+                                           u[dead], assume_unique=True)
+        for j, cand in enumerate(self.candidates):
+            cand._ids = self.ids[j]
+            cand.n_keys = int(self.ids[j].shape[0])
+
+    def _drop_old(self) -> None:
+        """Order the current stream after every read in flight on the
+        window's shard streams, so the pools and tiers the old shards
+        free are reused only after those reads have finished."""
+        for s in range(self.lo, self.hi + 1):
+            self.parent._write_barrier(s)
+
+
+class _ShardedReflow(_Episode):
+    """Cross-shard atomic re-key (DESIGN.md §14, sharded form).
+
+    Re-keying each shard in place would move keys across the old
+    boundaries under the new transform, and the router and the pools
+    would disagree.  So the re-key is global:
+
+    1. **freeze** every shard (``_Episode._freeze``);
+    2. **re-partition**: every live identity through ``transform_fn``
+       (on the card, the NF kernel), new boundaries at the equal-mass
+       quantiles of the new z (``choose_boundaries``), each key routed
+       to its new slot;
+    3. **rebuild**: one candidate fold a non-empty slot, advanced by the
+       write calls' budget while the old shards and boundaries serve;
+    4. **swap**: the held writes are re-keyed and routed by the new
+       boundaries into the candidates, then shards, boundaries and serve
+       flow change in one block, so no query sees new boundaries with
+       old pools or the reverse.
+    """
+
+    def __init__(self, parent: "ShardedFlatAFLI", transform_fn, serve_flow,
+                 on_swap):
+        self.parent = parent
+        self.transform_fn = transform_fn
+        self.serve_flow = serve_flow
+        self.on_swap = on_swap
+        self.lo, self.hi = 0, parent.n_shards - 1
+        snaps = [self._freeze(s) for s in range(parent.n_shards)]
+        hi = np.concatenate([sn[1] for sn in snaps])
+        lo = np.concatenate([sn[2] for sn in snaps])
+        pv = np.concatenate([np.asarray(sn[3], np.int64) for sn in snaps])
+        pk = np.asarray(transform_fn(_ids64(hi, lo).view(np.float64)),
+                        np.float64).astype(np.float32)
+        order = np.argsort(pk, kind="stable")
+        pk, hi, lo, pv = pk[order], hi[order], lo[order], pv[order]
+        self.boundaries_new = (choose_boundaries(pk, parent.n_shards)
+                               if pk.shape[0] else np.empty(0, np.float32))
+        self._seed(pk, hi, lo, pv, self.boundaries_new)
+
+    def _swap(self) -> None:
+        parent = self.parent
+        self._land_held(self.transform_fn, self.boundaries_new)
+        self._drop_old()
+        # ---- the flip: one assignment block, no query in between
+        parent.shards = self.candidates
+        parent._set_boundaries(self.boundaries_new)
+        parent._serve_flow = self.serve_flow
+        parent.n_reflows += 1
+        self.on_swap()
+
+
+class _ShardedReshard(_Episode):
+    """Boundary migration of one window of shards ``[lo, hi]`` (DESIGN.md
+    §18): a hot shard sheds domain to its neighbours, or a cold one
+    absorbs it, while every shard outside the window serves untouched.
+
+    The episode has the re-key's four steps, scoped to the window and
+    with no transform: positioning keys do not move, only the boundaries
+    between them, so the snapshot and the held writes route as they
+    are.  The new interior boundaries are the quantiles of the window's
+    keys weighted by load: each key carries ``1 + load / n`` of its
+    source shard (its decayed reads and writes spread over its ``n``
+    keys), so balanced load gives the equal-mass split and a read-hot
+    shard splits finer.  The window's keys lie in ``[B[lo-1], B[hi])``,
+    so the outer boundaries, and every other shard's domain, stay
+    bit-identical.  The swap routes the held writes by the new interior
+    boundaries, replaces the window's shards and splices the boundary
+    values (the vector keeps its length), then levels the window's load
+    gauges (their total kept): they described the old domains.
+
+    A failure in the freeze or a fold aborts the episode: the window is
+    released and serving goes on over the old shards and boundaries
+    (nothing was published; ``_snapshot_live`` merges a delta into its
+    shard's run, never out of it).  ``parent._reshard_fault`` injects
+    one: ``"snapshot"`` in the freeze of the window's second shard,
+    ``"fold"`` in every fold tick.
+    """
+
+    def __init__(self, parent: "ShardedFlatAFLI", lo: int, hi: int, on_swap,
+                 on_abort=None):
+        self.parent = parent
+        self.lo, self.hi = int(lo), int(hi)
+        self.on_swap = on_swap
+        self.on_abort = on_abort
+        k = self.hi - self.lo + 1
+        snaps, wts = [], []
+        for s in range(self.lo, self.hi + 1):
+            if s > self.lo and parent._reshard_fault == "snapshot":
+                raise RuntimeError("injected fault: reshard snapshot")
+            snap = self._freeze(s)
+            load = (float(parent._load_reads[s])
+                    + float(parent._load_writes[s]))
+            n = snap[0].shape[0]
+            wts.append(np.full(n, 1.0 + load / max(n, 1), np.float64))
+            snaps.append(snap)
+        pk = np.concatenate([sn[0] for sn in snaps]).astype(np.float32)
+        hi_ = np.concatenate([sn[1] for sn in snaps])
+        lo_ = np.concatenate([sn[2] for sn in snaps])
+        pv = np.concatenate([np.asarray(sn[3], np.int64) for sn in snaps])
+        wt = np.concatenate(wts)
+        order = np.argsort(pk, kind="stable")
+        pk, hi_, lo_, pv, wt = (pk[order], hi_[order], lo_[order], pv[order],
+                                wt[order])
+        if pk.shape[0]:
+            cw = np.cumsum(wt)
+            targets = cw[-1] * (np.arange(1, k, dtype=np.float64) / k)
+            cut = np.clip(np.searchsorted(cw, targets, side="left"), 0,
+                          pk.shape[0] - 1)
+            self.interior = np.ascontiguousarray(pk[cut], np.float32)
+        else:
+            # an empty window: the splice writes the values it finds
+            self.interior = parent.boundaries[self.lo:self.hi].copy()
+        self._seed(pk, hi_, lo_, pv, self.interior)
+
+    def tick(self, budget: int) -> bool:
+        if self.parent._reshard_fault == "fold":
+            raise RuntimeError("injected fault: reshard candidate fold")
+        return super().tick(budget)
+
+    def _swap(self) -> None:
+        parent = self.parent
+        self._land_held(None, self.interior)
+        self._drop_old()
+        # ---- the flip: one assignment block, no query in between
+        parent.shards[self.lo:self.hi + 1] = self.candidates
+        parent._refresh_boundaries(self.interior, self.lo)
+        for g in (parent._load_reads, parent._load_writes):
+            g[self.lo:self.hi + 1] = g[self.lo:self.hi + 1].mean()
+        parent.n_reshards += 1
+        self.on_swap()
 
 
 def _aggregate(blocks) -> dict:
@@ -116,6 +393,19 @@ class ShardedFlatAFLI:
         self.boundaries = np.empty(0, np.float32)   # f32[P-1], host copy
         self._boundaries_dev = None                 # the router's copy
         self._serve_flow = None
+        self._reflow: Optional[_ShardedReflow] = None    # §14 episode
+        self._reshard: Optional[_ShardedReshard] = None  # §18 episode
+        self.n_reflows = 0
+        self.n_reshards = 0
+        self.n_reshard_aborts = 0
+        self._reshard_fault: Optional[str] = None  # fault seam (tests)
+        # §18 load gauges: decayed per-shard key mass of routed reads and
+        # writes, decaying together on a clock of routed keys (not wall
+        # time), so they are deterministic under test.  State, not
+        # counters: reset_telemetry() leaves them alone
+        self.load_window_keys = 4096
+        self._load_reads = np.zeros(self.n_shards, np.float64)
+        self._load_writes = np.zeros(self.n_shards, np.float64)
         self._router = {
             "point_batches": 0, "point_queries": 0,
             "write_batches": 0, "write_keys": 0,
@@ -135,9 +425,12 @@ class ShardedFlatAFLI:
             torch.cuda.current_stream(st.device).wait_stream(st)
 
     def _set_boundaries(self, boundaries: np.ndarray) -> None:
+        """Publish the router's boundaries: the host copy, and a new
+        device tensor (never a write into the one a router launch may be
+        reading), uploaded without a host sync."""
         self.boundaries = np.asarray(boundaries, np.float32)
         self._boundaries_dev = (
-            torch.from_numpy(self.boundaries.copy()).to(self.device)
+            _upload(self.boundaries, np.float32, self.device)
             if self.boundaries.shape[0] else None)
 
     def _route_points(self, z32: np.ndarray) -> np.ndarray:
@@ -147,22 +440,125 @@ class ShardedFlatAFLI:
         return route_flow(feats, packed_w, shapes, self._boundaries_dev,
                           self.device)
 
+    # ---------------------------------------------- §14 cross-shard re-key
+    def _reflow_tick(self, n_batch: int) -> None:
+        """Advance a re-key in flight by a write call's budget (writes
+        fund a re-key, reads never do)."""
+        if self._reflow is not None and self._reflow.tick(
+                self.cfg.fold_budget(n_batch)):
+            self._reflow = None
+
     def start_reflow(self, transform_fn, serve_flow, on_swap) -> bool:
-        raise _not_ported("the cross-shard re-key (start_reflow)")
+        """Begin the coordinated cross-shard re-key (DESIGN.md §14): the
+        freeze and the re-partition now, then the candidates fold under
+        the write calls' budget while the old shards and boundaries
+        serve, and the swap changes shards, boundaries and serve flow at
+        once.  ``transform_fn(ik64) -> z`` maps raw identity keys to the
+        new positioning keys; ``serve_flow`` is the new serve context or
+        None; ``on_swap()`` runs once, after the swap.  Returns False
+        while a re-key or a migration is in flight."""
+        if self._reflow is not None or self._reshard is not None:
+            return False
+        self._reflow = _ShardedReflow(self, transform_fn, serve_flow,
+                                      on_swap)
+        self._reflow_tick(1)    # nothing live to fold: swaps now
+        return True
+
+    # ------------------------------------------------ §18 load and migration
+    def _note_load(self, segs, *, write: bool) -> None:
+        """Fold one routed batch into the load gauges: a batch of n keys
+        decays every gauge by ``exp(-n / load_window_keys)`` and adds its
+        per-shard counts, so a gauge is a key mass over a horizon of
+        about ``load_window_keys`` routed keys."""
+        counts = np.array([int(seg.shape[0]) for seg in segs], np.float64)
+        n = float(counts.sum())
+        if n <= 0.0:
+            return
+        d = float(np.exp(-n / float(max(self.load_window_keys, 1))))
+        self._load_reads *= d
+        self._load_writes *= d
+        if write:
+            self._load_writes += counts
+        else:
+            self._load_reads += counts
+
+    def load_snapshot(self) -> dict:
+        """The migration trigger's input (``ReshardManager``'s
+        ``load_snapshot``): the decayed per-shard read and write gauges
+        and the live key counts."""
+        return {"reads": self._load_reads.tolist(),
+                "writes": self._load_writes.tolist(),
+                "n_keys": [int(idx.n_keys) for idx in self.shards],
+                "window_keys": int(self.load_window_keys)}
 
     def start_reshard(self, lo: int, hi: int, on_swap,
                       on_abort=None) -> bool:
-        raise _not_ported("the boundary migration (start_reshard)")
+        """Begin the boundary migration of the shard window ``[lo, hi]``
+        (DESIGN.md §18): the freeze and the re-partition now, then the
+        window's candidates fold under the budget of reads and writes
+        while every shard serves over the old boundaries, and the swap
+        changes the window's shards and splices the boundaries at once.
+        Returns False while a re-key or another migration is in flight,
+        or for a window of one shard; raises if the freeze fails (the
+        window released, nothing published)."""
+        if self._reshard is not None or self._reflow is not None:
+            return False
+        lo = max(int(lo), 0)
+        hi = min(int(hi), self.n_shards - 1)
+        if hi <= lo:
+            return False
+        try:
+            self._reshard = _ShardedReshard(self, lo, hi, on_swap, on_abort)
+        except Exception:
+            self._release(lo, hi)
+            raise
+        self._reshard_tick(1)   # an empty window swaps now
+        return True
 
-    def load_snapshot(self) -> dict:
-        raise _not_ported("the migration's load gauges (load_snapshot)")
+    def _release(self, lo: int, hi: int) -> None:
+        """Roll a migration back: release the window's tier holds and
+        count the abort (the old shards and boundaries never stopped
+        serving)."""
+        for s in range(lo, hi + 1):
+            self.shards[s]._tier_hold = False
+        self.n_reshard_aborts += 1
+
+    def _reshard_tick(self, n_batch: int) -> None:
+        """Advance a migration in flight by a call's budget.  Reads fund
+        a migration as writes do (read skew is its trigger, and a
+        read-only hot shard must still migrate).  A fold that raises
+        aborts the episode: the window is released, shards and
+        boundaries stay as they were, and ``on_abort`` is told."""
+        r = self._reshard
+        if r is None:
+            return
+        try:
+            done = r.tick(self.cfg.fold_budget(n_batch))
+        except Exception:
+            self._reshard = None
+            self._release(r.lo, r.hi)
+            if r.on_abort is not None:
+                r.on_abort()
+            return
+        if done:
+            self._reshard = None
+
+    def _refresh_boundaries(self, interior: np.ndarray, lo: int) -> None:
+        """The migration's boundary splice: write the window's new
+        interior boundaries into the f32[P-1] vector by value
+        (``shard_dispatch.refresh_boundaries`` checks the order) and
+        publish it.  The length never changes."""
+        self._set_boundaries(
+            refresh_boundaries(self.boundaries, interior, lo))
 
     def serving_telemetry(self) -> dict:
         """The serving slice of ``NFL.dispatch_stats()``: the shards'
         serving blocks aggregated, each shard's own, and the router's
-        fan-out counters.  (The per-shard load gauges come with the
-        migration, ROADMAP A11b.)"""
+        fan-out counters; each shard's block carries its load gauges."""
         per = [idx.serving_telemetry() for idx in self.shards]
+        for s, t in enumerate(per):
+            t["load"] = {"reads": float(self._load_reads[s]),
+                         "writes": float(self._load_writes[s])}
         return {
             "serving": _aggregate(t["serving"] for t in per),
             "shards": per,
@@ -173,9 +569,8 @@ class ShardedFlatAFLI:
     def drift_signals(self) -> dict:
         """The shards' drift signals aggregated as the serving telemetry
         is (gauges the worst shard, counters summed), with the per-shard
-        breakdown, so a drifting sub-distribution is attributable.  No
-        sharded re-key or migration runs here (ROADMAP A11b): their
-        fields read inactive and zero."""
+        breakdown, so a drifting sub-distribution is attributable, and
+        the state and counts of the re-key and the migration."""
         per = [idx.drift_signals() for idx in self.shards]
         return {
             "max_depth": max(p["max_depth"] for p in per),
@@ -188,19 +583,19 @@ class ShardedFlatAFLI:
             "run_len": sum(p["run_len"] for p in per),
             "run_ratio": max(p["run_ratio"] for p in per),
             "fold_active": any(p["fold_active"] for p in per),
-            "reflow_active": False,
-            "reshard_active": False,
+            "reflow_active": self._reflow is not None,
+            "reshard_active": self._reshard is not None,
             "n_rebuilds": sum(p["n_rebuilds"] for p in per),
-            "n_reflows": 0,
-            "n_reshards": 0,
-            "n_reshard_aborts": 0,
+            "n_reflows": int(self.n_reflows),
+            "n_reshards": int(self.n_reshards),
+            "n_reshard_aborts": int(self.n_reshard_aborts),
             "autoswitch": [p["autoswitch"] for p in per],
             "shards": per,
         }
 
     def reset_telemetry(self) -> None:
         """Zero each shard's serving counters and the router's fan-out
-        counters (gauges stay)."""
+        counters (gauges, the load gauges among them, stay)."""
         for idx in self.shards:
             idx.reset_telemetry()
         for k, v in self._router.items():
@@ -288,6 +683,7 @@ class ShardedFlatAFLI:
         before finishing any, each on its shard's stream, and return a
         finisher that gathers the parts in input order."""
         segs, inv = fanout_plan(sids, self.n_shards)
+        self._note_load(segs, write=False)
         ik64 = np.asarray(ik64, dtype=np.float64)
         finishers = []
         for s, seg in enumerate(segs):
@@ -309,14 +705,17 @@ class ShardedFlatAFLI:
     def lookup_batch_async(self, keys: np.ndarray,
                            ikeys: np.ndarray | None = None):
         """Non-blocking ``lookup_batch``: route, fan out to every shard,
-        and return the gather as a finisher."""
+        and return the gather as a finisher.  A migration in flight is
+        advanced after the fan-out, while the batch's kernels run."""
         k64 = np.asarray(keys, dtype=np.float64)
         ik64 = k64 if ikeys is None else np.asarray(ikeys, dtype=np.float64)
         z32 = k64.astype(np.float32)
         sids = self._route_points(z32)
         self._router["point_batches"] += 1
         self._router["point_queries"] += int(k64.shape[0])
-        return self._fanout_points_async(z32, ik64, sids)
+        finish = self._fanout_points_async(z32, ik64, sids)
+        self._reshard_tick(int(k64.shape[0]))
+        return finish
 
     def lookup_batch(self, keys: np.ndarray,
                      ikeys: np.ndarray | None = None) -> np.ndarray:
@@ -331,7 +730,9 @@ class ShardedFlatAFLI:
         z, sids = self._route_flow(feats, packed_w, shapes)
         self._router["point_batches"] += 1
         self._router["point_queries"] += int(z.shape[0])
-        return self._fanout_points_async(z, ikeys, sids)
+        finish = self._fanout_points_async(z, ikeys, sids)
+        self._reshard_tick(int(z.shape[0]))
+        return finish
 
     def lookup_batch_flow(self, feats: np.ndarray, ikeys: np.ndarray,
                           packed_w, shapes) -> np.ndarray:
@@ -353,6 +754,7 @@ class ShardedFlatAFLI:
         pv = np.asarray(payloads, dtype=np.int32)
         segs, _inv = fanout_plan(self._route_points(k64.astype(np.float32)),
                                  self.n_shards)
+        self._note_load(segs, write=True)
         self._router["write_batches"] += 1
         self._router["write_keys"] += int(k64.shape[0])
         for s, seg in enumerate(segs):
@@ -362,6 +764,8 @@ class ShardedFlatAFLI:
                 continue
             self._write_barrier(s)
             self.shards[s].insert_batch(k64[seg], pv[seg], ikeys=ik64[seg])
+        self._reflow_tick(int(k64.shape[0]))
+        self._reshard_tick(int(k64.shape[0]))
 
     def delete_batch(self, keys: np.ndarray,
                      ikeys: np.ndarray | None = None) -> np.ndarray:
@@ -371,6 +775,7 @@ class ShardedFlatAFLI:
         ik64 = k64 if ikeys is None else np.asarray(ikeys, dtype=np.float64)
         segs, inv = fanout_plan(self._route_points(k64.astype(np.float32)),
                                 self.n_shards)
+        self._note_load(segs, write=True)
         self._router["write_batches"] += 1
         self._router["write_keys"] += int(k64.shape[0])
         parts = []
@@ -382,6 +787,8 @@ class ShardedFlatAFLI:
             self._write_barrier(s)
             parts.append(self.shards[s].delete_batch(k64[seg],
                                                      ikeys=ik64[seg]))
+        self._reflow_tick(int(k64.shape[0]))
+        self._reshard_tick(int(k64.shape[0]))
         if not parts:
             return np.zeros(k64.shape[0], bool)
         return np.concatenate(parts)[inv]
@@ -440,6 +847,7 @@ class ShardedFlatAFLI:
         sub_cnt = np.empty(m, np.int32)
         sub_tot = np.empty(m, np.int64)
         segs, _inv = fanout_plan(sid, self.n_shards)
+        self._note_load(segs, write=False)
         for s, seg in enumerate(segs):
             c = int(seg.shape[0])
             self._router["per_shard_ranges"][s] += c
@@ -475,7 +883,13 @@ class ShardedFlatAFLI:
     # ---------------------------------------------------------------- misc
     def rebuild(self) -> None:
         """Fold every shard's write tiers into its tree now (maintenance
-        and test hook; serving relies on the per-shard folds)."""
+        and test hook; serving relies on the per-shard folds).  A
+        migration or a re-key in flight is driven to its swap (or its
+        abort) first: folding the old shards would waste their work."""
+        while self._reshard is not None:
+            self._reshard_tick(1 << 50)
+        while self._reflow is not None:
+            self._reflow_tick(1 << 50)
         for s, idx in enumerate(self.shards):
             self._write_barrier(s)
             idx.rebuild()
@@ -494,8 +908,9 @@ class ShardedFlatAFLI:
 
     def stats(self) -> dict:
         """The shards' ``stats()`` (with each shard's AutoSwitch verdict),
-        their serving blocks summed (gauges: the largest shard's), and
-        the router's fan-out counters."""
+        their serving blocks summed (gauges: the largest shard's), the
+        re-key's and the migration's state and counts, the load gauges,
+        and the router's fan-out counters."""
         per = []
         for idx in self.shards:
             st = idx.stats()
@@ -508,7 +923,13 @@ class ShardedFlatAFLI:
             "boundaries": self.boundaries.tolist(),
             "devices": [str(d) for d in self.devices],
             "fold_active": any(st["fold_active"] for st in per),
+            "reflow_active": self._reflow is not None,
+            "reshard_active": self._reshard is not None,
             "n_rebuilds": self.n_rebuilds,
+            "n_reflows": self.n_reflows,
+            "n_reshards": self.n_reshards,
+            "n_reshard_aborts": self.n_reshard_aborts,
+            "load": self.load_snapshot(),
             "n_shadowed": self.n_shadowed,
             "max_depth": max((st["max_depth"] for st in per), default=1),
             "delta_len": sum(st["delta_len"] for st in per),

@@ -482,7 +482,7 @@ def test_host_sync_contract_clean_on_the_real_tree_cpu():
     assert st["ops.fused_range_scan"]["max_per_call"] == 1
     assert {f.key() for f in rep.allowed()} >= {
         "host-sync ops.fused_range_scan ops.py:122",
-        "host-sync FlatAFLI.scan_batch flat_afli.py:1320"}
+        "host-sync FlatAFLI.scan_batch flat_afli.py:1332"}
 
 
 def test_reflow_episode_syncs_counted_and_allowlisted():
@@ -514,6 +514,37 @@ def test_reflow_episode_syncs_counted_and_allowlisted():
     assert {"host-sync FlatAFLI.start_reflow ops.py:68",
             "host-sync ReflowManager.tick ops.py:68",
             "host-sync ReflowManager.tick train_flow.py:135"} <= keys
+    assert all(f.entry in names for f in rep.allowed())
+
+
+def test_sharded_episode_entries_dispatch_and_hold_or_are_allowlisted():
+    """The sharded episodes' four entries dispatch in the CPU world (its
+    migration step and its sharded re-flow episode); the boundary splice
+    and the reshard tick hold their budget of 0, and every sync of the
+    two starts past their budgets is allowlisted with its ROADMAP item."""
+    names = ("ShardedFlatAFLI.start_reflow", "ShardedFlatAFLI.start_reshard",
+             "ShardedFlatAFLI._refresh_boundaries", "ReshardManager.tick")
+    entries = tuple(e for e in contracts.ENTRY_POINTS if e.name in names)
+    assert [e.budget for e in entries] == [1, 0, 0, 0]
+    rep = tfind.Report(allowlist=tfind.load_allowlist(DEFAULT_ALLOWLIST))
+    out = contracts.run_host_sync_checks(rep, "cpu", entries=entries,
+                                         profile=False)
+    assert rep.ok, rep.render()
+    st = out["syncs"]
+    assert st["ShardedFlatAFLI.start_reflow"]["calls"] == 1
+    assert st["ShardedFlatAFLI.start_reshard"]["calls"] == 1
+    assert st["ShardedFlatAFLI._refresh_boundaries"]["calls"] == 1
+    assert st["ReshardManager.tick"]["calls"] >= 1
+    for name in ("ShardedFlatAFLI._refresh_boundaries",
+                 "ReshardManager.tick"):
+        assert st[name]["max_per_call"] == 0, name
+    for name in ("ShardedFlatAFLI.start_reflow",
+                 "ShardedFlatAFLI.start_reshard"):
+        assert st[name]["max_per_call"] > 1, name      # over its budget
+    keys = {f.key() for f in rep.allowed()}
+    assert {"host-sync ShardedFlatAFLI.start_reflow ops.py:68",
+            "host-sync ShardedFlatAFLI.start_reshard serving_state.py:112"
+            } <= keys
     assert all(f.entry in names for f in rep.allowed())
 
 

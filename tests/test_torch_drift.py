@@ -1,9 +1,9 @@
 """repro_torch drift telemetry and background re-flow (DESIGN.md §14) on
 the CPU, against the JAX package and a dict oracle.
 
-Mirrors ``tests/test_drift.py`` (all its test functions but the sharded
-re-flow, ROADMAP A11b) on the port, and holds the port to the JAX
-package on shared numpy inputs:
+Mirrors ``tests/test_drift.py`` (all its test functions, the sharded
+re-flow among them) on the port, and holds the port to the JAX package
+on shared numpy inputs:
 
 - ``DriftMonitor``: reservoir, ``sample()`` and ``should_check()`` equal
   after the same keys and seed;
@@ -16,6 +16,10 @@ package on shared numpy inputs:
   after ``rebuild()``.  The shadow counts are reported, not compared
   (the JAX verify runs through XLA, which rounds the slot arithmetic
   differently on rint boundaries);
+- ``ShardedFlatAFLI.start_reflow(np.log1p, ...)`` on the same sharded
+  keys and writes in both packages: the re-derived boundaries and every
+  candidate shard's pools bit-equal at the swap, every answer the
+  oracle's;
 - the flow-on ``NFL`` legs check each package against the dict oracle:
   the two packages' trainers start from different initial weights, so
   their episodes are not held to each other.
@@ -32,6 +36,7 @@ import repro.core.drift as jdrift
 from repro.core import flat_afli as jfa
 from repro.core import nfl as j_nfl
 from repro.core.flow import FlowConfig as JFlowConfig
+from repro.core.sharded_nfl import ShardedFlatAFLI as JSharded
 from repro.core.train_flow import FlowTrainConfig as JTrainConfig
 
 import repro_torch.core.drift as tdrift
@@ -40,6 +45,7 @@ from repro_torch.core.drift import DriftConfig, DriftMonitor
 from repro_torch.core.flat_afli import FlatAFLI, FlatAFLIConfig
 from repro_torch.core.flow import FlowConfig
 from repro_torch.core.nfl import NFL, NFLConfig
+from repro_torch.core.sharded_nfl import ShardedFlatAFLI
 from repro_torch.core.train_flow import FlowTrainConfig
 
 torch.set_num_threads(1)
@@ -595,6 +601,109 @@ def test_nfl_flow_to_identity_switch():
     assert not nfl.use_flow
     assert d["signals"]["autoswitch"]["use_flow"] is False
     _check_all(nfl, oracle)
+
+
+def test_nfl_sharded_reflow_end_to_end():
+    rng, base, pv, hi, batches = _base_and_drift(seed=5, n_base=5000,
+                                                 n_drift=3000)
+    nfl = NFL(NFLConfig(
+        backend="flat", shards=2, force_flow=True, flow=FlowConfig(),
+        flow_train=FlowTrainConfig(epochs=1),
+        flat_index=FlatAFLIConfig(fold_step_keys=1024),
+        drift=DriftConfig(reflow=True, threshold=1.5, min_tail=2,
+                          check_every=512, window_keys=2048,
+                          cooldown_keys=1024, train_epochs=1,
+                          steps_per_tick=8)), device="cpu")
+    nfl.bulkload(base, pv)
+    b_before = np.asarray(nfl.index.boundaries).copy()
+    oracle = dict(zip(base.tolist(), pv.tolist()))
+    _storm(nfl, oracle, batches, rng, probe_every=2)
+    _drain(nfl, oracle, hi)
+    d = nfl.dispatch_stats()["drift"]
+    assert d["reflows_completed"] >= 1
+    st = nfl.index.stats()
+    assert st["n_reflows"] >= 1 and not st["reflow_active"]
+    b_after = np.asarray(nfl.index.boundaries)
+    assert b_after.shape == b_before.shape
+    assert not np.array_equal(b_after, b_before), \
+        "router boundaries were not re-derived at the swap"
+    _check_all(nfl, oracle)
+    # per-shard drift signals stay attributable after the swap, and the
+    # fold-built candidates carry a fresh AutoSwitch verdict (a candidate
+    # never runs build(), where the verdict lands otherwise)
+    sig = d["signals"]
+    assert len(sig["shards"]) == 2 and len(sig["autoswitch"]) == 2
+    for sw in sig["autoswitch"]:
+        assert sw["use_flow"] is not None
+        assert sw["tail_original"] >= 1 and sw["tail_transformed"] >= 1
+
+
+def test_sharded_start_reflow_matches_jax():
+    """``ShardedFlatAFLI.start_reflow(np.log1p)`` on the same keys and
+    writes in both packages: refused while in flight, the writes made
+    during the episode held and re-keyed at the swap, every answer the
+    oracle's before and after, and at the swap the re-derived boundaries
+    (``boundaries_new``) and every candidate's pools, bucket tail,
+    verdict and key count bit-equal."""
+    rng = np.random.default_rng(31)
+    keys = np.unique(rng.lognormal(0, 2, 4000) * 1e6)
+    pv = np.arange(keys.shape[0], dtype=np.int64)
+    cfg = dict(fold_step_keys=64, fold_work_factor=1.0)
+    pt = ShardedFlatAFLI(FlatAFLIConfig(**cfg), n_shards=4, device="cpu")
+    jx = JSharded(jfa.FlatAFLIConfig(**cfg), n_shards=4)
+    oracle = dict(zip(keys.tolist(), pv.tolist()))
+    new = np.unique(rng.lognormal(0, 2, 400) * 1e6)
+    new = new[~np.isin(new, keys)]
+    nv = np.arange(new.shape[0], dtype=np.int64) + 10 ** 6
+    dels = rng.choice(keys, 100, replace=False)
+    for side in (pt, jx):
+        side.build(keys, pv)
+        side.insert_batch(new[:300], nv[:300])
+        assert side.delete_batch(dels).all()
+    oracle.update(zip(new[:300].tolist(), nv[:300].tolist()))
+    for k in dels.tolist():
+        del oracle[k]
+    swaps = {"jax": 0, "torch": 0}
+    for name, side in (("jax", jx), ("torch", pt)):
+        assert side.start_reflow(np.log1p, None,
+                                 lambda n=name: swaps.__setitem__(
+                                     n, swaps[n] + 1))
+        assert not side.start_reflow(np.log1p, None, lambda: None)
+        assert not side.start_reshard(0, 1, lambda: None)
+    assert np.array_equal(pt._reflow.boundaries_new,
+                          jx._reflow.boundaries_new)
+    # writes during the episode carry the old positioning keys; the
+    # calls are too small to finish a candidate in either package
+    held = new[300:]
+    for a in range(0, held.shape[0], 8):
+        k, v = held[a:a + 8], nv[300 + a:300 + a + 8]
+        for side in (jx, pt):
+            side.insert_batch(k, v)
+            assert side._reflow is not None, "a candidate finished early"
+            got = side.lookup_batch(k)
+            assert np.array_equal(got, v)
+        oracle.update(zip(k.tolist(), v.tolist()))
+    for side in (jx, pt):
+        while side._reflow is not None:
+            side._reflow_tick(1 << 50)
+    assert swaps == {"jax": 1, "torch": 1}
+    assert pt.n_reflows == jx.n_reflows == 1
+    assert np.array_equal(pt.boundaries, jx.boundaries)
+    live = np.array(sorted(oracle))
+    want = np.array([oracle[k] for k in live.tolist()])
+    z = np.log1p(live).astype(np.float32)
+    for side in (pt, jx):
+        assert np.array_equal(side.lookup_batch(z, ikeys=live), want)
+        assert side.n_keys == live.shape[0]
+    for t, j in zip(pt.shards, jx.shards):
+        assert t.d_tail == j.d_tail and t.autoswitch == j.autoswitch
+        assert t.n_keys == j.n_keys
+        for field, x, y in zip(j.arrays._fields, j.arrays, t.arrays):
+            x = np.asarray(x)
+            assert x.dtype == y.dtype and np.array_equal(x, y), field
+    print("shadowed at the sharded re-flow swap (port, jax):",
+          [(t.n_shadowed, int(j._run_pk.shape[0]))
+           for t, j in zip(pt.shards, jx.shards)])
 
 
 # ----------------------------------------------- flat-index re-key (no NFL)

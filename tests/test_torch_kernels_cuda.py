@@ -745,6 +745,248 @@ def test_reflow_on_card_matches_cpu(cuda, candidate):
             assert np.array_equal(z, live.astype(np.float32)), d
 
 
+def _device_spans(obj, out, seen):
+    """The (address, bytes) of every CUDA tensor reachable from ``obj``
+    (a shard's tree pools and write tiers: what a point read reads)."""
+    if isinstance(obj, torch.Tensor):
+        if obj.is_cuda and id(obj) not in seen:
+            seen.add(id(obj))
+            out.append((obj.data_ptr(), obj.numel() * obj.element_size()))
+        return
+    if isinstance(obj, (list, tuple)):
+        for x in obj:
+            _device_spans(x, out, seen)
+    elif hasattr(obj, "__dict__"):
+        for x in vars(obj).values():
+            _device_spans(x, out, seen)
+
+
+def test_migration_swap_waits_for_reads_in_flight_on_card(cuda):
+    """A migration swap drops its window's shards, and a freeze rewrites
+    their tiers, while a read batch is still in flight on their streams;
+    the batch must read the state it was dispatched into
+    (``swap_under_reads``).  It runs in a child
+    process with ``CUDA_DEVICE_MAX_CONNECTIONS=32``: with the default 8
+    hardware queues the caller's stream can share a queue with a shard
+    stream, and its work then waits for the shard's reads anyway, which
+    hides the hazard (seen on the H100)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    path = [str(here), str(here.parent / "src"), os.environ.get("PYTHONPATH", "")]
+    env = dict(os.environ, CUDA_DEVICE_MAX_CONNECTIONS="32",
+               PYTHONPATH=os.pathsep.join(p for p in path if p))
+    out = subprocess.run(
+        [sys.executable, "-c", "import test_torch_kernels_cuda as t; "
+         "t.swap_under_reads()"], env=env, capture_output=True, text=True,
+        timeout=900)
+    print(out.stdout)
+    assert out.returncode == 0, out.stdout + out.stderr[-4000:]
+
+
+def _fill_caller_pools(cuda) -> None:
+    """Fill the current stream's allocator pools, large and small, so
+    that what follows allocates from cache (a ``cudaMalloc`` waits for
+    the whole device)."""
+    big = torch.empty(3 << 30, dtype=torch.uint8, device=cuda)
+    small_blocks = [torch.empty((1 << 20) - 512, dtype=torch.uint8,
+                                device=cuda) for _ in range(256)]
+    del big, small_blocks
+    torch.cuda.synchronize()
+
+
+def _dispatch_spun(nfl, q, caller):
+    """``nfl.lookup_batch_async(q)`` with each shard's ``fused_lookup``
+    queued behind a ~0.5 s spin on its stream; returns the finisher."""
+    real = ops.fused_lookup
+
+    def spun(*a, **k):
+        if torch.cuda.current_stream() != caller:
+            torch.cuda._sleep(1_000_000_000)
+        return real(*a, **k)
+
+    ops.fused_lookup = spun
+    try:
+        return nfl.lookup_batch_async(q)
+    finally:
+        ops.fused_lookup = real
+
+
+def _overwrite_free(cuda, caller, spans):
+    """Take back every free block of the caller's stream, largest first
+    (best fit then hands out each block whole), and fill it with junk.
+    Returns the junk tensors and how many of ``spans`` they cover."""
+    free = sorted((b["size"] for seg in torch.cuda.memory_snapshot()
+                   if seg["stream"] == caller.cuda_stream
+                   for b in seg["blocks"] if b["state"] == "inactive"),
+                  reverse=True)
+    junk = [torch.empty(n, dtype=torch.uint8, device=cuda).fill_(0xF9)
+            for n in free]
+    covered = sum(any(j.data_ptr() <= a and a + n <= j.data_ptr()
+                      + j.numel() for j in junk) for a, n in spans)
+    return junk, covered
+
+
+def swap_under_reads(n_keys: int = 200_000) -> None:
+    """A sharded episode's two stream hazards on the card, each with a
+    read batch held in flight on the old shards' streams: the migration
+    swap (``_swap_leg``) and the freeze (``_freeze_leg``), each inside
+    the ``lookup_batch_async`` call that fans the batch out.  The caller
+    serves from a stream of its own, as a server thread would, with its
+    allocator pools filled first: work on the legacy default stream and
+    a ``cudaMalloc`` (a cache miss in the episode's own work) both wait
+    for the whole device, and either would let the reads finish first.
+    Raises AssertionError on a wrong read or an unmet precondition;
+    prints one line a leg."""
+    cuda = torch.device("cuda")
+    caller = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(caller):
+        keys = make_dataset("lognormal", n_keys)
+        pv = np.arange(keys.shape[0], dtype=np.int64)
+        _swap_leg(cuda, caller, keys, pv)
+        _freeze_leg(cuda, caller, keys, pv)
+
+
+def _swap_leg(cuda, caller, keys, pv) -> None:
+    """``[0, 1]`` swaps inside the call that fans the read batch out.
+    Right after the swap every free block of the caller's stream is taken
+    back and overwritten; the old window's pools and tiers must be among
+    them, and the shard streams must still be busy.  The batch must
+    still read the state it was dispatched into: the swap makes the
+    caller's stream wait on the dropped shards' streams first."""
+    from repro_torch.kernels.shard_dispatch import fanout_plan, route
+    nfl = NFL(NFLConfig(backend="flat", shards=4, force_flow=False,
+                        flow_train=FlowTrainConfig(epochs=1)), device=cuda)
+    nfl.bulkload(keys[::2], pv[::2])
+    idx = nfl.index
+    # writes held in the window's deltas across the episode
+    n_held = 2048
+    nfl.insert_batch(keys[1::2][:n_held], pv[1::2][:n_held])
+    expect = np.where(pv % 2 == 0, pv, -1)
+    expect[1::2][:n_held] = pv[1::2][:n_held]
+    swaps = []
+    assert idx.start_reshard(0, 1, lambda: swaps.append(1))
+    nfl.insert_batch(keys[1::2][n_held:2 * n_held],
+                     pv[1::2][n_held:2 * n_held])
+    expect[1::2][n_held:2 * n_held] = pv[1::2][n_held:2 * n_held]
+    small = keys[::2][:64]
+
+    def nearly_done():
+        folds = [f for f in idx._reshard.folds if f is not None]
+        return folds and all(f.phase == "verify" and len(f.chunks) <= 1
+                             for f in folds)
+
+    while not nearly_done():
+        assert np.array_equal(nfl.lookup_batch(small), pv[::2][:64])
+        assert idx._reshard is not None, "the episode swapped early"
+    q = keys
+    # the batch's per-shard reads once, straight on the shards (no
+    # tick): their result buffers and uploads are cached from here on
+    segs, _inv = fanout_plan(route(q.astype(np.float32),
+                                   idx.boundaries), idx.n_shards)
+    for s, seg in enumerate(segs):
+        if seg.shape[0]:
+            idx.shards[s].lookup_batch_async(q[seg],
+                                             stream=idx.streams[s])()
+    spans, seen = [], set()
+    for s in (0, 1):
+        sv = idx.shards[s]._serving
+        _device_spans([sv.tree_pools, sv.run, sv.delta], spans, seen)
+    del sv
+    old = [id(s) for s in idx.shards]
+    _fill_caller_pools(cuda)
+    finish = _dispatch_spun(nfl, q, caller)
+    assert swaps == [1] and idx._reshard is None
+    assert [id(s) for s in idx.shards][2:] == old[2:]
+    junk, covered = _overwrite_free(cuda, caller, spans)
+    busy = [not st.query() for st in idx.streams[:2]]
+    got = finish()
+    del junk
+    wrong = int((got != expect).sum())
+    print(f"swap under reads: old window's read spans overwritten "
+          f"{covered} of {len(spans)}; shard streams busy after the "
+          f"overwrite {busy}; wrong reads {wrong} of {q.shape[0]}",
+          flush=True)
+    assert any(busy), "the reads were not held behind the spin"
+    assert covered, "no block of the old window was handed out again"
+    assert wrong == 0, f"{wrong} reads saw the swap's freed memory"
+    assert np.array_equal(nfl.lookup_batch(q), expect)
+
+
+def _freeze_leg(cuda, caller, keys, pv) -> None:
+    """``[0, 1]`` freezes inside the call that fans the read batch out,
+    as the reshard manager starts a migration from a read call.  Shard
+    0 has a fold of its own in flight and a delta past its run tier's
+    spare room, so the freeze's merge reallocates the run tier, frees
+    the old one to the caller's stream and empties the delta in place.
+    Those blocks are then overwritten at once.  The batch must still
+    read the state it was dispatched into: the freeze makes the caller's
+    stream wait on the frozen shards' streams first."""
+    # a slow fold: it stays in flight across the writes below
+    cfg = FlatAFLIConfig(delta_cap=256, fold_step_keys=256,
+                         fold_work_factor=0.01)
+    nfl = NFL(NFLConfig(backend="flat", shards=4, force_flow=False,
+                        flat_index=cfg, flow_train=FlowTrainConfig(epochs=1)),
+              device=cuda)
+    nfl.bulkload(keys[::2], pv[::2])
+    idx = nfl.index
+    expect = np.where(pv % 2 == 0, pv, -1)
+    odd = np.flatnonzero((pv % 2 == 1)
+                         & (keys.astype(np.float32) < idx.boundaries[0]))
+    sh = idx.shards[0]
+    i = 0
+    while sh._fold is None:
+        nfl.insert_batch(keys[odd[i:i + 512]], pv[odd[i:i + 512]])
+        i += 512
+        assert i < odd.shape[0], "shard 0 never started a fold"
+    rest = odd[i:]
+    nfl.insert_batch(keys[rest], pv[rest])
+    expect[odd] = pv[odd]
+    run = sh._serving.run
+    room = run.capacity - sh._run_pk.shape[0]
+    assert sh._fold is not None and sh._delta_pk.shape[0] > room, (
+        "the freeze's merge would not reallocate shard 0's run tier")
+    q = keys
+    assert np.array_equal(nfl.lookup_batch(q), expect)
+    spans, seen = [], set()
+    _device_spans([run.pk, run.hi, run.lo, run.pv], spans, seen)
+    old_run = run.pk.data_ptr()
+    del run
+    _fill_caller_pools(cuda)
+    busy_at_freeze = []
+    note = nfl._reshard_note
+
+    def freeze(n_keys):
+        busy_at_freeze.extend(not st.query() for st in idx.streams[:2])
+        assert idx.start_reshard(0, 1, lambda: None)
+        note(n_keys)
+
+    nfl._reshard_note = freeze
+    try:
+        finish = _dispatch_spun(nfl, q, caller)
+    finally:
+        nfl._reshard_note = note
+    assert idx._reshard is not None and sh._tier_hold
+    moved = sh._serving.run.pk.data_ptr() != old_run
+    junk, covered = _overwrite_free(cuda, caller, spans)
+    got = finish()
+    del junk
+    wrong = int((got != expect).sum())
+    print(f"freeze under reads: shard 0's run tier reallocated {moved}, "
+          f"its old spans overwritten {covered} of {len(spans)}; shard "
+          f"streams busy at the freeze {busy_at_freeze}; wrong reads "
+          f"{wrong} of {q.shape[0]}", flush=True)
+    assert any(busy_at_freeze), "the reads were not held behind the spin"
+    assert moved, "the freeze did not reallocate shard 0's run tier"
+    assert covered, "no block of the old run tier was handed out again"
+    assert wrong == 0, f"{wrong} reads saw the freeze's rewrite"
+    idx.rebuild()
+    assert np.array_equal(nfl.lookup_batch(q), expect)
+
+
 def test_trainer_on_card_matches_cpu(cuda):
     keys = make_dataset("lognormal", 20_000)
     a = FlowTrainer(keys, FlowConfig(), FlowTrainConfig(epochs=3),

@@ -3,8 +3,6 @@ bulkload and lookups against ground truth, the AutoSwitch verdict against
 the JAX package given the same flow, and the device rules of the entry
 points."""
 
-import dataclasses
-
 import jax
 import numpy as np
 import pytest
@@ -15,7 +13,7 @@ from repro.core.flow import FlowConfig as JFlowConfig
 from repro.core.train_flow import FlowTrainConfig as JTrainConfig
 
 import repro_torch.core.nfl as t_nfl
-from repro_torch.core.drift import DriftConfig
+from repro_torch.core.drift import DriftConfig, ReshardConfig
 from repro_torch.core.flat_afli import FlatAFLI
 from repro_torch.core.flow import FlowConfig, init_flow
 from repro_torch.core.train_flow import FlowTrainConfig, FlowTrainer, train_flow
@@ -25,13 +23,6 @@ from repro_torch.kernels import ops
 from repro_torch.weights import params_from_numpy
 
 torch.set_num_threads(1)
-
-
-@dataclasses.dataclass(frozen=True)
-class ReshardStub:
-    """A reshard config that asks for the migration (ROADMAP A11b)."""
-
-    enabled: bool = False
 
 
 def _cfg(**kw):
@@ -125,26 +116,61 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     ({"backend": "afli"}, "A13"),
     ({"backend": "flat", "shards": 2,
       "drift": DriftConfig(reflow=True)}, "A11b"),
-    ({"backend": "flat", "reshard": ReshardStub(enabled=True)}, "A11b")])
+    ({"backend": "flat", "shards": 4,
+      "reshard": ReshardConfig(enabled=True)}, "A11b")])
 def test_unported_configs_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        t_nfl.NFL(t_nfl.NFLConfig(**kw), device="cpu")
+    """A config of a part not yet ported raises, naming its ROADMAP item.
+    The sharded re-flow and resharding (A11b) raised so until they were
+    ported: their configs now build their manager on the sharded index,
+    both managers sharing one exclusion token, and serve a bulk load;
+    resharding a single index is refused as in the JAX package."""
+    if item != "A11b":
+        with pytest.raises(NotImplementedError, match=item):
+            t_nfl.NFL(t_nfl.NFLConfig(**kw), device="cpu")
+        return
+    keys = make_dataset("lognormal", 3000)
+    nfl = t_nfl.NFL(t_nfl.NFLConfig(flow_train=FlowTrainConfig(epochs=1),
+                                    force_flow=False, **kw), device="cpu")
+    reshard = kw.get("reshard") is not None
+    mgr = nfl._reshard if reshard else nfl._reflow
+    assert mgr is not None and mgr.exclusion is nfl._exclusion
+    nfl.bulkload(keys, np.arange(keys.shape[0]))
+    assert np.array_equal(nfl.lookup_batch(keys), np.arange(keys.shape[0]))
+    ds = nfl.dispatch_stats()
+    assert ds["drift"]["enabled"] and ds["reshard"]["enabled"] == reshard
+    if reshard:
+        assert nfl.index.load_window_keys == ReshardConfig().load_window_keys
+        assert ds["reshard"]["load"]["n_keys"] == [
+            int(s.n_keys) for s in nfl.index.shards]
+        with pytest.raises(ValueError, match="shards > 1"):
+            t_nfl.NFL(_cfg(reshard=ReshardConfig(enabled=True)),
+                      device="cpu")
 
 
 def test_unported_operations_raise():
-    """The single index re-keys (A11a); the sharded re-key, the boundary
-    migration and its load gauges wait for A11b."""
+    """The operations that raised until A11b was ported now run: the
+    single index re-keys (A11a); the sharded index re-keys across its
+    shards, migrates a window of them and reports its load gauges
+    (A11b), each serving the same answers after."""
     keys = make_dataset("lognormal", 3000)
+    pv = np.arange(keys.shape[0])
     nfl = t_nfl.NFL(_cfg(force_flow=False, shards=2), device="cpu")
-    nfl.bulkload(keys, np.arange(keys.shape[0]))
-    for call in (lambda: nfl.index.start_reflow(lambda k: k, None,
-                                                lambda: None),
-                 lambda: nfl.index.start_reshard(0, 1, None),
-                 nfl.index.load_snapshot):
-        with pytest.raises(NotImplementedError, match="A11b"):
-            call()
+    nfl.bulkload(keys, pv)
+    idx = nfl.index
+    snap = idx.load_snapshot()
+    assert snap["n_keys"] == [int(s.n_keys) for s in idx.shards]
+    assert sum(snap["reads"]) == 0 and sum(snap["writes"]) == 0
+    seen = []
+    assert idx.start_reshard(0, 1, lambda: seen.append("reshard"))
+    idx.rebuild()
+    assert idx.start_reflow(lambda k: np.asarray(k, np.float64), None,
+                            lambda: seen.append("reflow"))
+    idx.rebuild()
+    assert seen == ["reshard", "reflow"]
+    assert idx.n_reshards == idx.n_reflows == 1
+    assert np.array_equal(nfl.lookup_batch(keys), pv)
     single = t_nfl.NFL(_cfg(force_flow=False), device="cpu")
-    single.bulkload(keys, np.arange(keys.shape[0]))
+    single.bulkload(keys, pv)
     assert single.index.start_reflow(lambda k: k, None, lambda: None)
 
 

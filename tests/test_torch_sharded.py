@@ -396,6 +396,9 @@ def test_per_shard_autoswitch_divergence():
 
 
 def test_stats_aggregation_and_unported_parts():
+    """stats() and the telemetry aggregate the shards' blocks; the parts
+    that were not ported until A11b (the load gauges, the re-key's and
+    the migration's fields) read as ported."""
     keys, pv = _keyset(7)
     nfl = _mk(2, keys, pv)
     nfl.lookup_batch(keys[:256])
@@ -420,13 +423,27 @@ def test_stats_aggregation_and_unported_parts():
     assert len(sig["shards"]) == 2 and not sig["reflow_active"]
     assert sig["n_reflows"] == sig["n_reshards"] == 0
     assert sig["run_len"] == st["run_len"]
+    # the load gauges: the bulk load's verify and the 256 reads are read
+    # load, the scan's sub-ranges too; no writes yet
+    load = nfl.index.load_snapshot()
+    assert st["load"] == load and load["writes"] == [0.0, 0.0]
+    assert sum(load["reads"]) > 0
+    assert [t["load"] for t in tel["shards"]] == [
+        {"reads": r, "writes": w} for r, w in zip(load["reads"],
+                                                  load["writes"])]
+    assert not (st["reflow_active"] or st["reshard_active"])
+    assert st["n_reflows"] == st["n_reshards"] == st["n_reshard_aborts"] == 0
     nfl.index.reset_telemetry()
     assert nfl.index.stats()["router"]["point_batches"] == 0
-    for call in (lambda: nfl.index.start_reflow(None, None, None),
-                 lambda: nfl.index.start_reshard(0, 1, None),
-                 nfl.index.load_snapshot):
-        with pytest.raises(NotImplementedError, match="A11b"):
-            call()
+    # the gauges are state: the reset leaves them
+    assert nfl.index.load_snapshot() == load
+    # a migration in flight shows in stats() and the drift signals
+    assert nfl.index.start_reshard(0, 1, lambda: None)
+    sig = nfl.dispatch_stats()["drift"]["signals"]
+    assert nfl.index.stats()["reshard_active"] and sig["reshard_active"]
+    nfl.index.rebuild()
+    sig = nfl.dispatch_stats()["drift"]["signals"]
+    assert not sig["reshard_active"] and sig["n_reshards"] == 1
 
 
 # ----------------------------------------------------------- async reads
