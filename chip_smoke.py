@@ -54,6 +54,27 @@ Phases (any failure exits non-zero before the result lines):
        the streamed rung;
    s3. after 2e, the router was rebuilt for the folded scan pool, and s1
        again with the deleted keys in place of the misses.
+   f. the SLO front end (``serve.frontend.FrontEnd``, ``FE_CFG``: batches
+      of up to 4,096, a 1 ms fill timeout, two read batches in flight)
+      over the same index: C, the requests/s of a standing burst of
+      65,536 point requests (slack deadlines, admission off); P, 131,072
+      point requests (zipf 0.99 over the live keys, 1% unloaded keys)
+      with Poisson arrivals at 0.5 C and a 20 ms deadline, then the same
+      trace at 0.25 C; O, the trace at 2 C with admission on (something
+      shed or expired, every completed read on time) and off; M, 1,024
+      requests 70% point, 10% range (2d's), 15% insert, 5% delete; F,
+      a mixed trace of 4,096 under device and fold stalls over a fold
+      started just before it (its write calls tick the fold: every tick
+      stalled), and two point-only traces of 4,096 under a transient
+      error every 3rd dispatch (retried) and every dispatch (every
+      request shed ``"error"``, 1,024 live keys read the same before and
+      after).  The JAX plan's ``force_oracle`` has no counterpart.  M is
+      cut to fit the time limit (PERF.md §4).  Each leg's batches are
+      logged by ``on_batch_dispatched`` and replayed in that order
+      against the live keys with the trace's writes applied where they
+      dispatched: 0 wrong results, exact accounting, and P's and O's
+      windows launch ``fused_lookup`` once a point batch and nothing
+      else.
 3. ``lognormal`` at 2^22 keys, 2^21 loaded, ``force_flow=False``: reads
    as in 2a; ``write_heavy`` batches until a fold starts and completes
    in-stream, the rung alternating per batch (even batches fused, odd
@@ -77,8 +98,8 @@ Phases (any failure exits non-zero before the result lines):
    swap, shards 2 and 3 the same objects with no repack or upload; the
    router's shard ids after the splice equal the host's route of the
    ground-truth z; 1,024 ranges straddling ``B[0]`` before, during and
-   after; then a migration whose folds fault (``_reshard_fault =
-   "fold"``), rolled back; the card test's swap and freeze under reads
+   after; then a migration whose folds fault (``faults.inject`` of
+   ``FaultPlan(fail_reshard="fold")``), rolled back; the card test's swap and freeze under reads
    held on the old shards' streams, in a child process with 32 hardware
    queues (``swap_under_reads_check``: in this process the legacy
    default stream and shared queues would let the reads finish first,
@@ -119,7 +140,16 @@ Phases (any failure exits non-zero before the result lines):
       starting within 100 ranks below it and ending past it (at least
       3,072 must straddle and merge right);
    e. ``rebuild()``, then the reads, the deleted keys, the misses and one
-      scan batch again.
+      scan batch again;
+   f. 2f's C, P (65,536 requests, at 0.5 C and 0.25 C) and M (2,048)
+      over the four shards:
+      P's window launches the router's ``nf_forward`` once a point batch
+      and ``fused_lookup`` once for each shard a batch reaches by the
+      host route of its ground-truth z; M's ``fused_range_scan`` once
+      for each shard a range batch reaches.
+   Then ``launch.serve.main(["--mode", "index"])``, plain and with
+   ``--fault errors``, in process on the card: each prints its goodput
+   line.
 5. kernels against their plain PyTorch versions on the card, at the
    main path's shapes: ``nf_forward`` on the bulk-load keys (and beside
    its dense PyTorch equivalent, both cold L2) and on the inserts of
@@ -170,8 +200,8 @@ Phases (any failure exits non-zero before the result lines):
 8. result lines: the kernel table as JSON, then the final JSON object
    ``{"ok": true, "device": {...}}``.
 
-The launch counters are zeroed just before each driven step of phases
-2, 3, 4 and 6 (and the fixtures' before the self-test of 1b) and read
+The launch counters are zeroed just before each driven step (each
+front-end leg included) of phases 2, 3, 4 and 6 (and the fixtures' before the self-test of 1b) and read
 just after; the kernels' launches in phases 1b's contract run, 5 and 7
 and those that compute ground truth, replay or compare fall between
 those windows and do not count.  Every window outside the streamed steps must
@@ -254,6 +284,27 @@ HOT_READ_FRAC = 0.6            # phase 4m: reads aimed at shard 0, as there
 MAX_MIGRATE_CALLS = 96         # phase 4m: calls allowed for the swap
 MIGRATE_AFTER = 8              # phase 4m: read calls after the swap
 L2_FLUSH_BYTES = 512 << 20     # ten times the H100's 50 MB L2
+# phases 2f and 4f: the SLO front end (bench_service.py's frontend
+# benchmark, cut to the smoke's time limit)
+FE_CFG = dict(max_batch=4096, batch_timeout_s=1e-3, max_inflight=2)
+FE_CALIBRATE = 65_536          # the standing burst that measures C
+FE_POINTS = 131_072            # 2f: P and O
+FE_POINTS_SHARDED = 65_536     # 4f: P
+# the mixed traces are cut from 16,384 requests (2f M), 8,192 (4f M) and
+# 4,096 (2f's mixed F legs) to fit the time limit: a mixed trace's
+# batches are ~2 requests, each write batch pays the write path's host
+# cost (11 ms a request on an H100 host), and a forced fallback runs the
+# plain versions (51 ms a request; PERF.md §4, §6)
+FE_MIXED = 1_024               # 2f: M
+FE_MIXED_SHARDED = 2_048       # 4f: M
+FE_FAULT = 4_096               # 2f: each leg of the fault ladder
+FE_DEADLINE = 0.02             # P and O: 20 ms
+FE_SLACK = 600.0               # "no deadline pressure"
+FE_MIX = (0.7, 0.1, 0.15, 0.05)  # point, range, insert, delete
+FE_MISS = 0.01                 # reads of unloaded keys (they must miss)
+FE_OWN_READS = 0.1             # mixed reads of keys the trace inserted
+FE_POOL = 1 << 19              # zipf ranks and unloaded keys drawn at once
+FE_READBACK = 1024             # live keys read before and after exhaustion
 SPIN_CYCLES = 400_000          # ~0.2 ms idle spin, longer than a host call
 # exp2 results per SM per clock on compute capability 9.0 (the CUDA C++
 # Programming Guide's table of arithmetic instruction throughput); one
@@ -2204,9 +2255,8 @@ def migration_phase(ln, m, win, dev, card):
     (ok, c_start) = win.run(lambda: idx.start_reshard(
         0, 1, on_swap=lambda: swaps.append(1),
         on_abort=lambda: aborts.append(1)))
-    idx._reshard_fault = "fold"
-    read_call("fault")
-    idx._reshard_fault = None
+    with m.faults.inject(m.faults.FaultPlan(fail_reshard="fold"), nfl=nfl):
+        read_call("fault")
     held = [sh._tier_hold for sh in idx.shards]
     log(f"[{name}] injected fold fault: started {ok}, aborted {aborts}, "
         f"swapped {swaps}, n_reshard_aborts {idx.n_reshard_aborts}, "
@@ -2835,8 +2885,9 @@ def sharded_profile(res, split_key_bits):
     return prof_out
 
 
-def sharded_phase(base, m, win, split_key_bits, dev):
-    """Phase 4: sharded serving, ``NFL(shards=4)`` on one card."""
+def sharded_phase(base, m, win, split_key_bits, dev, card, fronted, wall):
+    """Phase 4: sharded serving, ``NFL(shards=4)`` on one card, then 4f,
+    the front end over it (into ``fronted["4f"]``)."""
     res = sharded_load_and_read(base, m, win)
     nfl = res["nfl"]
     res["batch_shards"] = [batch_shards(res, m, k) for k in res["batches"]]
@@ -2877,6 +2928,10 @@ def sharded_phase(base, m, win, split_key_bits, dev):
     readback(res, res["deleted"], win, "deleted keys after rebuild")
     readback(res, res["miss_keys"], win, "misses after rebuild")
     run_scans(res, win, sk, zs, ps, queries[:1], "after rebuild")
+    t0 = time.perf_counter()
+    fronted["4f"] = frontend_phase(res, m, win, sk, zs, ps, card,
+                                   sharded=True)
+    wall("sharded front end (4f)", t0)
     log(f"[sharded] router counters {json.dumps(st['router'])}")
     log(f"[sharded] end to end against the single index (phase 2): "
         f"lookups/s {res['lookups_per_s']:.0f} vs {base['lookups_per_s']:.0f};"
@@ -2888,6 +2943,465 @@ def sharded_phase(base, m, win, split_key_bits, dev):
     return {key: res[key] for key in ("lookups_per_s", "write", "scan",
                                       "profile", "bulkload_s",
                                       "writes_per_s")}
+
+
+# ------------------------------------------------------ the SLO front end
+def zkeys(nfl, m, keys):
+    """Ground-truth positioning keys: z from the NF kernel (the bulk
+    transform) with the flow on, the f32 key without."""
+    if nfl.use_flow:
+        return m.ops.nf_transform_keys(nfl.flow_params, nfl.normalizer, keys,
+                                       nfl.cfg.flow, nfl.device
+                                       ).astype(np.float32)
+    return keys.astype(np.float32)
+
+
+class FrontTruth:
+    """Ground truth of a front-end phase: the live keys in positioning
+    order with their z and payloads (``scan_truth``), and an overlay of
+    the phase's own writes as they dispatched (deleted base ranks;
+    inserted keys with payload and z).  Also the phase's draws: zipf
+    ranks over the live keys, unloaded keys with their z (misses for
+    reads, fresh keys for inserts) and the base ranks to delete, each
+    used once across the phase's legs."""
+
+    def __init__(self, res, m, sk, zs, ps, seed):
+        self.m, self.nfl, self.name = m, res["nfl"], res["name"]
+        self.sk, self.zs, self.ps = sk, zs, ps
+        self.n = sk.shape[0]
+        self.deleted = set()
+        self.ins = {}                   # key -> (payload, z)
+        rng = np.random.default_rng(seed)
+        cand = rng.choice(res["unloaded"],
+                          min(2 * FE_POOL, res["unloaded"].shape[0]),
+                          replace=False)
+        cand = np.unique(cand[res["truth"].lookup(cand) == -1])
+        rng.shuffle(cand)
+        z = zkeys(self.nfl, m, cand)
+        half = cand.shape[0] // 2
+        self.miss_k, self.miss_z = cand[:half], z[:half]
+        self.fresh_k, self.fresh_z = cand[half:], z[half:]
+        self.zipf = m.zipf_indices(rng, self.n, FE_POOL, 0.99)
+        self.zipf_start = m.zipf_indices(rng, self.n - 101, FE_POOL, 0.99)
+        self.del_order = rng.choice(self.n, FE_POOL, replace=False)
+        self.used = collections.Counter()
+        self.payload = 1_500_000_000
+
+    def _take(self, name, pool, n):
+        i = self.used[name]
+        if i + n > pool.shape[0]:
+            fail(f"front end: the {name} pool ran out")
+        self.used[name] += n
+        return pool[i:i + n]
+
+    def _req(self, rid, op, key, deadline, hi=0.0, payload=0, rank=-1,
+             z=0.0, a=0, b=0, zlo=0.0, zhi=0.0):
+        """A request with its ground truth: the base rank of its key (-1:
+        not a base key), the key's z, a range's base ranks ``[a, b)`` and
+        z bounds."""
+        r = self.m.ServiceRequest(rid, op, float(key), hi=float(hi),
+                                  payload=payload, deadline_s=deadline)
+        r.rank, r.z, r.a, r.b, r.zlo, r.zhi = rank, z, a, b, zlo, zhi
+        return r
+
+    def points(self, rng, n, deadline):
+        """Point requests: zipf 0.99 over the live keys, ``FE_MISS`` of
+        them unloaded keys."""
+        ranks = self._take("zipf", self.zipf, n).copy()
+        miss = rng.random(n) < FE_MISS
+        nm = int(miss.sum())
+        keys, z = self.sk[ranks], self.zs[ranks]
+        keys[miss] = self._take("miss", self.miss_k, nm)
+        z[miss] = self.miss_z[self.used["miss"] - nm:self.used["miss"]]
+        ranks[miss] = -1
+        return [self._req(i, "point", k, deadline, rank=r, z=zz)
+                for i, (k, r, zz) in enumerate(zip(
+                    keys.tolist(), ranks.tolist(), z.tolist()))]
+
+    def mixed(self, rng, n, deadline, p=FE_MIX):
+        """``p`` = (point, range, insert, delete) shares: points as in
+        ``points`` (``FE_OWN_READS`` of them, once there are any, keys the
+        trace inserted), ranges ``[k_r, k_{r+L})`` with zipf start ranks
+        over the live keys in z order and L uniform in 1-100 (2d's),
+        inserts of unloaded keys, deletes of live keys."""
+        reqs, mine = [], []
+        u = rng.random(n)
+        for rid in range(n):
+            if u[rid] < p[0]:
+                if mine and rng.random() < FE_OWN_READS:
+                    k, z = mine[int(rng.integers(len(mine)))]
+                    reqs.append(self._req(rid, "point", k, deadline, z=z))
+                else:
+                    q = self.points(rng, 1, deadline)[0]
+                    q.rid = rid
+                    reqs.append(q)
+            elif u[rid] < p[0] + p[1]:
+                r = int(self._take("start", self.zipf_start, 1)[0])
+                ln = int(rng.integers(1, 101))
+                zlo, zhi = self.zs[r], self.zs[r + ln]
+                reqs.append(self._req(
+                    rid, "range", self.sk[r], deadline, hi=self.sk[r + ln],
+                    a=int(np.searchsorted(self.zs, zlo, side="left")),
+                    b=int(np.searchsorted(self.zs, zhi, side="left")),
+                    zlo=float(zlo), zhi=float(zhi)))
+            elif u[rid] < p[0] + p[1] + p[2]:
+                k = self._take("fresh", self.fresh_k, 1)[0]
+                z = float(self.fresh_z[self.used["fresh"] - 1])
+                self.payload += 1
+                reqs.append(self._req(rid, "insert", k, deadline,
+                                      payload=self.payload, z=z))
+                mine.append((k, z))
+            else:
+                rank = int(self._take("delete", self.del_order, 1)[0])
+                reqs.append(self._req(rid, "delete", self.sk[rank],
+                                      deadline, rank=rank))
+        return reqs
+
+    def expect(self, r) -> int:
+        hit = self.ins.get(r.key)
+        if hit is not None:
+            return hit[0]
+        if r.rank < 0 or r.rank in self.deleted:
+            return -1
+        return int(self.ps[r.rank])
+
+    def live_keys(self, rng, n):
+        """``n`` live base keys (none deleted so far) and their payloads."""
+        ranks = rng.choice(self.n, 4 * n, replace=False)
+        ranks = np.array([r for r in ranks.tolist()
+                          if r not in self.deleted][:n])
+        return self.sk[ranks], self.ps[ranks]
+
+    def check(self, log):
+        """Replay the dispatch log (the hook's order) against the ground
+        truth, applying each write batch where it dispatched; returns
+        (served results that differ, truncated ranges).  A served result
+        is a completed one or a read that came back late."""
+        wrong = trunc = 0
+        for op, batch in log:
+            if op == "insert":
+                for r in batch:
+                    self.ins[r.key] = (r.payload, r.z)
+                    wrong += int(r.result is not True)
+            elif op == "delete":
+                for r in batch:
+                    want = r.rank not in self.deleted
+                    self.deleted.add(r.rank)
+                    wrong += int(r.result != want)
+            elif op == "point":
+                for r in batch:
+                    if r.result is not None:
+                        wrong += int(r.result != self.expect(r))
+            else:
+                vals = list(self.ins.values())
+                ins_p = np.array([v[0] for v in vals], np.int64)
+                ins_z = np.array([v[1] for v in vals], np.float32)
+                dele = np.array(sorted(self.deleted), np.int64)
+                for r in batch:
+                    if r.result is None:
+                        continue
+                    got, tot = r.result
+                    if tot > SCAN_CAP:
+                        trunc += 1
+                        continue
+                    keep = np.arange(r.a, r.b)
+                    keep = keep[~np.isin(keep, dele)]
+                    inz = (ins_z >= np.float32(r.zlo)) & \
+                        (ins_z < np.float32(r.zhi))
+                    want = np.concatenate([self.ps[keep], ins_p[inz]])
+                    wrong += int(sorted(got) != sorted(want.tolist()))
+        return wrong, trunc
+
+
+def fe_leg(st, win, what, reqs, arrivals=None, plan=None, **cfg):
+    """One front-end leg in a launch window: ``reqs`` through a fresh
+    ``FrontEnd`` over the phase's index (``run_trace`` at ``arrivals``,
+    or, with None, all submitted at once and drained), under ``plan``;
+    every served result checked against the dispatch-time truth."""
+    m, nfl = st.m, st.nfl
+    fe = m.FrontEnd(nfl, m.FrontEndConfig(**{**FE_CFG, **cfg}))
+    dlog = []
+    fe.on_batch_dispatched = lambda op, batch: dlog.append((op, batch))
+    m.faults.injection_stats(reset=True)
+    m.ops.reset_fused_lookup_stats()
+    folds0 = fold_progress(nfl.index)
+    # the trace is the harness's: frozen out of the collector, so that a
+    # collection during the leg scans only what the loop allocates
+    gc.collect()
+    gc.freeze()
+
+    def drive():
+        with m.faults.inject(plan or m.faults.FaultPlan()):
+            if arrivals is not None:
+                return fe.run_trace(reqs, arrivals)
+            t = time.perf_counter()
+            for r in reqs:
+                fe.submit(r)
+            fe.drain()
+            return time.perf_counter() - t
+
+    secs, counts = win.run(drive)
+    gc.unfreeze()
+    folds1 = fold_progress(nfl.index)
+    wrong, trunc = st.check(dlog)
+    s = fe.stats()
+    lat = s["latency_ontime"]
+    batches = collections.Counter(op for op, _b in dlog)
+    row = {"leg": what, "requests": len(reqs), "seconds": secs,
+           "goodput": s["completed"] - s["completed_late"],
+           "goodput_per_s": (s["completed"] - s["completed_late"]) / secs,
+           "completed": s["completed"], "shed": s["shed"],
+           "expired": s["expired"], "reasons": s["reasons"],
+           "p50_ms": lat["p50_ns"] / 1e6, "p99_ms": lat["p99_ns"] / 1e6,
+           "p999_ms": lat["p999_ns"] / 1e6,
+           "batches": s["batches"], "batches_by_op": dict(batches),
+           "mean_batch": s["dispatched_requests"] / max(s["batches"], 1),
+           "retries": s["retries"], "retry_giveups": s["retry_giveups"],
+           "svc_batch_ms": {k: v * 1e3 for k, v in s["svc_batch_s"].items()},
+           "wrong": wrong, "truncated": trunc, "launches": counts,
+           "folds_swapped": folds1[0] - folds0[0],
+           "fold_ticks": folds1[1] - folds0[1] if folds1[0] == folds0[0]
+           else None,
+           "faults": m.faults.injection_stats(),
+           "dispatch": m.ops.fused_lookup_stats()}
+    log_line = {k: v for k, v in row.items()
+                if k not in ("dispatch", "reasons")}
+    log(f"[{st.name}] front end, {what}: "
+        + json.dumps(log_line, default=str))
+    if wrong:
+        fail(f"{st.name}: front end {what}: {wrong} wrong results")
+    return row, dlog
+
+
+def fe_point_launches(st, log, row):
+    """P's launch window: the single index launches ``fused_lookup`` once
+    a point batch (NF in the kernel); the sharded one launches the
+    router's ``nf_forward`` once a batch and ``fused_lookup`` once for
+    each shard the batch reaches by the host route of its ground-truth
+    z."""
+    c, nb = row["launches"], row["batches_by_op"].get("point", 0)
+    idx = st.nfl.index
+    if hasattr(idx, "shards"):
+        b = idx.boundaries
+        want = (sum(int(np.unique(np.searchsorted(
+            b, np.array([r.z for r in batch], np.float32),
+            side="right")).shape[0]) for op, batch in log if op == "point"),
+            nb)
+    else:
+        want = (nb, 0)
+    got = (c["fused_lookup"], c["nf_forward"])
+    if got != want or c["streamed_lookup"] or c["fused_range_scan"] \
+            or nb != row["batches"]:
+        fail(f"{st.name}: front end {row['leg']}: launches (fused_lookup, "
+             f"nf_forward) {got}, expected {want} for {nb} point batches; "
+             f"window {c}")
+
+
+def fe_mixed_launches(st, log, row, folds0):
+    """M's range launches (one a batch; sharded, one a shard each batch's
+    ranges reach) and, when no fold ran, its point launches as in P."""
+    idx = st.nfl.index
+    c = row["launches"]
+    sharded = hasattr(idx, "shards")
+    ranges = [batch for op, batch in log if op == "range"]
+    if sharded:
+        want = sum(shards_reached(idx.boundaries,
+                                  np.array([r.zlo for r in b], np.float32),
+                                  np.array([r.zhi for r in b], np.float32))
+                   for b in ranges)
+    else:
+        want = len(ranges)
+    if c["fused_range_scan"] != want or c["streamed_lookup"]:
+        fail(f"{st.name}: front end {row['leg']}: fused_range_scan "
+             f"launched {c['fused_range_scan']} times, expected {want}")
+    if idx.n_rebuilds == folds0 and not fold_active(idx):
+        if not sharded and c["fused_lookup"] != \
+                row["batches_by_op"].get("point", 0):
+            fail(f"{st.name}: front end {row['leg']}: fused_lookup "
+                 f"launched {c['fused_lookup']} times for "
+                 f"{row['batches_by_op'].get('point', 0)} point batches")
+
+
+def fold_progress(idx) -> tuple:
+    """(folds swapped so far, ticks of the folds in flight), over the
+    index's shards: a leg's fold ticks are the second's growth while the
+    first stays put."""
+    shards = getattr(idx, "shards", [idx])
+    return (sum(sh.n_rebuilds for sh in shards),
+            sum(sh._fold.report["ticks"] for sh in shards
+                if sh._fold is not None))
+
+
+def fold_active(idx) -> bool:
+    shards = getattr(idx, "shards", [idx])
+    return any(sh._fold is not None for sh in shards)
+
+
+def frontend_phase(res, m, win, sk, zs, ps, card, sharded=False):
+    """Phase 2f (single index) or 4f (``sharded``): the SLO front end over
+    the phase's index.  Calibrate C with a standing burst, then P at 0.5 C
+    (Poisson, 20 ms deadline), and for the single index O at 2 C with
+    admission on and off, M (mixed, slack), and the fault ladder F."""
+    t_phase = time.perf_counter()
+    st = FrontTruth(res, m, sk, zs, ps, res["seed"] + (900 if sharded
+                                                        else 700))
+    rng = np.random.default_rng(res["seed"] + (901 if sharded else 701))
+    out = {}
+    slack = dict(admission=False)
+    row, _log = fe_leg(st, win, "calibrate",
+                            st.points(rng, FE_CALIBRATE, FE_SLACK), **slack)
+    cap = FE_CALIBRATE / row["seconds"]
+    out["capacity_per_s"] = cap
+    out["calibrate"] = row
+    n_p = FE_POINTS_SHARDED if sharded else FE_POINTS
+    gaps = rng.exponential(1.0, n_p)
+    keys_p = st.points(rng, n_p, FE_DEADLINE)
+    arr_p = np.cumsum(gaps) / (0.5 * cap)
+    row, log_p = fe_leg(st, win, "P at 0.5 C", keys_p, arr_p)
+    fe_point_launches(st, log_p, row)
+    out["P"] = row
+
+    def again():
+        return [st._req(r.rid, "point", r.key, FE_DEADLINE, rank=r.rank,
+                        z=r.z) for r in keys_p]
+
+    # the same trace at half the rate: the open loop's own ceiling
+    row, log_q = fe_leg(st, win, "P at 0.25 C", again(), arr_p * 2.0)
+    fe_point_launches(st, log_q, row)
+    out["P_quarter"] = row
+    if not sharded:
+
+        row, log_o = fe_leg(st, win, "O at 2 C, admission on", again(),
+                                arr_p * 0.25)
+        fe_point_launches(st, log_o, row)
+        if row["shed"] + row["expired"] == 0:
+            fail(f"{st.name}: front end O: nothing shed or expired at 2 C")
+        late = [r for _op, b in log_o for r in b
+                if r.state == "completed" and r.latency_s > r.deadline_s]
+        if late:
+            fail(f"{st.name}: front end O: {len(late)} completed reads "
+                 "missed their deadline")
+        out["O_admission"] = row
+        row, log_o = fe_leg(st, win, "O at 2 C, admission off", again(),
+                                arr_p * 0.25, admission=False)
+        fe_point_launches(st, log_o, row)
+        out["O_no_admission"] = row
+    del keys_p
+    n_m = FE_MIXED_SHARDED if sharded else FE_MIXED
+    folds0 = res["nfl"].index.n_rebuilds
+    row, log_m = fe_leg(st, win, "M mixed", st.mixed(rng, n_m, FE_SLACK),
+                            **slack)
+    fe_mixed_launches(st, log_m, row, folds0)
+    if row["completed"] != n_m:
+        fail(f"{st.name}: front end M: {row['completed']} of {n_m} completed")
+    out["M"] = row
+    if not sharded:
+        out.update(fault_ladder(st, win, rng, cap))
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    q = out["P_quarter"]
+    log(f"[{st.name}] front end: C {cap:.0f} requests/s; P p50/p99/p999 "
+        f"{out['P']['p50_ms']:.3f}/{out['P']['p99_ms']:.3f}/"
+        f"{out['P']['p999_ms']:.3f} ms, goodput {out['P']['goodput']} of "
+        f"{n_p}; at 0.25 C {q['p50_ms']:.3f}/{q['p99_ms']:.3f}/"
+        f"{q['p999_ms']:.3f} ms, goodput {q['goodput']}; "
+        + ("" if sharded else
+           f"O p999 {out['O_admission']['p999_ms']:.3f} ms admission on "
+           f"(goodput {out['O_admission']['goodput']}), "
+           f"{out['O_no_admission']['p999_ms']:.3f} ms off (goodput "
+           f"{out['O_no_admission']['goodput']}); ")
+        + f"phase {secs:.1f} s ({card})")
+    return out
+
+
+def fault_ladder(st, win, rng, cap):
+    """2f's F: three traces of ``FE_FAULT`` requests, slack deadlines and
+    admission off.  The stall leg is mixed as M (submitted at once) over
+    a fold started just before it, so that its write calls tick the fold
+    under ``fold_stall_s`` (at 2^24 keys no leg's writes start one: a
+    fold starts past a run of ``rebuild_frac`` of the live keys).  The
+    error legs are point-only (as the JAX tests inject errors only into
+    point traces: an error in a fold's verify chunk is raised after the
+    write was applied) with Poisson arrivals at 0.5 C, so that they
+    dispatch many batches.  The JAX plan's ``force_oracle`` has no
+    counterpart (``faults.inject`` refuses it)."""
+    m, nfl = st.m, st.nfl
+
+    def arrivals():
+        return np.cumsum(rng.exponential(1.0 / (0.5 * cap), FE_FAULT))
+
+    out = {}
+    slack = dict(admission=False, expire_queued=False)
+    idx = nfl.index
+    if idx._fold is not None:
+        fail(f"{st.name}: a fold was already in flight before the stall leg")
+    t0 = time.perf_counter()
+    idx._fold_start()
+    snapshot_s = time.perf_counter() - t0
+    row, _log = fe_leg(st, win, "F stall",
+                       st.mixed(rng, FE_FAULT, FE_SLACK),
+                       plan=m.faults.FaultPlan(device_stall_s=1e-3,
+                                               stall_every=4,
+                                               fold_stall_s=1e-3),
+                       **slack)
+    row["fold_snapshot_s"] = snapshot_s
+    f = row["faults"]
+    log(f"[{st.name}] F stall: the fold's snapshot {snapshot_s:.2f} s; "
+        f"{row['fold_ticks']} fold ticks in the leg, {f['fold_stalls']} "
+        f"of them stalled; {f['stalls']} dispatch stalls")
+    if not f["stalls"] or not f["fold_stalls"] \
+            or row["completed"] != FE_FAULT:
+        fail(f"{st.name}: stall leg: {f}, fold ticks {row['fold_ticks']}, "
+             f"{row['completed']} of {FE_FAULT} completed")
+    out["F_stall"] = row
+    row, _log = fe_leg(st, win, "F errors every 3",
+                       st.points(rng, FE_FAULT, FE_SLACK), arrivals(),
+                       plan=m.faults.FaultPlan(dispatch_error_every=3),
+                       retry_backoff_s=1e-4, **slack)
+    if not row["retries"] or row["retry_giveups"] \
+            or row["completed"] != FE_FAULT:
+        fail(f"{st.name}: transient errors were not retried: {row}")
+    out["F_errors"] = row
+    q, p = st.live_keys(rng, FE_READBACK)
+    before = nfl.lookup_batch(q)
+    reqs = st.points(rng, FE_FAULT, FE_SLACK)
+    row, _log = fe_leg(st, win, "F errors every 1", reqs, arrivals(),
+                       plan=m.faults.FaultPlan(dispatch_error_every=1),
+                       max_retries=2, **slack)
+    after = nfl.lookup_batch(q)
+    if row["shed"] != FE_FAULT or any(r.reason != "error" for r in reqs) \
+            or not np.array_equal(before, after) \
+            or not np.array_equal(after, p):
+        fail(f"{st.name}: retry exhaustion: shed {row['shed']} of "
+             f"{FE_FAULT}, read-back equal {np.array_equal(before, after)}")
+    out["F_exhaustion"] = row
+    return out
+
+
+def launcher_check(card):
+    """``repro_torch.launch.serve --mode index``, in process, on the card
+    (no ``--device``), plain and with ``--fault errors``: each prints its
+    goodput and latency lines."""
+    from repro_torch.launch import serve
+
+    out = {}
+    for argv in (["--mode", "index"], ["--mode", "index", "--fault",
+                                       "errors"]):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"[launcher {' '.join(argv)}] {line}")
+        if "  goodput " not in text or "on cuda" not in text \
+                or "on-time latency p50=" not in text:
+            fail(f"launcher {argv} printed no goodput line")
+        good = text.split("  goodput ")[1].split()[0]
+        out[" ".join(argv)] = {"goodput": good,
+                               "seconds": time.perf_counter() - t}
+    log(f"[launcher] {json.dumps(out)} ({card})")
+    return out
 
 
 # ------------------------------------------------- kernels vs plain
@@ -3852,8 +4366,13 @@ class Mods:
         from repro_torch.data.workloads import (WorkloadConfig,
                                                 _zipf_indices, make_workload)
         from repro_torch.kernels import ops
+        from repro_torch.serve import faults
+        from repro_torch.serve.frontend import (FrontEnd, FrontEndConfig,
+                                                ServiceRequest)
 
         self.NFL, self.NFLConfig = NFL, NFLConfig
+        self.FrontEnd, self.FrontEndConfig = FrontEnd, FrontEndConfig
+        self.ServiceRequest, self.faults = ServiceRequest, faults
         self.DriftConfig, self.FlatAFLIConfig = DriftConfig, FlatAFLIConfig
         self.ReshardConfig = ReshardConfig
         self.FlowTrainConfig = FlowTrainConfig
@@ -3998,6 +4517,9 @@ def main() -> int:
     wall("longlat rebuild", t0)
     log(f"[longlat] max_memory_allocated since its bulkload "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    fronted = {"2f": frontend_phase(ll, m, win, sk, zs, ps, card)}
+    wall("longlat front end (2f)", t0)
     del sk, zs, ps
 
     # ---- lognormal, flow off
@@ -4059,8 +4581,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    sharded = sharded_phase(ll, m, win, split_key_bits, dev)
+    sharded = sharded_phase(ll, m, win, split_key_bits, dev, card, fronted,
+                            wall)
     wall("sharded", t0)
+    t0 = time.perf_counter()
+    fronted["launcher"] = launcher_check(card)
+    wall("launcher --mode index", t0)
 
     # ---- LM serving: the index phases' tensors go first
     del ll
@@ -4089,6 +4615,12 @@ def main() -> int:
     log("[drift] summary " + json.dumps(drifted, default=str))
     log("[migrate] summary " + json.dumps(migrated, default=str))
     log("[sharded re-flow] summary " + json.dumps(reflowed, default=str))
+    log("[front end] summary " + json.dumps(
+        {key: {leg: ({k: v for k, v in row.items()
+                      if k not in ("dispatch", "reasons")}
+                     if isinstance(row, dict) else row)
+               for leg, row in val.items()} for key, val in fronted.items()},
+        default=str))
 
     launches = dict(win.total)
     log(f"main-path launches (every window): {launches}")

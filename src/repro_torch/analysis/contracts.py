@@ -11,7 +11,8 @@ inserts, scans and deletes; the streamed rung forced by
 ``pool_budget``; a flow-on ``NFL(shards=2)`` with the reshard telemetry
 on, inserts, async reads, scans and one boundary migration; a flow-on
 ``NFL`` with the re-flow on, driven through one drift episode to its
-swap, single and sharded).  An entry the world never dispatches is a
+swap, single and sharded; the SLO front end's point, range, insert and
+delete requests over the sharded ``NFL``).  An entry the world never dispatches is a
 finding.
 
 **Host sync.**  For the span of each entry call, the recorder patches the
@@ -215,6 +216,10 @@ ENTRY_POINTS: Tuple[EntryPoint, ...] = (
                "ShardedFlatAFLI._refresh_boundaries", budget=0),
     EntryPoint("ReshardManager.tick", _DRIFT, "ReshardManager.tick",
                budget=0),
+    # the SLO front end (DESIGN.md §16): gathering the oldest read batch
+    # in flight calls its finisher, whose one wait is the copy's event
+    EntryPoint("FrontEnd._gather_oldest", "repro_torch.serve.frontend",
+               "FrontEnd._gather_oldest", budget=1),
 )
 
 
@@ -481,9 +486,10 @@ def exercise_serving_world(device):
     migration is started by hand), then the JAX world's migration step
     (``start_reshard(0, shards - 1)``, ``rebuild()``, a read); then one
     re-flow episode on a single index and one on ``shards=2``
-    (``reflow_episode``).  The JAX world's oracle index has no
-    counterpart (not ported, by design); its front end (ROADMAP A12)
-    joins this world with that item."""
+    (``reflow_episode``).  Between the two, the JAX world's front-end
+    leg: point, range, insert and delete requests through ``FrontEnd``
+    over the flow-on ``NFL(shards=2)``.  The JAX world's oracle index has
+    no counterpart (not ported, by design)."""
     from repro_torch.core.drift import ReshardConfig
     from repro_torch.core.flat_afli import FlatAFLI, FlatAFLIConfig
     from repro_torch.core.nfl import NFL, NFLConfig
@@ -536,9 +542,40 @@ def exercise_serving_world(device):
     if nfl.index.n_reshards != 1:
         raise RuntimeError("the world's migration did not swap")
     nfl.lookup_batch(keys2[:32])
+    frontend_leg(nfl, keys2, rng)
     reflow_episode(device, rng)
     reflow_episode(device, rng, shards=WORLD_SHARDS)
     return idx, nfl
+
+
+def frontend_leg(nfl, keys, rng) -> None:
+    """The JAX world's front-end leg (``repro/analysis/contracts.py:
+    228-254``): point, range, insert and delete requests through the SLO
+    front end over ``nfl``, so the checker sees the batch shapes the
+    continuous loop forms, not only the hand-batched calls."""
+    from repro_torch.serve.frontend import (FrontEnd, FrontEndConfig,
+                                            ServiceRequest)
+
+    fe = FrontEnd(nfl, FrontEndConfig(max_batch=32, batch_timeout_s=1e-4,
+                                      admission=False, expire_queued=False))
+    spare = np.unique(rng.normal(9e5, 1e3, 24))
+    rid = 0
+    for i in range(0, 64, 16):
+        for k in keys[i:i + 16]:
+            fe.submit(ServiceRequest(rid, "point", float(k),
+                                     deadline_s=60.0))
+            rid += 1
+        lo = float(keys[i])
+        fe.submit(ServiceRequest(rid, "range", lo, hi=lo * (1 + 1e-4),
+                                 deadline_s=60.0))
+        rid += 1
+    for j, k in enumerate(spare):
+        fe.submit(ServiceRequest(rid, "insert", float(k),
+                                 payload=30_000 + j, deadline_s=60.0))
+        rid += 1
+    fe.submit(ServiceRequest(rid, "delete", float(keys[0]),
+                             deadline_s=60.0))
+    fe.drain()
 
 
 def reflow_episode(device, rng, shards: int = 1):

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.serving_state import DeviceTier, pow2_bucket
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 
 __all__ = ["clip_gather", "clip_gather_plain", "lane_cast", "lane_cast_plain",
            "batch_loop", "batch_loop_plain", "f64_upcast", "f64_upcast_plain",
@@ -83,7 +83,7 @@ def clip_gather(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     _launch("clip_gather_launch", [_P, _P, _P, _I, _I, _P], idx.data_ptr(),
             table.data_ptr(), out.data_ptr(), int(idx.shape[0]),
             int(table.shape[0]), build.stream_ptr(idx.device))
-    clip_gather.launches += 1
+    counters.launched(clip_gather)
     return out
 
 
@@ -113,7 +113,7 @@ def lane_cast(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     _launch("lane_cast_launch", [_P, _P, _P, _I, _P], hi.data_ptr(),
             lo.data_ptr(), out.data_ptr(), int(hi.shape[0]),
             build.stream_ptr(hi.device))
-    lane_cast.launches += 1
+    counters.launched(lane_cast)
     return out
 
 
@@ -139,7 +139,7 @@ def batch_loop(q: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
     _launch("batch_loop_launch", [_P, _P, _P, _I, _I, _P], q.data_ptr(),
             pool.data_ptr(), out.data_ptr(), int(q.shape[0]),
             int(pool.shape[0]), build.stream_ptr(q.device))
-    batch_loop.launches += 1
+    counters.launched(batch_loop)
     return out
 
 
@@ -173,7 +173,7 @@ def f64_upcast(pk: torch.Tensor, table_len: int = 8) -> torch.Tensor:
     _launch("f64_upcast_launch", [_P, _P, _I, _I, _P], pk.data_ptr(),
             out.data_ptr(), int(pk.shape[0]), int(table_len),
             build.stream_ptr(pk.device))
-    f64_upcast.launches += 1
+    counters.launched(f64_upcast)
     return out
 
 
@@ -297,9 +297,11 @@ for _k in KERNELS:
 
 def launch_counts() -> dict:
     """Fixture kernel launches since the last reset (CUDA only)."""
-    return {k.__name__: k.launches for k in KERNELS}
+    with counters.LOCK:
+        return {k.__name__: k.launches for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    with counters.LOCK:
+        for k in KERNELS:
+            k.launches = 0

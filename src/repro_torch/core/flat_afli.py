@@ -1138,6 +1138,10 @@ class FlatAFLI:
             self._fold.report["snapshot_s"] = time.perf_counter() - t0
 
     def _fold_tick(self, budget: int) -> None:
+        if self._fold is not None:
+            # a FaultPlan's fold_stall_s models a slow fold, stretching
+            # the window in which reads ride the tiers
+            ops.fault_stall("fold")
         if self._fold is not None and self._fold.tick(budget):
             # swapped in: apply a delta merge deferred during the fold
             if self._delta_pk.shape[0] > self.cfg.delta_cap:

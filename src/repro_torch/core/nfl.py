@@ -67,7 +67,7 @@ from repro_torch.core.flow import FlowConfig
 from repro_torch.core.sharded_nfl import ShardedFlatAFLI
 from repro_torch.core.train_flow import (FlowTrainConfig, FlowTrainer,
                                          train_flow)
-from repro_torch.kernels import ops
+from repro_torch.kernels import counters, ops
 from repro_torch.kernels.backend import resolve_device
 
 __all__ = ["NFL", "NFLConfig"]
@@ -421,27 +421,36 @@ class NFL:
 
     def dispatch_stats(self, reset: bool = False) -> Dict[str, Any]:
         """Serving telemetry: the kernel launch counters and truncated
-        range queries (process-wide, since the last
-        ``ops.reset_launch_counts``), this index's shadowed keys and
-        completed folds, the serving-state block (``serving``; sharded,
-        the shards' aggregate beside ``shards`` and ``router``), the
-        drift block (``drift``: the re-flow manager's state and counters
-        and the index's drift signals) and the reshard block
-        (``reshard``: the migration manager's state and counters and the
-        router's load gauges).
+        range queries (process-wide, CUDA launches only, since the last
+        ``ops.reset_launch_counts``), the dispatch counters of the two
+        shims (``dispatch``: ``ops.fused_lookup_stats``, on every
+        device), this index's
+        shadowed keys and completed folds, the serving-state block
+        (``serving``; sharded, the shards' aggregate beside ``shards``
+        and ``router``), the drift block (``drift``: the re-flow
+        manager's state and counters and the index's drift signals) and
+        the reshard block (``reshard``: the migration manager's state and
+        counters and the router's load gauges).
 
         ``reset=True`` zeroes the counters after the snapshot: the
-        launch counters, the serving-state and router counters.  Gauges
-        (capacities, windows, the load gauges) and the episode counters
-        of both managers are state and stay."""
+        launch and dispatch counters, the serving-state and router
+        counters.  Every process-wide counter is read and zeroed in one
+        critical section of ``kernels.counters.LOCK``, so a dispatch
+        from another thread lands in this snapshot or the next, never in
+        none.  Gauges (capacities, windows, the load gauges) and the
+        episode counters of both managers are state and stay."""
         with self._telemetry_lock:
-            counts = ops.launch_counts()
+            with counters.LOCK:
+                truncated = ops.fused_range_scan.truncated
+                counts = ops.launch_counts(reset=reset)
+                dispatch = ops.fused_lookup_stats(reset=reset)
             out: Dict[str, Any] = {
                 "nf_forward_launches": counts["nf_forward"],
                 "fused_lookup_launches": counts["fused_lookup"],
                 "streamed_lookup_launches": counts["streamed_lookup"],
                 "fused_range_scan_launches": counts["fused_range_scan"],
-                "scan_truncated": ops.fused_range_scan.truncated,
+                "scan_truncated": truncated,
+                "dispatch": dispatch,
                 "shadowed": int(self.index.n_shadowed),
                 "rebuilds": int(self.index.n_rebuilds)}
             out.update(self.index.serving_telemetry())
@@ -457,6 +466,5 @@ class NFL:
             else:
                 out["reshard"] = {"enabled": False}
             if reset:
-                ops.reset_launch_counts()
                 self.index.reset_telemetry()
         return out

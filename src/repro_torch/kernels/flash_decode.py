@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 
 __all__ = ["flash_decode", "flash_decode_plain", "decode_plan", "device_plan",
            "DecodePlan", "TILE", "NEG_INF", "MAX_HEAD_DIM"]
@@ -229,7 +229,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn.restype = ctypes.c_int
     build.check(fn(ctypes.byref(a), build.stream_ptr(q.device)),
                 "flash_decode")
-    flash_decode.launches += 1
+    counters.launched(flash_decode)
     return o
 
 

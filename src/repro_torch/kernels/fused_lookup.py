@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 from repro_torch.kernels.nf_forward import nf_forward_plain, nf_params_cached
 
 __all__ = ["fused_lookup", "fused_lookup_plain", "KernelPools", "TierPools",
@@ -349,8 +349,7 @@ def fused_lookup(feats: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
                          ctypes.POINTER(build.NFParams), ctypes.c_void_p])
     build.check(fn(ctypes.byref(a), ctypes.byref(params),
                    build.stream_ptr(feats.device)), "fused_lookup")
-    fused_lookup.launches += 1
-    fused_lookup.launch_sizes[b] += 1
+    counters.launched(fused_lookup, b)
     return pay, z
 
 

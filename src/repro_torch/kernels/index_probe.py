@@ -21,7 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 from repro_torch.kernels.fused_lookup import DATA, _slot_index
 
 __all__ = ["index_probe", "index_probe_plain"]
@@ -112,7 +112,7 @@ def index_probe(qkey: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
                         [ctypes.POINTER(_ProbeArgs), ctypes.c_void_p])
     build.check(fn(ctypes.byref(a), build.stream_ptr(qkey.device)),
                 "index_probe")
-    index_probe.launches += 1
+    counters.launched(index_probe)
     return pay, code, child
 
 

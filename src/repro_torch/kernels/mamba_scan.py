@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 
 __all__ = ["mamba_scan", "mamba_scan_plain", "scan_plan", "ScanPlan",
            "MAX_STATE"]
@@ -148,7 +148,7 @@ def mamba_scan(dt: torch.Tensor, xi: torch.Tensor, b_in: torch.Tensor,
     fn.restype = ctypes.c_int
     build.check(fn(ctypes.byref(a), build.stream_ptr(dt.device)),
                 "mamba_scan")
-    mamba_scan.launches += 1
+    counters.launched(mamba_scan)
     return y
 
 

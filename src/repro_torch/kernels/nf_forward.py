@@ -18,7 +18,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 
 __all__ = ["pack_flow_weights", "nf_forward", "nf_forward_plain",
            "nf_params", "nf_params_cached"]
@@ -158,8 +158,7 @@ def nf_forward(feats: torch.Tensor, packed_w: torch.Tensor, shapes: Shapes,
         return out
     build.check(fn(feats.data_ptr(), out.data_ptr(), b, ctypes.byref(params),
                    build.stream_ptr(feats.device)), "nf_forward")
-    nf_forward.launches += 1
-    nf_forward.launch_sizes[b] += 1
+    counters.launched(nf_forward, b)
     return out
 
 

@@ -24,7 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 from repro_torch.kernels.fused_lookup import (TOMBSTONE, TierPack,
                                               _lower_bound_plain,
                                               _probe_tier_plain,
@@ -232,7 +232,7 @@ def fused_range_scan(feats_lo: torch.Tensor, feats_hi: torch.Tensor,
                          ctypes.POINTER(build.NFParams), ctypes.c_void_p])
     build.check(fn(ctypes.byref(a), ctypes.byref(params),
                    build.stream_ptr(dev)), "fused_range_scan")
-    fused_range_scan.launches += 1
+    counters.launched(fused_range_scan)
     return pv, cnt, tot, zlo, zhi
 
 

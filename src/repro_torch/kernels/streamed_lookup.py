@@ -37,7 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 from repro_torch.kernels.fused_lookup import (TOMBSTONE, TierPack,
                                               _probe_index_plain,
                                               _probe_tier_plain,
@@ -286,7 +286,7 @@ def streamed_lookup(feats: torch.Tensor, qhi: torch.Tensor,
                          ctypes.POINTER(build.NFParams), ctypes.c_void_p])
     build.check(fn(ctypes.byref(a), ctypes.byref(params),
                    build.stream_ptr(feats.device)), "streamed_lookup")
-    streamed_lookup.launches += 1
+    counters.launched(streamed_lookup)
     return pay, z
 
 

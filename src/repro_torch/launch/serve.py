@@ -1,15 +1,22 @@
-"""Serving launcher of the port: continuous-batching LM generation.
+"""Serving launcher of the port: continuous-batching LM generation, and
+the SLO front end over the NFL index.
 
     python -m repro_torch.launch.serve --mode lm --arch falcon-mamba-7b
     python -m repro_torch.launch.serve --mode lm --device cpu   # no card
+    python -m repro_torch.launch.serve --mode index [--fault errors]
+    python -m repro_torch.launch.serve --mode index --device cpu
 
-Port of ``repro.launch.serve``'s ``--mode lm``: loads a model at smoke
+Port of ``repro.launch.serve``.  ``--mode lm`` loads a model at smoke
 scale with random weights from ``--seed``, runs ``--requests`` generation
-requests through the continuous batcher, and reports throughput.  Runs on
-the card unless ``--device cpu``.  The ssm family's prefill goes through
-the selective-scan kernel (``use_scan_kernel``; its plain version on the
-CPU), not the chunked path the JAX launcher defaults to.  ``--mode index`` (the SLO front end
-over the NFL index) ports with ROADMAP A12 and raises here.
+requests through the continuous batcher, and reports throughput.  The
+ssm family's prefill goes through the selective-scan kernel
+(``use_scan_kernel``; its plain version on the CPU), not the chunked path
+the JAX launcher defaults to.  ``--mode index`` bulk-loads an NFL index
+(flat backend, flow off, ``--shards``) and replays an open-loop Poisson
+trace of point lookups with per-request deadlines through the SLO front
+end, reporting goodput, shed and expired counts and latency percentiles;
+``--fault`` replays it under an injected fault.  Both run on the card
+unless ``--device cpu``, and raise without one.
 """
 
 from __future__ import annotations
@@ -57,27 +64,85 @@ def run_lm(args) -> None:
         print(f"  req {r.rid}: prompt={r.prompt.tolist()} -> {r.output}")
 
 
+def run_index(args) -> None:
+    from repro_torch.core.nfl import NFL, NFLConfig
+    from repro_torch.serve import faults
+    from repro_torch.serve.frontend import (FrontEnd, FrontEndConfig,
+                                            ServiceRequest)
+
+    rng = np.random.default_rng(args.seed)
+    keys = np.unique(rng.uniform(0.0, 1e6, 3 * args.n_keys))[:args.n_keys]
+    nfl = NFL(NFLConfig(backend="flat", force_flow=False,
+                        shards=args.shards), device=args.device)
+    nfl.bulkload(keys, np.arange(keys.shape[0], dtype=np.int64))
+    # warm the read path (the kernels' first launches, the pinned
+    # buffers) so the trace measures serving
+    for _ in range(3):
+        nfl.lookup_batch(rng.choice(keys, args.batch, replace=False))
+
+    fe = FrontEnd(nfl, FrontEndConfig(max_batch=args.batch,
+                                      batch_timeout_s=args.timeout_ms / 1e3))
+    qk = rng.choice(keys, args.requests)
+    reqs = [ServiceRequest(i, "point", float(qk[i]),
+                           deadline_s=args.slo_ms / 1e3)
+            for i in range(args.requests)]
+    arrivals = np.cumsum(rng.exponential(1.0 / args.rate, args.requests))
+
+    plan = faults.FaultPlan(
+        device_stall_s=1e-3 if args.fault == "stall" else 0.0,
+        stall_every=4,
+        dispatch_error_every=5 if args.fault == "errors" else 0)
+    with faults.inject(plan):
+        dur = fe.run_trace(reqs, arrivals)
+    s = fe.stats()
+    good = s["completed"] - s["completed_late"]
+    print(f"replayed {len(reqs)} requests in {dur:.2f}s "
+          f"(offered {args.rate:.0f} rps, slo {args.slo_ms:.1f}ms"
+          f"{', fault=' + args.fault if args.fault else ''}) "
+          f"on {nfl.device}")
+    print(f"  goodput {good}/{len(reqs)} ({good / len(reqs):.1%})  "
+          f"shed={s['shed']} expired={s['expired']} "
+          f"late={s['completed_late']} retries={s['retries']}")
+    lat = s["latency_ontime"]
+    print(f"  on-time latency p50={lat['p50_ns'] / 1e6:.2f}ms "
+          f"p99={lat['p99_ns'] / 1e6:.2f}ms "
+          f"p999={lat['p999_ns'] / 1e6:.2f}ms")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     from repro_torch.configs import arch_names
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="lm", choices=("lm", "index"),
                     help="lm: continuous-batching generation demo; "
-                         "index: not ported yet (ROADMAP A12)")
+                         "index: §16 SLO front end over the NFL index")
     ap.add_argument("--arch", default="falcon-mamba-7b",
                     choices=arch_names())
-    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--requests", type=int, default=None)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
+    # --mode index knobs
+    ap.add_argument("--n-keys", type=int, default=16_384)
+    ap.add_argument("--shards", type=int, default=1)
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--rate", type=float, default=2_000.0,
+                    help="offered Poisson arrival rate (requests/s)")
+    ap.add_argument("--slo-ms", type=float, default=50.0)
+    ap.add_argument("--timeout-ms", type=float, default=2.0,
+                    help="fill-or-timeout batch window")
+    ap.add_argument("--fault", default="",
+                    choices=("", "stall", "errors"),
+                    help="replay the trace under an injected fault")
     args = ap.parse_args(argv)
-    if args.mode == "index":
-        raise NotImplementedError(
-            "--mode index (the SLO front end over the NFL index) is not "
-            "ported to repro_torch yet (ROADMAP A12)")
-    run_lm(args)
+    if args.requests is None:
+        args.requests = 12 if args.mode == "lm" else 2_000
+    if args.mode == "lm":
+        run_lm(args)
+    else:
+        run_index(args)
 
 
 if __name__ == "__main__":

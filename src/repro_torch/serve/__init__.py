@@ -1,1 +1,2 @@
-"""Serving loops of the port: the LM continuous batcher."""
+"""Serving loops of the port: the LM continuous batcher and the SLO front
+end over the index (with its fault injection)."""

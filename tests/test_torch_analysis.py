@@ -481,8 +481,8 @@ def test_host_sync_contract_clean_on_the_real_tree_cpu():
     assert st["FlatAFLI.scan_batch"]["max_per_call"] == 6
     assert st["ops.fused_range_scan"]["max_per_call"] == 1
     assert {f.key() for f in rep.allowed()} >= {
-        "host-sync ops.fused_range_scan ops.py:122",
-        "host-sync FlatAFLI.scan_batch flat_afli.py:1332"}
+        "host-sync ops.fused_range_scan ops.py:142",
+        "host-sync FlatAFLI.scan_batch flat_afli.py:1336"}
 
 
 def test_reflow_episode_syncs_counted_and_allowlisted():
@@ -511,8 +511,8 @@ def test_reflow_episode_syncs_counted_and_allowlisted():
     for name in names:
         assert st[name]["max_per_call"] > 1, name      # over its budget
     keys = {f.key() for f in rep.allowed()}
-    assert {"host-sync FlatAFLI.start_reflow ops.py:68",
-            "host-sync ReflowManager.tick ops.py:68",
+    assert {"host-sync FlatAFLI.start_reflow ops.py:82",
+            "host-sync ReflowManager.tick ops.py:82",
             "host-sync ReflowManager.tick train_flow.py:135"} <= keys
     assert all(f.entry in names for f in rep.allowed())
 
@@ -542,7 +542,7 @@ def test_sharded_episode_entries_dispatch_and_hold_or_are_allowlisted():
                  "ShardedFlatAFLI.start_reshard"):
         assert st[name]["max_per_call"] > 1, name      # over its budget
     keys = {f.key() for f in rep.allowed()}
-    assert {"host-sync ShardedFlatAFLI.start_reflow ops.py:68",
+    assert {"host-sync ShardedFlatAFLI.start_reflow ops.py:82",
             "host-sync ShardedFlatAFLI.start_reshard serving_state.py:112"
             } <= keys
     assert all(f.entry in names for f in rep.allowed())

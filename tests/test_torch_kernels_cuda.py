@@ -641,6 +641,42 @@ def test_nfl_serves_through_kernels(cuda):
     assert s["shadowed"] == 0
 
 
+def test_dispatch_stats_reset_loses_no_launch_on_card(cuda):
+    """``NFL.dispatch_stats(reset=True)`` from a reader thread racing
+    live reads on the card without pause: the per-window
+    ``fused_lookup_launches`` plus the residue equal the reads issued
+    (one launch each)."""
+    import threading
+
+    keys = make_dataset("lognormal", 20_000)
+    nfl = NFL(NFLConfig(backend="flat", force_flow=False,
+                        flow_train=FlowTrainConfig(epochs=1)))
+    nfl.bulkload(keys, np.arange(keys.shape[0], dtype=np.int64))
+    q = keys[:256]
+    nfl.lookup_batch(q)
+    nfl.dispatch_stats(reset=True)
+    n_calls, snaps = 4000, []
+    stop = threading.Event()
+
+    def reader():
+        while not stop.is_set():
+            snaps.append(nfl.dispatch_stats(reset=True)
+                         ["fused_lookup_launches"])
+
+    t = threading.Thread(target=reader)
+    t.start()
+    try:
+        for _ in range(n_calls):
+            nfl.lookup_batch(q)
+    finally:
+        stop.set()
+        t.join()
+    residue = nfl.dispatch_stats()["fused_lookup_launches"]
+    assert len(snaps) > 10
+    assert sum(snaps) + residue == n_calls, \
+        f"counted {sum(snaps) + residue} of {n_calls} launches"
+
+
 def _params_on(params, dev):
     return {k: ([{n: t.to(dev) for n, t in layer.items()} for layer in v]
                 if k == "layers" else v.to(dev)) for k, v in params.items()}

@@ -177,12 +177,24 @@ def test_batcher_truncation_is_loud(params):
 
 
 def test_serve_launcher_runs_on_cpu(capsys):
+    """Both launcher modes run on the CPU when asked: ``--mode lm``
+    serves its requests, and ``--mode index`` replays its open-loop
+    point trace through the SLO front end and prints its goodput and
+    on-time latency lines; without a card and without ``--device``, the
+    index mode raises."""
     launch_serve.main(["--mode", "lm", "--device", "cpu", "--requests", "3",
                        "--max-new", "4", "--slots", "2"])
     out = capsys.readouterr().out
     assert "served 3 requests / 12 tokens" in out and "on cpu" in out
-    with pytest.raises(NotImplementedError, match="A12"):
-        launch_serve.main(["--mode", "index", "--device", "cpu"])
+    launch_serve.main(["--mode", "index", "--device", "cpu", "--requests",
+                       "200"])
+    out = capsys.readouterr().out
+    assert "replayed 200 requests" in out and "on cpu" in out
+    assert "goodput " in out and "/200 (" in out
+    assert "on-time latency p50=" in out
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            launch_serve.main(["--mode", "index", "--requests", "10"])
 
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "qwen3-14b"])

@@ -39,6 +39,7 @@ def test_bulkload_and_lookup_ground_truth(name, force_flow):
     wl = make_workload(keys, WorkloadConfig(n_ops=8192, batch_size=2048))
     # the counters are process-wide: start from zero, whatever ran before
     ops.reset_launch_counts()
+    ops.reset_fused_lookup_stats()
     nfl = t_nfl.NFL(_cfg(force_flow=force_flow), device="cpu")
     nfl.bulkload(wl.load_keys, wl.load_payloads)
     assert nfl.use_flow is force_flow
@@ -51,10 +52,15 @@ def test_bulkload_and_lookup_ground_truth(name, force_flow):
               "streamed_lookup_launches": 0, "fused_range_scan_launches": 0,
               "scan_truncated": 0, "shadowed": 0, "rebuilds": 0}
     assert {k: stats[k] for k in counts} == counts
+    # the dispatch counters count on every device: each read batch (and
+    # the bulkload's verify) on the fused rung, its plain version here
+    d = stats["dispatch"]
+    assert d["dispatch_count"] == d["fused_count"] >= len(wl.batches) + 1
+    assert d["streamed_count"] == 0
     # the serving block, the default drift telemetry (re-flow off) and
     # the reshard block, as the JAX package reports them
-    assert set(stats) == {*counts, "serving", "autoswitch", "drift",
-                          "reshard"}
+    assert set(stats) == {*counts, "dispatch", "serving", "autoswitch",
+                          "drift", "reshard"}
     assert stats["drift"]["enabled"] and stats["drift"]["state"] == "idle"
     assert stats["drift"]["use_flow"] is force_flow
     assert stats["reshard"] == {"enabled": False}
