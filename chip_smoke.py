@@ -197,11 +197,40 @@ Phases (any failure exits non-zero before the result lines):
    ``scaled_dot_product_attention`` (the library yardstick only), and
    again at B 1 over the cache's row of length S, where the split plan
    matters most; each kernel's plan (scan chunks, decode splits) printed.
-8. result lines: the kernel table as JSON, then the final JSON object
+8. the paper's backend, the baselines and the page table, after the LM
+   phases' tensors are freed:
+   q. ``examples/quickstart.py`` steps 1-4 on the port, on the card:
+      ``NFL(NFLConfig())`` over 50,000 of 100,000 longlat keys, 10,000
+      reads and 10,000 inserts read back, a B-Tree beside it;
+   a. ``NFL(NFLConfig())``, the paper's AFLI backend with the default
+      flow and training (AutoSwitch deciding; rerun with
+      ``force_flow=True`` if it declines), over longlat at 2^20 keys,
+      half (2^19) bulk-loaded: 16 ``read_only`` batches of 65,536 (zipf
+      0.99) and one of unloaded keys; 4 ``write_heavy`` batches, every
+      read checked and every insert read back; 16,384 updates and
+      16,384 deletes of loaded keys and updates of absent keys (False);
+      ``scan_batch`` must raise; every window launches no kernel (the
+      tree is host-side Python, its flow plain PyTorch on the card);
+   b. each baseline of ``index.REGISTRY`` (B-Tree, RMI, PGM, ALEX,
+      LIPP) on 8a's loaded keys: 8a's first 4 read batches, 16,384
+      unloaded keys (misses), 16,384 inserts read back and 4,096
+      deletes that miss (RMI is static: its insert must raise; PGM's
+      static runs refuse deletes, as in the reference, so its deleted
+      keys still read and only the keys in its insert buffer miss);
+   c. ``NFLPageTable()`` over ``composite_key`` of 4,096 sessions by
+      256 blocks (2^20 keys): every key in lookup calls of 65,536, each
+      call's window exactly one ``fused_lookup`` and no ``nf_forward``;
+      64 new sessions inserted in calls of 1,024 and read back, the old
+      keys again; then a table over 65,536 ``prefix_hash`` keys (16
+      random tokens each), whose flow AutoSwitch must decline, every
+      key read back.
+   8a and 8b are cut in depth (2^19 loaded keys, not the paper's 200 M;
+   at 2^20 the phase ran past its 90 s budget on an H100).
+9. result lines: the kernel table as JSON, then the final JSON object
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are zeroed just before each driven step (each
-front-end leg included) of phases 2, 3, 4 and 6 (and the fixtures' before the self-test of 1b) and read
+front-end leg included) of phases 2, 3, 4, 6 and 8 (and the fixtures' before the self-test of 1b) and read
 just after; the kernels' launches in phases 1b's contract run, 5 and 7
 and those that compute ground truth, replay or compare fall between
 those windows and do not count.  Every window outside the streamed steps must
@@ -334,6 +363,26 @@ FD_STEPS = 4                   # ops.flash_decode calls in its window
 # side here does; outputs are a few hundredths in size, so 2e-2 would
 # pass a kernel that returned zeros)
 FD_TOL = 2e-5
+# phase 8: the paper's AFLI backend, the baselines and the page table.
+# longlat at 2^20 keys, half bulk-loaded: a cut in depth from the paper's
+# 200M keys (the trees are host-side Python, probed key by key; at 2^20
+# loaded keys phase 8 took 105.6 s of its 90 s budget on an H100 80GB
+# HBM3 at 700 W, LIPP's bulk load 23.3 s of it)
+PAPER_KEYS = 1 << 20
+PAPER_READ_BATCHES = 16        # read_only batches of BATCH
+PAPER_WRITE_BATCHES = 4        # write_heavy batches of BATCH
+PAPER_WRITES = 16_384          # updates, and deletes, of loaded keys
+BASELINES = ("btree", "rmi", "pgm", "alex", "lipp")
+BASE_READ_BATCHES = 4          # 8a's first read batches
+BASE_PROBES = 16_384           # unloaded keys: misses, and inserts
+BASE_DELETES = 4_096
+BASE_PGM_BUFFERED = 64         # keys in PGM's insert buffer when deleting
+PT_SESSIONS = 4_096            # 8c: sessions x blocks = 2^20 keys
+PT_BLOCKS = 256
+PT_NEW_SESSIONS = 64
+PT_INSERT_CALL = 1_024
+PH_KEYS = 65_536               # 8c: prefix-hash keys of PH_TOKENS tokens
+PH_TOKENS = 16
 
 
 def log(*args) -> None:
@@ -4354,6 +4403,425 @@ def flash_decode_row(k, flush_buf, q, kc, vc, kv_len):
 
 
 # ----------------------------------------------------------------- main
+# ------------------------------- the paper backend, baselines, page table
+def kernel_launches(counts) -> int:
+    """Kernel launches in a window's counts (the truncation count is not
+    a launch)."""
+    return sum(v for key, v in counts.items() if key != "scan_truncated")
+
+
+def no_launches(counts, what) -> None:
+    if kernel_launches(counts):
+        fail(f"{what} launched kernels on a path that has none: {counts}")
+
+
+def quickstart_phase(m, win, card):
+    """Phase 8q: ``examples/quickstart.py`` steps 1-4 on the port, on the
+    card (no ``device``), at its sizes and with its assertions."""
+    t_phase = time.perf_counter()
+    # 1. a hard key distribution (the paper's longlat composite keys)
+    keys = m.make_dataset("longlat", 100_000)
+    payloads = np.arange(len(keys), dtype=np.int64)
+
+    def drive():
+        # 2. two-stage NFL: Numerical NF transform -> AFLI
+        nfl = m.NFL(m.NFLConfig())
+        nfl.bulkload(keys[::2], payloads[::2])
+        # 3. batched queries + inserts
+        hits = nfl.lookup_batch(keys[::2][:10_000])
+        ok = [bool((hits == payloads[::2][:10_000]).all())]
+        nfl.insert_batch(keys[1::2][:10_000], payloads[1::2][:10_000])
+        ok.append(bool((nfl.lookup_batch(keys[1::2][:10_000])
+                        == payloads[1::2][:10_000]).all()))
+        # 4. against a classic B-Tree on the same workload
+        bt = m.make_index("btree")
+        bt.bulkload(keys[::2], payloads[::2])
+        ok.append(bool((bt.lookup_batch(keys[::2][:1000])
+                        == payloads[::2][:1000]).all()))
+        return nfl, bt, ok
+
+    (nfl, bt, ok), counts = win.run(drive)
+    mt = nfl.metrics
+    log(f"[quickstart] NF enabled: {nfl.use_flow}; tail conflict degree: "
+        f"{mt['tail_conflict_original']:.0f} -> "
+        f"{mt['tail_conflict_transformed']:.0f}; flow params on "
+        f"{nfl.flow_params['out_log_scale'].device}")
+    log(f"[quickstart] index stats: {nfl.stats().as_dict()}")
+    log(f"[quickstart] btree height: {bt.stats()['height']} vs AFLI "
+        f"height: {nfl.stats().height}; checks {ok}; launches {counts}; "
+        f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    if not all(ok):
+        fail(f"quickstart: an assertion of steps 3-4 failed: {ok}")
+    if nfl.flow_params["out_log_scale"].device.type != "cuda":
+        fail("quickstart: the flow did not train on the card")
+    no_launches(counts, "quickstart")
+    return {"use_flow": nfl.use_flow, "checks": ok,
+            "afli_height": nfl.stats().height,
+            "btree_height": bt.stats()["height"],
+            "seconds": time.perf_counter() - t_phase}
+
+
+def paper_backend_phase(m, win, card):
+    """Phase 8a: ``NFL(NFLConfig())``, the paper's AFLI backend with the
+    default flow and training, over longlat (half of ``PAPER_KEYS``
+    bulk-loaded): reads, misses, ``write_heavy`` writes with every insert
+    read back, updates and deletes, and the scan that must raise."""
+    t_phase = time.perf_counter()
+    name = "paper"
+    keys = m.make_dataset("longlat", PAPER_KEYS)
+    wl = m.make_workload(keys, m.WorkloadConfig(
+        mix="read_only", n_ops=PAPER_READ_BATCHES * BATCH, batch_size=BATCH,
+        zipf_s=0.99, seed=0))
+    unloaded = np.setdiff1d(keys, wl.load_keys, assume_unique=True)
+    rng = np.random.default_rng(8)
+    miss = rng.choice(unloaded, BATCH, replace=False)
+    truth = Truth(wl.load_keys, wl.load_payloads)
+    log(f"[{name}] longlat {keys.shape[0]} keys, "
+        f"{wl.load_keys.shape[0]} bulk-loaded into NFL(NFLConfig()) "
+        f"(backend {m.NFLConfig().backend!r})")
+
+    def bulkload(force):
+        torch.cuda.reset_peak_memory_stats()
+        nfl = m.NFL(m.NFLConfig(force_flow=force))
+        t = time.perf_counter()
+        nfl.bulkload(wl.load_keys, wl.load_payloads)
+        return nfl, time.perf_counter() - t
+
+    (nfl, t_bulk), counts = win.run(lambda: bulkload(None))
+    mt = nfl.metrics
+    verdict = nfl.use_flow
+    log(f"[{name}] AutoSwitch: tails {mt['tail_conflict_original']:.0f} "
+        f"-> {mt['tail_conflict_transformed']:.0f}, use_flow={verdict}")
+    if not nfl.use_flow:
+        log(f"[{name}] AutoSwitch declined the flow; rerunning with "
+            "force_flow=True so the flow path is driven")
+        (nfl, t_bulk), counts = win.run(lambda: bulkload(True))
+        mt = nfl.metrics
+    no_launches(counts, f"{name} bulk load")
+    if not nfl.use_flow:
+        fail(f"{name}: the flow does not serve")
+    if any(t.device.type != "cuda" for t in
+           [nfl.flow_params["out_log_scale"],
+            *(layer["w"] for layer in nfl.flow_params["layers"])]):
+        fail(f"{name}: the flow params are not on the card")
+    split = {"train_s": mt["flow_train_s"], "transform_s": mt["transform_s"],
+             "build_s": mt["index_build_s"], "total_s": t_bulk}
+    log(f"[{name}] bulkload {t_bulk:.2f} s = train "
+        f"{mt['flow_train_s']:.2f} s ({mt['flow_n_steps']:.0f} steps) + "
+        f"transform {mt['transform_s']:.2f} s + build "
+        f"{mt['index_build_s']:.2f} s")
+
+    def reads():
+        wrong = n = 0
+        t = time.perf_counter()
+        for _op, k, p in wl.batches:
+            wrong += int((nfl.lookup_batch(k) != p).sum())
+            n += k.shape[0]
+        secs = time.perf_counter() - t
+        return wrong, n, secs, int((nfl.lookup_batch(miss) != -1).sum())
+
+    (wrong, n_reads, t_reads, wrong_miss), counts = win.run(reads)
+    log(f"[{name}] reads: {n_reads} in {PAPER_READ_BATCHES} batches, "
+        f"wrong={wrong}, {n_reads / t_reads:.0f} lookups/s; misses: {BATCH} "
+        f"unloaded keys, wrong={wrong_miss}; launches {counts}")
+    if wrong or wrong_miss:
+        fail(f"{name}: {wrong} wrong reads, {wrong_miss} wrong misses")
+    no_launches(counts, f"{name} reads")
+
+    wlw = m.make_workload(keys, m.WorkloadConfig(
+        mix="write_heavy", n_ops=PAPER_WRITE_BATCHES * BATCH,
+        batch_size=BATCH, zipf_s=0.99, seed=0))
+    if not np.array_equal(wlw.load_keys, wl.load_keys):
+        fail(f"{name}: the write workload's load split differs")
+
+    def writes():
+        wrong = n_r = 0
+        ins_k, ins_p = [], []
+        t_ins = 0.0
+        for op, k, p in wlw.batches:
+            r = op == 0
+            wrong += int((nfl.lookup_batch(k[r]) != p[r]).sum())
+            n_r += int(r.sum())
+            t = time.perf_counter()
+            nfl.insert_batch(k[~r], p[~r])
+            t_ins += time.perf_counter() - t
+            ins_k.append(k[~r])
+            ins_p.append(p[~r])
+        return wrong, n_r, np.concatenate(ins_k), np.concatenate(ins_p), \
+            t_ins
+
+    (wrong, n_r, ins_k, ins_p, t_ins), counts = win.run(writes)
+    truth.insert(ins_k, ins_p)
+    ins_u = np.unique(ins_k)
+    (back,), counts_b = win.run(lambda: (nfl.lookup_batch(ins_u),))
+    wrong_back = int((back != truth.lookup(ins_u)).sum())
+    log(f"[{name}] writes: {PAPER_WRITE_BATCHES} write_heavy batches, "
+        f"{n_r} reads (wrong={wrong}), {ins_k.shape[0]} inserts at "
+        f"{ins_k.shape[0] / t_ins:.0f} inserts/s; {ins_u.shape[0]} "
+        f"inserted keys read back, wrong={wrong_back}; launches "
+        f"{counts} / {counts_b}")
+    if wrong or wrong_back:
+        fail(f"{name}: {wrong} wrong reads during writes, {wrong_back} "
+             "inserted keys read back wrong")
+    no_launches(counts, f"{name} writes")
+    no_launches(counts_b, f"{name} read-back")
+
+    pick = rng.choice(wl.load_keys.shape[0], 2 * PAPER_WRITES,
+                      replace=False)
+    upd = wl.load_keys[pick[:PAPER_WRITES]]
+    dele = wl.load_keys[pick[PAPER_WRITES:]]
+    upd_pv = wl.load_payloads[pick[:PAPER_WRITES]] + (1 << 28)
+    absent = np.setdiff1d(unloaded, ins_u, assume_unique=True)[:1024]
+
+    def upd_del():
+        t = time.perf_counter()
+        ok_u = nfl.update_batch(upd, upd_pv)
+        ok_d = nfl.delete_batch(dele)
+        secs = time.perf_counter() - t
+        ok_a = nfl.update_batch(absent, np.arange(absent.shape[0]))
+        return (secs, ok_u, ok_d, ok_a, nfl.lookup_batch(upd),
+                nfl.lookup_batch(dele), nfl.lookup_batch(absent))
+
+    (secs, ok_u, ok_d, ok_a, got_u, got_d, got_a), counts = win.run(upd_del)
+    truth.update(upd, upd_pv)
+    truth.delete(dele)
+    wrong = {"update_ok": int((~ok_u).sum()),
+             "delete_ok": int((~ok_d).sum()),
+             "absent_update_ok": int(ok_a.sum()),
+             "updated_reads": int((got_u != upd_pv).sum()),
+             "deleted_hits": int((got_d != -1).sum()),
+             "absent_hits": int((got_a != -1).sum())}
+    log(f"[{name}] {PAPER_WRITES} updates + {PAPER_WRITES} deletes: "
+        f"{2 * PAPER_WRITES / secs:.0f} writes/s; {absent.shape[0]} "
+        f"updates of absent keys; wrong {wrong}; n_keys "
+        f"{nfl.index.n_keys} (truth {truth.keys.shape[0]}); launches "
+        f"{counts}")
+    if any(wrong.values()) or nfl.index.n_keys != truth.keys.shape[0]:
+        fail(f"{name}: wrong updates or deletes: {wrong}")
+    no_launches(counts, f"{name} updates and deletes")
+
+    try:
+        nfl.scan_batch(wl.load_keys[:4], wl.load_keys[4:8])
+    except NotImplementedError as exc:
+        log(f"[{name}] scan_batch raises NotImplementedError: {exc}")
+    else:
+        fail(f"{name}: scan_batch served on the AFLI backend")
+
+    # one read batch in its own window: the AFLI path launches nothing
+    (got,), counts = win.run(lambda: (nfl.lookup_batch(wl.batches[0][1]),))
+    if (got != truth.lookup(wl.batches[0][1])).any():
+        fail(f"{name}: wrong reads after the writes")
+    no_launches(counts, f"{name} read batch")
+    t = time.perf_counter()
+    st = nfl.stats().as_dict()
+    t_stats = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{name}] stats() {st} in {t_stats:.2f} s; launches over a read "
+        f"batch {kernel_launches(counts)}; max_memory_allocated since the "
+        f"bulk load {peak / 2**20:.1f} MiB; "
+        f"dispatch_stats {nfl.dispatch_stats()}")
+    secs = time.perf_counter() - t_phase
+    log(f"[{name}] phase 8a {secs:.1f} s ({card})")
+    return {"name": name, "keys": keys, "wl": wl, "unloaded": unloaded,
+            "verdict": verdict, "tails": (mt["tail_conflict_original"],
+                                          mt["tail_conflict_transformed"]),
+            "bulkload": split, "lookups_per_s": n_reads / t_reads,
+            "inserts_per_s": ins_k.shape[0] / t_ins, "stats": st,
+            "stats_s": t_stats, "peak_bytes": peak, "seconds": secs}
+
+
+def baselines_phase(m, win, paper, card):
+    """Phase 8b: each baseline of ``index.REGISTRY`` on 8a's raw keys:
+    8a's first read batches and unloaded keys, then inserts read back
+    and deletes (RMI is static: its insert must raise)."""
+    t_phase = time.perf_counter()
+    wl = paper["wl"]
+    batches = wl.batches[:BASE_READ_BATCHES]
+    rng = np.random.default_rng(9)
+    pool = rng.choice(paper["unloaded"], 2 * BASE_PROBES, replace=False)
+    miss, fresh = pool[:BASE_PROBES], pool[BASE_PROBES:]
+    fresh_pv = (1 << 29) + np.arange(BASE_PROBES)
+    out = {}
+    for name in BASELINES:
+        idx = m.make_index(name)
+
+        def drive():
+            t = time.perf_counter()
+            idx.bulkload(wl.load_keys, wl.load_payloads)
+            t_bulk = time.perf_counter() - t
+            wrong = n = 0
+            t = time.perf_counter()
+            for _op, k, p in batches:
+                wrong += int((idx.lookup_batch(k) != p).sum())
+                n += k.shape[0]
+            t_reads = time.perf_counter() - t
+            wrong_miss = int((idx.lookup_batch(miss) != -1).sum())
+            row = {"bulkload_s": t_bulk, "lookups_per_s": n / t_reads,
+                   "wrong": wrong, "wrong_miss": wrong_miss}
+            if name == "rmi":
+                try:
+                    idx.insert(float(fresh[0]), 1)
+                except NotImplementedError:
+                    row["insert"] = "raises (static)"
+                else:
+                    fail("rmi: insert did not raise")
+                return row
+            t = time.perf_counter()
+            idx.insert_batch(fresh, fresh_pv)
+            row["inserts_per_s"] = BASE_PROBES / (time.perf_counter() - t)
+            row["wrong_readback"] = int(
+                (idx.lookup_batch(fresh) != fresh_pv).sum())
+            victims = fresh[:BASE_DELETES]
+            if name == "pgm":
+                # PGM's static runs are immutable (the reference's
+                # documented simplification): a delete reaches only the
+                # insert buffer.  Buffer a few keys, delete them with the
+                # flushed victims: the buffered ones must miss, the
+                # flushed ones must be refused and still read
+                extra = miss[:BASE_PGM_BUFFERED]
+                idx.insert_batch(extra, np.arange(extra.shape[0]))
+                victims = np.concatenate([extra, victims[extra.shape[0]:]])
+            ok = np.array([idx.delete(float(k)) for k in victims])
+            got = idx.lookup_batch(victims)
+            if name == "pgm":
+                nb = BASE_PGM_BUFFERED
+                row["wrong_delete"] = (int((~ok[:nb]).sum())
+                                       + int((got[:nb] != -1).sum())
+                                       + int(ok[nb:].sum())
+                                       + int((got[nb:] != fresh_pv[nb:
+                                              BASE_DELETES]).sum()))
+            else:
+                row["wrong_delete"] = int((~ok).sum()) + int(
+                    (got != -1).sum())
+            return row
+
+        row, counts = win.run(drive)
+        row["size_bytes"] = idx.size_bytes()
+        row["stats"] = idx.stats()
+        log(f"[baseline {name}] bulkload {row['bulkload_s']:.2f} s; "
+            f"{row['lookups_per_s']:.0f} lookups/s (AFLI backend 8a "
+            f"{paper['lookups_per_s']:.0f}); {json.dumps(row, default=str)}; "
+            f"launches {counts} ({card})")
+        bad = {k: v for k, v in row.items()
+               if k.startswith("wrong") and v}
+        if bad:
+            fail(f"baseline {name}: {bad}")
+        no_launches(counts, f"baseline {name}")
+        out[name] = row
+        del idx
+    secs = time.perf_counter() - t_phase
+    log(f"[baselines] phase 8b {secs:.1f} s ({card})")
+    out["seconds"] = secs
+    return out
+
+
+def page_table_phase(m, win, card):
+    """Phase 8c: ``NFLPageTable()`` on the card over composite session
+    keys (one ``fused_lookup`` per ``lookup`` call, no ``nf_forward``),
+    inserts of new sessions read back, then a second table over prefix
+    hashes, whose flow AutoSwitch must decline."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(1)
+    seqs = np.repeat(rng.integers(0, 1 << 30, PT_SESSIONS), PT_BLOCKS)
+    blocks = np.tile(np.arange(PT_BLOCKS), PT_SESSIONS)
+    keys = np.unique(m.composite_key(seqs, blocks))
+    pages = rng.permutation(keys.shape[0]).astype(np.int64)
+    truth = Truth(keys, pages)
+    pt = m.NFLPageTable()
+    t = time.perf_counter()
+    _none, counts = win.run(lambda: pt.bulkload(keys, pages))
+    t_bulk = time.perf_counter() - t
+    st = pt.stats()
+    log(f"[page table] {keys.shape[0]} composite keys ({PT_SESSIONS} "
+        f"sessions x {PT_BLOCKS} blocks); flow verdict: "
+        f"{st['flow_enabled']}; table autoswitch "
+        f"{pt.index.autoswitch}; bulkload {t_bulk:.2f} s; launches {counts}")
+
+    def lookups(q_all, what):
+        wrong = calls = 0
+        t = time.perf_counter()
+        for i in range(0, q_all.shape[0], BATCH):
+            q = q_all[i:i + BATCH]
+            got, counts = win.run(lambda: pt.lookup(q))
+            calls += 1
+            wrong += int((got != truth.lookup(q)).sum())
+            if (counts["fused_lookup"] != 1 or counts["nf_forward"]
+                    or kernel_launches(counts) != 1):
+                fail(f"page table: a lookup call of {q.shape[0]} keys "
+                     f"({what}) launched {counts}, not one fused_lookup")
+        secs = time.perf_counter() - t
+        log(f"[page table] {what}: {q_all.shape[0]} keys in {calls} lookup "
+            f"calls, wrong={wrong}, {q_all.shape[0] / secs:.0f} lookups/s; "
+            "each call one fused_lookup")
+        if wrong:
+            fail(f"page table: {wrong} wrong pages ({what})")
+        return q_all.shape[0] / secs
+
+    rate = lookups(keys, "every key")
+    nseqs = np.repeat(rng.integers(1 << 30, 1 << 31, PT_NEW_SESSIONS),
+                      PT_BLOCKS)
+    new = m.composite_key(nseqs, np.tile(np.arange(PT_BLOCKS),
+                                         PT_NEW_SESSIONS))
+    new_pages = keys.shape[0] + np.arange(new.shape[0])
+
+    def inserts():
+        for i in range(0, new.shape[0], PT_INSERT_CALL):
+            pt.insert(new[i:i + PT_INSERT_CALL],
+                      new_pages[i:i + PT_INSERT_CALL])
+
+    t = time.perf_counter()
+    _none, counts = win.run(inserts)
+    t_ins = time.perf_counter() - t
+    truth.insert(new, new_pages)
+    st = pt.stats()
+    log(f"[page table] {new.shape[0]} keys of {PT_NEW_SESSIONS} new "
+        f"sessions inserted in {new.shape[0] // PT_INSERT_CALL} calls of "
+        f"{PT_INSERT_CALL} ({new.shape[0] / t_ins:.0f} inserts/s); "
+        f"n_rebuilds {st['n_rebuilds']}, builds {st['builds']}; run "
+        f"{st['run_len']} delta {st['delta_len']}; launches {counts}")
+    lookups(new, "inserted keys read back")
+    lookups(keys, "old keys after the inserts")
+
+    toks = np.random.default_rng(2).integers(0, 1 << 31, (PH_KEYS, PH_TOKENS))
+    t = time.perf_counter()
+    hashes = np.unique(np.array([m.prefix_hash(row) for row in toks]))
+    t_hash = time.perf_counter() - t
+    hpages = np.arange(hashes.shape[0])
+    ph = m.NFLPageTable()
+    _none, counts = win.run(lambda: ph.bulkload(hashes, hpages))
+    hst = ph.stats()
+    (got,), counts_l = win.run(lambda: (ph.lookup(hashes),))
+    wrong = int((got != hpages).sum())
+    log(f"[page table] prefix hashes: {hashes.shape[0]} keys of "
+        f"{PH_TOKENS} tokens (hashed in {t_hash:.2f} s); flow verdict "
+        f"{hst['flow_enabled']} ({ph.index.autoswitch}); read back "
+        f"wrong={wrong}; launches {counts_l}")
+    if hst["flow_enabled"]:
+        fail("page table: AutoSwitch kept the flow on prefix hashes")
+    if wrong or counts_l["fused_lookup"] != 1 \
+            or kernel_launches(counts_l) != 1:
+        fail(f"page table: prefix-hash reads wrong={wrong}, launches "
+             f"{counts_l}")
+    secs = time.perf_counter() - t_phase
+    log(f"[page table] phase 8c {secs:.1f} s ({card})")
+    return {"flow_enabled": bool(pt.stats()["flow_enabled"]),
+            "n_keys": int(truth.keys.shape[0]),
+            "lookups_per_s": rate, "inserts_per_s": new.shape[0] / t_ins,
+            "n_rebuilds": int(st["n_rebuilds"]), "builds": int(st["builds"]),
+            "hash_flow_enabled": bool(hst["flow_enabled"]), "seconds": secs}
+
+
+def paper_phase(m, win, card):
+    """Phase 8: the paper backend, the baselines and the page table."""
+    out = {"8q": quickstart_phase(m, win, card)}
+    paper = paper_backend_phase(m, win, card)
+    out["8b"] = baselines_phase(m, win, paper, card)
+    out["8a"] = {k: v for k, v in paper.items()
+                 if k not in ("keys", "wl", "unloaded")}
+    out["8c"] = page_table_phase(m, win, card)
+    return out
+
+
 class Mods:
     """The port's modules the smoke drives (imported after the checks)."""
 
@@ -4365,10 +4833,14 @@ class Mods:
         from repro_torch.data.datasets import make_dataset
         from repro_torch.data.workloads import (WorkloadConfig,
                                                 _zipf_indices, make_workload)
+        from repro_torch.index import make_index
         from repro_torch.kernels import ops
         from repro_torch.serve import faults
         from repro_torch.serve.frontend import (FrontEnd, FrontEndConfig,
                                                 ServiceRequest)
+        from repro_torch.serve.prefix_cache import (NFLPageTable,
+                                                    composite_key,
+                                                    prefix_hash)
 
         self.NFL, self.NFLConfig = NFL, NFLConfig
         self.FrontEnd, self.FrontEndConfig = FrontEnd, FrontEndConfig
@@ -4379,6 +4851,8 @@ class Mods:
         self.make_dataset, self.make_workload = make_dataset, make_workload
         self.WorkloadConfig, self.zipf_indices = WorkloadConfig, _zipf_indices
         self.ops = ops
+        self.make_index, self.NFLPageTable = make_index, NFLPageTable
+        self.composite_key, self.prefix_hash = composite_key, prefix_hash
 
 
 class Kernels:
@@ -4608,6 +5082,14 @@ def main() -> int:
     del caps
     lm_rows["flash_decode"] = flash_decode_row(k, flush_buf, *fd_in)
     del fd_in, flush_buf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the paper backend, the baselines and the page table
+    t0 = time.perf_counter()
+    paper = paper_phase(m, win, card)
+    wall("paper backend, baselines and page table (8)", t0)
+    log("[paper] summary " + json.dumps(paper, default=str))
     log("[lm] summary " + json.dumps({key: lm[key] for key in
                                       ("met", "replay", "decode_profile",
                                        "branches")}))

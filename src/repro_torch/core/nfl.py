@@ -1,11 +1,21 @@
 """NFL — the two-stage Normalizing-Flow Learned index (paper §3), PyTorch.
 
-Port of ``repro.core.nfl`` for the flat backend.  Stage 1 trains the
-Numerical NF on a sample of the bulk-loaded keys and transforms every
-key through the NF kernel; the paper's switching mechanism (AutoSwitch)
-keeps the flow only if it lowers the tail conflict degree.  Stage 2
-builds ``FlatAFLI`` over the (possibly transformed) keys and verifies
-the serve path end to end.  Every ``lookup_batch`` is one point-read
+Port of ``repro.core.nfl``.  Stage 1 trains the Numerical NF on a sample
+of the bulk-loaded keys and transforms every key; the paper's switching
+mechanism (AutoSwitch) keeps the flow only if it lowers the tail
+conflict degree.  Stage 2 indexes the (possibly transformed) keys.  Two
+backends:
+
+* ``backend="afli"`` (the default): the paper's pointer tree
+  (``core.afli.AFLI``), on the host, probed key by key, with the full
+  read and write API (no range scans).  The flow trains on the device
+  and every batch is positioned through ``core.flow.transform_keys``
+  (f32 flow on the params' device, f64 sum decode on the host), as the
+  reference positions its tree; this path launches no kernel.
+* ``backend="flat"``: ``FlatAFLI``, its keys transformed through the NF
+  kernel, its serve path verified end to end.
+
+On the flat backend every ``lookup_batch`` is one point-read
 kernel launch (the fused rung, or the streamed rung when the index's
 ``pool_budget`` selects it) and every ``scan_batch`` one range-scan
 launch (NF forward included when the flow is on); a write positions its
@@ -43,8 +53,9 @@ of the load, starts a boundary migration of the window around it
 exclusion token, so a migration and a re-key never interleave.
 ``dispatch_stats()["reshard"]`` reports the manager and the gauges.
 
-Not ported yet, and raising ``NotImplementedError`` with the ROADMAP
-item that ports it: the paper's pointer-tree backend (A13).
+Drift telemetry and re-flow, and resharding, ride the flat backend only:
+``drift.reflow`` or ``reshard.enabled`` on the AFLI backend raises
+``ValueError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -57,13 +68,14 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.core.afli import AFLI, AFLIConfig
 from repro_torch.core.conflict import dataset_tail_conflict, should_use_flow
 from repro_torch.core.drift import (DriftConfig, DriftMonitor, ExclusionLock,
                                     ReflowManager, ReshardConfig,
                                     ReshardManager)
 from repro_torch.core.feature import expand_features
 from repro_torch.core.flat_afli import FlatAFLI, FlatAFLIConfig
-from repro_torch.core.flow import FlowConfig
+from repro_torch.core.flow import FlowConfig, transform_keys
 from repro_torch.core.sharded_nfl import ShardedFlatAFLI
 from repro_torch.core.train_flow import (FlowTrainConfig, FlowTrainer,
                                          train_flow)
@@ -78,6 +90,7 @@ class NFLConfig:
     flow: FlowConfig = dataclasses.field(default_factory=FlowConfig)
     flow_train: FlowTrainConfig = dataclasses.field(
         default_factory=FlowTrainConfig)
+    index: AFLIConfig = dataclasses.field(default_factory=AFLIConfig)
     flat_index: FlatAFLIConfig = dataclasses.field(
         default_factory=FlatAFLIConfig)
     gamma: float = 0.99
@@ -86,36 +99,36 @@ class NFLConfig:
     shards: int = 1                    # flat backend: key-space shards
     drift: DriftConfig = dataclasses.field(default_factory=DriftConfig)
                                        # drift telemetry + background
-                                       # re-flow (§14)
+                                       # re-flow (flat backend, §14)
     reshard: ReshardConfig = dataclasses.field(
         default_factory=ReshardConfig)
                                        # hot-shard load telemetry +
-                                       # boundary migration (sharded, §18)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+                                       # boundary migration (sharded
+                                       # flat backend, §18)
 
 
 class NFL:
-    """Two-stage learned index: Numerical NF + FlatAFLI (one, or one per
-    key-space shard)."""
+    """Two-stage learned index: Numerical NF + AFLI (the paper's tree) or
+    FlatAFLI (one, or one per key-space shard)."""
 
     def __init__(self, config: NFLConfig | None = None,
                  device: Optional[Union[str, torch.device]] = None):
         self.cfg = config or NFLConfig()
-        if self.cfg.backend == "afli":
-            raise _not_ported("backend='afli' (the paper's pointer tree)",
-                              "A13")
-        if self.cfg.backend != "flat":
+        if self.cfg.backend not in ("afli", "flat"):
             raise ValueError(f"unknown NFL backend: {self.cfg.backend!r}")
-        if self.cfg.reshard.enabled and self.cfg.shards < 2:
+        self._flat = self.cfg.backend == "flat"
+        if self.cfg.drift.reflow and not self._flat:
+            raise ValueError("drift.reflow requires backend='flat' (the "
+                             "re-key rides the incremental-fold machinery)")
+        if self.cfg.reshard.enabled and (not self._flat
+                                         or self.cfg.shards < 2):
             raise ValueError("reshard.enabled requires backend='flat' "
                              "with shards > 1 (boundary migration moves "
                              "the sharded router's boundaries)")
         self.device = resolve_device(device)
-        if self.cfg.shards > 1:
+        if not self._flat:
+            self.index = AFLI(self.cfg.index)
+        elif self.cfg.shards > 1:
             self.index = ShardedFlatAFLI(self.cfg.flat_index,
                                          n_shards=self.cfg.shards,
                                          device=self.device)
@@ -138,7 +151,7 @@ class NFL:
         self._drift: Optional[DriftMonitor] = None
         self._reflow: Optional[ReflowManager] = None
         self._reshard: Optional[ReshardManager] = None
-        if self.cfg.drift.enabled:
+        if self._flat and self.cfg.drift.enabled:
             self._drift = DriftMonitor(self.cfg.drift)
             self._reflow = ReflowManager(
                 self.cfg.drift, self._drift,
@@ -158,9 +171,11 @@ class NFL:
 
     # ------------------------------------------------------------ bulkload
     def bulkload(self, keys: np.ndarray, payloads: np.ndarray) -> None:
-        """Train the flow, transform the keys through the NF kernel,
-        decide the flow (AutoSwitch or ``force_flow``), build the index
-        and verify the serve path.  Times land in ``metrics``."""
+        """Train the flow on the device, transform the keys (the NF
+        kernel on the flat backend, ``transform_keys`` on the AFLI
+        backend), decide the flow (AutoSwitch or ``force_flow``), build
+        the index and, on the flat backend, verify the serve path.
+        Times land in ``metrics``."""
         keys = np.asarray(keys, dtype=np.float64)
         payloads = np.asarray(payloads, dtype=np.int64)
         t0 = time.perf_counter()
@@ -169,8 +184,7 @@ class NFL:
         t_train = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        transformed = ops.nf_transform_keys(params, normalizer, keys,
-                                            self.cfg.flow, self.device)
+        transformed = self._transform(params, normalizer, keys)
         t_transform = time.perf_counter() - t0
 
         use, tail_orig, tail_flow = should_use_flow(keys, transformed,
@@ -180,11 +194,17 @@ class NFL:
         self.use_flow = bool(use)
         self.flow_params = params
         self.normalizer = normalizer
-        self._packed_w, self._shapes = self._pack_weights(params)
+        if self._flat:
+            self._packed_w, self._shapes = self._pack_weights(params)
 
         t0 = time.perf_counter()
         n_shadow = 0
-        if self.use_flow:
+        if not self._flat:
+            if self.use_flow:
+                self.index.bulkload(transformed, payloads, ikeys=keys)
+            else:
+                self.index.bulkload(keys, payloads)
+        elif self.use_flow:
             self.index.build(transformed, payloads, ikeys=keys)
             self.index.set_serve_flow(normalizer, self.cfg.flow,
                                       self._packed_w, self._shapes)
@@ -213,6 +233,16 @@ class NFL:
             "use_flow": float(self.use_flow),
             "serve_verify_shadowed": float(n_shadow),
         }
+
+    def _transform(self, params, normalizer, keys: np.ndarray) -> np.ndarray:
+        """Positioning keys on the backend's path: the NF kernel on the
+        flat backend (build and serve placement bit-identical), the f32
+        flow and f64 decode of ``transform_keys`` on the AFLI backend
+        (the reference positions its tree so)."""
+        if self._flat:
+            return ops.nf_transform_keys(params, normalizer, keys,
+                                         self.cfg.flow, self.device)
+        return transform_keys(params, normalizer, keys, self.cfg.flow)
 
     def _pack_weights(self, params):
         """The flow's ``pack_flow_weights`` row (fused-kernel serve input)."""
@@ -321,6 +351,11 @@ class NFL:
         """Batched point lookups; -1 marks not-found.  One fused kernel
         launch per call (NF forward in-kernel when the flow is on)."""
         keys = np.asarray(keys, dtype=np.float64)
+        if not self._flat:
+            found = map(self.index.lookup, self._pkeys(keys).tolist(),
+                        keys.tolist())
+            return np.fromiter((-1 if r is None else r for r in found),
+                               dtype=np.int64, count=keys.shape[0])
         if not self.use_flow:
             res = self.index.lookup_batch(keys)
         else:
@@ -334,8 +369,13 @@ class NFL:
         a zero-argument finisher that returns the payload array.  The
         kernels read the index as it is at dispatch, so a caller can keep
         a second batch in flight behind the first, or write in between,
-        and each batch still reads the state it was dispatched into."""
+        and each batch still reads the state it was dispatched into.
+        The AFLI backend has no device path: its lookup runs eagerly and
+        the finisher hands the result back."""
         keys = np.asarray(keys, dtype=np.float64)
+        if not self._flat:
+            res = self.lookup_batch(keys)
+            return lambda: res
         if not self.use_flow:
             finish = self.index.lookup_batch_async(keys)
         else:
@@ -347,12 +387,11 @@ class NFL:
 
     def _pkeys(self, keys: np.ndarray) -> np.ndarray:
         """Positioning keys of a batch: the keys themselves without the
-        flow, else z from the NF kernel (bit-equal to the in-kernel NF of
-        the lookup and range kernels)."""
+        flow, else z on the backend's path (on the flat backend bit-equal
+        to the in-kernel NF of the lookup and range kernels)."""
         if not self.use_flow:
             return keys
-        return ops.nf_transform_keys(self.flow_params, self.normalizer,
-                                     keys, self.cfg.flow, self.device)
+        return self._transform(self.flow_params, self.normalizer, keys)
 
     def _feats(self, keys: np.ndarray) -> np.ndarray:
         return expand_features(keys, self.normalizer, self.cfg.flow.dim,
@@ -362,6 +401,12 @@ class NFL:
         """Batched inserts (an existing key's payload is overwritten)."""
         keys = np.asarray(keys, dtype=np.float64)
         payloads = np.asarray(payloads, dtype=np.int64)
+        if not self._flat:
+            insert = self.index.insert
+            for p, v, k in zip(self._pkeys(keys).tolist(), payloads.tolist(),
+                               keys.tolist()):
+                insert(p, v, k)
+            return
         self.index.insert_batch(self._pkeys(keys), payloads,
                                 ikeys=keys if self.use_flow else None)
         if self._drift is not None:
@@ -376,6 +421,11 @@ class NFL:
         key is absent and is not created).  The write path is last write
         wins by identity, so an update is an insert of present keys."""
         keys = np.asarray(keys, dtype=np.float64)
+        if not self._flat:
+            return np.fromiter(
+                map(self.index.update, self._pkeys(keys).tolist(),
+                    np.asarray(payloads, np.int64).tolist(), keys.tolist()),
+                dtype=bool, count=keys.shape[0])
         ok = self.index.contains_batch(keys)
         if ok.any():
             self.insert_batch(keys[ok], np.asarray(payloads)[ok])
@@ -386,6 +436,11 @@ class NFL:
         Deleted keys vanish from point and range results at once and are
         dropped from the tree by the next fold."""
         keys = np.asarray(keys, dtype=np.float64)
+        if not self._flat:
+            return np.fromiter(
+                map(self.index.delete, self._pkeys(keys).tolist(),
+                    keys.tolist()),
+                dtype=bool, count=keys.shape[0])
         res = self.index.delete_batch(self._pkeys(keys),
                                       ikeys=keys if self.use_flow else None)
         self._reshard_note(keys.shape[0])
@@ -399,7 +454,12 @@ class NFL:
         positioning-key order; ``totals[i] > cap`` flags truncation.
         The order is the key order with the flow off and the z order with
         it on (both endpoints go through the same NF as every stored
-        key)."""
+        key).  The flat backend only: the AFLI backend raises
+        ``NotImplementedError``."""
+        if not self._flat:
+            raise NotImplementedError(
+                "range scans are served by the flat backend's fused "
+                "range-scan kernel; use backend='flat'")
         lo_keys = np.asarray(lo_keys, dtype=np.float64)
         hi_keys = np.asarray(hi_keys, dtype=np.float64)
         if not self.use_flow:
@@ -415,8 +475,9 @@ class NFL:
     lookup_range = scan_batch
 
     def stats(self):
-        """The index's ``stats()``; sharded, with each shard's block and
-        the router's fan-out counters."""
+        """The index's ``stats()``: ``AFLIStats`` on the AFLI backend;
+        sharded, with each shard's block and the router's fan-out
+        counters."""
         return self.index.stats()
 
     def dispatch_stats(self, reset: bool = False) -> Dict[str, Any]:
@@ -438,7 +499,13 @@ class NFL:
         critical section of ``kernels.counters.LOCK``, so a dispatch
         from another thread lands in this snapshot or the next, never in
         none.  Gauges (capacities, windows, the load gauges) and the
-        episode counters of both managers are state and stay."""
+        episode counters of both managers are state and stay.
+
+        The AFLI backend launches nothing: its block is ``dispatch``
+        alone, as in the JAX package."""
+        if not self._flat:
+            with counters.LOCK:
+                return {"dispatch": ops.fused_lookup_stats(reset=reset)}
         with self._telemetry_lock:
             with counters.LOCK:
                 truncated = ops.fused_range_scan.truncated

@@ -245,7 +245,11 @@ def fused_lookup_plain(feats: torch.Tensor, qhi: torch.Tensor,
         et = pools.etype[e]
         hit_data = ((et == DATA) & (pools.ehi[e] == qhi)
                     & (pools.elo[e] == qlo))
-        bid = torch.clamp(pools.echild[e], min=0).to(torch.int64)
+        # only a BUCKET entry's echild is a bucket row; any other entry's
+        # (a child node id) is clamped into the pool, as a gather clamps
+        # in the JAX reference, and its row is never used
+        bid = torch.clamp(pools.echild[e], min=0,
+                          max=pools.bhi.shape[0] - 1).to(torch.int64)
         bmatch = ((pools.bhi[bid] == qhi[:, None])
                   & (pools.blo[bid] == qlo[:, None])
                   & (cols[None, :] < pools.blen[bid][:, None]))

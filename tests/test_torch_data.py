@@ -18,7 +18,9 @@ torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("name", ["longitudes", "longlat", "lognormal",
-                                  "llt", "lgn"])
+                                  "ycsb", "amazon", "facebook", "wikipedia",
+                                  "llt", "lgn", "ltd", "amzn", "fb", "wiki",
+                                  "YCSB"])
 @pytest.mark.parametrize("seed", [None, 7])
 def test_datasets_bitwise(name, seed):
     a = datasets.make_dataset(name, 5000, seed=seed)
@@ -27,8 +29,14 @@ def test_datasets_bitwise(name, seed):
 
 
 def test_unported_dataset_raises():
-    with pytest.raises(NotImplementedError, match="A13"):
-        datasets.make_dataset("ycsb", 100)
+    """Every dataset is ported: an unknown name raises ``KeyError``, as in
+    the reference, and the names and aliases are the reference's."""
+    with pytest.raises(KeyError):
+        datasets.make_dataset("osm", 100)
+    with pytest.raises(KeyError):
+        j_datasets.make_dataset("osm", 100)
+    assert datasets.dataset_names() == j_datasets.dataset_names()
+    assert datasets.ALIASES == j_datasets.ALIASES
 
 
 @pytest.mark.parametrize("mix", ["read_only", "read_heavy"])

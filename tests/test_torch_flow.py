@@ -15,6 +15,9 @@ from repro.core.flow import FlowConfig as JFlowConfig
 from repro.core.flow import init_flow as j_init_flow
 from repro.core.flow import materialize_weights as j_materialize
 from repro.core.flow import flow_forward_with_logdet as j_logdet
+from repro.core.flow import flow_forward as j_flow_forward
+from repro.core.flow import transform_keys as j_transform_keys
+from repro.core import feature as j_feature
 from repro.core.train_flow import FlowTrainConfig as JTrainConfig
 from repro.core.train_flow import FlowTrainer as JFlowTrainer
 from repro.core.train_flow import train_flow as j_train_flow
@@ -24,7 +27,7 @@ from repro.kernels.nf_forward import pack_flow_weights as j_pack
 from repro.kernels.ref import nf_forward_ref
 
 from repro_torch.core.flow import FlowConfig, flow_forward_with_logdet
-from repro_torch.core.flow import materialize_weights
+from repro_torch.core.flow import materialize_weights, transform_keys
 from repro_torch.core.train_flow import FlowTrainConfig, FlowTrainer
 from repro_torch.data.datasets import make_dataset
 from repro_torch.kernels import ops
@@ -138,6 +141,33 @@ def test_nf_transform_keys_matches_jax():
     # exp() in the weight materialization adds one more ulp per weight
     bound = 2 * Z_ULPS * EPS32 * np.abs(z_jax).max()
     assert np.abs(z_port - z_jax).max() <= bound
+
+
+@pytest.mark.parametrize("name,dim", [("longlat", 2), ("lognormal", 2),
+                                      ("longlat", 3)])
+def test_transform_keys_matches_jax(name, dim):
+    """``core.flow.transform_keys`` (the AFLI backend's and the page
+    table's positioning path: f32 flow on the params' device, f64 sum
+    decode) against ``repro.core.flow.transform_keys``: each flow output
+    within ``Z_ULPS`` ulp of max|z| (the weights' exp() one more, as
+    above), so the f64 sum of the ``dim`` outputs within ``dim`` times
+    that; the decode itself is the same f64 sum on both sides."""
+    keys = make_dataset(name, 6000)
+    cfg, params, _rng = _jax_flow(dim, 2, 2, 17 + dim)
+    norm = j_feature.KeyNormalizer.fit(keys, scale=cfg.norm_scale)
+    z_jax = j_transform_keys(params, norm, keys, cfg)
+    t_cfg = FlowConfig(dim=dim, hidden=2, layers=2)
+    t_params = params_from_numpy(_np_tree(params), "cpu")
+    z_port = transform_keys(t_params, norm, keys, t_cfg)
+    assert z_port.dtype == np.float64 and z_port.shape == keys.shape
+    feats = j_feature.expand_features(keys, norm, dim, cfg.theta,
+                                      dtype=np.float32)
+    zc = np.asarray(j_flow_forward(params, jnp.asarray(feats), cfg))
+    bound = dim * 2 * Z_ULPS * EPS32 * np.abs(zc).max()
+    assert np.abs(z_port - z_jax).max() <= bound
+    # chunking does not move a key: positioning is per key
+    assert np.array_equal(
+        transform_keys(t_params, norm, keys, t_cfg, batch_size=1000), z_port)
 
 
 def test_flow_trainer_steps_match_jax():

@@ -1456,3 +1456,57 @@ def test_contract_checker_clean_on_card(cuda):
     assert facts["launches"] and facts["smem_launches"]
     assert any(f["params"].get("capacity") == 1 << 25
                for f in facts["smem_launches"])
+
+
+def test_default_nfl_flow_on_card_reads_right(cuda):
+    """``NFL(NFLConfig())``, the paper's AFLI backend, with no device:
+    its flow trains and positions on the card (params on cuda), the tree
+    serves every loaded key, misses the rest and reads inserts back, and
+    the path launches no kernel."""
+    from repro_torch.core.afli import AFLI
+
+    keys = make_dataset("longlat", 40_000)
+    pv = np.arange(keys.shape[0], dtype=np.int64)
+    nfl = NFL(NFLConfig(force_flow=True,
+                        flow_train=FlowTrainConfig(epochs=1)))
+    assert isinstance(nfl.index, AFLI) and nfl.device.type == "cuda"
+    ops.reset_launch_counts()
+    nfl.bulkload(keys[::2], pv[::2])
+    assert nfl.flow_params["out_log_scale"].device.type == "cuda"
+    assert all(layer["w"].device.type == "cuda"
+               for layer in nfl.flow_params["layers"])
+    assert nfl.use_flow
+    assert np.array_equal(nfl.lookup_batch(keys[::2]), pv[::2])
+    assert (nfl.lookup_batch(keys[1::2]) == -1).all()
+    nfl.insert_batch(keys[1::2], pv[1::2])
+    assert np.array_equal(nfl.lookup_batch(keys), pv)
+    # positioning is per key: a batch of one lands where the bulk did
+    for i in range(0, keys.shape[0], 4999):
+        assert nfl.lookup_batch(keys[i:i + 1])[0] == pv[i]
+    assert sum(ops.launch_counts().values()) == 0
+
+
+def test_page_table_lookup_launches_fused_lookup_once(cuda):
+    """``NFLPageTable()`` on the card: each ``lookup`` call is one
+    ``fused_lookup`` launch and no ``nf_forward``, with the flow on or
+    off, and reads every page right."""
+    from repro_torch.serve import NFLPageTable, composite_key
+
+    rng = np.random.default_rng(0)
+    seqs = np.repeat(rng.integers(0, 1 << 30, 128), 32)
+    keys = np.unique(composite_key(seqs, np.tile(np.arange(32), 128)))
+    pages = rng.permutation(keys.shape[0]).astype(np.int64)
+    pt = NFLPageTable()
+    pt.bulkload(keys, pages)
+    for q in (keys, keys[::7], keys[:1]):
+        ops.reset_launch_counts()
+        got = pt.lookup(q)
+        counts = ops.launch_counts()
+        assert counts["fused_lookup"] == 1 and counts["nf_forward"] == 0
+        assert sum(counts.values()) == 1
+        assert np.array_equal(got, pages[np.searchsorted(keys, q)])
+    new = composite_key(np.full(64, (1 << 31) + 5), np.arange(64))
+    pt.insert(new, np.arange(64) + 10_000)
+    ops.reset_launch_counts()
+    assert np.array_equal(pt.lookup(new), np.arange(64) + 10_000)
+    assert ops.launch_counts()["fused_lookup"] == 1
