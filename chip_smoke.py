@@ -63,18 +63,18 @@ Phases (any failure exits non-zero before the result lines):
       trace at 0.25 C; O, the trace at 2 C with admission on (something
       shed or expired, every completed read on time) and off; M, 1,024
       requests 70% point, 10% range (2d's), 15% insert, 5% delete; F,
-      a mixed trace of 4,096 under device and fold stalls over a fold
+      a mixed trace of 1,024 under device and fold stalls over a fold
       started just before it (its write calls tick the fold: every tick
       stalled), and two point-only traces of 4,096 under a transient
       error every 3rd dispatch (retried) and every dispatch (every
       request shed ``"error"``, 1,024 live keys read the same before and
-      after).  The JAX plan's ``force_oracle`` has no counterpart.  M is
-      cut to fit the time limit (PERF.md §4).  Each leg's batches are
-      logged by ``on_batch_dispatched`` and replayed in that order
-      against the live keys with the trace's writes applied where they
-      dispatched: 0 wrong results, exact accounting, and P's and O's
-      windows launch ``fused_lookup`` once a point batch and nothing
-      else.
+      after).  The JAX plan's ``force_oracle`` has no counterpart.  M and
+      F's stall leg are cut to fit the time limit (PERF.md §4).  Each
+      leg's batches are logged by ``on_batch_dispatched`` and replayed in
+      that order against the live keys with the trace's writes applied
+      where they dispatched: 0 wrong results, exact accounting, and P's
+      and O's windows launch ``fused_lookup`` once a point batch and
+      nothing else.
 3. ``lognormal`` at 2^22 keys, 2^21 loaded, ``force_flow=False``: reads
    as in 2a; ``write_heavy`` batches until a fold starts and completes
    in-stream, the rung alternating per batch (even batches fused, odd
@@ -172,14 +172,15 @@ Phases (any failure exits non-zero before the result lines):
    on scan batches taken in that state (longlat's 16 batches timed the
    same way, bounded by the sectors of the endpoint searches, the pool
    spans and the probe windows, plus its inputs and output rows).
-6. LM serving, falcon-mamba-7b at its full published config (64 layers,
-   d_model 4096, vocab 65,024, bf16) with ``use_scan_kernel=True``,
+6. LM serving, falcon-mamba-7b at its full published width, its depth
+   cut to 32 of its 64 layers (``LM_DEPTH``; d_model 4096, vocab 65,024,
+   bf16) with ``use_scan_kernel=True``,
    random weights on the card from the seed, after the index phases'
    tensors are freed: 16 requests (prompts of 256-2,048 tokens uniform
    over the vocabulary, 32 new tokens each) through the port's
    ``ContinuousBatcher`` with 8 slots until drained; every request must
    finish with 32 tokens, no logit may be NaN or inf, and ``mamba_scan``
-   must launch 64 times per prefill.  Then a teacher-forced replay of 4
+   must launch once per layer in every prefill.  Then a teacher-forced replay of 4
    requests at batch 1 (each of the batcher's tokens within 4 bf16 ulps
    of the replay's maximum logit), and the kernel path against the
    chunked path on one 2,048-token prompt: one ``mamba_block`` with
@@ -187,7 +188,31 @@ Phases (any failure exits non-zero before the result lines):
    prefill logits (relative L2 under ``LM_LOGIT_REL_L2``, same argmax).
    One decode step of 8 slots runs under ``torch.profiler`` (its device
    operations and device time; informational, it fails nothing).
-   ``ops.flash_decode`` is then driven at qwen3-14b's attention shape
+6d. qwen3-14b at its full published config (40 layers, d_model 5,120,
+   40/8 heads of 128, d_ff 17,408, vocab 151,936, bf16, 29.5 GB of
+   random weights from the seed), phase 6's tensors freed: phase 6's 16
+   requests (prompts of 256-2,048 tokens, 32 new tokens, 8 slots) through
+   ``ContinuousBatcher``; every request 32 tokens, no NaN or inf, and
+   ``flash_decode`` launched 40 times in every decode step and never in
+   a prefill (read around each call); the batch-1 replay of 4 requests
+   (4 bf16 ulps, as phase 6); layer 0's decode attention on the kernel
+   route against the plain einsum route on the served cache, in f32
+   (``FD_TOL``); one decode step on the served cache under
+   ``torch.profiler`` (device time and ``flash_decode``'s share,
+   informational).
+6m. every other architecture at its published widths, one at a time,
+   its depth cut (``FAMILY_DEPTH``: gemma2-9b 2 layers, one local and
+   one global; phi4-mini and internlm2 2; granite-moe all 24; arctic-480b
+   1; zamba2 12, two shared-attention groups; llama-3.2-vision 10, two
+   cross groups over 1,601 stub patches; whisper-medium all 24 + 24 over
+   1,500 stub frames): the text families serve 4 requests (prompts of
+   64-256 tokens, 8 new) through the batcher, vlm and encdec run a
+   prefill of 2 prompts of 128 tokens with their stub inputs and 8
+   decode steps; finite logits, the token counts, and ``flash_decode``
+   launched in each decode step once for every attention on the kernel
+   route (gemma2: none, its softcap and local windows take the plain
+   route), never in a prefill.
+   Then ``ops.flash_decode`` is driven at qwen3-14b's attention shape
    (40 q heads, 8 kv heads, head dim 128) over a 32,768-position bf16
    cache for 16 rows with ragged lengths (0, 1 and S among them).
 7. the LM kernels against their plain versions: ``mamba_scan`` on the
@@ -196,7 +221,10 @@ Phases (any failure exits non-zero before the result lines):
    ``flash_decode`` with the bf16 cache and an f32 one, timed beside
    ``scaled_dot_product_attention`` (the library yardstick only), and
    again at B 1 over the cache's row of length S, where the split plan
-   matters most; each kernel's plan (scan chunks, decode splits) printed.
+   matters most; then at every family's decode shape of 6d and 6m (head
+   dims 64, 80 and 128, groups 1-7, the vlm and encdec cross caches of
+   1,601 and 1,500 positions), and timed beside SDPA at 6d's (B 8, S
+   2,080): the kernel table's row; each kernel's plan printed.
 8. the paper's backend, the baselines and the page table, after the LM
    phases' tensors are freed:
    q. ``examples/quickstart.py`` steps 1-4 on the port, on the card:
@@ -230,7 +258,7 @@ Phases (any failure exits non-zero before the result lines):
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are zeroed just before each driven step (each
-front-end leg included) of phases 2, 3, 4, 6 and 8 (and the fixtures' before the self-test of 1b) and read
+front-end leg included) of phases 2, 3, 4, 6, 6d, 6m and 8 (and the fixtures' before the self-test of 1b) and read
 just after; the kernels' launches in phases 1b's contract run, 5 and 7
 and those that compute ground truth, replay or compare fall between
 those windows and do not count.  Every window outside the streamed steps must
@@ -326,7 +354,10 @@ FE_POINTS_SHARDED = 65_536     # 4f: P
 # plain versions (51 ms a request; PERF.md §4, §6)
 FE_MIXED = 1_024               # 2f: M
 FE_MIXED_SHARDED = 2_048       # 4f: M
-FE_FAULT = 4_096               # 2f: each leg of the fault ladder
+FE_FAULT = 4_096               # 2f: each error leg of the fault ladder
+# 2f: the stall leg, cut from 4,096 (88.8-93.1 s of the smoke on an H100
+# host; mixed batches of ~2 requests, each write call a stalled fold tick)
+FE_STALL = 1_024
 FE_DEADLINE = 0.02             # P and O: 20 ms
 FE_SLACK = 600.0               # "no deadline pressure"
 FE_MIX = (0.7, 0.1, 0.15, 0.05)  # point, range, insert, delete
@@ -343,6 +374,9 @@ SFU_PER_SM_PER_CLOCK = 16
 # one issue slot per rounded multiply or add, which must not fuse
 FP32_PER_SM_PER_CLOCK = 128
 LM_ARCH = "falcon-mamba-7b"
+# phase 6's depth: 32 of falcon-mamba-7b's 64 layers, cut so the smoke
+# keeps its limit with phases 6d and 6m
+LM_DEPTH = 32
 LM_REQUESTS = 16
 LM_PROMPT = (256, 2048)        # prompt lengths, uniform, inclusive
 LM_NEW = 32                    # new tokens per request
@@ -351,6 +385,27 @@ LM_REPLAYS = 4                 # requests replayed at batch 1
 LM_CHECK_LEN = 2048            # kernel-vs-chunked prompt
 LM_SCAN_LAYERS = 8             # layers whose scan inputs phase 7 times
 LM_LOGIT_REL_L2 = 0.1          # kernel vs chunked bf16 prefill logits
+# phase 6d: qwen3-14b at full width and depth, served as phase 6 serves
+# falcon-mamba-7b (LM_REQUESTS, LM_PROMPT, LM_NEW, LM_SLOTS, LM_REPLAYS)
+DENSE_ARCH = "qwen3-14b"
+LM_DEVICE = "cuda"
+# phase 6m: every other architecture at its published widths, depth cut
+# (None: all layers); the text families through the batcher, vlm and
+# encdec through prefill/decode_step with their stub inputs
+FAMILY_DEPTH = {
+    "gemma2-9b": 2,                # one local layer, one global
+    "phi4-mini-3.8b": 2,
+    "internlm2-1.8b": 2,
+    "granite-moe-1b-a400m": None,  # all 24
+    "arctic-480b": 1,
+    "zamba2-2.7b": 12,             # 2 shared-attention groups of 6
+    "llama-3.2-vision-11b": 10,    # 2 cross-attention groups of 5
+    "whisper-medium": None,        # all 24 + 24
+}
+FAM_REQUESTS = 4
+FAM_PROMPT = (64, 256)         # prompt lengths, uniform, inclusive
+FAM_NEW = 8
+FAM_EXTRA_BATCH, FAM_EXTRA_PROMPT = 2, 128   # vlm and encdec
 SCAN_TOL = 1e-4                # mamba_scan vs plain (rtol and atol)
 BRANCH_TOL = 2e-3              # f32 mamba_block, kernel vs chunked
 FD_ATTN_ARCH = "qwen3-14b"     # flash_decode's attention shape
@@ -3364,12 +3419,12 @@ def frontend_phase(res, m, win, sk, zs, ps, card, sharded=False):
 
 
 def fault_ladder(st, win, rng, cap):
-    """2f's F: three traces of ``FE_FAULT`` requests, slack deadlines and
-    admission off.  The stall leg is mixed as M (submitted at once) over
+    """2f's F: three traces, slack deadlines and admission off.  The stall
+    leg, ``FE_STALL`` requests, is mixed as M (submitted at once) over
     a fold started just before it, so that its write calls tick the fold
     under ``fold_stall_s`` (at 2^24 keys no leg's writes start one: a
     fold starts past a run of ``rebuild_frac`` of the live keys).  The
-    error legs are point-only (as the JAX tests inject errors only into
+    error legs, ``FE_FAULT`` requests each, are point-only (as the JAX tests inject errors only into
     point traces: an error in a fold's verify chunk is raised after the
     write was applied) with Poisson arrivals at 0.5 C, so that they
     dispatch many batches.  The JAX plan's ``force_oracle`` has no
@@ -3388,7 +3443,7 @@ def fault_ladder(st, win, rng, cap):
     idx._fold_start()
     snapshot_s = time.perf_counter() - t0
     row, _log = fe_leg(st, win, "F stall",
-                       st.mixed(rng, FE_FAULT, FE_SLACK),
+                       st.mixed(rng, FE_STALL, FE_SLACK),
                        plan=m.faults.FaultPlan(device_stall_s=1e-3,
                                                stall_every=4,
                                                fold_stall_s=1e-3),
@@ -3399,9 +3454,9 @@ def fault_ladder(st, win, rng, cap):
         f"{row['fold_ticks']} fold ticks in the leg, {f['fold_stalls']} "
         f"of them stalled; {f['stalls']} dispatch stalls")
     if not f["stalls"] or not f["fold_stalls"] \
-            or row["completed"] != FE_FAULT:
+            or row["completed"] != FE_STALL:
         fail(f"{st.name}: stall leg: {f}, fold ticks {row['fold_ticks']}, "
-             f"{row['completed']} of {FE_FAULT} completed")
+             f"{row['completed']} of {FE_STALL} completed")
     out["F_stall"] = row
     row, _log = fe_leg(st, win, "F errors every 3",
                        st.points(rng, FE_FAULT, FE_SLACK), arrivals(),
@@ -3545,6 +3600,9 @@ def nf_forward_row(res, k, flush_buf, write_batches):
         [lambda f=f: k.nf_forward(f, packed, shapes, d) for f in wfeats],
         flush_buf)
     wb = statistics.median(f.shape[0] for f in wfeats)
+    # the same three bounds at the median write batch's keys
+    wtimes = {key: v * wb / b for key, v in times.items()}
+    wbound_by = max(wtimes, key=wtimes.get)
     row = {
         "name": "nf_forward", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/nf_forward.cu",
@@ -3562,6 +3620,8 @@ def nf_forward_row(res, k, flush_buf, write_batches):
         "bound_ms_by": {key: v * 1e3 for key, v in times.items()},
         "fp32_per_key": fp32_key, "sfu_per_key": sfu_key,
         "write_batch_keys": wb,
+        "bound_ms_write_batch": wtimes[wbound_by] * 1e3,
+        "bound_by_write_batch": wbound_by,
         "ms_write_batch": statistics.median(wcold),
         "ms_warm_l2_write_batch": statistics.median(wwarm),
         "host_ms_per_call_write_batch": whost,
@@ -3570,7 +3630,8 @@ def nf_forward_row(res, k, flush_buf, write_batches):
         f"{row['ms_back_to_back']:.5f}), host issue {host:.5f} ms/call; "
         f"the write batches ({len(wfeats)}, median {wb:.0f} keys) "
         f"{row['ms_write_batch']:.5f} ms cold, {row['ms_warm_l2_write_batch']:.5f} "
-        f"warm, host {whost:.5f}; per key {fp32_key:.1f} FP32 and "
+        f"warm, host {whost:.5f}, bound {wtimes[wbound_by] * 1e3:.6f} ms "
+        f"by {wbound_by}; per key {fp32_key:.1f} FP32 and "
         f"{sfu_key:.1f} SFU instructions (SASS, {sass_keys:.0f} keys of "
         f"code); bound {bound_ms:.5f} ms by {bound_by} "
         f"({ {key: round(v * 1e3, 5) for key, v in times.items()} }); "
@@ -3938,22 +3999,121 @@ def bf16_ulp(x: float) -> float:
     return 2.0 ** (int(np.floor(np.log2(max(abs(x), 2.0 ** -126)))) - 7)
 
 
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def lm_device() -> torch.device:
+    """The LM phases' device: the card (``LM_DEVICE``; a rehearsal of
+    phases 6d and 6m on the CPU at smoke configs sets "cpu")."""
+    return torch.device(LM_DEVICE)
+
+
+def lm_config(arch):
+    """An architecture's published config (a CPU rehearsal swaps in the
+    smoke config)."""
+    from repro_torch.configs import get_config
+
+    return get_config(arch)
+
+
+def reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib(dev):
+    return (torch.cuda.max_memory_allocated() / 2**30
+            if dev.type == "cuda" else None)
+
+
+def serve_requests(win, ops, model, params, prompts, new, slots, max_len,
+                   extra=None):
+    """Drive ``prompts`` through the port's ``ContinuousBatcher`` (``slots``
+    slots, ``new`` tokens each) until drained, in one counted window.
+    Every prefill and decode step is timed on the host (each ends in the
+    host reading its logits' finiteness) and its launches read from the
+    counters around it (no reset inside the window).  Returns (requests,
+    metrics, window counts, per-call launch counts)."""
+    from repro_torch.serve.scheduler import (ContinuousBatcher, Request,
+                                             ServeConfig)
+
+    pre_s, dec_ms, bad = [], [], collections.Counter()
+    calls = {"prefill": [], "decode": []}
+
+    def counted(kind, fn):
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        out = fn()
+        logits = out[1] if kind == "prefill" else out[0]
+        bad[kind] += int((~torch.isfinite(logits)).sum())
+        secs = time.perf_counter() - t
+        after = ops.launch_counts()
+        calls[kind].append({key: after[key] - before[key] for key in after})
+        (pre_s if kind == "prefill" else dec_ms).append(
+            secs if kind == "prefill" else secs * 1e3)
+        return out
+
+    timed = dataclasses.replace(
+        model,
+        prefill=lambda p, tokens, max_len, extra=None: counted(
+            "prefill", lambda: model.prefill(p, tokens, max_len, extra)),
+        decode_step=lambda p, state, tokens, extra=None: counted(
+            "decode", lambda: model.decode_step(p, state, tokens, extra)))
+    batcher = ContinuousBatcher(timed, params, ServeConfig(
+        batch_slots=slots, max_len=max_len))
+    reqs = [Request(rid=i, prompt=pr, max_new_tokens=new)
+            for i, pr in enumerate(prompts)]
+
+    def drive():
+        sync(model.device)
+        t = time.perf_counter()
+        for r in reqs:
+            batcher.submit(r)
+        status = batcher.run_until_drained()
+        return status, t, time.perf_counter() - t
+
+    (status, t_sub, secs), counts = win.run(drive)
+    n_prompt = int(sum(len(pr) for pr in prompts))
+    n_new = sum(len(r.output) for r in reqs)
+    ttft = [(r.t_first - t_sub) * 1e3 for r in reqs]
+    met = dict(
+        requests=len(reqs), prompt_tokens=n_prompt, new_tokens=n_new,
+        decode_steps=batcher.steps, seconds=secs,
+        prefill_tokens_per_s=n_prompt / sum(pre_s),
+        prefill_ms_median=statistics.median(pre_s) * 1e3,
+        prefill_ms_max=max(pre_s) * 1e3,
+        ttft_ms_median=statistics.median(ttft), ttft_ms_max=max(ttft),
+        decode_step_ms_median=statistics.median(dec_ms),
+        decode_step_ms_max=max(dec_ms),
+        decode_tokens_per_s=n_new / secs)
+    if not status.drained or any(len(r.output) != new or not r.done
+                                 for r in reqs):
+        fail(f"{model.cfg.name}: a request did not finish with its "
+             f"{new} tokens")
+    if sum(bad.values()):
+        fail(f"{model.cfg.name}: non-finite logits {dict(bad)}")
+    met["non_finite"] = dict(bad)
+    return reqs, met, counts, calls, batcher
+
+
 def lm_serve(win, seed):
     """Phase 6: falcon-mamba-7b at full width and depth, random weights on
     the card, 16 requests through the continuous batcher until drained,
     in one counted window."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
-    from repro_torch.serve.scheduler import (ContinuousBatcher, Request,
-                                             ServeConfig)
 
     # f32 products and convolutions in full f32 for the f32 comparisons
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     base = get_config(LM_ARCH)
-    cfg = dataclasses.replace(base, ssm=dataclasses.replace(
-        base.ssm, use_scan_kernel=True))
+    cfg = dataclasses.replace(base, n_layers=LM_DEPTH,
+                              ssm=dataclasses.replace(
+                                  base.ssm, use_scan_kernel=True))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg)
@@ -3968,54 +4128,14 @@ def lm_serve(win, seed):
     rng = np.random.default_rng(seed + 400)
     lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
-    pre_s, dec_ms, bad = [], [], collections.Counter()
-
-    def prefill(p, tokens, max_len):
-        t = time.perf_counter()
-        state, logits = model.prefill(p, tokens, max_len)
-        bad["prefill"] += int((~torch.isfinite(logits)).sum())
-        pre_s.append(time.perf_counter() - t)
-        return state, logits
-
-    def decode_step(p, state, tokens):
-        t = time.perf_counter()
-        logits, state = model.decode_step(p, state, tokens)
-        bad["decode"] += int((~torch.isfinite(logits)).sum())
-        dec_ms.append((time.perf_counter() - t) * 1e3)
-        return logits, state
-
-    timed = dataclasses.replace(model, prefill=prefill,
-                                decode_step=decode_step)
-    batcher = ContinuousBatcher(timed, params, ServeConfig(
-        batch_slots=LM_SLOTS, max_len=LM_PROMPT[1] + LM_NEW))
-    reqs = [Request(rid=i, prompt=pr, max_new_tokens=LM_NEW)
-            for i, pr in enumerate(prompts)]
-
-    def drive():
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for r in reqs:
-            batcher.submit(r)
-        status = batcher.run_until_drained()
-        return status, t, time.perf_counter() - t
-
-    (status, t_sub, secs), counts = win.run(drive)
-    n_prompt = int(lens.sum())
-    n_new = sum(len(r.output) for r in reqs)
-    ttft = [(r.t_first - t_sub) * 1e3 for r in reqs]
-    met = dict(
-        init_s=init_s, params=n_params, requests=len(reqs),
-        prompt_tokens=n_prompt, new_tokens=n_new, decode_steps=batcher.steps,
-        seconds=secs, prefill_tokens_per_s=n_prompt / sum(pre_s),
-        prefill_ms_median=statistics.median(pre_s) * 1e3,
-        prefill_ms_max=max(pre_s) * 1e3,
-        ttft_ms_median=statistics.median(ttft), ttft_ms_max=max(ttft),
-        decode_step_ms_median=statistics.median(dec_ms),
-        decode_step_ms_max=max(dec_ms),
-        decode_tokens_per_s=n_new / secs,
-        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    log(f"[lm] served {len(reqs)} requests ({n_prompt} prompt tokens, "
-        f"{n_new} new) in {secs:.2f} s, {batcher.steps} decode steps of "
+    reqs, met, counts, calls, batcher = serve_requests(
+        win, ops, model, params, prompts, LM_NEW, LM_SLOTS,
+        LM_PROMPT[1] + LM_NEW)
+    met = dict(init_s=init_s, params=n_params, **met,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[lm] served {len(reqs)} requests ({met['prompt_tokens']} prompt "
+        f"tokens, {met['new_tokens']} new) in {met['seconds']:.2f} s, "
+        f"{batcher.steps} decode steps of "
         f"{LM_SLOTS} slots: prefill {met['prefill_tokens_per_s']:.0f} "
         f"tokens/s (ms per request median {met['prefill_ms_median']:.1f}, "
         f"max {met['prefill_ms_max']:.1f}); TTFT ms median "
@@ -4023,17 +4143,13 @@ def lm_serve(win, seed):
         f"step ms median {met['decode_step_ms_median']:.2f} max "
         f"{met['decode_step_ms_max']:.2f}; {met['decode_tokens_per_s']:.1f} "
         f"new tokens/s end to end; peak {met['peak_gib']:.2f} GiB; "
-        f"non-finite logits {dict(bad)}; launches {counts}")
+        f"non-finite logits {met['non_finite']}; launches {counts}")
     log("[lm] metrics " + json.dumps(met))
-    if not status.drained or any(len(r.output) != LM_NEW or not r.done
-                                 for r in reqs):
-        fail("lm: a request did not finish with its tokens")
-    if sum(bad.values()):
-        fail(f"lm: non-finite logits {dict(bad)}")
-    if len(pre_s) != LM_REQUESTS \
-            or counts["mamba_scan"] != cfg.n_layers * len(pre_s):
+    if len(calls["prefill"]) != LM_REQUESTS \
+            or counts["mamba_scan"] != cfg.n_layers * LM_REQUESTS \
+            or any(c["mamba_scan"] != cfg.n_layers for c in calls["prefill"]):
         fail(f"lm: mamba_scan launched {counts['mamba_scan']} times for "
-             f"{len(pre_s)} prefills of {cfg.n_layers} layers")
+             f"{len(calls['prefill'])} prefills of {cfg.n_layers} layers")
     if counts["flash_decode"]:
         fail("lm: flash_decode launched on the ssm path")
     return dict(model=model, params=params, cfg=cfg, reqs=reqs, met=met,
@@ -4048,14 +4164,14 @@ def leaves(tree):
         yield tree
 
 
-def lm_replay(lm):
+def lm_replay(lm, tag="[lm]"):
     """Teacher-forced: replay the batcher's tokens of ``LM_REPLAYS``
     requests through a batch-1 prefill and decode loop; each token must
     score within 4 bf16 ulps of the replay's maximum logit (a batch of 8
     and a batch of 1 round apart in the products, so argmax may differ
     only on a near tie)."""
     model, params = lm["model"], lm["params"]
-    dev = torch.device("cuda")
+    dev = model.device
     worst = (0.0, 0.0)
     flips = 0
     for r in lm["reqs"][:LM_REPLAYS]:
@@ -4071,31 +4187,40 @@ def lm_replay(lm):
             gap = mx - float(lg[tok])
             flips += int(gap > 0)
             if gap > 4 * bf16_ulp(mx):
-                fail(f"lm replay: request {r.rid} token {t} ({tok}) scores "
+                fail(f"{tag} replay: request {r.rid} token {t} ({tok}) scores "
                      f"{gap} below the replay's max logit {mx}")
             if gap >= worst[0]:
                 worst = (gap, 4 * bf16_ulp(mx))
-    log(f"[lm] teacher-forced replay of {LM_REPLAYS} requests x {LM_NEW} "
+    log(f"{tag} teacher-forced replay of {LM_REPLAYS} requests x {LM_NEW} "
         f"tokens at batch 1: {flips} tokens not the replay's argmax; worst "
         f"gap to the max logit {worst[0]} (bound {worst[1]})")
     return dict(flips=flips, worst_gap=worst[0])
 
 
-def decode_profile(lm):
+FD_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
+
+
+def decode_profile(lm, tag="[lm]", state=None):
     """One decode step of ``LM_SLOTS`` slots under ``torch.profiler``: the
-    device operations it launches and their summed device time, beside
-    the step's host wall time.  Informational: where the profiler sees no
-    device events, the counts read "not measured" and nothing fails."""
+    device operations it launches, their summed device time and
+    ``flash_decode``'s share of it (its split and combine kernels),
+    beside the step's host wall time; on ``state`` (kept as the step
+    leaves it), else on a fresh state after two steps.  Informational:
+    where the profiler sees no device events, the counts read "not
+    measured" and nothing fails."""
     from torch.profiler import ProfilerActivity, profile
 
     model, params = lm["model"], lm["params"]
     dev = torch.device("cuda")
-    state = model.init_decode_state(LM_SLOTS, lm["max_len"])
     tokens = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device=dev)
-    for _ in range(2):
-        _lg, state = model.decode_step(params, state, tokens)
+    if state is None:
+        state = model.init_decode_state(LM_SLOTS, lm["max_len"])
+        for _ in range(2):
+            _lg, state = model.decode_step(params, state, tokens)
     torch.cuda.synchronize()
-    out = dict(device_ops=None, device_ms=None, wall_ms=None)
+    out = dict(device_ops=None, device_ms=None, wall_ms=None,
+               flash_decode_ms=None, flash_decode_share=None,
+               cache_len=[int(n) for n in state["cache_len"].tolist()])
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -4106,17 +4231,25 @@ def decode_profile(lm):
         evs = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     except Exception as exc:          # informational: never fails the smoke
-        log(f"[lm] decode step profile: not measured ({exc!r})")
+        log(f"{tag} decode step profile: not measured ({exc!r})")
         return out
     if evs:
         out["device_ops"] = len(evs)
         out["device_ms"] = sum(e.time_range.elapsed_us() for e in evs) / 1e3
-    log(f"[lm] decode step of {LM_SLOTS} slots under torch.profiler: "
+        out["flash_decode_ms"] = sum(
+            e.time_range.elapsed_us() for e in evs
+            if any(n in e.name for n in FD_KERNELS)) / 1e3
+        out["flash_decode_share"] = (out["flash_decode_ms"]
+                                     / max(out["device_ms"], 1e-9))
+    log(f"{tag} decode step of {LM_SLOTS} slots under torch.profiler "
+        f"(cache_len {out['cache_len']}): "
         f"{out['device_ops'] if evs else 'not measured'} device operations "
         f"(kernels, copies, fills), summed device time "
-        f"{out['device_ms'] if evs else 'not measured'} ms, host wall "
-        f"{out['wall_ms']:.3f} ms with the profiler on (unprofiled step "
-        f"median {lm['met']['decode_step_ms_median']:.3f} ms)")
+        f"{out['device_ms'] if evs else 'not measured'} ms, flash_decode "
+        f"{out['flash_decode_ms'] if evs else 'not measured'} ms (share "
+        f"{out['flash_decode_share'] if evs else 'not measured'}), host "
+        f"wall {out['wall_ms']:.3f} ms with the profiler on (unprofiled "
+        f"step median {lm['met']['decode_step_ms_median']:.3f} ms)")
     return out
 
 
@@ -4179,6 +4312,353 @@ def lm_branches(lm, seed):
         x = tfm._ssm_block(x, lp, cfg)
     return caps, dict(block_err=err, logit_rel_l2=rel, same_argmax=same,
                       prefill_s_kernel=tk, prefill_s_chunked=tc)
+
+
+def kernel_attn_per_step(cfg) -> int:
+    """Decode attentions a step runs on the kernel route (one
+    ``flash_decode`` launch each): the self-attention layers whose route
+    is the kernel's, the vlm cross layers, the hybrid's shared block
+    once a group, encdec's self and cross attention a layer."""
+    from repro_torch.models.attention import BIG_WINDOW, decode_route
+    from repro_torch.models.transformer import _windows_for
+
+    a = cfg.attn
+    if a is None:
+        return 0
+    if cfg.family == "encdec":
+        return 2 * cfg.n_layers * (decode_route(a) == "kernel")
+    if cfg.family == "hybrid":
+        return (cfg.n_layers // cfg.hybrid_attn_every
+                * (decode_route(a, BIG_WINDOW) == "kernel"))
+    n = sum(decode_route(a, w) == "kernel" for w in _windows_for(cfg))
+    if cfg.family == "vlm":
+        n += (cfg.n_layers // cfg.cross_attn_every) * (
+            decode_route(a) == "kernel")
+    return n
+
+
+def per_call_launches(calls, kind, expect, what):
+    """Every ``kind`` call launched ``flash_decode`` exactly ``expect``
+    times."""
+    got = collections.Counter(c["flash_decode"] for c in calls[kind])
+    if set(got) != {expect}:
+        fail(f"{what}: flash_decode launched {dict(got)} times per {kind} "
+             f"call (expected {expect})")
+    return dict(got)
+
+
+def route_check(model, params, state, tag):
+    """Layer 0's decode attention on the kernel route against the plain
+    einsum route, on the served cache (``state``, bf16) and a random
+    normed hidden state, in f32: the layer's weights widened to f32 and
+    ``wo`` replaced by the identity, so both outputs are the attention
+    itself in f32, from the same q.  The two routes differ only in the
+    order of their f32 sums, so they are held to ``FD_TOL``, the kernel's
+    bound against its plain version."""
+    from repro_torch.models import attention, transformer as tfm
+    from repro_torch.models.layers import rms_norm
+
+    cfg = model.cfg
+    a = cfg.attn
+    lp = tfm.layer_params(params, 0)
+    dev = model.device
+    g = torch.Generator(device=dev).manual_seed(600)
+    x = torch.randn((state["cache_len"].shape[0], 1, cfg.d_model),
+                    generator=g, device=dev)
+    h = rms_norm(x, lp["ln1"].float(), cfg.norm_eps)
+    p = {key: v.float() for key, v in lp["attn"].items()}
+    p["wo"] = torch.eye(a.n_heads * a.head_dim, device=dev)
+    args = (h, p, a, state["k_cache"][0], state["v_cache"][0],
+            state["cache_len"])
+    ker = attention.decode_attention(*args, route="kernel")
+    pln = attention.decode_attention(*args, route="plain")
+    err = float((ker - pln).abs().max())
+    ok = bool(torch.allclose(ker, pln, rtol=FD_TOL, atol=FD_TOL))
+    log(f"{tag} layer 0 decode attention in f32, kernel route vs plain "
+        f"route on the served bf16 cache (cache_len "
+        f"{state['cache_len'].tolist()}): max |d| {err} (max |o| "
+        f"{float(pln.abs().max())}), within {FD_TOL}: {ok}")
+    if not ok:
+        fail(f"{tag} kernel and plain decode routes disagree")
+    return err
+
+
+def dense_phase(win, seed, card):
+    """Phase 6d: qwen3-14b at its full published config, random bf16
+    weights on the card from the seed, served as phase 6 serves
+    falcon-mamba-7b; 40 ``flash_decode`` launches a decode step, none in
+    a prefill; the batcher against a batch-1 replay; layer 0's kernel
+    route against the plain route on the served cache; one long-context
+    decode step profiled."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    dev = lm_device()
+    cfg = lm_config(DENSE_ARCH)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    log(f"[dense] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.attn.n_heads}/{cfg.attn.kv_heads} heads of "
+        f"{cfg.attn.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.param_dtype}; {n_params} parameters ({n_bytes / 1e9:.2f} GB) "
+        f"drawn in {init_s:.2f} s")
+    rng = np.random.default_rng(seed + 700)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    max_len = LM_PROMPT[1] + LM_NEW
+    reqs, met, counts, calls, batcher = serve_requests(
+        win, ops, model, params, prompts, LM_NEW, LM_SLOTS, max_len)
+    # counters move for CUDA launches only (a CPU rehearsal counts none)
+    expect = kernel_attn_per_step(cfg) if dev.type == "cuda" else 0
+    per = {"decode": per_call_launches(calls, "decode", expect, "dense"),
+           "prefill": per_call_launches(calls, "prefill", 0, "dense")}
+    if counts["flash_decode"] != expect * batcher.steps:
+        fail(f"dense: flash_decode launched {counts['flash_decode']} times "
+             f"in {batcher.steps} decode steps of {expect} layers")
+    met = dict(init_s=init_s, params=n_params, param_bytes=n_bytes, **met,
+               peak_gib=peak_gib(dev), flash_decode_per_step=expect)
+    log(f"[dense] served {len(reqs)} requests ({met['prompt_tokens']} prompt "
+        f"tokens, {met['new_tokens']} new) in {met['seconds']:.2f} s, "
+        f"{batcher.steps} decode steps of {LM_SLOTS} slots: prefill "
+        f"{met['prefill_tokens_per_s']:.0f} tokens/s (ms per request "
+        f"median {met['prefill_ms_median']:.1f}, max "
+        f"{met['prefill_ms_max']:.1f}); TTFT ms median "
+        f"{met['ttft_ms_median']:.1f} max {met['ttft_ms_max']:.1f}; decode "
+        f"step ms median {met['decode_step_ms_median']:.2f} max "
+        f"{met['decode_step_ms_max']:.2f}; {met['decode_tokens_per_s']:.1f} "
+        f"new tokens/s end to end; peak {met['peak_gib']} GiB; "
+        f"flash_decode launches per call {per}; window {counts}")
+    log("[dense] metrics " + json.dumps(met))
+    lm = dict(model=model, params=params, cfg=cfg, reqs=reqs, met=met,
+              max_len=max_len)
+    out = dict(met=met, replay=lm_replay(lm, "[dense]"))
+    out["route_err"] = route_check(model, params, batcher.state, "[dense]")
+    if dev.type == "cuda":
+        out["decode_profile"] = decode_profile(lm, "[dense]", batcher.state)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[dense] phase 6d {out['seconds']:.1f} s ({card})")
+    return out
+
+
+def family_prompts(cfg, rng):
+    lens = rng.integers(FAM_PROMPT[0], FAM_PROMPT[1] + 1, FAM_REQUESTS)
+    return [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+
+
+def extra_inputs(cfg, b, g, dev):
+    """vlm ``patches`` or encdec ``frames`` (stub frontends), bf16."""
+    if cfg.family == "vlm":
+        name, n = "patches", cfg.n_patches
+    elif cfg.family == "encdec":
+        name, n = "frames", cfg.enc_seq
+    else:
+        return None
+    return {name: (torch.randn((b, n, cfg.d_model), generator=g, device=dev)
+                   * 0.5).to(torch.bfloat16)}
+
+
+def drive_with_extra(win, ops, model, params, extra, rng, max_len):
+    """vlm / encdec: one prefill of ``FAM_EXTRA_BATCH`` prompts with their
+    stub inputs, then ``FAM_NEW`` greedy decode steps, as
+    ``tests/test_models_smoke.py`` drives them, in one counted window."""
+    cfg = model.cfg
+    dev = model.device
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (FAM_EXTRA_BATCH, FAM_EXTRA_PROMPT)), device=dev)
+    calls = {"prefill": [], "decode": []}
+    times = {"prefill": [], "decode": []}
+
+    def step(kind, fn):
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        out = fn()
+        logits = out[1] if kind == "prefill" else out[0]
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"{cfg.name}: non-finite {kind} logits")
+        times[kind].append(time.perf_counter() - t)
+        after = ops.launch_counts()
+        calls[kind].append({key: after[key] - before[key] for key in after})
+        return out
+
+    def drive():
+        state, logits = step("prefill", lambda: model.prefill(
+            params, toks, max_len, extra))
+        for _ in range(FAM_NEW):
+            tok = torch.argmax(logits, -1)[:, None]
+            logits, state = step("decode", lambda: model.decode_step(
+                params, state, tok, extra))
+        return state
+
+    state, counts = win.run(drive)
+    if state["cache_len"].tolist() != [FAM_EXTRA_PROMPT + FAM_NEW] \
+            * FAM_EXTRA_BATCH:
+        fail(f"{cfg.name}: cache_len {state['cache_len'].tolist()}")
+    met = dict(prompt_tokens=FAM_EXTRA_BATCH * FAM_EXTRA_PROMPT,
+               new_tokens=FAM_EXTRA_BATCH * FAM_NEW, decode_steps=FAM_NEW,
+               prefill_tokens_per_s=FAM_EXTRA_BATCH * FAM_EXTRA_PROMPT
+               / times["prefill"][0],
+               prefill_ms=times["prefill"][0] * 1e3,
+               decode_step_ms_median=statistics.median(times["decode"]) * 1e3,
+               decode_step_ms_max=max(times["decode"]) * 1e3)
+    return met, counts, calls
+
+
+def families_phase(win, seed, card):
+    """Phase 6m: every architecture but qwen3-14b and falcon-mamba-7b at
+    its published widths, its depth cut as ``FAMILY_DEPTH`` says, random
+    bf16 weights on the card, one at a time (each freed before the next):
+    the text families serve ``FAM_REQUESTS`` requests through the batcher,
+    vlm and encdec run a prefill and decode steps with their stub inputs;
+    finite logits, the token counts, and ``flash_decode`` launched as many
+    times a decode step as the step has attentions on the kernel route
+    (gemma2-9b: none, its softcap and local windows take the plain
+    route), never in a prefill."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    dev = lm_device()
+    out = {}
+    for i, (arch, depth) in enumerate(FAMILY_DEPTH.items()):
+        t0 = time.perf_counter()
+        base = lm_config(arch)
+        cfg = base if depth is None else dataclasses.replace(base,
+                                                             n_layers=depth)
+        reset_peak(dev)
+        model = build_model(cfg, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed + i))
+        sync(dev)
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in leaves(params))
+        rng = np.random.default_rng(seed + 800 + i)
+        # counters move for CUDA launches only (none in a CPU rehearsal)
+        expect = kernel_attn_per_step(cfg) if dev.type == "cuda" else 0
+        g = torch.Generator(device=dev).manual_seed(seed + 900 + i)
+        extra = extra_inputs(cfg, FAM_EXTRA_BATCH, g, dev)
+        if extra is None:
+            max_len = FAM_PROMPT[1] + FAM_NEW
+            reqs, met, counts, calls, _b = serve_requests(
+                win, ops, model, params, family_prompts(cfg, rng), FAM_NEW,
+                FAM_REQUESTS, max_len)
+        else:
+            max_len = FAM_EXTRA_PROMPT + FAM_NEW
+            met, counts, calls = drive_with_extra(win, ops, model, params,
+                                                  extra, rng, max_len)
+        per = {"decode": per_call_launches(calls, "decode", expect, arch),
+               "prefill": per_call_launches(calls, "prefill", 0, arch)}
+        if counts["mamba_scan"]:
+            fail(f"{arch}: mamba_scan launched (no Mamba1 layer)")
+        met = dict(layers=cfg.n_layers, depth_published=base.n_layers,
+                   init_s=init_s, params=n_params, **met,
+                   flash_decode_per_step=expect, peak_gib=peak_gib(dev))
+        met["seconds"] = time.perf_counter() - t0
+        log(f"[families] {arch} ({cfg.family}): {cfg.n_layers} of "
+            f"{base.n_layers} layers{'' if cfg.family != 'encdec' else f' + {cfg.n_enc_layers} encoder'}, "
+            f"d_model {cfg.d_model}; {n_params} parameters drawn in "
+            f"{init_s:.2f} s; prefill {met['prefill_tokens_per_s']:.0f} "
+            f"tokens/s; decode step ms median "
+            f"{met['decode_step_ms_median']:.2f} max "
+            f"{met['decode_step_ms_max']:.2f}; flash_decode per call {per} "
+            f"(expected {expect} a step); peak {met['peak_gib']} GiB; "
+            f"{met['seconds']:.1f} s")
+        out[arch] = met
+        del model, params, extra
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"[families] phase 6m {secs:.1f} s ({card})")
+    return dict(archs=out, seconds=secs)
+
+
+def decode_shapes():
+    """(what, B, S, H, KH, D, lengths) of every family's decode
+    attention on the kernel route as phases 6d and 6m run it: the
+    self-attention caches (lengths ragged, S among them) and the vlm and
+    encdec cross caches (every row at its full length)."""
+    from repro_torch.configs import get_config
+
+    out = []
+    rng = np.random.default_rng(502)
+    for arch in (DENSE_ARCH,) + tuple(FAMILY_DEPTH):
+        cfg = get_config(arch)
+        if not kernel_attn_per_step(cfg):
+            continue
+        a = cfg.attn
+        if arch == DENSE_ARCH:
+            b, s = LM_SLOTS, LM_PROMPT[1] + LM_NEW
+        elif cfg.family in ("vlm", "encdec"):
+            b, s = FAM_EXTRA_BATCH, FAM_EXTRA_PROMPT + FAM_NEW
+        else:
+            b, s = FAM_REQUESTS, FAM_PROMPT[1] + FAM_NEW
+        lens = rng.integers(1, s + 1, b)
+        lens[0] = s
+        out.append((arch, b, s, a.n_heads, a.kv_heads, a.head_dim, lens))
+        cross = {"vlm": cfg.n_patches, "encdec": cfg.enc_seq}.get(cfg.family)
+        if cross:
+            out.append((f"{arch} cross", b, cross, a.n_heads, a.kv_heads,
+                        a.head_dim, np.full(b, cross)))
+    return out
+
+
+def decode_shape_checks(k, flush_buf, seed):
+    """Phase 7: ``flash_decode`` against its plain version (``FD_TOL``) at
+    every shape of ``decode_shapes``, bf16 caches; then timed beside SDPA
+    (the yardstick only) at 6d's shape.  Returns the worst error and 6d's
+    timings."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 503)
+    err = 0.0
+    timing = None
+    for what, b, s, h, kh, d, lens in decode_shapes():
+        q = torch.randn((b, h, d), generator=g, device=dev) / d ** 0.5
+        kc = torch.randn((b, s, kh, d), generator=g, device=dev,
+                         dtype=torch.bfloat16)
+        vc = torch.randn((b, s, kh, d), generator=g, device=dev,
+                         dtype=torch.bfloat16)
+        kl = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        plan = k.device_plan(q, kc)
+        ok_k = k.flash_decode(q, kc, vc, kl)
+        ok_p = k.flash_decode_plain(q, kc, vc, kl)
+        torch.cuda.synchronize()
+        e = float((ok_k - ok_p).abs().max())
+        good = bool(torch.allclose(ok_k, ok_p, rtol=FD_TOL, atol=FD_TOL))
+        log(f"flash_decode vs plain, {what}: B {b}, S {s}, {h}/{kh} heads "
+            f"of {d} (group {h // kh}), lengths {lens.tolist()}, plan "
+            f"{plan._asdict()}: max |do| {e}, within {FD_TOL}: {good}")
+        if not good or not bool(torch.isfinite(ok_k).all()):
+            fail(f"flash_decode disagrees with its plain version ({what})")
+        err = max(err, e)
+        if what == DENSE_ARCH:
+            rows, bytes_ = decode_bytes(kc, lens, b, h)
+            bound = bytes_ / HBM_BYTES_PER_S * 1e3
+            cold, warm, host = timed_launches(
+                [lambda: k.flash_decode(q, kc, vc, kl)] * 16, flush_buf)
+            lib, lib_cold = sdpa_ms(q, kc, vc, kl, flush_buf)
+            plain_ms = time_ms(lambda: k.flash_decode_plain(q, kc, vc, kl),
+                               1, 1)
+            timing = dict(ms=statistics.median(cold), plain_ms=plain_ms,
+                          ms_warm_l2=statistics.median(warm),
+                          host_ms_per_call=host, library_ms=lib_cold,
+                          library_ms_back_to_back=lib, bound_ms=bound,
+                          positions=rows, shape=[b, h, kh, d, s],
+                          plan=plan._asdict())
+            log(f"flash_decode at 6d's shape (B {b}, S {s}, {h}/{kh} heads "
+                f"of {d}): median {timing['ms']:.5f} ms cold L2, "
+                f"{timing['ms_warm_l2']:.5f} warm; host issue {host:.5f} "
+                f"ms/call; plain {plain_ms:.3f} ms; SDPA {lib:.5f} ms back "
+                f"to back, {lib_cold:.5f} "
+                f"ms cold L2; {rows} positions, {bytes_} B -> bound "
+                f"{bound:.5f} ms; ms/bound {timing['ms'] / bound:.2f}")
+        del q, kc, vc, ok_k, ok_p
+    return err, timing
 
 
 def sm_rates():
@@ -4400,6 +4880,25 @@ def flash_decode_row(k, flush_buf, q, kc, vc, kv_len):
         "b1_ms": ms1, "b1_ms_warm_l2": statistics.median(warm1),
         "b1_library_ms": lib1_cold, "b1_library_ms_back_to_back": lib1,
         "b1_bound_ms": bound1, "b1_plan": plan1._asdict()}
+
+
+def flash_decode_rows(row32, err, at6d):
+    """The flash_decode row of the kernel table: its timings at 6d's
+    shape (the main path's: B 8, S 2,080, qwen3-14b's heads) as the
+    row's ms, plain, bound and library figures, the B 16 x 32,768
+    timings beside them under ``_32k``, and the worst error over every
+    shape."""
+    keep = ("name", "route", "source", "replaces", "launches", "bound_by")
+    row = {key: row32[key] for key in keep}
+    row.update(max_abs_err=max(row32["max_abs_err"], err), ms=at6d["ms"],
+               plain_ms=at6d["plain_ms"], bound_ms=at6d["bound_ms"],
+               library_ms=at6d["library_ms"],
+               **{key: v for key, v in at6d.items()
+                  if key not in ("ms", "plain_ms", "bound_ms",
+                                 "library_ms")})
+    row.update({f"{key}_32k": v for key, v in row32.items()
+                if key not in keep and key != "max_abs_err"})
+    return row
 
 
 # ----------------------------------------------------------------- main
@@ -5074,16 +5573,31 @@ def main() -> int:
     del lm["model"], lm["params"]
     gc.collect()
     torch.cuda.empty_cache()
+    wall("lm serving (6)", t0)
+    # ---- the other LM families, phase 6's tensors freed
+    t0 = time.perf_counter()
+    dense = dense_phase(win, 0, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall("dense serving (6d)", t0)
+    t0 = time.perf_counter()
+    families = families_phase(win, 0, card)
+    wall("families (6m)", t0)
+    t0 = time.perf_counter()
     fd_in = flash_decode_inputs(0)
     flash_decode_window(win, m.ops, *fd_in)
-    wall("lm serving and decode attention", t0)
+    wall("decode attention window", t0)
+    t0 = time.perf_counter()
     flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     lm_rows = {"mamba_scan": scan_row(caps, k, flush_buf)}
     del caps
-    lm_rows["flash_decode"] = flash_decode_row(k, flush_buf, *fd_in)
+    lm_rows["flash_decode"] = flash_decode_rows(
+        flash_decode_row(k, flush_buf, *fd_in),
+        *decode_shape_checks(k, flush_buf, 0))
     del fd_in, flush_buf
     gc.collect()
     torch.cuda.empty_cache()
+    wall("lm kernels (7)", t0)
 
     # ---- the paper backend, the baselines and the page table
     t0 = time.perf_counter()
@@ -5093,6 +5607,8 @@ def main() -> int:
     log("[lm] summary " + json.dumps({key: lm[key] for key in
                                       ("met", "replay", "decode_profile",
                                        "branches")}))
+    log("[dense] summary " + json.dumps(dense, default=str))
+    log("[families] summary " + json.dumps(families, default=str))
     log("[sharded] summary " + json.dumps(sharded, default=str))
     log("[drift] summary " + json.dumps(drifted, default=str))
     log("[migrate] summary " + json.dumps(migrated, default=str))

@@ -30,7 +30,8 @@ block, transcribed from the sources and wrappers:
 ``run_smem_checks`` evaluates the model over a declared grid (scan-pool
 capacities 2^17 to 2^26 rows; falcon-mamba-7b's and the smoke config's
 scan widths, and every state size the kernel takes; decode attention at
-the port's head dims and cache dtypes) against the per-block limit:
+the port's head dims and cache dtypes, and at every family's (head dim,
+group) decode shape) against the per-block limit:
 232,448 bytes on the H100, read on the card from
 ``cudaDevAttrMaxSharedMemoryPerBlockOptin``.  A config that cannot
 launch is an error; a router staged only in part is ``info`` at the
@@ -122,6 +123,11 @@ def mamba_bytes(n: int) -> Tuple[int, int]:
 
 
 _DTYPE = {"float32": (4, 4), "bfloat16": (2, 8), "float16": (2, 8)}
+# (head dim, q heads per kv head) of each family's decode attention on the
+# kernel route: granite-moe 64/2, whisper 64/1, zamba2 80/1, internlm2
+# 128/2, phi4-mini 128/3, llama-3.2-vision 128/4, qwen3 128/5, arctic 128/7
+DECODE_SHAPES = ((64, 2), (64, 1), (80, 1), (128, 2), (128, 3), (128, 4),
+                 (128, 5), (128, 7))
 
 
 def decode_bytes(d: int, dtype: str) -> int:
@@ -178,6 +184,12 @@ def _grid() -> Tuple[SmemConfig, ...]:
     out += [SmemConfig(f"flash_decode:D={d}:{dt}", "decode_split_kernel",
                        (("d", d), ("dtype", dt)))
             for d in (32, 128, 256) for dt in _DTYPE]
+    # and at every family's decode shape: each (D, q heads per kv head)
+    # is its own template instantiation (``GH``), though the layout
+    # stages q for GMAX heads whatever the group, so the bytes follow D
+    out += [SmemConfig(f"flash_decode:D={d}:G={g}:{dt}", "decode_split_kernel",
+                       (("d", d), ("dtype", dt)))
+            for d, g in DECODE_SHAPES for dt in _DTYPE]
     return tuple(out)
 
 

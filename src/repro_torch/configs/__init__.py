@@ -1,7 +1,7 @@
 """Architecture registry of the port: --arch <id> -> ModelConfig.
 
-Only the architectures the port has configs for are registered; any
-other id of the JAX package's registry raises and names ROADMAP A15b."""
+Every architecture of the JAX package's registry, each a copy of its
+``repro.configs`` module."""
 
 import importlib
 
@@ -12,20 +12,19 @@ from repro_torch.configs.base import (
 
 ARCHS = {
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "arctic-480b": "arctic_480b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "gemma2-9b": "gemma2_9b",
+    "internlm2-1.8b": "internlm2_1_8b",
     "qwen3-14b": "qwen3_14b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "whisper-medium": "whisper_medium",
+    "llama-3.2-vision-11b": "llama32_vision_11b",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
-
-# the JAX package's other architectures, not ported yet
-UNPORTED = ("arctic-480b", "granite-moe-1b-a400m", "gemma2-9b",
-            "internlm2-1.8b", "phi4-mini-3.8b", "whisper-medium",
-            "llama-3.2-vision-11b", "zamba2-2.7b")
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    if arch in UNPORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet (ROADMAP "
-            f"A15b); ported: {sorted(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG
 

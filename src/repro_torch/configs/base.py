@@ -2,10 +2,10 @@
 
 A copy of ``repro.configs.base``, which holds only dataclasses: the port
 imports nothing of the JAX package.  One frozen dataclass tree per
-architecture; each ported architecture has a module
+architecture; each has a module
 ``repro_torch.configs.<arch_id>`` exporting ``CONFIG`` plus a reduced
 ``SMOKE_CONFIG`` for CPU tests.  ``SSMConfig.batch_tp`` is a sharding
-layout of the JAX package and has no effect on one card (ROADMAP A15b).
+layout of the JAX package and has no effect on one card.
 """
 
 from __future__ import annotations

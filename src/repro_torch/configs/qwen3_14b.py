@@ -1,8 +1,6 @@
 """qwen3-14b [dense]: 40L d_model=5120 40H (GQA kv=8) d_ff=17408
 vocab=151936 — qk_norm, GQA [hf:Qwen/Qwen3-8B; hf].  Copy of
-``repro.configs.qwen3_14b``.  Only its attention shape is used by the
-port so far (the flash-decode kernel's check); its dense model is ROADMAP
-A15b."""
+``repro.configs.qwen3_14b``."""
 from repro_torch.configs.base import AttnConfig, ModelConfig, reduce_for_smoke
 
 CONFIG = ModelConfig(

@@ -4,8 +4,8 @@ Port of ``repro.dist.sharding.shard_mesh``.  The JAX package builds a
 1-D device mesh over the shards; the port needs only the device of each
 shard, since every shard's ``FlatAFLI`` is built with its own explicit
 ``device`` and launches on that device's streams.  The logical-axis
-rules and mesh scopes of the JAX module serve its model code (ROADMAP
-A15b) and have no counterpart here.
+rules and mesh scopes of the JAX module serve its models' sharding
+hints, which have no counterpart on one card.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 version.
 
 Port of ``repro.kernels.flash_decode`` behind ``ops.flash_decode``, its
-one entry point (no model of either package calls it: the models' decode
-attention is an einsum softmax).  ``flash_decode`` launches the CUDA
+one entry point, which every LM family's decode attention calls on its
+kernel route (``models.attention``).  ``flash_decode`` launches the CUDA
 kernels (``csrc/flash_decode.cu``: one block per (batch row, kv head,
 split of S), its warps each streaming K/V tiles through shared memory,
 then a combine of the splits) on CUDA tensors and runs

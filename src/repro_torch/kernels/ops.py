@@ -12,8 +12,8 @@ kernel (or, on CPU tensors, runs its plain version).
 ``fused_range_scan`` and ``index_probe`` have one kernel each, and so
 do the LM kernels: ``mamba_scan`` (the ssm prefill's selective scan,
 called by ``models.ssm.mamba_block`` under ``use_scan_kernel``) and
-``flash_decode`` (one-token decode attention; no model calls it, in the
-JAX package either).
+``flash_decode`` (one-token decode attention, called by
+``models.attention.decode_attention`` on its kernel route).
 
 Telemetry and fault injection (port of the JAX module's serving
 telemetry and fault points, DESIGN.md §16): every kernel counts its

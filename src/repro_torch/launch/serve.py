@@ -1,17 +1,23 @@
 """Serving launcher of the port: continuous-batching LM generation, and
 the SLO front end over the NFL index.
 
-    python -m repro_torch.launch.serve --mode lm --arch falcon-mamba-7b
+    python -m repro_torch.launch.serve --mode lm --arch qwen3-14b
     python -m repro_torch.launch.serve --mode lm --device cpu   # no card
     python -m repro_torch.launch.serve --mode index [--fault errors]
     python -m repro_torch.launch.serve --mode index --device cpu
 
 Port of ``repro.launch.serve``.  ``--mode lm`` loads a model at smoke
 scale with random weights from ``--seed``, runs ``--requests`` generation
-requests through the continuous batcher, and reports throughput.  The
-ssm family's prefill goes through the selective-scan kernel
-(``use_scan_kernel``; its plain version on the CPU), not the chunked path
-the JAX launcher defaults to.  ``--mode index`` bulk-loads an NFL index
+requests through the continuous batcher, and reports throughput; every
+text architecture serves (default ``internlm2-1.8b``, as in JAX).  The
+vlm and encdec families need ``patches``/``frames`` in their prefill,
+which the batcher never passes (nor does the JAX batcher, whose
+launcher fails on them), so for those two the launcher raises a
+``ValueError`` naming the missing input.  The Mamba1 prefill goes
+through the selective-scan kernel (``use_scan_kernel``; its plain
+version on the CPU), not the chunked path the JAX launcher defaults to;
+the other families' decode attention goes through ``ops.flash_decode``
+where its route is the kernel's (``models.attention``).  ``--mode index`` bulk-loads an NFL index
 (flat backend, flow off, ``--shards``) and replays an open-loop Poisson
 trace of point lookups with per-request deadlines through the SLO front
 end, reporting goodput, shed and expired counts and latency percentiles;
@@ -30,6 +36,10 @@ import numpy as np
 import torch
 
 
+# families whose prefill reads ``extra``: the input each needs
+NEEDS_EXTRA = {"vlm": "patches", "encdec": "frames"}
+
+
 def run_lm(args) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
@@ -37,7 +47,12 @@ def run_lm(args) -> None:
                                              ServeConfig)
 
     cfg = get_config(args.arch, smoke=True)
-    if cfg.ssm is not None:
+    if cfg.family in NEEDS_EXTRA:
+        raise ValueError(
+            f"--mode lm cannot serve {args.arch}: the {cfg.family} family's "
+            f"prefill needs extra['{NEEDS_EXTRA[cfg.family]}'], which the "
+            "continuous batcher does not pass")
+    if cfg.ssm is not None and cfg.ssm.version == 1:
         cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
             cfg.ssm, use_scan_kernel=True))
     model = build_model(cfg, device=args.device)
@@ -116,7 +131,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--mode", default="lm", choices=("lm", "index"),
                     help="lm: continuous-batching generation demo; "
                          "index: §16 SLO front end over the NFL index")
-    ap.add_argument("--arch", default="falcon-mamba-7b",
+    ap.add_argument("--arch", default="internlm2-1.8b",
                     choices=arch_names())
     ap.add_argument("--requests", type=int, default=None)
     ap.add_argument("--max-new", type=int, default=16)

@@ -1,1 +1,2 @@
-"""LM scaffolding of the port: the ssm family (falcon-mamba-7b) so far."""
+"""LM scaffolding of the port: every family of the JAX package (dense,
+moe, ssm, hybrid, vlm, encdec) behind ``model.build_model``."""

@@ -1,13 +1,15 @@
-"""Unified model API: one entry point over the ported families.
+"""Unified model API: one entry point over every architecture family.
 
-Port of ``repro.models.model``'s ``ModelAPI`` and ``build_model`` for the
-ssm family.  ``build_model`` fixes the device: ``None`` is the card (and
-raises without one), ``device="cpu"`` runs every kernel's plain version.
-``init`` takes a ``torch.Generator`` on that device.  ``train_loss``
-raises: training ports with its own slice (ROADMAP A15b); the JAX
-``param_specs``/``decode_state_specs`` are sharding layouts with no
-counterpart on one card.  ``prefill`` and ``decode_step`` drop the JAX
-``extra`` argument (VLM inputs), which no ported family reads.
+Port of ``repro.models.model``'s ``ModelAPI`` and ``build_model``:
+``encdec`` dispatches to ``models.encdec``, every other family to
+``models.transformer``.  ``build_model`` fixes the device: ``None`` is
+the card (and raises without one), ``device="cpu"`` runs every kernel's
+plain version.  ``init`` takes a ``torch.Generator`` on that device.
+``prefill`` and ``decode_step`` take the JAX ``extra`` argument: the vlm
+prefill reads ``extra["patches"]`` and the encdec prefill
+``extra["frames"]``.  ``train_loss`` raises: training ports with ROADMAP
+A15d.  The JAX ``param_specs``/``decode_state_specs`` are sharding
+layouts with no counterpart on one card.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
 
 __all__ = ["ModelAPI", "build_model"]
@@ -38,30 +41,34 @@ class ModelAPI:
 def _train_loss(params, batch):
     raise NotImplementedError(
         "train_loss is not ported to repro_torch yet: training ports with "
-        "its own slice (ROADMAP A15b)")
+        "ROADMAP A15d")
 
 
 def build_model(cfg: ModelConfig,
                 device: Optional[Union[str, torch.device]] = None
                 ) -> ModelAPI:
     dev = resolve_device(device)
-    tfm._check_family(cfg)
+    if cfg.family == "encdec":
+        mod = encdec_mod
+    else:
+        tfm._check_family(cfg)
+        mod = tfm
 
     def init(generator: torch.Generator):
         if generator.device.type != dev.type:
             raise ValueError(f"init needs a generator on {dev}, got one on "
                              f"{generator.device}")
-        return tfm.init_params(generator, cfg)
+        return mod.init_params(generator, cfg)
 
     return ModelAPI(
         cfg=cfg,
         device=dev,
         init=init,
         train_loss=_train_loss,
-        prefill=lambda params, tokens, max_len: tfm.prefill(
-            params, tokens, cfg, max_len),
-        decode_step=lambda params, state, tokens: tfm.decode_step(
-            params, state, tokens, cfg),
-        init_decode_state=lambda batch, max_len: tfm.init_decode_state(
+        prefill=lambda params, tokens, max_len, extra=None: mod.prefill(
+            params, tokens, cfg, max_len, extra=extra),
+        decode_step=lambda params, state, tokens, extra=None: mod.decode_step(
+            params, state, tokens, cfg, extra=extra),
+        init_decode_state=lambda batch, max_len: mod.init_decode_state(
             cfg, batch, max_len, dev),
     )

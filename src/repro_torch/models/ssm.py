@@ -1,20 +1,24 @@
-"""State-space block: Mamba1 (selective scan), prefill and decode.
+"""State-space blocks: Mamba1 (selective scan) and Mamba2 (SSD chunked
+dual), prefill and decode.
 
-Port of ``repro.models.ssm`` for ``SSMConfig.version == 1`` (Mamba2 is
-zamba2's block and ports with ROADMAP A15b).  ``mamba_block`` is the
-prefill: under ``use_scan_kernel`` the selective scan is one
-``ops.mamba_scan`` call (``csrc/mamba_scan.cu`` on the card, its plain
-version on CPU tensors), and the launcher serves through it; otherwise
-the chunked path runs in plain PyTorch: a scan by doubling inside each
-chunk of ``s.chunk`` steps, the state carried across chunks, so live
-memory is one chunk's [B, chunk, d_inner, N] tensors.  The chunked path
-is kept as the kernel branch's reference (the JAX parity tests and the
-card smoke compare the two).  Decode is the exact one-token recurrence.
+Port of ``repro.models.ssm``.  Mamba1 (``SSMConfig.version == 1``,
+falcon-mamba-7b): ``mamba_block`` is the prefill; under
+``use_scan_kernel`` the selective scan is one ``ops.mamba_scan`` call
+(``csrc/mamba_scan.cu`` on the card, its plain version on CPU tensors),
+and the launcher serves through it; otherwise the chunked path runs in
+plain PyTorch: a scan by doubling inside each chunk of ``s.chunk``
+steps, the state carried across chunks, so live memory is one chunk's
+[B, chunk, d_inner, N] tensors.  The chunked path is kept as the kernel
+branch's reference (the JAX parity tests and the card smoke compare the
+two).  Mamba2 (``version == 2``, zamba2-2.7b's block) has only the
+chunked path, as in JAX (``use_scan_kernel`` is Mamba1's): per head a
+scalar decay, the state [B, H, head_dim, N] carried across chunks, and
+``gate_norm`` (an RMS norm) after the gate.  Decode is the exact
+one-token recurrence on both versions.
 
 The JAX module's sharding hints (``constrain``) and ``mamba_specs`` have
-no counterpart on one card (ROADMAP A15b).  Its ``remat_chunks``
-argument is dropped: the port runs forward only, so nothing is kept for
-a backward pass.
+no counterpart on one card.  Its ``remat_chunks`` argument is dropped:
+the port runs forward only, so nothing is kept for a backward pass.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import Initializer
+from repro_torch.models.layers import Initializer, rms_norm
 
 __all__ = ["init_mamba", "mamba_block", "mamba_scan_inputs",
            "mamba_decode_step", "init_ssm_state"]
@@ -38,34 +42,40 @@ def _dt_rank(d_model: int, s: SSMConfig) -> int:
     return s.dt_rank or max(d_model // 16, 1)
 
 
-def _check_version(s: SSMConfig) -> None:
-    if s.version != 1:
-        raise NotImplementedError(
-            "Mamba2 (SSMConfig.version 2, zamba2's block) is not ported to "
-            "repro_torch yet (ROADMAP A15b)")
-
-
 def init_mamba(init: Initializer, d_model: int, s: SSMConfig
                ) -> Dict[str, torch.Tensor]:
-    """One Mamba1 layer's parameters, with the JAX package's shapes,
+    """One Mamba layer's parameters, with the JAX package's shapes,
     stddevs and dtypes (``dt_bias``, ``A_log`` and ``D`` in f32)."""
-    _check_version(s)
     di = s.expand * d_model
-    dtr = _dt_rank(d_model, s)
-    a_log = torch.log(torch.arange(1, s.state_dim + 1, dtype=_F32,
-                                   device=init.device))
-    return {
+    p = {
         "w_in": init.normal((d_model, 2 * di), d_model ** -0.5),
         "conv_w": init.normal((s.conv_width, di), 0.2),
         "conv_b": init.zeros((di,)),
         "w_out": init.normal((di, d_model), di ** -0.5),
-        "w_bc": init.normal((di, 2 * s.state_dim), di ** -0.5),
-        "w_dt_down": init.normal((di, dtr), di ** -0.5),
-        "w_dt_up": init.normal((dtr, di), dtr ** -0.5),
-        "dt_bias": init.normal((di,), 0.1).to(_F32),
-        "A_log": a_log.repeat(di, 1),
-        "D": init.ones((di,)).to(_F32),
     }
+    if s.version == 1:
+        dtr = _dt_rank(d_model, s)
+        a_log = torch.log(torch.arange(1, s.state_dim + 1, dtype=_F32,
+                                       device=init.device))
+        p.update({
+            "w_bc": init.normal((di, 2 * s.state_dim), di ** -0.5),
+            "w_dt_down": init.normal((di, dtr), di ** -0.5),
+            "w_dt_up": init.normal((dtr, di), dtr ** -0.5),
+            "dt_bias": init.normal((di,), 0.1).to(_F32),
+            "A_log": a_log.repeat(di, 1),
+            "D": init.ones((di,)).to(_F32),
+        })
+    else:
+        nh = di // s.head_dim
+        p.update({
+            "w_bc": init.normal((d_model, 2 * s.state_dim), d_model ** -0.5),
+            "w_dt": init.normal((d_model, nh), d_model ** -0.5),
+            "dt_bias": init.normal((nh,), 0.1).to(_F32),
+            "A_log": torch.zeros((nh,), dtype=_F32, device=init.device),
+            "D": init.ones((nh,)).to(_F32),
+            "gate_norm": init.zeros((di,)),
+        })
+    return p
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -102,15 +112,22 @@ def _scan_chunk(a_bar: torch.Tensor, bx: torch.Tensor
     return a_bar, bx
 
 
-def _chunked_scan(dt, xi, b_in, c_out, a, chunk: int) -> torch.Tensor:
-    """The JAX package's chunked selective scan: ``max(L // chunk, 1)``
-    chunks of ``L // nchunks`` steps (L must divide evenly, as there)."""
-    b, l, di = dt.shape
+def _chunk_sizes(l: int, chunk: int) -> Tuple[int, int]:
+    """The JAX chunking: ``max(L // chunk, 1)`` chunks of ``L // nchunks``
+    steps; L must split evenly, as there (the JAX reshape raises)."""
     nchunks = max(l // chunk, 1)
     c = l // nchunks
     if nchunks * c != l:
         raise ValueError(f"chunked scan: L={l} is not {nchunks} chunks of "
                          f"{c} (as in the JAX package)")
+    return nchunks, c
+
+
+def _chunked_scan(dt, xi, b_in, c_out, a, chunk: int) -> torch.Tensor:
+    """The JAX package's chunked selective scan: ``max(L // chunk, 1)``
+    chunks of ``L // nchunks`` steps (L must divide evenly, as there)."""
+    b, l, di = dt.shape
+    nchunks, c = _chunk_sizes(l, chunk)
     h_prev = torch.zeros((b, di, a.shape[1]), dtype=_F32, device=dt.device)
     ys = []
     for i in range(nchunks):
@@ -145,28 +162,70 @@ def mamba_scan_inputs(x: torch.Tensor, p: Dict[str, torch.Tensor]
     return dt, xi.to(_F32), b_in, c_out, z
 
 
+def _chunked_scan2(dt, xh, b_in, c_out, a, chunk: int) -> torch.Tensor:
+    """Mamba2's chunked SSD: dt [B, L, H], xh [B, L, H, P], b_in / c_out
+    [B, L, N], a [H] -> y [B, L, H, P]; per chunk the scan by doubling of
+    h_t = exp(dt a) h_{t-1} + dt x_t b_t^T, the state carried across."""
+    b, l, nh, hd = xh.shape
+    nchunks, c = _chunk_sizes(l, chunk)
+    h_prev = torch.zeros((b, nh, hd, b_in.shape[-1]), dtype=_F32,
+                         device=xh.device)
+    ys = []
+    for i in range(nchunks):
+        sl = slice(i * c, (i + 1) * c)
+        dt_c, xh_c, b_c, cout_c = dt[:, sl], xh[:, sl], b_in[:, sl], \
+            c_out[:, sl]
+        a_bar = torch.exp(dt_c * a)                           # [B, c, H]
+        bx = (dt_c[..., None] * xh_c)[..., None] \
+            * b_c[:, :, None, None, :]                        # [B,c,H,P,N]
+        pa, pb = _scan_chunk(a_bar[..., None, None], bx)
+        h = pa * h_prev[:, None] + pb
+        ys.append(torch.einsum("bchdn,bcn->bchd", h, cout_c))
+        h_prev = h[:, -1]
+    return torch.cat(ys, dim=1)
+
+
 def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], d_model: int,
                 s: SSMConfig) -> torch.Tensor:
     """Prefill forward. x [B, L, D] -> [B, L, D]."""
-    _check_version(s)
     dtype = x.dtype
-    dt, xi32, b_in, c_out, z = mamba_scan_inputs(x, p)
-    if s.use_scan_kernel:
-        y = kops.mamba_scan(dt, xi32, b_in, c_out, p["A_log"])
-    else:
-        a = -torch.exp(p["A_log"])                           # [di, N]
-        y = _chunked_scan(dt, xi32, b_in, c_out, a, s.chunk)
-    y = y + p["D"] * xi32
-    y = y.to(dtype) * F.silu(z.to(_F32)).to(dtype)
+    if s.version == 1:
+        dt, xi32, b_in, c_out, z = mamba_scan_inputs(x, p)
+        if s.use_scan_kernel:
+            y = kops.mamba_scan(dt, xi32, b_in, c_out, p["A_log"])
+        else:
+            a = -torch.exp(p["A_log"])                       # [di, N]
+            y = _chunked_scan(dt, xi32, b_in, c_out, a, s.chunk)
+        y = y + p["D"] * xi32
+        y = y.to(dtype) * F.silu(z.to(_F32)).to(dtype)
+        return y @ p["w_out"]
+    b, l, _ = x.shape
+    di = s.expand * d_model
+    nh = di // s.head_dim
+    xz = x @ p["w_in"]
+    xi, z = torch.chunk(xz, 2, dim=-1)
+    xi = _causal_conv(xi, p["conv_w"], p["conv_b"])
+    xi = F.silu(xi.to(_F32)).to(dtype)
+    bc = x @ p["w_bc"]
+    b_in, c_out = torch.chunk(bc.to(_F32), 2, dim=-1)         # [B, L, N]
+    dt = F.softplus((x @ p["w_dt"]).to(_F32) + p["dt_bias"])  # [B, L, H]
+    a = -torch.exp(p["A_log"])                                # [H]
+    xh = xi.reshape(b, l, nh, s.head_dim).to(_F32)
+    y = _chunked_scan2(dt, xh, b_in, c_out, a, s.chunk)
+    y = y + p["D"][:, None] * xh
+    y = y.reshape(b, l, di).to(dtype)
+    y = rms_norm(y * F.silu(z.to(_F32)).to(dtype), p["gate_norm"])
     return y @ p["w_out"]
 
 
 def init_ssm_state(batch: int, d_model: int, s: SSMConfig,
                    dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
-    _check_version(s)
     di = s.expand * d_model
-    return {"h": torch.zeros((batch, di, s.state_dim), dtype=_F32,
-                             device=device),
+    if s.version == 1:
+        h_shape = (batch, di, s.state_dim)
+    else:
+        h_shape = (batch, di // s.head_dim, s.head_dim, s.state_dim)
+    return {"h": torch.zeros(h_shape, dtype=_F32, device=device),
             "conv": torch.zeros((batch, s.conv_width - 1, di), dtype=dtype,
                                 device=device)}
 
@@ -177,8 +236,9 @@ def mamba_decode_step(x: torch.Tensor, state: Dict[str, torch.Tensor],
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token recurrence. x [B, 1, D]; returns (y [B, 1, D], new
     state); the given state is not modified."""
-    _check_version(s)
+    b = x.shape[0]
     dtype = x.dtype
+    di = s.expand * d_model
     xz = x @ p["w_in"]
     xi, z = torch.chunk(xz, 2, dim=-1)                       # [B, 1, di]
     conv_buf = torch.cat([state["conv"], xi], dim=1)         # [B, K, di]
@@ -186,16 +246,31 @@ def mamba_decode_step(x: torch.Tensor, state: Dict[str, torch.Tensor],
         + p["conv_b"]
     xi = F.silu(xi.to(_F32)).to(dtype)
     new_conv = conv_buf[:, 1:]
-    bc = xi @ p["w_bc"]
-    b_in, c_out = torch.chunk(bc.to(_F32), 2, dim=-1)
-    dt = F.softplus((xi @ p["w_dt_down"]) @ p["w_dt_up"]
-                    + p["dt_bias"].to(dtype)).to(_F32)[:, 0]  # [B, di]
+    if s.version == 1:
+        bc = xi @ p["w_bc"]
+        b_in, c_out = torch.chunk(bc.to(_F32), 2, dim=-1)
+        dt = F.softplus((xi @ p["w_dt_down"]) @ p["w_dt_up"]
+                        + p["dt_bias"].to(dtype)).to(_F32)[:, 0]  # [B, di]
+        a = -torch.exp(p["A_log"])
+        a_bar = torch.exp(dt[..., None] * a)                 # [B, di, N]
+        xi0 = xi[:, 0].to(_F32)
+        bx = (dt * xi0)[..., None] * b_in[:, 0, None, :]
+        h = a_bar * state["h"] + bx
+        y = torch.einsum("bdn,bn->bd", h, c_out[:, 0])
+        y = y + p["D"] * xi0
+        y = y[:, None].to(dtype) * F.silu(z.to(_F32)).to(dtype)
+        return y @ p["w_out"], {"h": h, "conv": new_conv}
+    nh = di // s.head_dim
+    bc = x @ p["w_bc"]
+    b_in, c_out = torch.chunk(bc.to(_F32), 2, dim=-1)        # [B, 1, N]
+    dt = F.softplus((x @ p["w_dt"]).to(_F32) + p["dt_bias"])[:, 0]  # [B, H]
     a = -torch.exp(p["A_log"])
-    a_bar = torch.exp(dt[..., None] * a)                     # [B, di, N]
-    xi0 = xi[:, 0].to(_F32)
-    bx = (dt * xi0)[..., None] * b_in[:, 0, None, :]
-    h = a_bar * state["h"] + bx
-    y = torch.einsum("bdn,bn->bd", h, c_out[:, 0])
-    y = y + p["D"] * xi0
-    y = y[:, None].to(dtype) * F.silu(z.to(_F32)).to(dtype)
+    a_bar = torch.exp(dt * a)                                # [B, H]
+    xh = xi[:, 0].reshape(b, nh, s.head_dim).to(_F32)
+    bx = (dt[..., None] * xh)[..., None] * b_in[:, 0, None, None, :]
+    h = a_bar[..., None, None] * state["h"] + bx
+    y = torch.einsum("bhdn,bn->bhd", h, c_out[:, 0])
+    y = y + p["D"][:, None] * xh
+    y = y.reshape(b, 1, di).to(dtype)
+    y = rms_norm(y * F.silu(z.to(_F32)).to(dtype), p["gate_norm"])
     return y @ p["w_out"], {"h": h, "conv": new_conv}

@@ -1,40 +1,78 @@
-"""Decoder-only assembly of the ssm family: init, forward, prefill, decode.
+"""Decoder-only assembly for the dense, moe, ssm, hybrid and vlm families:
+init, forward, prefill, decode.
 
-Port of ``repro.models.transformer`` for ``family == "ssm"``
-(falcon-mamba-7b); the dense, moe, hybrid and vlm families port with
-ROADMAP A15b and raise here.  Parameters keep the JAX tree: per-layer
-leaves stacked on a leading ``[n_layers, ...]`` axis, as ``_stack_init``
-gives.  The JAX ``lax.scan`` over layers is a Python loop over that
-axis; ``scan_layers``, ``remat`` and the sharding hints have no effect,
-and the JAX ``extra`` argument (VLM inputs) is dropped: no ported family
-reads it.
+Port of ``repro.models.transformer``.  Parameters keep the JAX tree:
+per-layer leaves stacked on a leading ``[n_layers, ...]`` axis, as
+``_stack_init`` gives, plus ``shared_attn`` (hybrid: one attention block
+applied after every ``hybrid_attn_every`` Mamba2 layers) and
+``cross_layers`` (vlm: a tanh-gated cross-attention layer after every
+``cross_attn_every`` dense layers, over ``extra["patches"]``).  The JAX
+``lax.scan`` over layers is a Python loop over that axis; ``scan_layers``,
+``remat`` and the sharding hints have no effect.  gemma2's local/global
+windows are per-layer ints (``_windows_for``), and with its softcap they
+put every gemma2 layer's decode attention on the plain route
+(``attention.decode_route``); every other family's decode attention is
+one ``ops.flash_decode`` a layer (and one a cross layer).
 
-The prefill copies a behaviour of the reference rather than fixing it:
-``prefill`` runs ``forward`` on a fresh decode state and returns that
-state with ``cache_len`` set but ``ssm_h`` and ``ssm_conv`` still zero
-(the reference's scan drops the final state on both branches), so
-decoding after a prefill starts from a zero recurrent state.
+``decode_step`` writes each attention layer's new K/V into the caches of
+the state it is given, in place (the JAX step scatters into a donated
+buffer): copying a [L, B, S, KH, Dh] cache each step would move as many
+bytes as the attention reads.  The recurrent state (``ssm_h``,
+``ssm_conv``) and ``cache_len`` are new tensors in the returned state.
+
+Copied from the reference, not fixed: ``prefill`` runs ``forward`` on a
+fresh decode state and returns it with ``cache_len`` set but every
+self-attention K/V cache still zero (the reference's comment says the
+prompt's K/V is "recomputed", but nothing writes it), so a decode step
+after a prefill attends over zero K/V at the prompt's positions; the
+ssm and hybrid prefills return ``ssm_h`` and ``ssm_conv`` zero (the
+reference's scans drop the final state).  The vlm prefill does fill
+``cross_k``/``cross_v`` from the patches (without ``k_norm``, as there).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import Initializer, dtype_of, rms_norm
+from repro_torch.models.layers import (Initializer, dtype_of, init_mlp,
+                                       rms_norm, softcap, swiglu)
 
 __all__ = ["init_params", "forward", "init_decode_state", "decode_step",
-           "prefill"]
+           "prefill", "layer_params", "FAMILIES"]
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+BIG_WINDOW = attn.BIG_WINDOW
+_F32 = torch.float32
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            "repro_torch yet (ROADMAP A15b); only 'ssm' is")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
+
+
+# =========================================================== initialization
+def _init_dense_layer(init: Initializer, cfg: ModelConfig):
+    return {"ln1": init.zeros((cfg.d_model,)),
+            "attn": attn.init_attention(init, cfg.d_model, cfg.attn),
+            "ln2": init.zeros((cfg.d_model,)),
+            "mlp": init_mlp(init, cfg.d_model, cfg.d_ff, cfg.act)}
+
+
+def _init_moe_layer(init: Initializer, cfg: ModelConfig):
+    p = {"ln1": init.zeros((cfg.d_model,)),
+         "attn": attn.init_attention(init, cfg.d_model, cfg.attn),
+         "ln2": init.zeros((cfg.d_model,)),
+         "moe": moe_mod.init_moe(init, cfg.d_model, cfg.moe)}
+    if cfg.moe.dense_residual_d_ff:
+        p["dense_mlp"] = init_mlp(init, cfg.d_model,
+                                  cfg.moe.dense_residual_d_ff, cfg.act)
+    return p
 
 
 def _init_ssm_layer(init: Initializer, cfg: ModelConfig):
@@ -42,15 +80,25 @@ def _init_ssm_layer(init: Initializer, cfg: ModelConfig):
             "ssm": ssm_mod.init_mamba(init, cfg.d_model, cfg.ssm)}
 
 
+def _init_cross_layer(init: Initializer, cfg: ModelConfig):
+    return {"ln": init.zeros((cfg.d_model,)),
+            "attn": attn.init_attention(init, cfg.d_model, cfg.attn),
+            "gate": init.zeros(())}   # llama-3.2-vision gated cross-attn
+
+
 def _stack_init(fn, init: Initializer, n: int, cfg: ModelConfig):
     """``n`` layers of ``fn`` stacked on a leading axis, drawn one layer
-    at a time into preallocated leaves (no second copy of the stack)."""
+    at a time into preallocated leaves (no second copy of the stack; one
+    layer is a view of itself)."""
     first = fn(init, cfg)
+    if n == 1:
+        return _map(lambda x: x.unsqueeze(0), first)
     out = _map(lambda x: torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
                                      device=x.device), first)
-    for i in range(n):
-        layer = first if i == 0 else fn(init, cfg)
-        _zip(lambda o, x: o[i].copy_(x), out, layer)
+    _zip(lambda o, x: o[0].copy_(x), out, first)
+    del first
+    for i in range(1, n):
+        _zip(lambda o, x: o[i].copy_(x), out, fn(init, cfg))
     return out
 
 
@@ -68,9 +116,18 @@ def _zip(fn, a, b):
         fn(a, b)
 
 
+def _slice(tree, i):
+    return _map(lambda x: x[i], tree)
+
+
 def layer_params(params: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer ``i``'s parameters (views into the stacked leaves)."""
-    return _map(lambda x: x[i], params["layers"])
+    return _slice(params["layers"], i)
+
+
+_LAYER_INIT = {"dense": _init_dense_layer, "vlm": _init_dense_layer,
+               "moe": _init_moe_layer, "ssm": _init_ssm_layer,
+               "hybrid": _init_ssm_layer}
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig
@@ -86,8 +143,52 @@ def init_params(generator: torch.Generator, cfg: ModelConfig
     if not cfg.tie_embeddings:
         params["unembed"] = init.normal((cfg.vocab, cfg.d_model),
                                         cfg.d_model ** -0.5)
-    params["layers"] = _stack_init(_init_ssm_layer, init, cfg.n_layers, cfg)
+    params["layers"] = _stack_init(_LAYER_INIT[cfg.family], init,
+                                   cfg.n_layers, cfg)
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _init_dense_layer(init, cfg)
+    if cfg.family == "vlm":
+        params["cross_layers"] = _stack_init(
+            _init_cross_layer, init, cfg.n_layers // cfg.cross_attn_every,
+            cfg)
     return params
+
+
+# ============================================================ layer bodies
+def _windows_for(cfg: ModelConfig) -> List[int]:
+    """Per-layer attention window (gemma2 alternates local/global: even
+    layers local, odd global)."""
+    w = [BIG_WINDOW] * cfg.n_layers
+    if cfg.attn is not None and cfg.attn.pattern == "local_global" \
+            and cfg.attn.window:
+        w[::2] = [cfg.attn.window] * len(w[::2])
+    return w
+
+
+def _dense_block(x, lp, cfg: ModelConfig, positions, window):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h = attn.self_attention(h, lp["attn"], cfg.attn, positions, window=window,
+                            chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
+    x = x + h
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + swiglu(h, lp["mlp"], cfg.act)
+
+
+def _moe_ffn(h, lp, cfg: ModelConfig):
+    y, aux = moe_mod.moe_block(h, lp["moe"], cfg.moe)
+    if cfg.moe.dense_residual_d_ff:
+        y = y + swiglu(h, lp["dense_mlp"], cfg.act)
+    return y, aux
+
+
+def _moe_block(x, lp, cfg: ModelConfig, positions, window):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h = attn.self_attention(h, lp["attn"], cfg.attn, positions, window=window,
+                            chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
+    x = x + h
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    y, aux = _moe_ffn(h, lp, cfg)
+    return x + y, aux
 
 
 def _ssm_block(x, lp, cfg: ModelConfig):
@@ -95,76 +196,220 @@ def _ssm_block(x, lp, cfg: ModelConfig):
     return x + ssm_mod.mamba_block(h, lp["ssm"], cfg.d_model, cfg.ssm)
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig
+def _gate(cp, x):
+    return torch.tanh(cp["gate"].to(_F32)).to(x.dtype)
+
+
+def _patches(extra, cfg: ModelConfig) -> torch.Tensor:
+    if extra is None or "patches" not in extra:
+        raise ValueError(f"{cfg.name} (vlm) needs extra['patches'] "
+                         f"[B, {cfg.n_patches}, {cfg.d_model}]")
+    return extra["patches"]
+
+
+def _groups(cfg: ModelConfig, k: int):
+    """(start, end) of each group of k layers, then the remainder."""
+    n = cfg.n_layers // k
+    out = [(g * k, (g + 1) * k) for g in range(n)]
+    if cfg.n_layers > n * k:
+        out.append((n * k, cfg.n_layers))
+    return out
+
+
+# ================================================================= forward
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+            extra: Optional[Dict[str, torch.Tensor]] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, L] -> (hidden [B, L, D], aux_loss)."""
+    """tokens [B, L] -> (hidden [B, L, D], aux_loss f32)."""
     _check_family(cfg)
+    l = tokens.shape[1]
     x = params["embed"][tokens]
-    for i in range(cfg.n_layers):
-        x = _ssm_block(x, layer_params(params, i), cfg)
+    positions = torch.arange(l, dtype=torch.int32, device=x.device)
+    windows = _windows_for(cfg)
+    fam = cfg.family
+    aux = torch.zeros((), dtype=_F32, device=x.device)
+    if fam == "dense":
+        for i in range(cfg.n_layers):
+            x = _dense_block(x, layer_params(params, i), cfg, positions,
+                             windows[i])
+    elif fam == "vlm":
+        k = cfg.cross_attn_every
+        patches = _patches(extra, cfg).to(x.dtype)
+        for g in range(cfg.n_layers // k):
+            for i in range(g * k, (g + 1) * k):
+                x = _dense_block(x, layer_params(params, i), cfg, positions,
+                                 windows[i])
+            cp = _slice(params["cross_layers"], g)
+            h = rms_norm(x, cp["ln"], cfg.norm_eps)
+            h = attn.cross_attention(h, patches, cp["attn"], cfg.attn,
+                                     chunk_q=cfg.attn_chunk_q,
+                                     chunk_k=cfg.attn_chunk_k)
+            x = x + _gate(cp, x) * h
+    elif fam == "moe":
+        for i in range(cfg.n_layers):
+            x, a = _moe_block(x, layer_params(params, i), cfg, positions,
+                              windows[i])
+            aux = aux + a
+    elif fam == "ssm":
+        for i in range(cfg.n_layers):
+            x = _ssm_block(x, layer_params(params, i), cfg)
+    else:  # hybrid
+        k = cfg.hybrid_attn_every
+        for lo, hi in _groups(cfg, k):
+            for i in range(lo, hi):
+                x = _ssm_block(x, layer_params(params, i), cfg)
+            if hi - lo == k:
+                x = _dense_block(x, params["shared_attn"], cfg, positions,
+                                 BIG_WINDOW)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
+# ================================================================== decode
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device) -> Dict[str, torch.Tensor]:
-    """``cache_len`` i32[B], ``ssm_h`` f32[L, B, di, N] and ``ssm_conv``
-    [L, B, K - 1, di] in the compute dtype, all zero (``max_len`` sizes
-    the attention families' caches; the ssm family has none)."""
+    """The JAX decode state, all zero: ``cache_len`` i32[B]; dense, moe
+    and vlm ``k_cache``/``v_cache`` [L, B, max_len, KH, Dh] in the compute
+    dtype; vlm ``cross_k``/``cross_v`` [L / cross_attn_every, B,
+    n_patches, KH, Dh]; ssm and hybrid ``ssm_h`` (f32) and ``ssm_conv``;
+    hybrid one K/V cache per group, [L / hybrid_attn_every, B, max_len,
+    KH, Dh]."""
     _check_family(cfg)
-    s = cfg.ssm
-    ssm_mod._check_version(s)
-    di = s.expand * cfg.d_model
-    return {
-        "cache_len": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "ssm_h": torch.zeros((cfg.n_layers, batch, di, s.state_dim),
-                             dtype=torch.float32, device=device),
-        "ssm_conv": torch.zeros((cfg.n_layers, batch, s.conv_width - 1, di),
-                                dtype=dtype_of(cfg.compute_dtype),
-                                device=device),
-    }
+    dtype = dtype_of(cfg.compute_dtype)
+    fam = cfg.family
+    a = cfg.attn
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    state = {"cache_len": zeros((batch,), torch.int32)}
+    if fam in ("dense", "moe", "vlm"):
+        shape = (cfg.n_layers, batch, max_len, a.kv_heads, a.head_dim)
+        state["k_cache"], state["v_cache"] = zeros(shape), zeros(shape)
+    if fam == "vlm":
+        shape = (cfg.n_layers // cfg.cross_attn_every, batch, cfg.n_patches,
+                 a.kv_heads, a.head_dim)
+        state["cross_k"], state["cross_v"] = zeros(shape), zeros(shape)
+    if fam in ("ssm", "hybrid"):
+        s = cfg.ssm
+        one = ssm_mod.init_ssm_state(batch, cfg.d_model, s, dtype, device)
+        state["ssm_h"] = zeros((cfg.n_layers,) + tuple(one["h"].shape), _F32)
+        state["ssm_conv"] = zeros((cfg.n_layers,) + tuple(one["conv"].shape))
+    if fam == "hybrid":
+        shape = (cfg.n_layers // cfg.hybrid_attn_every, batch, max_len,
+                 a.kv_heads, a.head_dim)
+        state["k_cache"], state["v_cache"] = zeros(shape), zeros(shape)
+    return state
 
 
-def _logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _attn_decode_block(x, lp, cfg: ModelConfig, kc, vc, new_len, window):
+    """One dense (or moe) block in decode mode: the new token's K/V is
+    written into kc/vc [B, S, KH, Dh] at ``new_len - 1``, in place."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    k_new, v_new = attn.project_new_kv(h, lp["attn"], cfg.attn, new_len - 1)
+    attn.write_new_kv(kc, vc, k_new, v_new, new_len - 1)
+    h = attn.decode_attention(h, lp["attn"], cfg.attn, kc, vc, new_len,
+                              window=window)
+    x = x + h
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if "moe" in lp:
+        h, _aux = _moe_ffn(h, lp, cfg)
+    else:
+        h = swiglu(h, lp["mlp"], cfg.act)
+    return x + h
+
+
+def _ssm_decode(x, params, state, cfg: ModelConfig, i, nh, nconv):
+    lp = layer_params(params, i)
+    hn = rms_norm(x, lp["ln"], cfg.norm_eps)
+    y, st = ssm_mod.mamba_decode_step(
+        hn, {"h": state["ssm_h"][i], "conv": state["ssm_conv"][i]},
+        lp["ssm"], cfg.d_model, cfg.ssm)
+    nh[i] = st["h"]
+    nconv[i] = st["conv"]
+    return x + y
+
+
+def logits_of(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Unembedding of hidden states x [..., D] (scaled by D^-0.5 where the
+    embeddings are tied), in the compute dtype."""
     unembed = params["embed"] if cfg.tie_embeddings else params["unembed"]
     scale = cfg.d_model ** -0.5 if cfg.tie_embeddings else 1.0
     return (x * scale) @ unembed.T
 
 
-def decode_step(params, state, tokens: torch.Tensor, cfg: ModelConfig):
-    """tokens [B, 1] -> (logits f32[B, V], new_state).  Loops over the
-    layers, writing each layer's new ``h``/``conv`` into new stacked
-    tensors; the given state is not modified."""
+def decode_step(params, state, tokens: torch.Tensor, cfg: ModelConfig,
+                extra: Optional[Dict[str, torch.Tensor]] = None):
+    """tokens [B, 1] -> (logits f32[B, V], new_state).  Writes the K/V
+    caches of ``state`` in place (see the module docstring); ``extra`` is
+    not read (the vlm cross K/V is in the state)."""
     _check_family(cfg)
     x = params["embed"][tokens]
-    nh = torch.empty_like(state["ssm_h"])
-    nconv = torch.empty_like(state["ssm_conv"])
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        hn = rms_norm(x, lp["ln"], cfg.norm_eps)
-        y, st = ssm_mod.mamba_decode_step(
-            hn, {"h": state["ssm_h"][i], "conv": state["ssm_conv"][i]},
-            lp["ssm"], cfg.d_model, cfg.ssm)
-        x = x + y
-        nh[i] = st["h"]
-        nconv[i] = st["conv"]
+    new_len = state["cache_len"] + 1
+    windows = _windows_for(cfg)
+    fam = cfg.family
     new_state = dict(state)
-    new_state["ssm_h"], new_state["ssm_conv"] = nh, nconv
-    new_state["cache_len"] = state["cache_len"] + 1
+    if fam in ("dense", "moe"):
+        for i in range(cfg.n_layers):
+            x = _attn_decode_block(x, layer_params(params, i), cfg,
+                                   state["k_cache"][i], state["v_cache"][i],
+                                   new_len, windows[i])
+    elif fam == "vlm":
+        k = cfg.cross_attn_every
+        plen = torch.full_like(new_len, cfg.n_patches)
+        for g in range(cfg.n_layers // k):
+            for i in range(g * k, (g + 1) * k):
+                x = _attn_decode_block(
+                    x, layer_params(params, i), cfg, state["k_cache"][i],
+                    state["v_cache"][i], new_len, windows[i])
+            cp = _slice(params["cross_layers"], g)
+            h = rms_norm(x, cp["ln"], cfg.norm_eps)
+            h = attn.decode_attention(h, cp["attn"], cfg.attn,
+                                      state["cross_k"][g],
+                                      state["cross_v"][g], plen,
+                                      use_rope=False)
+            x = x + _gate(cp, x) * h
+    else:  # ssm, hybrid
+        nh = torch.empty_like(state["ssm_h"])
+        nconv = torch.empty_like(state["ssm_conv"])
+        k = cfg.hybrid_attn_every if fam == "hybrid" else cfg.n_layers
+        for g, (lo, hi) in enumerate(_groups(cfg, k)):
+            for i in range(lo, hi):
+                x = _ssm_decode(x, params, state, cfg, i, nh, nconv)
+            if fam == "hybrid" and hi - lo == k:
+                x = _attn_decode_block(x, params["shared_attn"], cfg,
+                                       state["k_cache"][g],
+                                       state["v_cache"][g], new_len,
+                                       BIG_WINDOW)
+        new_state["ssm_h"], new_state["ssm_conv"] = nh, nconv
+    new_state["cache_len"] = new_len
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, x[:, 0], cfg).to(torch.float32)
-    if cfg.logit_softcap is not None:
-        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits, new_state
+    logits = logits_of(params, x[:, 0], cfg).to(_F32)
+    return softcap(logits, cfg.logit_softcap), new_state
 
 
-def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int):
+def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
+            extra: Optional[Dict[str, torch.Tensor]] = None):
     """Run the full prompt and build the decode state.  Returns (state,
-    logits [B, V] in the compute dtype).  The state's ``ssm_h`` and
-    ``ssm_conv`` stay zero, as the reference leaves them."""
+    logits [B, V] in the compute dtype, no softcap, as the reference).
+    The self-attention caches and the recurrent state stay zero (see the
+    module docstring); vlm's cross K/V is computed from the patches."""
     b, l = tokens.shape
     state = init_decode_state(cfg, b, max_len, tokens.device)
-    x, _ = forward(params, tokens, cfg)
+    x, _ = forward(params, tokens, cfg, extra=extra)
+    if cfg.family == "vlm":
+        a = cfg.attn
+        patches = _patches(extra, cfg)
+        for g in range(cfg.n_layers // cfg.cross_attn_every):
+            cp = _slice(params["cross_layers"], g)
+            for name, w in (("cross_k", "wk"), ("cross_v", "wv")):
+                # the patches as given (f32 or not), in the promoted
+                # dtype, as jnp's matmul promotes
+                wt = cp["attn"][w]
+                dt = torch.promote_types(patches.dtype, wt.dtype)
+                kv = (patches.to(dt) @ wt.to(dt)).reshape(
+                    b, -1, a.kv_heads, a.head_dim)
+                state[name][g] = kv.to(state[name].dtype)
     state["cache_len"] = torch.full((b,), l, dtype=torch.int32,
                                     device=tokens.device)
-    return state, _logits(params, x[:, -1], cfg)
+    return state, logits_of(params, x[:, -1], cfg)

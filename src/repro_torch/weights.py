@@ -57,14 +57,16 @@ def _leaf_from_numpy(x, dev: torch.device) -> torch.Tensor:
 def model_params_from_numpy(tree: Dict[str, Any], cfg,
                             device: Optional[Union[str, torch.device]] = None
                             ) -> Dict[str, Any]:
-    """An LM parameter tree of numpy arrays (the JAX ``model.init`` tree,
-    stacked ``[n_layers, ...]`` leaves included) -> the port's tree of
-    tensors on ``device``, leaf for leaf and dtype for dtype.  ``cfg`` is
-    the model's ``ModelConfig``; only the ported families are taken."""
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet "
-            "(ROADMAP A15b)")
+    """An LM parameter tree of numpy arrays (the JAX ``model.init`` tree
+    of any family: stacked ``[n_layers, ...]`` leaves, ``shared_attn``,
+    ``cross_layers``, ``enc_layers`` and ``dec_layers`` included) -> the
+    port's tree of tensors on ``device``, leaf for leaf and dtype for
+    dtype.  ``cfg`` is the model's ``ModelConfig``; its family must be
+    one the port builds."""
+    from repro_torch.models.transformer import FAMILIES
+
+    if cfg.family not in FAMILIES + ("encdec",):
+        raise ValueError(f"unknown family {cfg.family!r}")
     dev = resolve_device(device)
 
     def conv(t):

@@ -671,6 +671,25 @@ def test_smem_proof_grid_and_documented_cliff():
     assert any(f.entry.startswith("mamba_scan") for f in bad.blocking())
 
 
+def test_smem_grid_covers_every_family_decode_shape():
+    """Each architecture whose decode attention takes the kernel route
+    has its (head dim, q heads per kv head) in the grid, for every cache
+    dtype, within the limit."""
+    from repro_torch.configs import arch_names, get_config
+    from repro_torch.models.attention import decode_route
+
+    out = smem.run_smem_checks(tfind.Report())
+    shapes = set()
+    for arch in arch_names():
+        a = get_config(arch).attn
+        if a is not None and decode_route(a) == "kernel":
+            shapes.add((a.head_dim, a.n_heads // a.kv_heads))
+    assert shapes == set(smem.DECODE_SHAPES)
+    for d, g in shapes:
+        for dt in ("float32", "bfloat16", "float16"):
+            assert out[f"flash_decode:D={d}:G={g}:{dt}"] <= smem.SMEM_LIMIT
+
+
 def _c_streamed(cap, optin, static=4096):
     """csrc/streamed_lookup.cu's launcher and streamed_lookup.py:237-283,
     line by line: the router entries staged and the dynamic bytes."""

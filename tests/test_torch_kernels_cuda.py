@@ -1375,6 +1375,58 @@ def test_lm_serves_on_card_through_the_scan(cuda):
     assert got == serve(kcfg, "cpu", cpu_params)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-14b", "zamba2-2.7b",
+                                  "whisper-medium"])
+def test_lm_families_decode_through_flash_decode_on_card(cuda, arch):
+    """A smoke model of the dense, hybrid and encdec families on the card
+    (f32, TF32 off): each decode step launches ``flash_decode`` once for
+    every attention on the kernel route, and prefill and 4 greedy decode
+    steps give the CPU's tokens, and logits within 1e-4 of the CPU's
+    (the kernel's sums and cuBLAS's run in another order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True)
+    params = build_model(cfg, cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 12)))
+    extra = None
+    if cfg.family == "encdec":
+        extra = {"frames": torch.from_numpy(np.random.default_rng(2)
+                                            .standard_normal(
+            (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))}
+    per_step = {"dense": cfg.n_layers,
+                "hybrid": cfg.n_layers // cfg.hybrid_attn_every,
+                "encdec": 2 * cfg.n_layers}[cfg.family]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = build_model(cfg, dev)
+        p = to(params, dev)
+        x = None if extra is None else to(extra, dev)
+        state, logits = model.prefill(p, toks.to(dev), 24, extra=x)
+        seq, lgs = [], []
+        for _ in range(4):
+            tok = torch.argmax(logits, -1)[:, None]
+            ops.reset_launch_counts()
+            logits, state = model.decode_step(p, state, tok, extra=x)
+            if dev.type == "cuda":
+                assert ops.launch_counts()["flash_decode"] == per_step
+            seq.append(tok.cpu())
+            lgs.append(logits.cpu())
+        out[dev.type] = (torch.cat(seq, 1), torch.stack(lgs))
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.allclose(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                          atol=1e-4)
+
+
 # ------------------------------------------------------------------
 # the contract checker's broken fixture kernels (analysis/csrc/fixtures.cu)
 def test_fixture_kernels_match_plain_at_the_edges(cuda):

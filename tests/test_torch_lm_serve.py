@@ -8,7 +8,8 @@ states, ``prefill`` logits and decode state (whose ``ssm_h`` and
 state), and 8 teacher-forced ``decode_step`` logits, on the chunked
 branch and on the kernel branch (the plain version here).  The port's
 ``ContinuousBatcher`` is held to its own sequential greedy loop and to
-the JAX batcher's tokens; the launcher and the registry are checked."""
+the JAX batcher's tokens; the launcher and the registry are checked (the
+other families: ``test_torch_lm_*.py``)."""
 
 import dataclasses
 
@@ -18,13 +19,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import arch_names as j_arch_names
 from repro.configs import get_config as j_get_config
 from repro.models.model import build_model as j_build_model
 from repro.serve.scheduler import ContinuousBatcher as JBatcher
 from repro.serve.scheduler import Request as JRequest
 from repro.serve.scheduler import ServeConfig as JServeConfig
 
-from repro_torch.configs import get_config
+from repro_torch.configs import arch_names, get_config
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.model import build_model
@@ -182,8 +184,8 @@ def test_serve_launcher_runs_on_cpu(capsys):
     point trace through the SLO front end and prints its goodput and
     on-time latency lines; without a card and without ``--device``, the
     index mode raises."""
-    launch_serve.main(["--mode", "lm", "--device", "cpu", "--requests", "3",
-                       "--max-new", "4", "--slots", "2"])
+    launch_serve.main(["--mode", "lm", "--device", "cpu", "--arch", ARCH,
+                       "--requests", "3", "--max-new", "4", "--slots", "2"])
     out = capsys.readouterr().out
     assert "served 3 requests / 12 tokens" in out and "on cpu" in out
     launch_serve.main(["--mode", "index", "--device", "cpu", "--requests",
@@ -197,7 +199,7 @@ def test_serve_launcher_runs_on_cpu(capsys):
             launch_serve.main(["--mode", "index", "--requests", "10"])
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "qwen3-14b"])
+@pytest.mark.parametrize("arch", j_arch_names())
 def test_ported_configs_equal_the_jax_configs(arch):
     for smoke in (False, True):
         assert dataclasses.asdict(get_config(arch, smoke)) == \
@@ -205,16 +207,17 @@ def test_ported_configs_equal_the_jax_configs(arch):
 
 
 def test_registry_and_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="A15b"):
-        get_config("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="A15b"):
-        get_config("zamba2-2.7b", smoke=True)
+    """Every architecture of the JAX registry is registered, in its
+    order, and builds on the CPU; an unknown one raises ``KeyError``;
+    training, not ported yet, raises naming ROADMAP A15d."""
+    assert arch_names() == j_arch_names()
+    for arch in j_arch_names():
+        assert build_model(get_config(arch, smoke=True),
+                           device="cpu").cfg.name == arch
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    with pytest.raises(NotImplementedError, match="A15b"):
-        build_model(get_config("qwen3-14b", smoke=True), device="cpu")
     model = build_model(get_config(ARCH, smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(NotImplementedError, match="A15d"):
         model.train_loss({}, {})
 
 
@@ -235,3 +238,49 @@ def test_model_needs_a_card_unless_cpu_is_asked():
     assert params["embed"].device.type == "cpu"
     assert params["layers"]["ssm"]["w_in"].shape == (
         cfg.n_layers, cfg.d_model, 2 * cfg.ssm.expand * cfg.d_model)
+
+
+@pytest.mark.parametrize("arch", j_arch_names())
+def test_every_arch_inits_and_serves_on_cpu(arch):
+    """``init`` gives the JAX tree's leaves, shapes and dtypes (from
+    ``jax.eval_shape``: nothing drawn on the JAX side); a prefill and two
+    decode steps on the port's own weights give finite logits; without a
+    card and without ``device``, ``build_model`` raises."""
+    cfg = get_config(arch, smoke=True)
+    want = jax.eval_shape(j_build_model(j_get_config(arch, smoke=True)).init,
+                          jax.random.PRNGKey(0))
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(1))
+    flat = dict(jax.tree_util.tree_flatten_with_path(want)[0])
+    for path, sds in flat.items():
+        leaf = params
+        for p in path:
+            leaf = leaf[p.key]
+        assert tuple(leaf.shape) == sds.shape, (arch, path)
+        assert str(leaf.dtype).split(".")[-1] == sds.dtype.name, (arch, path)
+    n = sum(1 for _ in _leaves(params))
+    assert n == len(flat), (arch, n, len(flat))
+    extra = None
+    if cfg.family in ("vlm", "encdec"):
+        name, rows = (("patches", cfg.n_patches) if cfg.family == "vlm"
+                      else ("frames", cfg.enc_seq))
+        extra = {name: torch.randn(2, rows, cfg.d_model)}
+    state, logits = model.prefill(params, torch.ones((2, 5), dtype=torch.long),
+                                  16, extra=extra)
+    for _ in range(2):
+        logits, state = model.decode_step(
+            params, state, torch.argmax(logits, -1)[:, None], extra=extra)
+        assert logits.shape == (2, cfg.vocab)
+        assert bool(torch.isfinite(logits).all())
+    assert state["cache_len"].tolist() == [7, 7]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(cfg)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -1,9 +1,11 @@
-"""repro_torch's Mamba1 pieces against the JAX package, on the CPU.
+"""repro_torch's Mamba1 and Mamba2 pieces against the JAX package, on the
+CPU.
 
 The selective scan's plain version is held to ``mamba_scan_pallas``
 (interpret mode) and ``mamba_scan_ref``; the port's ``mamba_block``, on
 both branches (the kernel's plain version and the chunked path), to the
-JAX ``mamba_block``; the port's init to the JAX tree.  Inputs are made
+JAX ``mamba_block``; the port's init to the JAX tree; Mamba2's block,
+decode step and init (zamba2's smoke config) to the JAX ones.  Inputs are made
 with numpy from a seed; JAX parameters cross as numpy through
 ``model_params_from_numpy``.  Everything here is f32: bf16 rounds at
 different places in XLA and PyTorch, so bf16 is compared on the card,
@@ -25,7 +27,6 @@ from repro.models.layers import Initializer as JInitializer
 from repro.models.model import build_model as j_build_model
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.mamba_scan import (KERNELS, MAX_STATE, SMEM_BUDGET,
                                             mamba_scan, mamba_scan_plain,
@@ -218,7 +219,74 @@ def test_init_matches_jax_tree(dtype):
     assert seen == len(jflat) == 14
 
 
-def test_mamba2_raises_and_names_zamba2():
-    init = Initializer(torch.Generator(), torch.float32)
-    with pytest.raises(NotImplementedError, match="zamba2"):
-        ssm.init_mamba(init, 64, SSMConfig(state_dim=8, version=2))
+def _layer2(seed):
+    cfg = get_config("zamba2-2.7b", smoke=True)
+    init = JInitializer(jax.random.PRNGKey(seed), jnp.float32)
+    jp = j_ssm.init_mamba(init, cfg.d_model, cfg.ssm)
+    tp = model_params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    return cfg, jp, tp
+
+
+@pytest.mark.parametrize("l", [64, 40, 7])
+def test_mamba2_block_matches_jax(l):
+    """zamba2's Mamba2 block at its smoke width (d_model 128, 8 heads of
+    32, state 16, chunk 16): the chunked SSD, the per-head decay and the
+    gate norm equal the JAX block within BLOCK_TOL, at 4, 2 (of 20) and 1
+    chunks."""
+    cfg, jp, tp = _layer2(l)
+    d = cfg.d_model
+    x = (np.random.default_rng(l).standard_normal((2, l, d)) * 0.3
+         ).astype(np.float32)
+    want = np.asarray(j_ssm.mamba_block(jnp.asarray(x), jp, d, cfg.ssm,
+                                        remat_chunks=False))
+    got = ssm.mamba_block(torch.from_numpy(x), tp, d, cfg.ssm).numpy()
+    np.testing.assert_allclose(got, want, rtol=BLOCK_TOL, atol=BLOCK_TOL)
+    with pytest.raises(ValueError, match="chunks"):     # 41: 2 chunks of 20
+        ssm.mamba_block(torch.zeros((1, 41, d)), tp, d, cfg.ssm)
+
+
+def test_mamba2_decode_step_matches_jax():
+    """Four Mamba2 decode steps from a nonzero state: outputs, h [B, H,
+    P, N] and conv equal the JAX step's; the given state is kept."""
+    cfg, jp, tp = _layer2(3)
+    d, s = cfg.d_model, cfg.ssm
+    rng = np.random.default_rng(5)
+    di = s.expand * d
+    nh = di // s.head_dim
+    h = (rng.standard_normal((3, nh, s.head_dim, s.state_dim)) * 0.1
+         ).astype(np.float32)
+    conv = rng.standard_normal((3, s.conv_width - 1, di)).astype(np.float32)
+    js = {"h": jnp.asarray(h), "conv": jnp.asarray(conv)}
+    ts = {"h": torch.from_numpy(h), "conv": torch.from_numpy(conv)}
+    before = {k: v.clone() for k, v in ts.items()}
+    for step in range(4):
+        x = rng.standard_normal((3, 1, d)).astype(np.float32)
+        yj, js = j_ssm.mamba_decode_step(jnp.asarray(x), js, jp, d, s)
+        yt, ts_new = ssm.mamba_decode_step(torch.from_numpy(x), ts, tp, d, s)
+        if step == 0:
+            assert all(torch.equal(ts[k], before[k]) for k in ts)
+        ts = ts_new
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj),
+                                   rtol=BLOCK_TOL, atol=BLOCK_TOL)
+        for k in ("h", "conv"):
+            np.testing.assert_allclose(ts[k].numpy(), np.asarray(js[k]),
+                                       rtol=BLOCK_TOL, atol=BLOCK_TOL)
+
+
+def test_mamba2_init_and_state_match_jax_shapes():
+    """``init_mamba`` and ``init_ssm_state`` at version 2 give the JAX
+    leaves, shapes and dtypes; ``A_log`` zero, ``D`` one, as there."""
+    cfg = get_config("zamba2-2.7b", smoke=True)
+    jp = j_ssm.init_mamba(JInitializer(jax.random.PRNGKey(0), jnp.float32),
+                          cfg.d_model, cfg.ssm)
+    tp = ssm.init_mamba(Initializer(torch.Generator(), torch.float32),
+                        cfg.d_model, cfg.ssm)
+    assert set(tp) == set(jp)
+    for k in jp:
+        assert tuple(tp[k].shape) == jp[k].shape, k
+        assert str(tp[k].dtype).split(".")[-1] == jp[k].dtype.name, k
+    assert not tp["A_log"].any() and bool((tp["D"] == 1).all())
+    js = j_ssm.init_ssm_state(2, cfg.d_model, cfg.ssm, jnp.float32)
+    ts = ssm.init_ssm_state(2, cfg.d_model, cfg.ssm, torch.float32, "cpu")
+    for k in js:
+        assert tuple(ts[k].shape) == js[k].shape, k
