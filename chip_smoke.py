@@ -254,14 +254,43 @@ Phases (any failure exits non-zero before the result lines):
       key read back.
    8a and 8b are cut in depth (2^19 loaded keys, not the paper's 200 M;
    at 2^20 the phase ran past its 90 s budget on an H100).
+t. LM training (budget ``TRAIN_BUDGET_S``, 90 s, printed with the card's
+   name and power limit; phase 8's tensors freed first).  No kernel is
+   on the training path, so every one of its windows must launch none:
+   t1. internlm2-1.8b at its full published config (24 layers, d_model
+      2,048, 16/8 heads of 128, d_ff 8,192, vocab 92,544, bf16,
+      ``remat="full"``, ``loss_chunk`` 256; 1.89 B parameters) through
+      ``Trainer.run``: ``SyntheticTokens`` at 8 x 4,096 tokens as 2
+      microbatches of 4, AdamW with a cosine warmup, ``TRAIN_STEPS``
+      steps, one window a step; every loss and grad norm finite, the
+      first loss within 1 nat of ln 92,544; step ms (median, max),
+      tokens/s, 6 N tokens/s against the bf16 dense peak, peak memory,
+      stragglers; then one layer's f32 chunked attention at the
+      microbatch's shape timed alone, forward and forward + backward,
+      and its share of the step;
+   t2. every architecture's smoke config: ``train_loss`` and each
+      gradient leaf on the card against the port on the CPU, f32
+      (``TRAIN_CARD_TOL`` of each leaf's scale); ``use_scan_kernel``
+      under autograd raises on the card;
+   t3. internlm2-1.8b's smoke config: 10 steps, a checkpoint every 5; a
+      fresh ``Trainer`` restores step 10 bit for bit and continues to
+      16, its losses within ``RESTART_TOL`` of an uninterrupted run's; a
+      SIGTERM at step 3 leaves a committed checkpoint of step 4;
+      Adafactor 10 steps, its ``vr``/``vc`` of JAX's shapes;
+   t4. the port's ``examples/train_lm.py``: 300 steps, the loss down by
+      more than 1 nat;
+   t5. ``compressed_psum``, ``flash_decode_combine``, ``pipeline_apply``
+      and a (1, 1) ``DeviceMesh`` over an NCCL group of world size 1,
+      against their plain oracles.
 9. result lines: the kernel table as JSON, then the final JSON object
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are zeroed just before each driven step (each
-front-end leg included) of phases 2, 3, 4, 6, 6d, 6m and 8 (and the fixtures' before the self-test of 1b) and read
+front-end leg included) of phases 2, 3, 4, 6, 6d, 6m, 8 and t (and the fixtures' before the self-test of 1b) and read
 just after; the kernels' launches in phases 1b's contract run, 5 and 7
 and those that compute ground truth, replay or compare fall between
-those windows and do not count.  Every window outside the streamed steps must
+those windows and do not count.  Phase t's windows (each driven train step,
+the restarts, the example) must launch no kernel.  Every window outside the streamed steps must
 launch ``streamed_lookup`` 0 times (``pool_budget`` is None there).
 
 Exits non-zero, printing no result, without a CUDA device or when the
@@ -423,6 +452,16 @@ FD_TOL = 2e-5
 # 200M keys (the trees are host-side Python, probed key by key; at 2^20
 # loaded keys phase 8 took 105.6 s of its 90 s budget on an H100 80GB
 # HBM3 at 700 W, LIPP's bulk load 23.3 s of it)
+TRAIN_ARCH = "internlm2-1.8b"  # phase t: trained at its full config
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 8                # as TRAIN_MICRO microbatches
+TRAIN_MICRO = 2
+TRAIN_STEPS = 3                # cut from 5: the whole smoke ran past 1,000 s
+TRAIN_SMOKE_LEN = 64           # t2: tokens per row at the smoke configs
+TRAIN_CARD_TOL = 1e-4          # t2: card vs CPU, max |d| / max |g| per leaf
+RESTART_TOL = 1e-4             # t3: resumed vs uninterrupted losses, rel
+TRAIN_BUDGET_S = 90.0
+BF16_PEAK = 989e12             # H100 SXM dense bf16 FLOP/s at 700 W
 PAPER_KEYS = 1 << 20
 PAPER_READ_BATCHES = 16        # read_only batches of BATCH
 PAPER_WRITE_BATCHES = 4        # write_heavy batches of BATCH
@@ -5321,6 +5360,411 @@ def paper_phase(m, win, card):
     return out
 
 
+# --------------------------------------------------------- LM training (t)
+def train_windows(win, fn, what):
+    """``fn`` in a counted window that must launch no kernel: the
+    training path has none (no Pallas kernel has a backward)."""
+    out, counts = win.run(fn)
+    no_launches(counts, what)
+    return out
+
+
+def train_full(win, card):
+    """t1: internlm2-1.8b at its full published config through
+    ``Trainer.run``, one counted window a step."""
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import ScheduleConfig
+    from repro_torch.train.train_step import TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = lm_device()
+    cfg = lm_config(TRAIN_ARCH)
+    log(f"[t1] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.attn.n_heads}/{cfg.attn.kv_heads} heads of "
+        f"{cfg.attn.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.param_dtype}, remat {cfg.remat}, loss_chunk "
+        f"{cfg.loss_chunk}; {cfg.param_count() / 1e9:.3f} B parameters")
+    reset_peak(dev)
+    model = build_model(cfg, device=dev)
+    data = SyntheticTokens(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                           local_batch=TRAIN_BATCH, seed=0)
+    trainer = Trainer(model, TrainerConfig(train=TrainConfig(
+        optimizer=AdamWConfig(lr=3e-4, weight_decay=0.1),
+        schedule=ScheduleConfig(peak_lr=3e-4, warmup_steps=2,
+                                total_steps=TRAIN_STEPS),
+        microbatches=TRAIN_MICRO)), data)
+    t0 = time.perf_counter()
+    trainer.initialize()
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    for k in range(TRAIN_STEPS):
+        train_windows(win, lambda: trainer.run(k + 1), f"t1 step {k}")
+    logm = trainer.metrics_log
+    losses = [m["loss"] for m in logm]
+    norms = [m["grad_norm"] for m in logm]
+    if len(logm) != TRAIN_STEPS or not all(
+            np.isfinite(losses + norms)):
+        fail(f"t1: losses {losses}, grad norms {norms}")
+    if abs(losses[0] - np.log(cfg.vocab)) > 1.0:
+        fail(f"t1: first loss {losses[0]:.4f} is not within 1 nat of "
+             f"ln {cfg.vocab} = {np.log(cfg.vocab):.4f}")
+    times = [m["step_time_s"] * 1e3 for m in logm]
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    med = statistics.median(times)
+    rate = tokens / (med / 1e3)
+    flops = 6 * cfg.param_count() * rate
+    out = {"arch": cfg.name, "params_B": cfg.param_count() / 1e9,
+           "init_s": init_s, "losses": losses, "grad_norms": norms,
+           "step_ms": times, "step_ms_median": med,
+           "step_ms_max": max(times), "tokens_per_s": rate,
+           "six_n_flops_per_s": flops,
+           "six_n_share_of_bf16_peak": flops / BF16_PEAK,
+           "peak_gib": peak_gib(dev),
+           "stragglers": len(trainer.straggler_events)}
+    log(f"[t1] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+        f"({TRAIN_MICRO} microbatches), init {init_s:.2f} s: losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in norms]}; step ms median {med:.1f}, max "
+        f"{max(times):.1f} (all {[round(x, 1) for x in times]}); "
+        f"{rate:,.0f} tokens/s; 6 N tokens/s {flops / 1e12:.1f} TFLOP/s = "
+        f"{flops / BF16_PEAK:.3f} of the bf16 dense peak (989 TFLOP/s at "
+        f"700 W; card: {card}); peak {out['peak_gib']} GiB; "
+        f"stragglers {out['stragglers']}")
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(attention_share(cfg, med))
+    return out
+
+
+def attention_share(cfg, step_ms):
+    """One layer's f32 chunked attention at t1's microbatch shape, timed
+    alone (CUDA events): forward, then forward and backward; a step runs
+    it ``2 x n_layers`` times forward (the step and the recompute) and
+    ``n_layers`` times backward, per microbatch."""
+    from repro_torch.models.attention import flash_attention
+
+    dev = lm_device()
+    if dev.type != "cuda":
+        return {}   # a CPU rehearsal has no device clock
+    a = cfg.attn
+    b, l = TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ
+    g = torch.Generator(device=dev).manual_seed(0)
+    dt = torch.bfloat16
+
+    def mk(h):
+        return torch.randn(b, l, h, a.head_dim, generator=g, device=dev,
+                           dtype=torch.float32).to(dt).requires_grad_(True)
+
+    q, k, v = mk(a.n_heads), mk(a.kv_heads), mk(a.kv_heads)
+    pos = torch.arange(l, dtype=torch.int32, device=dev)
+
+    def fwd():
+        with torch.no_grad():
+            return flash_attention(q, k, v, pos, pos, True, None, None,
+                                   cfg.attn_chunk_q, cfg.attn_chunk_k)
+
+    def fwd_bwd():
+        o = flash_attention(q, k, v, pos, pos, True, None, None,
+                            cfg.attn_chunk_q, cfg.attn_chunk_k)
+        torch.autograd.grad(o.float().sum(), (q, k, v))
+
+    f_ms = time_ms(fwd, 2, warmup=1)
+    fb_ms = time_ms(fwd_bwd, 2, warmup=1)
+    per_step = TRAIN_MICRO * cfg.n_layers * (f_ms + fb_ms)
+    log(f"[t1] one layer's f32 chunked attention at [{b}, {l}, "
+        f"{a.n_heads}/{a.kv_heads}, {a.head_dim}]: forward {f_ms:.1f} ms, "
+        f"forward + backward {fb_ms:.1f} ms; {per_step:.0f} ms a step = "
+        f"{per_step / step_ms:.3f} of the median step")
+    return {"attn_fwd_ms": f_ms, "attn_fwd_bwd_ms": fb_ms,
+            "attn_ms_per_step": per_step,
+            "attn_share_of_step": per_step / step_ms}
+
+
+def _smoke_batch(cfg, b, l, seed, dev):
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, l)).astype(
+        np.int32)).to(dev) for k in ("tokens", "targets")}
+    names = {"vlm": ("patches", cfg.n_patches), "encdec": ("frames",
+                                                         cfg.enc_seq)}
+    if cfg.family in names:
+        name, n = names[cfg.family]
+        batch[name] = torch.from_numpy((rng.standard_normal(
+            (b, n, cfg.d_model)) * 0.5).astype(np.float32)).to(dev)
+    return batch
+
+
+def train_families(win):
+    """t2: every architecture's smoke config, ``train_loss`` and its
+    gradients on the card against the port's CPU result (f32); then
+    ``use_scan_kernel`` under autograd must raise on the card."""
+    from repro_torch.configs import arch_names, get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import loss_and_grads
+
+    dev = lm_device()
+    out = {}
+    for arch in arch_names():
+        cfg = get_config(arch, smoke=True)
+        cpu = build_model(cfg, device="cpu")
+        params = cpu.init(torch.Generator().manual_seed(3))
+        batch = _smoke_batch(cfg, 2, TRAIN_SMOKE_LEN, 4, torch.device("cpu"))
+        want_l, _, want_g = loss_and_grads(cpu, params, batch)
+        card = build_model(cfg, device=dev)
+        tparams = _to_device(params, dev)
+        tbatch = {k: v.to(dev) for k, v in batch.items()}
+        got_l, _, got_g = train_windows(
+            win, lambda: loss_and_grads(card, tparams, tbatch),
+            f"t2 {arch} train_loss")
+        err = max(float((g.cpu() - w).abs().max())
+                  / max(float(w.abs().max()), 1e-30)
+                  for g, w in zip(got_g, want_g))
+        lerr = abs(float(got_l) - float(want_l)) / abs(float(want_l))
+        out[arch] = {"loss": float(got_l), "loss_rel_err": lerr,
+                     "grad_rel_err": err}
+        if not (np.isfinite(float(got_l)) and lerr <= TRAIN_CARD_TOL
+                and err <= TRAIN_CARD_TOL):
+            fail(f"t2 {arch}: card vs CPU loss rel err {lerr:.3e}, worst "
+                 f"grad leaf rel err {err:.3e} (tolerance "
+                 f"{TRAIN_CARD_TOL})")
+    cfg = get_config("falcon-mamba-7b", smoke=True)
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, use_scan_kernel=True))
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    try:
+        loss_and_grads(model, params, _smoke_batch(cfg, 2, TRAIN_SMOKE_LEN,
+                                                   4, dev))
+        fail("t2: use_scan_kernel=True trained on the card")
+    except NotImplementedError as e:
+        if "no backward kernel" not in str(e):
+            raise
+        out["scan_kernel_backward"] = str(e)
+    log(f"[t2] card vs CPU, f32 smoke configs (loss, max rel err loss, "
+        f"grads): " + "; ".join(
+            f"{a} {v['loss']:.4f} {v['loss_rel_err']:.1e} "
+            f"{v['grad_rel_err']:.1e}" for a, v in out.items()
+            if isinstance(v, dict)) + f"; use_scan_kernel under autograd "
+        f"raised: {out['scan_kernel_backward']}")
+    return out
+
+
+def _to_device(tree, dev):
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+
+    return tree_unflatten(tree, [x.to(dev) for x in tree_leaves(tree)])
+
+
+def _leaf_list(tree):
+    from repro_torch.train.checkpoint import tree_flatten
+
+    return [x for _, x in tree_flatten(tree)]
+
+
+def train_restart(win, ckpt_root):
+    """t3: internlm2-1.8b's smoke config on the card: 10 steps with a
+    checkpoint every 5, a fresh trainer restores step 10 bit for bit and
+    continues to 16 against an uninterrupted run; SIGTERM mid-run leaves
+    a committed checkpoint; Adafactor 10 steps, its factored state."""
+    import shutil
+    import signal
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.models.model import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import AdafactorConfig, AdamWConfig
+    from repro_torch.train.schedule import ScheduleConfig
+    from repro_torch.train.train_step import TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = lm_device()
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def trainer(name, opt=None, data_cls=SyntheticTokens, every=5):
+        data = data_cls(vocab=cfg.vocab, seq=64, local_batch=4, seed=1)
+        tcfg = TrainerConfig(
+            train=TrainConfig(
+                optimizer=opt or AdamWConfig(lr=5e-3),
+                schedule=ScheduleConfig(peak_lr=5e-3, warmup_steps=5,
+                                        total_steps=100)),
+            ckpt_dir=str(ckpt_root / name), ckpt_every=every)
+        return Trainer(build_model(cfg, device=dev), tcfg, data), data
+
+    a, _ = trainer("run")
+    train_windows(win, lambda: a.run(10), "t3 first 10 steps")
+    saved = [x.clone() for x in _leaf_list(a.state)]
+    b, data_b = trainer("run")
+    start = b.initialize()
+    restored = _leaf_list(b.state)
+    same = all(torch.equal(x, y) for x, y in zip(saved, restored))
+    if start != 10 or data_b.step != 10 or not same:
+        fail(f"t3: restore gave step {start}, data step {data_b.step}, "
+             f"bit-equal {same}")
+    train_windows(win, lambda: b.run(16), "t3 resumed steps")
+    ref, _ = trainer("ref")
+    train_windows(win, lambda: ref.run(16), "t3 uninterrupted run")
+    resumed = [m["loss"] for m in b.metrics_log]
+    uninterrupted = [m["loss"] for m in ref.metrics_log[10:]]
+    gap = max(abs(x - y) / abs(y) for x, y in zip(resumed, uninterrupted))
+    if len(resumed) != 6 or gap > RESTART_TOL:
+        fail(f"t3: resumed losses {resumed} vs uninterrupted "
+             f"{uninterrupted} (max rel gap {gap:.2e})")
+
+    class Preempted(SyntheticTokens):
+        def next_batch(self):
+            if self.step == 3:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return super().next_batch()
+
+    c, _ = trainer("sigterm", data_cls=Preempted, every=100)
+    res = train_windows(win, lambda: c.run(50), "t3 preempted run")
+    last = ckpt.latest_step(str(ckpt_root / "sigterm"))
+    if res["final_step"] != 4 or last != 4:
+        fail(f"t3: SIGTERM at step 3 stopped at {res['final_step']}, "
+             f"committed {last}")
+    fac = AdafactorConfig(lr=5e-3)
+    d, _ = trainer("adafactor", opt=fac)
+    res_d = train_windows(win, lambda: d.run(10), "t3 Adafactor")
+    params = dict(zip([p for p, _ in ckpt.tree_flatten(d.state.params)],
+                      _leaf_list(d.state.params)))
+    vr = _leaf_list(d.state.opt.vr)
+    vc = _leaf_list(d.state.opt.vc)
+    bad = []
+    for (path, p), r, c_ in zip(params.items(), vr, vc):
+        fac_leaf = p.dim() >= 2 and min(p.shape[-2:]) >= fac.min_dim_factored
+        want_r = tuple(p.shape[:-1]) if fac_leaf else tuple(p.shape)
+        want_c = (tuple(p.shape[:-2]) + tuple(p.shape[-1:]) if fac_leaf
+                  else (1,))
+        if tuple(r.shape) != want_r or tuple(c_.shape) != want_c:
+            bad.append(path)
+    n_fac = sum(p.dim() >= 2 and min(p.shape[-2:]) >= fac.min_dim_factored
+                for p in params.values())
+    if bad or not np.isfinite(res_d["final_loss"]) or not n_fac:
+        fail(f"t3: Adafactor state shapes wrong at {bad}, final loss "
+             f"{res_d['final_loss']}, factored leaves {n_fac}")
+    out = {"restored_step": start, "restore_bit_equal": same,
+           "resumed_losses": resumed, "uninterrupted_losses": uninterrupted,
+           "max_rel_gap": gap, "sigterm_committed_step": last,
+           "adafactor_final_loss": res_d["final_loss"],
+           "adafactor_factored_leaves": n_fac}
+    log(f"[t3] restore at step {start} bit-equal {same}; resumed vs "
+        f"uninterrupted losses max rel gap {gap:.2e} (tolerance "
+        f"{RESTART_TOL}); SIGTERM at step 3 -> committed step {last}; "
+        f"Adafactor 10 steps, final loss {res_d['final_loss']:.4f}, "
+        f"{n_fac} factored leaves, vr/vc shapes as JAX's")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    return out
+
+
+def train_example(win, ckpt_dir):
+    """t4: the port's ``examples/train_lm.py`` on the card, 300 steps."""
+    from repro_torch.examples import train_lm
+
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        res = train_windows(win, lambda: train_lm.main(
+            ["--ckpt-dir", str(ckpt_dir), "--device", str(lm_device())]),
+            "t4 example")
+    for line in buf.getvalue().splitlines():
+        log(f"[t4] {line}")
+    drop = res["first"] - res["last"]
+    if res["final_step"] != 300 or not drop > 1.0:
+        fail(f"t4: {res['final_step']} steps, loss drop {drop:.3f} nats")
+    t = res.pop("step_times_s")
+    res["step_ms_median"] = statistics.median(t) * 1e3
+    log(f"[t4] step ms median {res['step_ms_median']:.2f}")
+    return res
+
+
+def train_collectives(tmp_dir):
+    """t5: the collectives, the pipeline and a mesh over an NCCL group of
+    world size 1 on the card (gloo in a CPU rehearsal), against their
+    plain oracles."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.collectives import (compressed_psum,
+                                              dequantize_int8,
+                                              flash_decode_combine,
+                                              quantize_int8,
+                                              static_axis_size)
+    from repro_torch.dist.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh_shape
+
+    dev = lm_device()
+    store = tmp_dir / "nccl_store"
+    if store.exists():
+        store.unlink()
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{store}", world_size=1,
+                            rank=0)
+    try:
+        g = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(64, 512, generator=g, device=dev)
+        psum = compressed_psum(x)
+        oracle = dequantize_int8(*quantize_int8(x))
+        q, k, v = (torch.randn(s, generator=g, device=dev)
+                   for s in ((2, 8, 64), (2, 256, 8, 64), (2, 256, 8, 64)))
+        s = torch.einsum("bhd,bshd->bhs", q, k)
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        comb = flash_decode_combine(torch.einsum("bhs,bshd->bhd", p, v), m,
+                                    p.sum(-1))
+        ref = torch.einsum("bhs,bshd->bhd", torch.softmax(s, -1), v)
+        w = torch.randn(128, 128, generator=g, device=dev) * 0.1
+        xs = torch.randn(4, 16, 128, generator=g, device=dev)
+        pipe = pipeline_apply(lambda pw, h: torch.tanh(h @ pw), w, xs)
+        mesh = make_mesh_shape((1, 1), ("data", "model"), dev.type)
+        serial = torch.stack([torch.tanh(x @ w) for x in xs])
+        errs = {"compressed_psum": float((psum - oracle).abs().max()),
+                "flash_decode_combine": float((comb - ref).abs().max()),
+                "pipeline_apply": float((pipe - serial).abs().max())}
+        out = {"backend": dist.get_backend(), "world": static_axis_size(),
+               "mesh": tuple(mesh.shape), **errs}
+    finally:
+        dist.destroy_process_group()
+    log(f"[t5] {out['backend']} world of {out['world']}: max |d| against "
+        f"the oracles "
+        f"{errs}; mesh {out['mesh']}")
+    if out["world"] != 1 or errs["compressed_psum"] != 0.0 \
+            or errs["flash_decode_combine"] > 1e-5 \
+            or errs["pipeline_apply"] > 1e-6:
+        fail(f"t5: {out}")
+    return out
+
+
+def training_phase(win, card, root):
+    """Phase t: LM training on the card (t1-t5), inside its budget."""
+    t_phase = time.perf_counter()
+    walls = {}
+
+    def leg(tag, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        walls[tag] = time.perf_counter() - t0
+        return res
+
+    work = root / "build" / "smoke_train"
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"t1": leg("t1", lambda: train_full(win, card))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["t2"] = leg("t2", lambda: train_families(win))
+    out["t3"] = leg("t3", lambda: train_restart(win, work / "ckpt"))
+    out["t4"] = leg("t4", lambda: train_example(win, work / "example"))
+    out["t5"] = leg("t5", lambda: train_collectives(work))
+    wall = time.perf_counter() - t_phase
+    out["walls"] = walls
+    log(f"[t] phase wall {wall:.1f} s (budget {TRAIN_BUDGET_S} s; legs "
+        f"{ {k: round(v, 1) for k, v in walls.items()} }); {card}")
+    if wall > TRAIN_BUDGET_S:
+        fail(f"phase t took {wall:.1f} s, past its {TRAIN_BUDGET_S} s "
+             "budget")
+    return out
+
+
 class Mods:
     """The port's modules the smoke drives (imported after the checks)."""
 
@@ -5603,6 +6047,14 @@ def main() -> int:
     t0 = time.perf_counter()
     paper = paper_phase(m, win, card)
     wall("paper backend, baselines and page table (8)", t0)
+
+    # ---- LM training: phase 8's tensors go first
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trained = training_phase(win, card, root)
+    wall("lm training (t)", t0)
+    log("[train] summary " + json.dumps(trained, default=str))
     log("[paper] summary " + json.dumps(paper, default=str))
     log("[lm] summary " + json.dumps({key: lm[key] for key in
                                       ("met", "replay", "decode_profile",

@@ -103,8 +103,8 @@ class ModelConfig:
                                   # the full [B, L, V] logits)
     attn_chunk_q: int = 512       # flash-attention chunk sizes
     attn_chunk_k: int = 1024
-    remat: str = "full"           # full | dots | none (training only;
-                                  # no effect in the forward-only port)
+    remat: str = "full"           # full | dots | none (training only:
+                                  # serving runs without it)
     # citation tier from the assignment
     source: str = ""
 

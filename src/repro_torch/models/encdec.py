@@ -13,7 +13,10 @@ as there) and runs the decoder over the prompt.  ``decode_step`` runs
 two decode attentions a layer, both on the kernel route (no softcap, no
 window): its self-attention over the cache, which it writes in place as
 ``transformer.decode_step`` does, and its cross-attention over the
-``enc_seq`` encoder positions.  Copied from the reference: ``prefill``
+``enc_seq`` encoder positions.  ``train_loss`` takes ``batch["frames"]``;
+under autograd each encoder and decoder layer is one ``layers.remat``
+block of ``cfg.remat``, as the JAX ``_remat`` wraps the scan body.
+Copied from the reference: ``prefill``
 leaves the self-attention K/V caches zero, so decoding attends over zero
 K/V at the prompt's positions.
 """
@@ -26,12 +29,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (Initializer, dtype_of, init_mlp,
-                                       rms_norm, swiglu)
+from repro_torch.models.layers import (Initializer, chunked_cross_entropy,
+                                       dtype_of, init_mlp, remat, rms_norm,
+                                       swiglu)
 from repro_torch.models.transformer import _slice, _stack_init
 
-__all__ = ["init_params", "encode", "init_decode_state", "decode_step",
-           "prefill"]
+__all__ = ["init_params", "encode", "train_loss", "init_decode_state",
+           "decode_step", "prefill"]
 
 _F32 = torch.float32
 
@@ -73,44 +77,68 @@ def _frames(extra, cfg: ModelConfig) -> torch.Tensor:
     return extra["frames"]
 
 
+def _enc_layer(x, lp, positions, cfg: ModelConfig):
+    t = x.shape[1]
+    a = cfg.attn
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = attn._project_qkv(h, h, lp["attn"], a, positions, positions,
+                                use_rope=False)
+    h = attn.flash_attention(
+        q, k, v, positions, positions, causal=False, window=None,
+        cap=a.attn_softcap, chunk_q=min(cfg.attn_chunk_q, t),
+        chunk_k=min(cfg.attn_chunk_k, t))
+    x = x + h.reshape(x.shape[0], t, -1) @ lp["attn"]["wo"]
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + swiglu(h, lp["mlp"], cfg.act)
+
+
 def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """frames [B, T, D] (stub frontend output) -> encoder states."""
     t = frames.shape[1]
     x = frames.to(dtype_of(cfg.compute_dtype)) + params["enc_pos"][:t]
     positions = torch.arange(t, dtype=torch.int32, device=x.device)
-    a = cfg.attn
+    layer = remat(_enc_layer, cfg.remat)
     for i in range(cfg.n_enc_layers):
-        lp = _slice(params["enc_layers"], i)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = attn._project_qkv(h, h, lp["attn"], a, positions,
-                                    positions, use_rope=False)
-        h = attn.flash_attention(
-            q, k, v, positions, positions, causal=False, window=None,
-            cap=a.attn_softcap, chunk_q=min(cfg.attn_chunk_q, t),
-            chunk_k=min(cfg.attn_chunk_k, t))
-        x = x + h.reshape(x.shape[0], t, -1) @ lp["attn"]["wo"]
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + swiglu(h, lp["mlp"], cfg.act)
+        x = layer(x, _slice(params["enc_layers"], i), positions, cfg)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _dec_layer(x, lp, enc_out, positions, cfg: ModelConfig):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attn.self_attention(h, lp["attn"], cfg.attn, positions,
+                                chunk_q=cfg.attn_chunk_q,
+                                chunk_k=cfg.attn_chunk_k)
+    h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+    x = x + attn.cross_attention(h, enc_out, lp["cross"], cfg.attn,
+                                 chunk_q=cfg.attn_chunk_q,
+                                 chunk_k=cfg.attn_chunk_k)
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + swiglu(h, lp["mlp"], cfg.act)
 
 
 def _decode_forward(params, tokens, enc_out, cfg: ModelConfig):
     x = params["embed"][tokens]
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
+    layer = remat(_dec_layer, cfg.remat)
     for i in range(cfg.n_layers):
-        lp = _slice(params["dec_layers"], i)
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + attn.self_attention(h, lp["attn"], cfg.attn, positions,
-                                    chunk_q=cfg.attn_chunk_q,
-                                    chunk_k=cfg.attn_chunk_k)
-        h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
-        x = x + attn.cross_attention(h, enc_out, lp["cross"], cfg.attn,
-                                     chunk_q=cfg.attn_chunk_q,
-                                     chunk_k=cfg.attn_chunk_k)
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + swiglu(h, lp["mlp"], cfg.act)
+        x = layer(x, _slice(params["dec_layers"], i), enc_out, positions,
+                  cfg)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """Encode ``batch["frames"]``, decode ``tokens``; mean nll over
+    ``targets`` (tied embeddings, logits scaled by d_model^-0.5) ->
+    (nll, {"nll", "aux": 0})."""
+    enc_out = encode(params, _frames(batch, cfg), cfg)
+    x = _decode_forward(params, batch["tokens"].long(), enc_out, cfg)
+    nll = chunked_cross_entropy(
+        x, params["embed"], batch["targets"], cfg.loss_chunk,
+        logit_softcap=cfg.logit_softcap, mask=batch.get("mask"),
+        logit_scale=cfg.d_model ** -0.5)
+    return nll, {"nll": nll, "aux": torch.zeros((), dtype=_F32,
+                                                device=nll.device)}
 
 
 def _logits(params, x, cfg: ModelConfig):

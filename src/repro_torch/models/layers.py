@@ -4,19 +4,25 @@ Port of ``repro.models.layers``: ``dtype_of``, ``Initializer``,
 ``rms_norm``, ``softcap``, ``rope``, ``init_dense``, ``init_mlp`` and the
 MLP block (``swiglu``, alias ``gelu_mlp``).  ``rope`` is the half-split
 convention computed in f32; the GELU is ``jax.nn.gelu``'s default, the
-tanh approximation.  ``chunked_cross_entropy`` is training (ROADMAP
-A15d).
+tanh approximation.  ``chunked_cross_entropy`` is the training loss: the
+unembedding and the log-sum-exp run per sequence chunk, and each chunk's
+[B, c, V] logits are recomputed in the backward pass (the JAX body's
+``jax.checkpoint``), so no more than one chunk's logits is ever held.
+``remat`` wraps a block in the JAX ``cfg.remat`` policy for training.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import functools
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 __all__ = ["dtype_of", "Initializer", "rms_norm", "softcap", "rope",
-           "init_dense", "init_mlp", "swiglu", "gelu_mlp"]
+           "init_dense", "init_mlp", "swiglu", "gelu_mlp",
+           "chunked_cross_entropy", "remat", "checkpointed"]
 
 _F32 = torch.float32
 # a normal leaf past this many elements is drawn in slices along its first
@@ -132,3 +138,91 @@ def swiglu(x: torch.Tensor, p: Dict[str, torch.Tensor],
 
 
 gelu_mlp = swiglu  # same entry point; act selects the nonlinearity
+
+
+# ================================================================ training
+def checkpointed(fn: Callable, *args, **kwargs):
+    """``fn(*args)``, its activations recomputed in the backward pass when
+    autograd records it (plain ``fn(*args)`` otherwise)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+
+# the matrix products without batch dimensions: the port's ``x @ W``
+# (3-D times 2-D goes through ``mm``); the attention einsums are ``bmm``
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    policy = _ckpt.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return _ckpt.create_selective_checkpoint_contexts(_save_dots)
+
+
+def remat(fn: Callable, mode: str) -> Callable:
+    """The JAX ``_remat`` of a block under ``cfg.remat``: ``"none"`` keeps
+    every activation; ``"full"`` recomputes the block in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` saves the
+    matrix products and recomputes the rest, as
+    ``checkpoint_dots_with_no_batch_dims``.  Without autograd recording
+    (serving), every mode is ``fn`` itself."""
+    if mode == "none":
+        return fn
+    if mode not in ("full", "dots"):
+        raise ValueError(f"unknown remat mode {mode!r}")
+    kwargs = {"context_fn": _dots_context} if mode == "dots" else {}
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        return checkpointed(fn, *args, **kwargs)
+
+    return wrapped
+
+
+def _xent_chunk(xc, unembed, tc, mc, logit_scale: float,
+                cap: Optional[float]):
+    logits = (xc * logit_scale) @ unembed.T                   # [B, c, V]
+    logits = softcap(logits.to(_F32), cap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+    nll = (lse - gold) * mc
+    return nll.sum(), mc.sum()
+
+
+def chunked_cross_entropy(x: torch.Tensor, unembed: torch.Tensor,
+                          targets: torch.Tensor, chunk: int,
+                          logit_softcap: Optional[float] = None,
+                          mask: Optional[torch.Tensor] = None,
+                          logit_scale: float = 1.0) -> torch.Tensor:
+    """Sequence-chunked softmax cross-entropy -> mean nll (f32 scalar).
+
+    x [B, L, D] final hidden states, unembed [V, D], targets [B, L].
+    ``max(L // chunk, 1)`` chunks of ``L // n_chunks`` positions (L must
+    split evenly, as the JAX reshape needs); per chunk the logits
+    ``(x * logit_scale) @ unembed.T`` in x's dtype, widened to f32,
+    soft-capped, then log-sum-exp minus the target's logit, times
+    ``mask`` (all ones when None).  The sums carry across chunks in f32
+    in chunk order and the mean divides by ``max(sum(mask), 1)``."""
+    b, l, _d = x.shape
+    n_chunks = max(l // chunk, 1)
+    c = l // n_chunks
+    if n_chunks * c != l:
+        raise ValueError(f"chunked_cross_entropy: L={l} is not {n_chunks} "
+                         f"chunks of {c} (as in the JAX package)")
+    targets = targets.long()
+    if mask is None:
+        mask = torch.ones((b, l), dtype=_F32, device=x.device)
+    mask = mask.to(_F32)
+    total = torch.zeros((), dtype=_F32, device=x.device)
+    count = torch.zeros((), dtype=_F32, device=x.device)
+    for i in range(n_chunks):
+        sl = slice(i * c, (i + 1) * c)
+        nll, n = checkpointed(_xent_chunk, x[:, sl], unembed, targets[:, sl],
+                              mask[:, sl], logit_scale, logit_softcap)
+        total = total + nll
+        count = count + n
+    return total / torch.clamp(count, min=1.0)

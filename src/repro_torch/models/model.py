@@ -7,9 +7,12 @@ the card (and raises without one), ``device="cpu"`` runs every kernel's
 plain version.  ``init`` takes a ``torch.Generator`` on that device.
 ``prefill`` and ``decode_step`` take the JAX ``extra`` argument: the vlm
 prefill reads ``extra["patches"]`` and the encdec prefill
-``extra["frames"]``.  ``train_loss`` raises: training ports with ROADMAP
-A15d.  The JAX ``param_specs``/``decode_state_specs`` are sharding
-layouts with no counterpart on one card.
+``extra["frames"]``.  ``train_loss(params, batch)`` -> (loss, {"nll",
+"aux"}) differentiates under autograd (``train.train_step`` takes the
+gradients); ``batch`` holds ``tokens``/``targets`` and the vlm
+``patches`` or encdec ``frames``.  The JAX
+``param_specs``/``decode_state_specs`` are sharding layouts with no
+counterpart on one card.
 """
 
 from __future__ import annotations
@@ -38,12 +41,6 @@ class ModelAPI:
     init_decode_state: Callable[[int, int], Any]
 
 
-def _train_loss(params, batch):
-    raise NotImplementedError(
-        "train_loss is not ported to repro_torch yet: training ports with "
-        "ROADMAP A15d")
-
-
 def build_model(cfg: ModelConfig,
                 device: Optional[Union[str, torch.device]] = None
                 ) -> ModelAPI:
@@ -64,7 +61,7 @@ def build_model(cfg: ModelConfig,
         cfg=cfg,
         device=dev,
         init=init,
-        train_loss=_train_loss,
+        train_loss=lambda params, batch: mod.train_loss(params, batch, cfg),
         prefill=lambda params, tokens, max_len, extra=None: mod.prefill(
             params, tokens, cfg, max_len, extra=extra),
         decode_step=lambda params, state, tokens, extra=None: mod.decode_step(

@@ -16,9 +16,14 @@ scalar decay, the state [B, H, head_dim, N] carried across chunks, and
 ``gate_norm`` (an RMS norm) after the gate.  Decode is the exact
 one-token recurrence on both versions.
 
-The JAX module's sharding hints (``constrain``) and ``mamba_specs`` have
-no counterpart on one card.  Its ``remat_chunks`` argument is dropped:
-the port runs forward only, so nothing is kept for a backward pass.
+Training differentiates the chunked paths.  ``remat_chunks`` (the
+transformer passes ``cfg.remat != "none"``) recomputes each chunk's
+[B, chunk, d_inner, N] tensors in the backward pass, as the JAX chunk
+body's ``jax.checkpoint`` does.  ``mamba_scan`` has no backward kernel
+(the Pallas kernel has none either), so ``use_scan_kernel`` under
+autograd raises on every device rather than differentiate the plain
+version.  The JAX module's sharding hints (``constrain``) and
+``mamba_specs`` have no counterpart on one card.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import Initializer, rms_norm
+from repro_torch.models.layers import Initializer, checkpointed, rms_norm
 
 __all__ = ["init_mamba", "mamba_block", "mamba_scan_inputs",
            "mamba_decode_step", "init_ssm_state"]
@@ -123,24 +128,38 @@ def _chunk_sizes(l: int, chunk: int) -> Tuple[int, int]:
     return nchunks, c
 
 
-def _chunked_scan(dt, xi, b_in, c_out, a, chunk: int) -> torch.Tensor:
+def _chunk1(h_prev, dt_c, xi_c, b_c, cout_c, a):
+    a_bar = torch.exp(dt_c[..., None] * a)                  # [B, c, di, N]
+    bx = (dt_c * xi_c)[..., None] * b_c[:, :, None, :]
+    pa, pb = _scan_chunk(a_bar, bx)
+    h = pa * h_prev[:, None] + pb
+    return h[:, -1], torch.einsum("bcdn,bcn->bcd", h, cout_c)
+
+
+def _run_chunks(body, h_prev, xs, c: int, remat_chunks: bool):
+    """``body`` over the chunks of the [B, L, ...] inputs ``xs`` (then its
+    constant last argument), the state carried; each chunk recomputed in
+    the backward pass when ``remat_chunks``."""
+    *seq, const = xs
+    ys = []
+    for i in range(seq[0].shape[1] // c):
+        sl = slice(i * c, (i + 1) * c)
+        args = (h_prev, *(t[:, sl] for t in seq), const)
+        h_prev, y = (checkpointed(body, *args) if remat_chunks
+                     else body(*args))
+        ys.append(y)
+    return torch.cat(ys, dim=1)
+
+
+def _chunked_scan(dt, xi, b_in, c_out, a, chunk: int,
+                  remat_chunks: bool = False) -> torch.Tensor:
     """The JAX package's chunked selective scan: ``max(L // chunk, 1)``
     chunks of ``L // nchunks`` steps (L must divide evenly, as there)."""
     b, l, di = dt.shape
-    nchunks, c = _chunk_sizes(l, chunk)
-    h_prev = torch.zeros((b, di, a.shape[1]), dtype=_F32, device=dt.device)
-    ys = []
-    for i in range(nchunks):
-        sl = slice(i * c, (i + 1) * c)
-        dt_c, xi_c, b_c, cout_c = dt[:, sl], xi[:, sl], b_in[:, sl], \
-            c_out[:, sl]
-        a_bar = torch.exp(dt_c[..., None] * a)              # [B, c, di, N]
-        bx = (dt_c * xi_c)[..., None] * b_c[:, :, None, :]
-        pa, pb = _scan_chunk(a_bar, bx)
-        h = pa * h_prev[:, None] + pb
-        ys.append(torch.einsum("bcdn,bcn->bcd", h, cout_c))
-        h_prev = h[:, -1]
-    return torch.cat(ys, dim=1)
+    _nchunks, c = _chunk_sizes(l, chunk)
+    h0 = torch.zeros((b, di, a.shape[1]), dtype=_F32, device=dt.device)
+    return _run_chunks(_chunk1, h0, (dt, xi, b_in, c_out, a), c,
+                       remat_chunks)
 
 
 def mamba_scan_inputs(x: torch.Tensor, p: Dict[str, torch.Tensor]
@@ -162,40 +181,51 @@ def mamba_scan_inputs(x: torch.Tensor, p: Dict[str, torch.Tensor]
     return dt, xi.to(_F32), b_in, c_out, z
 
 
-def _chunked_scan2(dt, xh, b_in, c_out, a, chunk: int) -> torch.Tensor:
+def _chunk2(h_prev, dt_c, xh_c, b_c, cout_c, a):
+    a_bar = torch.exp(dt_c * a)                               # [B, c, H]
+    bx = (dt_c[..., None] * xh_c)[..., None] \
+        * b_c[:, :, None, None, :]                            # [B,c,H,P,N]
+    pa, pb = _scan_chunk(a_bar[..., None, None], bx)
+    h = pa * h_prev[:, None] + pb
+    return h[:, -1], torch.einsum("bchdn,bcn->bchd", h, cout_c)
+
+
+def _chunked_scan2(dt, xh, b_in, c_out, a, chunk: int,
+                   remat_chunks: bool = False) -> torch.Tensor:
     """Mamba2's chunked SSD: dt [B, L, H], xh [B, L, H, P], b_in / c_out
     [B, L, N], a [H] -> y [B, L, H, P]; per chunk the scan by doubling of
     h_t = exp(dt a) h_{t-1} + dt x_t b_t^T, the state carried across."""
     b, l, nh, hd = xh.shape
-    nchunks, c = _chunk_sizes(l, chunk)
-    h_prev = torch.zeros((b, nh, hd, b_in.shape[-1]), dtype=_F32,
-                         device=xh.device)
-    ys = []
-    for i in range(nchunks):
-        sl = slice(i * c, (i + 1) * c)
-        dt_c, xh_c, b_c, cout_c = dt[:, sl], xh[:, sl], b_in[:, sl], \
-            c_out[:, sl]
-        a_bar = torch.exp(dt_c * a)                           # [B, c, H]
-        bx = (dt_c[..., None] * xh_c)[..., None] \
-            * b_c[:, :, None, None, :]                        # [B,c,H,P,N]
-        pa, pb = _scan_chunk(a_bar[..., None, None], bx)
-        h = pa * h_prev[:, None] + pb
-        ys.append(torch.einsum("bchdn,bcn->bchd", h, cout_c))
-        h_prev = h[:, -1]
-    return torch.cat(ys, dim=1)
+    _nchunks, c = _chunk_sizes(l, chunk)
+    h0 = torch.zeros((b, nh, hd, b_in.shape[-1]), dtype=_F32,
+                     device=xh.device)
+    return _run_chunks(_chunk2, h0, (dt, xh, b_in, c_out, a), c,
+                       remat_chunks)
+
+
+def _no_scan_backward(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> None:
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad for t in p.values())):
+        raise NotImplementedError(
+            "mamba_scan has no backward kernel (csrc/mamba_scan.cu and its "
+            "plain version are forward only, as the Pallas kernel is): "
+            "train with SSMConfig.use_scan_kernel=False")
 
 
 def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], d_model: int,
-                s: SSMConfig) -> torch.Tensor:
-    """Prefill forward. x [B, L, D] -> [B, L, D]."""
+                s: SSMConfig, remat_chunks: bool = False) -> torch.Tensor:
+    """Prefill and training forward. x [B, L, D] -> [B, L, D]."""
     dtype = x.dtype
     if s.version == 1:
+        if s.use_scan_kernel:
+            _no_scan_backward(x, p)
         dt, xi32, b_in, c_out, z = mamba_scan_inputs(x, p)
         if s.use_scan_kernel:
             y = kops.mamba_scan(dt, xi32, b_in, c_out, p["A_log"])
         else:
             a = -torch.exp(p["A_log"])                       # [di, N]
-            y = _chunked_scan(dt, xi32, b_in, c_out, a, s.chunk)
+            y = _chunked_scan(dt, xi32, b_in, c_out, a, s.chunk,
+                              remat_chunks)
         y = y + p["D"] * xi32
         y = y.to(dtype) * F.silu(z.to(_F32)).to(dtype)
         return y @ p["w_out"]
@@ -211,7 +241,7 @@ def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], d_model: int,
     dt = F.softplus((x @ p["w_dt"]).to(_F32) + p["dt_bias"])  # [B, L, H]
     a = -torch.exp(p["A_log"])                                # [H]
     xh = xi.reshape(b, l, nh, s.head_dim).to(_F32)
-    y = _chunked_scan2(dt, xh, b_in, c_out, a, s.chunk)
+    y = _chunked_scan2(dt, xh, b_in, c_out, a, s.chunk, remat_chunks)
     y = y + p["D"][:, None] * xh
     y = y.reshape(b, l, di).to(dtype)
     y = rms_norm(y * F.silu(z.to(_F32)).to(dtype), p["gate_norm"])

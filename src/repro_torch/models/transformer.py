@@ -7,8 +7,12 @@ per-layer leaves stacked on a leading ``[n_layers, ...]`` axis, as
 applied after every ``hybrid_attn_every`` Mamba2 layers) and
 ``cross_layers`` (vlm: a tanh-gated cross-attention layer after every
 ``cross_attn_every`` dense layers, over ``extra["patches"]``).  The JAX
-``lax.scan`` over layers is a Python loop over that axis; ``scan_layers``,
-``remat`` and the sharding hints have no effect.  gemma2's local/global
+``lax.scan`` over layers is a Python loop over that axis; ``scan_layers``
+and the sharding hints have no effect.  ``cfg.remat`` applies when
+autograd records the forward (``train_loss``): each layer (and each vlm
+cross layer and hybrid shared-attention application) is one
+``layers.remat`` block, as the JAX ``_remat`` wraps the scan body;
+serving runs without it.  gemma2's local/global
 windows are per-layer ints (``_windows_for``), and with its softcap they
 put every gemma2 layer's decode attention on the plain route
 (``attention.decode_route``); every other family's decode attention is
@@ -40,11 +44,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (Initializer, dtype_of, init_mlp,
-                                       rms_norm, softcap, swiglu)
+from repro_torch.models.layers import (Initializer, chunked_cross_entropy,
+                                       dtype_of, init_mlp, remat, rms_norm,
+                                       softcap, swiglu)
 
-__all__ = ["init_params", "forward", "init_decode_state", "decode_step",
-           "prefill", "layer_params", "FAMILIES"]
+__all__ = ["init_params", "forward", "train_loss", "init_decode_state",
+           "decode_step", "prefill", "layer_params", "FAMILIES"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 BIG_WINDOW = attn.BIG_WINDOW
@@ -193,7 +198,16 @@ def _moe_block(x, lp, cfg: ModelConfig, positions, window):
 
 def _ssm_block(x, lp, cfg: ModelConfig):
     h = rms_norm(x, lp["ln"], cfg.norm_eps)
-    return x + ssm_mod.mamba_block(h, lp["ssm"], cfg.d_model, cfg.ssm)
+    return x + ssm_mod.mamba_block(h, lp["ssm"], cfg.d_model, cfg.ssm,
+                                   remat_chunks=cfg.remat != "none")
+
+
+def _cross_block(x, cp, patches, cfg: ModelConfig):
+    h = rms_norm(x, cp["ln"], cfg.norm_eps)
+    h = attn.cross_attention(h, patches, cp["attn"], cfg.attn,
+                             chunk_q=cfg.attn_chunk_q,
+                             chunk_k=cfg.attn_chunk_k)
+    return x + _gate(cp, x) * h
 
 
 def _gate(cp, x):
@@ -228,41 +242,54 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     windows = _windows_for(cfg)
     fam = cfg.family
     aux = torch.zeros((), dtype=_F32, device=x.device)
+    dense = remat(_dense_block, cfg.remat)
     if fam == "dense":
         for i in range(cfg.n_layers):
-            x = _dense_block(x, layer_params(params, i), cfg, positions,
-                             windows[i])
+            x = dense(x, layer_params(params, i), cfg, positions, windows[i])
     elif fam == "vlm":
         k = cfg.cross_attn_every
         patches = _patches(extra, cfg).to(x.dtype)
+        cross = remat(_cross_block, cfg.remat)
         for g in range(cfg.n_layers // k):
             for i in range(g * k, (g + 1) * k):
-                x = _dense_block(x, layer_params(params, i), cfg, positions,
-                                 windows[i])
-            cp = _slice(params["cross_layers"], g)
-            h = rms_norm(x, cp["ln"], cfg.norm_eps)
-            h = attn.cross_attention(h, patches, cp["attn"], cfg.attn,
-                                     chunk_q=cfg.attn_chunk_q,
-                                     chunk_k=cfg.attn_chunk_k)
-            x = x + _gate(cp, x) * h
+                x = dense(x, layer_params(params, i), cfg, positions,
+                          windows[i])
+            x = cross(x, _slice(params["cross_layers"], g), patches, cfg)
     elif fam == "moe":
+        moe = remat(_moe_block, cfg.remat)
         for i in range(cfg.n_layers):
-            x, a = _moe_block(x, layer_params(params, i), cfg, positions,
-                              windows[i])
+            x, a = moe(x, layer_params(params, i), cfg, positions,
+                       windows[i])
             aux = aux + a
     elif fam == "ssm":
+        ssm = remat(_ssm_block, cfg.remat)
         for i in range(cfg.n_layers):
-            x = _ssm_block(x, layer_params(params, i), cfg)
+            x = ssm(x, layer_params(params, i), cfg)
     else:  # hybrid
         k = cfg.hybrid_attn_every
+        ssm = remat(_ssm_block, cfg.remat)
         for lo, hi in _groups(cfg, k):
             for i in range(lo, hi):
-                x = _ssm_block(x, layer_params(params, i), cfg)
+                x = ssm(x, layer_params(params, i), cfg)
             if hi - lo == k:
-                x = _dense_block(x, params["shared_attn"], cfg, positions,
-                                 BIG_WINDOW)
+                x = dense(x, params["shared_attn"], cfg, positions,
+                          BIG_WINDOW)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
+
+
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """Mean next-token nll plus the MoE aux loss -> (loss, {"nll",
+    "aux"}).  ``batch`` has ``tokens`` and ``targets`` [B, L], optionally
+    ``mask`` [B, L], and vlm's ``patches``."""
+    x, aux = forward(params, batch["tokens"].long(), cfg, extra=batch)
+    unembed = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    scale = cfg.d_model ** -0.5 if cfg.tie_embeddings else 1.0
+    nll = chunked_cross_entropy(
+        x, unembed, batch["targets"], cfg.loss_chunk,
+        logit_softcap=cfg.logit_softcap, mask=batch.get("mask"),
+        logit_scale=scale)
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 # ================================================================== decode

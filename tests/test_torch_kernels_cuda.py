@@ -1562,3 +1562,93 @@ def test_page_table_lookup_launches_fused_lookup_once(cuda):
     ops.reset_launch_counts()
     assert np.array_equal(pt.lookup(new), np.arange(64) + 10_000)
     assert ops.launch_counts()["fused_lookup"] == 1
+
+
+def _train_setup(dev, tcfg):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import init_train_state
+
+    cfg = get_config("internlm2-1.8b", smoke=True)
+    cpu = build_model(cfg, device="cpu")
+    state = init_train_state(cpu, torch.Generator().manual_seed(0), tcfg)
+    return cfg, cpu, build_model(cfg, device=dev), state
+
+
+def _state_to(state, dev):
+    from repro_torch.train.checkpoint import tree_flatten, tree_unflatten
+
+    return tree_unflatten(state, [x.to(dev) for _, x in tree_flatten(state)])
+
+
+def test_train_steps_on_card_match_cpu(cuda):
+    """Two AdamW steps (2 microbatches) of internlm2-1.8b's smoke config
+    on the card against the port on the CPU from one state: the metrics
+    and every state leaf within 1e-4 of the leaf's scale (f32; the card
+    sums in other orders)."""
+    from repro_torch.train.checkpoint import tree_flatten
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import ScheduleConfig
+
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=5e-3),
+                       schedule=ScheduleConfig(peak_lr=5e-3, warmup_steps=1,
+                                               total_steps=10),
+                       microbatches=2)
+    cfg, cpu, card, state = _train_setup(cuda, tcfg)
+    on_card = _state_to(state, cuda)
+    rng = np.random.default_rng(1)
+    batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))
+                                    .astype(np.int32))
+                for k in ("tokens", "targets")} for _ in range(2)]
+    step_cpu, step_card = make_train_step(cpu, tcfg), make_train_step(card,
+                                                                      tcfg)
+    ops.reset_launch_counts()
+    for b in batches:
+        state, mc = step_cpu(state, b)
+        on_card, mg = step_card(on_card, {k: v.to(cuda)
+                                          for k, v in b.items()})
+        for k in mc:
+            assert abs(float(mg[k]) - float(mc[k])) <= 1e-4 * max(
+                abs(float(mc[k])), 1e-6), k
+    assert sum(ops.launch_counts().values()) == 0   # no kernel trains
+    for (path, a), (_, b) in zip(tree_flatten(state),
+                                 tree_flatten(on_card)):
+        a, b = a.float(), b.float().cpu()
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            float(a.abs().max()), 1e-30), path
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A card train state saved (sync and async) and restored bit for
+    bit; a trainer on the card resumes from its checkpoint."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.models.model import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_step import TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("internlm2-1.8b", smoke=True)
+
+    def trainer():
+        return Trainer(build_model(cfg, device=cuda),
+                       TrainerConfig(ckpt_dir=str(tmp_path / "ck"),
+                                     ckpt_every=3),
+                       SyntheticTokens(vocab=cfg.vocab, seq=32,
+                                       local_batch=2))
+
+    a = trainer()
+    a.run(6)
+    want = [x.clone() for _, x in ckpt.tree_flatten(a.state)]
+    assert all(x.device.type == "cuda" for x in want)
+    b = trainer()
+    assert b.initialize() == 6
+    got = [x for _, x in ckpt.tree_flatten(b.state)]
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    ckpt.save_async(str(tmp_path / "other"), 6, a.state)
+    ckpt.wait_pending()
+    _, tree, _ = ckpt.restore_latest(str(tmp_path / "other"), a.state)
+    assert all(torch.equal(x.to(cuda), y) for (_, x), y in zip(
+        ckpt.tree_flatten(tree), want))
+    assert b.run(8)["final_step"] == 8

@@ -209,7 +209,7 @@ def test_ported_configs_equal_the_jax_configs(arch):
 def test_registry_and_unported_families_raise():
     """Every architecture of the JAX registry is registered, in its
     order, and builds on the CPU; an unknown one raises ``KeyError``;
-    training, not ported yet, raises naming ROADMAP A15d."""
+    ``train_loss`` runs (a finite f32 scalar loss and its metrics)."""
     assert arch_names() == j_arch_names()
     for arch in j_arch_names():
         assert build_model(get_config(arch, smoke=True),
@@ -217,8 +217,13 @@ def test_registry_and_unported_families_raise():
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     model = build_model(get_config(ARCH, smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="A15d"):
-        model.train_loss({}, {})
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, model.cfg.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    loss, metrics = model.train_loss(params, {"tokens": toks,
+                                              "targets": toks})
+    assert loss.shape == () and loss.dtype == torch.float32
+    assert bool(torch.isfinite(loss)) and set(metrics) == {"nll", "aux"}
 
 
 def test_model_needs_a_card_unless_cpu_is_asked():
