@@ -267,7 +267,8 @@ t. LM training (budget ``TRAIN_BUDGET_S``, 90 s, printed with the card's
       tokens/s, 6 N tokens/s against the bf16 dense peak, peak memory,
       stragglers; then one layer's f32 chunked attention at the
       microbatch's shape timed alone, forward and forward + backward,
-      and its share of the step;
+      and its share of the step extrapolated from that one layer (not
+      measured inside the step);
    t2. every architecture's smoke config: ``train_loss`` and each
       gradient leaf on the card against the port on the CPU, f32
       (``TRAIN_CARD_TOL`` of each leaf's scale); ``use_scan_kernel``
@@ -5443,7 +5444,9 @@ def attention_share(cfg, step_ms):
     """One layer's f32 chunked attention at t1's microbatch shape, timed
     alone (CUDA events): forward, then forward and backward; a step runs
     it ``2 x n_layers`` times forward (the step and the recompute) and
-    ``n_layers`` times backward, per microbatch."""
+    ``n_layers`` times backward, per microbatch.  The share of the step
+    is extrapolated from this one layer on random inputs with warm
+    caches; it is not measured inside the step."""
     from repro_torch.models.attention import flash_attention
 
     dev = lm_device()
@@ -5476,11 +5479,12 @@ def attention_share(cfg, step_ms):
     per_step = TRAIN_MICRO * cfg.n_layers * (f_ms + fb_ms)
     log(f"[t1] one layer's f32 chunked attention at [{b}, {l}, "
         f"{a.n_heads}/{a.kv_heads}, {a.head_dim}]: forward {f_ms:.1f} ms, "
-        f"forward + backward {fb_ms:.1f} ms; {per_step:.0f} ms a step = "
-        f"{per_step / step_ms:.3f} of the median step")
+        f"forward + backward {fb_ms:.1f} ms; extrapolated to "
+        f"{per_step:.0f} ms a step = {per_step / step_ms:.3f} of the median "
+        f"step (one layer timed alone, not measured inside the step)")
     return {"attn_fwd_ms": f_ms, "attn_fwd_bwd_ms": fb_ms,
-            "attn_ms_per_step": per_step,
-            "attn_share_of_step": per_step / step_ms}
+            "attn_ms_per_step_extrapolated": per_step,
+            "attn_share_of_step_extrapolated": per_step / step_ms}
 
 
 def _smoke_batch(cfg, b, l, seed, dev):

@@ -141,10 +141,22 @@ gelu_mlp = swiglu  # same entry point; act selects the nonlinearity
 
 
 # ================================================================ training
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_requires_grad(v) for v in tree)
+    return False
+
+
 def checkpointed(fn: Callable, *args, **kwargs):
     """``fn(*args)``, its activations recomputed in the backward pass when
-    autograd records it (plain ``fn(*args)`` otherwise)."""
-    if not torch.is_grad_enabled():
+    autograd records it: grad mode on and some tensor among ``args``
+    (dicts and sequences walked) requiring grad.  Plain ``fn(*args)``
+    otherwise, as when serving, whose weights require no grad."""
+    if not (torch.is_grad_enabled() and _requires_grad(args)):
         return fn(*args)
     return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
@@ -168,8 +180,8 @@ def remat(fn: Callable, mode: str) -> Callable:
     every activation; ``"full"`` recomputes the block in the backward pass
     (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` saves the
     matrix products and recomputes the rest, as
-    ``checkpoint_dots_with_no_batch_dims``.  Without autograd recording
-    (serving), every mode is ``fn`` itself."""
+    ``checkpoint_dots_with_no_batch_dims``.  Where autograd does not
+    record (``checkpointed``: serving), every mode is ``fn`` itself."""
     if mode == "none":
         return fn
     if mode not in ("full", "dots"):

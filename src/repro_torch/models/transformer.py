@@ -12,11 +12,11 @@ and the sharding hints have no effect.  ``cfg.remat`` applies when
 autograd records the forward (``train_loss``): each layer (and each vlm
 cross layer and hybrid shared-attention application) is one
 ``layers.remat`` block, as the JAX ``_remat`` wraps the scan body;
-serving runs without it.  gemma2's local/global
-windows are per-layer ints (``_windows_for``), and with its softcap they
-put every gemma2 layer's decode attention on the plain route
-(``attention.decode_route``); every other family's decode attention is
-one ``ops.flash_decode`` a layer (and one a cross layer).
+serving, whose weights require no grad, runs without it.  gemma2's
+local/global windows are per-layer ints (``_windows_for``), and with its
+softcap they put every gemma2 layer's decode attention on the plain
+route (``attention.decode_route``); every other family's decode
+attention is one ``ops.flash_decode`` a layer (and one a cross layer).
 
 ``decode_step`` writes each attention layer's new K/V into the caches of
 the state it is given, in place (the JAX step scatters into a donated

@@ -15,13 +15,12 @@ Port of ``repro.train.optimizer``.
   updates one layer at a time, each with its own statistics, as the JAX
   package's ``lax.map`` does.
 
-``adamw_update`` and ``adafactor_update`` return new trees, as the JAX
-functions do.  ``adamw_update_`` and ``adafactor_update_`` do the same
-operations in the same order but write the moments and the parameters
-in place, a slice of at most 2^26 elements at a time (the JAX trainer
-donates its state; a copy of internlm2-1.8b's f32 m and v is 15.1 GB):
-they give the same bits.  ``make_optimizer(cfg, inplace=...)`` picks
-the pair.
+``adamw_update_`` and ``adafactor_update_`` write the moments and the
+parameters in place, AdamW a slice of at most 2^26 elements at a time
+(the JAX trainer donates its state; a copy of internlm2-1.8b's f32 m and
+v is 15.1 GB); ``make_optimizer`` returns them.  ``adamw_update`` and
+``adafactor_update`` return new trees and leave their inputs as they
+were, as the JAX functions do: they run the in-place update on copies.
 """
 
 from __future__ import annotations
@@ -115,34 +114,17 @@ def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
     return _tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
+def _copy(tree):
+    return _tree_map(lambda x: x.detach().clone(), tree)
+
+
 def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
                  lr: Optional[float] = None):
-    """One AdamW step -> (new_params, new_state, pre-clip grad norm)."""
-    if cfg.grad_clip is not None:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    else:
-        gnorm = global_norm(grads)
-    step = state.step + 1
-    lr_t = cfg.lr if lr is None else lr
-    b1, b2 = cfg.b1, cfg.b2
-    bc1, bc2 = _bias_corrections(step, b1, b2)
-
-    def upd(g, m, v, p):
-        g32 = g.float()
-        m_new = b1 * m + (1.0 - b1) * g32
-        v_new = b2 * v + (1.0 - b2) * torch.square(g32)
-        m_hat = m_new / bc1
-        v_hat = v_new / bc2
-        delta = m_hat / (torch.sqrt(v_hat) + cfg.eps)
-        if cfg.weight_decay:
-            delta = delta + cfg.weight_decay * p.float()
-        return (p.float() - lr_t * delta).to(p.dtype), m_new, v_new
-
-    # a tree of (p, m, v) leaf tuples, split three ways
-    out = _tree_map(upd, grads, state.m, state.v, params)
-    return (_split(out, 0),
-            AdamWState(step=step, m=_split(out, 1), v=_split(out, 2)),
-            gnorm)
+    """One AdamW step -> (new_params, new_state, pre-clip grad norm), new
+    trees: ``adamw_update_`` on copies of the state and the parameters."""
+    return adamw_update_(grads, state._replace(m=_copy(state.m),
+                                               v=_copy(state.v)),
+                         _copy(params), cfg, lr)
 
 
 def _bias_corrections(step, b1, b2):
@@ -177,8 +159,10 @@ def _slices(*leaves):
 @torch.no_grad()
 def adamw_update_(grads, state: AdamWState, params, cfg: AdamWConfig,
                   lr: Optional[float] = None):
-    """``adamw_update`` written into ``state.m``, ``state.v`` and
-    ``params`` in place (same bits) -> (params, new_state, gnorm)."""
+    """One AdamW step written into ``state.m``, ``state.v`` and ``params``
+    in place -> (params, new_state, pre-clip grad norm): global-norm
+    clipping, then per slice the moments, their bias corrections, epsilon
+    after the square root, and decoupled weight decay, in f32."""
     gnorm, scale = _clip_scale(grads, cfg.grad_clip)
     step = state.step + 1
     lr_t = cfg.lr if lr is None else lr
@@ -283,31 +267,20 @@ def _adafactor_step(state: AdafactorState, cfg: AdafactorConfig, lr):
 
 def adafactor_update(grads, state: AdafactorState, params,
                      cfg: AdafactorConfig, lr: Optional[float] = None):
-    """One Adafactor step -> (new_params, new_state, pre-clip grad norm)."""
-    gnorm, scale = _clip_scale(grads, cfg.grad_clip)
-    step, beta2, lr_t = _adafactor_step(state, cfg, lr)
-
-    def upd(g, vr, vc, p):
-        if scale is not None:
-            g = g * scale.to(g.dtype)
-        fac = _factored(p, cfg)
-        if _per_layer(p, cfg):
-            outs = [_adafactor_one(g[i], vr[i], vc[i], p[i], cfg, beta2,
-                                   lr_t, fac) for i in range(p.shape[0])]
-            return tuple(torch.stack(o) for o in zip(*outs))
-        return _adafactor_one(g, vr, vc, p, cfg, beta2, lr_t, fac)
-
-    out = _tree_map(upd, grads, state.vr, state.vc, params)
-    return (_split(out, 0),
-            AdafactorState(step=step, vr=_split(out, 1), vc=_split(out, 2)),
-            gnorm)
+    """One Adafactor step -> (new_params, new_state, pre-clip grad norm),
+    new trees: ``adafactor_update_`` on copies of the state and the
+    parameters."""
+    return adafactor_update_(grads, state._replace(vr=_copy(state.vr),
+                                                   vc=_copy(state.vc)),
+                             _copy(params), cfg, lr)
 
 
 @torch.no_grad()
 def adafactor_update_(grads, state: AdafactorState, params,
                       cfg: AdafactorConfig, lr: Optional[float] = None):
-    """``adafactor_update`` written into ``state.vr``, ``state.vc`` and
-    ``params`` in place (same bits) -> (params, new_state, gnorm)."""
+    """One Adafactor step written into ``state.vr``, ``state.vc`` and
+    ``params`` in place, a leaf (or a layer of a ``_per_layer`` leaf) at
+    a time -> (params, new_state, pre-clip grad norm)."""
     gnorm, scale = _clip_scale(grads, cfg.grad_clip)
     step, beta2, lr_t = _adafactor_step(state, cfg, lr)
     for g, vr, vc, p in zip(tree_leaves(grads), tree_leaves(state.vr),
@@ -327,21 +300,12 @@ def adafactor_update_(grads, state: AdafactorState, params,
     return params, AdafactorState(step=step, vr=state.vr, vc=state.vc), gnorm
 
 
-def make_optimizer(cfg, inplace: bool = False):
-    """(init, update) pair for either optimizer config; ``inplace`` picks
-    the update that writes the state and the parameters in place."""
+def make_optimizer(cfg):
+    """(init, update) pair for either optimizer config; the update writes
+    the state and the parameters in place (``adamw_update_``,
+    ``adafactor_update_``)."""
     if isinstance(cfg, AdafactorConfig):
-        upd = adafactor_update_ if inplace else adafactor_update
         return (lambda p: adafactor_init(p, cfg),
-                lambda g, s, p, lr=None: upd(g, s, p, cfg, lr))
-    upd = adamw_update_ if inplace else adamw_update
+                lambda g, s, p, lr=None: adafactor_update_(g, s, p, cfg, lr))
     return (lambda p: adamw_init(p, cfg),
-            lambda g, s, p, lr=None: upd(g, s, p, cfg, lr))
-
-
-def _split(tree, i):
-    if isinstance(tree, dict):
-        return {k: _split(v, i) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_split(v, i) for v in tree]
-    return tree[i]
+            lambda g, s, p, lr=None: adamw_update_(g, s, p, cfg, lr))

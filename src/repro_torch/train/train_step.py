@@ -11,9 +11,8 @@ accumulates them: ``g_acc + g.astype(acc_dtype) / m`` and the loss
 ``l_acc + l / m``.  The optimizer applies once per step, at the
 schedule's learning rate for the step before it.
 
-The step writes the optimizer state and the parameters in place, as the
-JAX trainer donates its state (the same bits as new trees would hold:
-``make_optimizer``'s two updates).
+The step writes the optimizer state and the parameters in place
+(``make_optimizer``'s update), as the JAX trainer donates its state.
 """
 
 from __future__ import annotations
@@ -84,7 +83,7 @@ def make_train_step(model, tcfg: TrainConfig) -> Callable:
     scalar tensors ``loss``, ``grad_norm``, ``lr``, ``nll`` and ``aux``
     (read them back to time the device's step)."""
     schedule = make_schedule(tcfg.schedule)
-    _, opt_update = make_optimizer(tcfg.optimizer, inplace=True)
+    _, opt_update = make_optimizer(tcfg.optimizer)
     m = tcfg.microbatches
     acc_dtype = (torch.bfloat16 if tcfg.accum_dtype == "bfloat16"
                  else torch.float32)

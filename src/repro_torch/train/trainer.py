@@ -11,6 +11,10 @@ Port of ``repro.train.trainer``:
   more than ``straggler_z`` sigmas slower is logged and counted;
 * graceful preemption: SIGTERM/SIGINT stop the loop after the current
   step, and one final sync checkpoint is written;
+* no torn checkpoint: the step updates the state in place, so a step
+  that raises partway may leave it half updated; then ``run`` writes no
+  final checkpoint and re-raises, and a restart resumes from the last
+  one committed;
 * re-placement: ``remesh(mesh)`` copies the state to the host and places
   it on the new mesh's device (on one card: the card again, as the JAX
   launcher's demo re-meshes onto the same mesh).
@@ -117,6 +121,7 @@ class Trainer:
                 prev_handlers[sig] = signal.signal(sig, self._on_signal)
             except ValueError:
                 pass  # not the main thread
+        torn = False   # a step raised partway through its in-place update
         try:
             for step in range(start, n_steps):
                 if self._stop:
@@ -126,10 +131,13 @@ class Trainer:
                          "targets": torch.from_numpy(b.targets).to(
                              self.device)}
                 t0 = time.perf_counter()
+                torn = True
                 self.state, metrics = self._train_step(self.state, batch)
                 # one read-back of every metric: the step's device time
+                # (and the first sight of an error the card raised in it)
                 vals = torch.stack([v.detach().float().reshape(())
                                     for v in metrics.values()]).tolist()
+                torn = False
                 metrics = dict(zip(metrics, vals))
                 dt = time.perf_counter() - t0
                 self._watchdog(step, dt)
@@ -138,7 +146,7 @@ class Trainer:
                 if self.cfg.ckpt_dir and (step + 1) % self.cfg.ckpt_every == 0:
                     self._checkpoint(step + 1, sync=False)
         finally:
-            if self.cfg.ckpt_dir:
+            if self.cfg.ckpt_dir and not torn:
                 self._checkpoint(int(self.state.step), sync=True)
             ckpt.wait_pending()
             for sig, h in prev_handlers.items():

@@ -6,8 +6,9 @@ The on-disk format is the port's own (``manifest.json`` and
 guarantees are held directly: a step dir without ``COMMIT`` is ignored,
 ``keep`` newest steps stay, bf16 leaves round-trip bit for bit, an async
 save is complete after ``wait_pending``, a restarted trainer resumes the
-exact state and data stream, and SIGTERM leaves a committed final
-checkpoint."""
+exact state and data stream, SIGTERM leaves a committed final
+checkpoint, and a step that raises partway through its in-place update
+commits none."""
 
 import json
 import os
@@ -22,6 +23,7 @@ from repro_torch.configs import get_config
 from repro_torch.data.tokens import SyntheticTokens
 from repro_torch.models.model import build_model
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train import optimizer as topt
 from repro_torch.train.optimizer import (AdafactorConfig, AdafactorState,
                                          AdamWConfig, adafactor_init,
                                          adamw_init)
@@ -185,6 +187,40 @@ def test_remesh_keeps_the_state(tmp_path):
     assert all(torch.equal(a, b)
                for a, b in zip(_leaves(trainer.state), want))
     assert trainer.run(5)["final_step"] == 5
+
+
+def test_torn_step_commits_no_checkpoint(tmp_path, monkeypatch):
+    """The optimizer raises in step 7 after updating some leaves in place
+    (as an out-of-memory error on one slice would): ``run`` re-raises and
+    commits no checkpoint of the half-updated state, and a restart resumes
+    from step 5, the last one committed, bit for bit."""
+    ref, _ = _trainer(tmp_path / "ref")
+    ref.run(5)
+    want = _leaves(ref.state)
+    trainer, _ = _trainer(tmp_path)
+    trainer.initialize()
+    n_leaves = len(topt.tree_leaves(trainer.state.params))
+    real, calls = topt._slices, []
+
+    def failing(*leaves):     # one call a leaf a step
+        calls.append(1)
+        if len(calls) == 7 * n_leaves + 4:
+            raise RuntimeError("CUDA out of memory (simulated)")
+        yield from real(*leaves)
+
+    monkeypatch.setattr(topt, "_slices", failing)
+    with pytest.raises(RuntimeError, match="simulated"):
+        trainer.run(9)
+    assert len(trainer.metrics_log) == 7
+    assert int(trainer.state.step) == 7
+    d = trainer.cfg.ckpt_dir
+    assert ckpt.latest_step(d) == 5
+    assert sorted(os.listdir(d)) == ["step_00000005"]
+    monkeypatch.setattr(topt, "_slices", real)
+    trainer2, data2 = _trainer(tmp_path)
+    assert trainer2.initialize() == 5 and data2.step == 5
+    assert all(torch.equal(a, b)
+               for a, b in zip(_leaves(trainer2.state), want))
 
 
 SIGTERM_SCRIPT = textwrap.dedent("""

@@ -37,7 +37,8 @@ from repro_torch.train import optimizer as topt
 from repro_torch.train.checkpoint import tree_flatten
 from repro_torch.train.optimizer import (AdafactorConfig, AdamWConfig,
                                          adafactor_init, adafactor_update,
-                                         adafactor_update_, make_optimizer)
+                                         adafactor_update_, adamw_update,
+                                         make_optimizer)
 from repro_torch.train.schedule import ScheduleConfig
 from repro_torch.train.train_step import (TrainConfig, init_train_state,
                                           make_train_step)
@@ -93,11 +94,13 @@ def test_optimizer_update_matches_jax(kind, grad_scale, wd):
         jc, tc = (jopt.AdafactorConfig(lr=1e-2, weight_decay=wd),
                   AdafactorConfig(lr=1e-2, weight_decay=wd))
     jinit, jupd = jopt.make_optimizer(jc)
-    tinit, tupd = make_optimizer(tc)
-    tinit_, tupd_ = make_optimizer(tc, inplace=True)
+    # the functional update (new trees) and make_optimizer's in-place one
+    tinit, tupd_ = make_optimizer(tc)
+    fn = adamw_update if kind == "adamw" else adafactor_update
+    tupd = lambda g, s, p, lr: fn(g, s, p, tc, lr)
     js, ts = jinit(jp), tinit(tp)
     tp_ = jax.tree.map(lambda x: x.clone(), tp)
-    ts_ = tinit_(tp_)
+    ts_ = tinit(tp_)
     worst = {}
     for i in range(3):
         g = _grads(rng, base, grad_scale)
@@ -106,7 +109,12 @@ def test_optimizer_update_matches_jax(kind, grad_scale, wd):
         lr = np.float32(1e-2 * (i + 1) / 3)
         jp, js, jn = jupd(jg, js, jp, lr=jnp.float32(lr))
         tlr = torch.tensor(float(lr), dtype=torch.float32)
+        before = [x.clone() for _, x in tree_flatten((tp, ts))]
+        tp_old, ts_old = tp, ts
         tp, ts, tn = tupd(tg, ts, tp, lr=tlr)
+        assert all(torch.equal(a, b) for a, (_, b) in zip(
+            before, tree_flatten((tp_old, ts_old)))), \
+            "the functional update wrote into its inputs"
         tp_, ts_, tn_ = tupd_(tg, ts_, tp_, lr=tlr)
         assert torch.equal(tn, tn_)
         assert _rel(float(tn), float(jn)) <= OPT_TOL
@@ -171,10 +179,21 @@ def _quadratic_losses(init_fn, update_fn, steps=60):
     return losses
 
 
+def _pair(cfg, inplace):
+    """make_optimizer's (init, in-place update), or the functional update
+    in its place."""
+    init, upd = make_optimizer(cfg)
+    if inplace:
+        return init, upd
+    fn = adafactor_update if isinstance(cfg, AdafactorConfig) else \
+        adamw_update
+    return init, lambda g, s, p: fn(g, s, p, cfg)
+
+
 @pytest.mark.parametrize("inplace", [False, True])
 def test_adamw_converges(inplace):
     cfg = AdamWConfig(lr=0.1)
-    init, upd = make_optimizer(cfg, inplace=inplace)
+    init, upd = _pair(cfg, inplace)
     losses = _quadratic_losses(init, upd)
     assert losses[-1] < losses[0] * 0.05
 
@@ -182,7 +201,7 @@ def test_adamw_converges(inplace):
 @pytest.mark.parametrize("inplace", [False, True])
 def test_adafactor_converges(inplace):
     cfg = AdafactorConfig(lr=0.3, min_dim_factored=4)
-    init, upd = make_optimizer(cfg, inplace=inplace)
+    init, upd = _pair(cfg, inplace)
     losses = _quadratic_losses(init, upd)
     assert losses[-1] < losses[0] * 0.2
 

@@ -138,21 +138,36 @@ def test_remat_modes_give_the_same_bits(arch):
         assert all(torch.equal(a, b) for a, b in zip(g0, g1)), mode
 
 
-def test_remat_leaves_serving_unchanged():
-    """Without autograd recording, remat is the plain function: the
-    forward is bit-equal across modes."""
+def test_remat_leaves_serving_unchanged(monkeypatch):
+    """With grad mode on but weights that require no grad (serving), remat
+    never enters ``torch.utils.checkpoint``, for the layers and for the
+    Mamba2 chunks alike, and the forward is bit-equal across modes; the
+    training forward does enter it."""
+    from torch.utils import checkpoint as ckpt_mod
+
     from repro_torch.models import transformer as tfm
 
-    outs = []
-    for mode in ("none", "full", "dots"):
-        cfg = dataclasses.replace(get_config("qwen3-14b", smoke=True),
-                                  remat=mode)
-        params = build_model(cfg, device="cpu").init(
-            torch.Generator().manual_seed(0))
-        toks = torch.arange(32).reshape(2, 16) % cfg.vocab
-        with torch.no_grad():
+    real, entered = ckpt_mod.checkpoint, []
+
+    def spy(*args, **kwargs):
+        entered.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ckpt_mod, "checkpoint", spy)
+    assert torch.is_grad_enabled()
+    for arch in ("qwen3-14b", "zamba2-2.7b"):
+        outs = []
+        for mode in ("none", "full", "dots"):
+            cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                      remat=mode)
+            params = build_model(cfg, device="cpu").init(
+                torch.Generator().manual_seed(0))
+            toks = torch.arange(64).reshape(2, 32) % cfg.vocab
             outs.append(tfm.forward(params, toks, cfg)[0])
-    assert all(torch.equal(outs[0], o) for o in outs[1:])
+        assert not entered, arch
+        assert all(torch.equal(outs[0], o) for o in outs[1:]), arch
+    _loss_grads("zamba2-2.7b", "full")
+    assert entered
 
 
 def test_unknown_remat_mode_raises():
