@@ -22,16 +22,17 @@ Phases (any failure exits non-zero before the result lines):
    fixture, a blocking finding past ``analysis/allow.txt``, a model
    drift, or a recorder count below the debug mode's; then each fixture
    kernel timed cold and warm beside its plain version and bound.
-2. ``longlat`` at 2^25 keys, half (2^24) bulk-loaded through
+2. ``longlat`` at 2^24 keys, half (2^23) bulk-loaded through
    ``NFL(NFLConfig(backend="flat"))`` with the default flow config, its
-   training cut from three epochs to one (``LONGLAT_FLOW_EPOCHS``: flow
-   training is host-bound, and the smoke must fit its time limit on a
-   slow host), and AutoSwitch deciding (rerun with ``force_flow=True`` if
-   it declines the flow, so the in-kernel NF serves):
+   training cut from three epochs over a tenth of the loaded keys to one
+   epoch over a hundredth (``FLOW_TRAIN``: flow training is host-bound,
+   and the smoke must fit its time limit on a slow host), and AutoSwitch
+   deciding (rerun with ``force_flow=True`` if it declines the flow, so
+   the in-kernel NF serves):
    a. reads: the paper's read-only workload (zipf 0.99), 64 batches of
       65,536, plus one batch of unloaded keys;
    b. writes: the paper's ``write_heavy`` mix (20% reads, 80% inserts of
-      unloaded keys), 64 batches of 65,536, below the fold trigger;
+      unloaded keys), 32 batches of 65,536, below the fold trigger;
       every read checked, then every inserted key read back;
    c. updates and deletes: 65,536 loaded keys updated, 65,536 others
       deleted, then 1,024 more of each and 1,024 inserts, which stay in
@@ -115,12 +116,12 @@ Phases (any failure exits non-zero before the result lines):
    bit-equal to ``nf_forward`` under the new weights, each shard an
    AutoSwitch verdict, every live key read and a scan batch in the new
    z order.  4m and 4r are a cut in depth: 2^21 keys, not phase 4's
-   2^24, so the smoke fits its time limit.
+   2^23, so the smoke fits its time limit.
 4. sharded serving, with the single indexes' tensors freed: phase 2's
    longlat load (same keys, seed and loaded half) through
    ``NFL(NFLConfig(backend="flat", shards=4))``, the four shards on the
-   one card, its flow trained one epoch (phase 2 trains two on the same
-   keys), AutoSwitch deciding as in 2 (each shard's
+   one card, its flow trained as phase 2's (``FLOW_TRAIN``),
+   AutoSwitch deciding as in 2 (each shard's
    verdict, key count, depth and pool bytes printed, and the sharded
    verify's repaired keys):
    a. reads: 2a's 64 batches, each in its own launch window (one router
@@ -165,8 +166,8 @@ Phases (any failure exits non-zero before the result lines):
    work needs, with its own count beside), their ratio printed; both on
    a batch taken while the run and delta hold data and tombstones;
    ``fused_lookup`` also at the fold verify's 4,096 keys (16 chunks in
-   key order, no tiers) and, after 2b, both over the 52 read-back
-   batches with the run and the delta populated;
+   key order, no tiers) and, after 2b, both over every read-back
+   batch with the run and the delta populated;
    ``index_probe`` on longlat's root node with the read batches' z,
    timed and bounded the same way; ``fused_range_scan`` flow on and off
    on scan batches taken in that state (longlat's 16 batches timed the
@@ -217,7 +218,9 @@ Phases (any failure exits non-zero before the result lines):
    cache for 16 rows with ragged lengths (0, 1 and S among them).
 7. the LM kernels against their plain versions: ``mamba_scan`` on the
    scan inputs of the first layers of the 2,048-token prompt and on a
-   ragged L of 1,000, bounded by its bytes or its exponentials;
+   ragged L of 1,000, bounded by its bytes or its exponentials (both
+   kernels' bounds come from their work functions, ``scan_work`` and
+   ``decode_work``, the counts the dry run takes on meta);
    ``flash_decode`` with the bf16 cache and an f32 one, timed beside
    ``scaled_dot_product_attention`` (the library yardstick only), and
    again at B 1 over the cache's row of length S, where the split plan
@@ -283,6 +286,30 @@ t. LM training (budget ``TRAIN_BUDGET_S``, 90 s, printed with the card's
    t5. ``compressed_psum``, ``flash_decode_combine``, ``pipeline_apply``
       and a (1, 1) ``DeviceMesh`` over an NCCL group of world size 1,
       against their plain oracles.
+r. three cells on the card beside their own one-card dry run (budget
+   ``R_BUDGET_S``, 60 s, printed with the card's name and power limit).
+   The dry runs (``python -m repro_torch.launch.dryrun``, counted on the
+   meta device) run in processes of their own on the host's CPU beside
+   the kernels' build and phase 1b's checks, and are waited for before
+   1b's timings, so no phase timed on the host's clock shares the CPU
+   with them:
+   r1. qwen3-14b ``decode_32k`` at the dry run's per-card batch, on 6d's
+      parameters: a zero cache of 32,768 positions, ``cache_len``
+      32,767, ``R_DECODE_STEPS`` decode steps (``flash_decode`` once an
+      attention a step), one more under ``torch.profiler``; host and
+      device ms beside the dry run's ``memory_s``;
+   r2. falcon-mamba-7b ``prefill_32k`` at batch 1 on phase 6's model (32
+      layers, ``mamba_scan`` once a layer), its ms beside the bound and
+      the dry run's per-card batch;
+   r3. one more t1 step under ``torch.profiler``, its device time split
+      into the f32 attention's ops, the products and the rest (measured
+      inside the step), beside the dry run's compute (bf16 and f32
+      apart) and memory terms, t1's median step and peak.
+   Each cell prints its predicted and measured peaks and their ratio; a
+   fit verdict that the card contradicts (predicted to fit and out of
+   memory, or not to fit and run) fails, and a cell out of memory as
+   predicted records that and measures nothing.  Phase r adds no kernel.
+   ``python3 src/repro_torch/smoke_phase.py ROOT r`` runs phase r alone.
 9. result lines: the kernel table as JSON, then the final JSON object
    ``{"ok": true, "device": {...}}``.
 
@@ -316,11 +343,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+_SRC = Path(__file__).resolve().parent / "src"
+if str(_SRC) not in sys.path:
+    sys.path.insert(0, str(_SRC))
+# one set of the card's figures: NVIDIA's H100 SXM5 80GB data sheet and
+# the CUDA guide's per-clock rates, beside the dry run's roofline
+from repro_torch.utils.roofline import (  # noqa: E402
+    FP32_PER_SM_PER_CLOCK, SFU_PER_SM_PER_CLOCK)
+from repro_torch.utils.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.utils.roofline import PEAK_BF16 as BF16_PEAK  # noqa: E402
+
 SECTOR = 32                    # bytes per device-memory sector
 BATCH = 65536
 N_READ_BATCHES = 64
-N_WRITE_BATCHES = 64           # longlat write_heavy batches
+N_WRITE_BATCHES = 32           # longlat write_heavy batches
 MAX_FOLD_BATCHES = 64          # lognormal: write batches allowed for a fold
 TAIL = 1024                    # writes left in the delta before the scans
 VERIFY_CHUNK = 4096            # FlatAFLIConfig.fold_step_keys
@@ -328,13 +364,14 @@ N_VERIFY_CHUNKS = 16
 SCAN_BATCH = 16384
 N_SCAN_BATCHES = 16
 SCAN_CAP = 128
-LONGLAT_KEYS = 1 << 25         # half bulk-loaded
+LONGLAT_KEYS = 1 << 24         # half bulk-loaded
 N_SHARDS = 4                   # phase 4: key-space shards on one card
-# phases 2 and 4 train their flows one epoch on the same keys, not the
-# default three: the smoke stays well inside its time limit on a slow
-# host (flow training is host-bound)
-LONGLAT_FLOW_EPOCHS = 1
-SHARDED_FLOW_EPOCHS = 1
+# phases 2, 3 and 4 train their flows one epoch over a hundredth of the
+# loaded keys, not the default three over a tenth: flow training is
+# host-bound, and the smoke must fit its time limit on a slow host.  On
+# longlat's loaded half AutoSwitch sees the same tails either way (25 ->
+# 4 at 2^22, 2^23 and 2^24 loaded keys, on the CPU's plain versions)
+FLOW_TRAIN = dict(epochs=1, sample_frac=0.01)
 BUSY_SHARD = 1                 # the shard phase 4's inserts aim at
 MAX_SHARD_WRITE_BATCHES = 96   # write batches allowed for its fold
 STRADDLE = 1024                # phase 4: ranges straddling each boundary
@@ -396,13 +433,6 @@ FE_OWN_READS = 0.1             # mixed reads of keys the trace inserted
 FE_POOL = 1 << 19              # zipf ranks and unloaded keys drawn at once
 FE_READBACK = 1024             # live keys read before and after exhaustion
 SPIN_CYCLES = 400_000          # ~0.2 ms idle spin, longer than a host call
-# exp2 results per SM per clock on compute capability 9.0 (the CUDA C++
-# Programming Guide's table of arithmetic instruction throughput); one
-# MUFU.EX2 per accurate expf
-SFU_PER_SM_PER_CLOCK = 16
-# FP32 lanes per SM per clock on compute capability 9.0 (the same table):
-# one issue slot per rounded multiply or add, which must not fuse
-FP32_PER_SM_PER_CLOCK = 128
 LM_ARCH = "falcon-mamba-7b"
 # phase 6's depth: 32 of falcon-mamba-7b's 64 layers, cut so the smoke
 # keeps its limit with phases 6d and 6m
@@ -462,7 +492,12 @@ TRAIN_SMOKE_LEN = 64           # t2: tokens per row at the smoke configs
 TRAIN_CARD_TOL = 1e-4          # t2: card vs CPU, max |d| / max |g| per leaf
 RESTART_TOL = 1e-4             # t3: resumed vs uninterrupted losses, rel
 TRAIN_BUDGET_S = 90.0
-BF16_PEAK = 989e12             # H100 SXM dense bf16 FLOP/s at 700 W
+# phase r: three cells on the card beside their own dry run (counted on
+# meta in a worker process started after the build)
+R_BUDGET_S = 60.0
+R_DECODE_STEPS = 5             # r1: decode steps over the full cache
+R_PREFILLS = 2                 # r2: prefills of 32,768 tokens (first warms)
+ATTN_TAG = "r3.f32_attention"  # r3: the profiler range around the attention
 PAPER_KEYS = 1 << 20
 PAPER_READ_BATCHES = 16        # read_only batches of BATCH
 PAPER_WRITE_BATCHES = 4        # write_heavy batches of BATCH
@@ -644,19 +679,20 @@ FIXTURE_OPS = {
 FP32_FLOPS = 67e12             # H100 SXM, outside the tensor cores
 
 
-def analysis_phase(flush_buf):
-    """Phase 1b: the contract checker (``repro_torch.analysis``) on the
-    card.  The fixture kernels against their plain versions bit for bit
-    (``batch_loop`` at 1, 33 and 4,096 queries); the self-test in a launch
-    window (every fixture caught at a ``fixtures.cu`` or ``fixtures.py``
-    line, each kernel fixture launched); then every contract over the
-    real entries in process (host syncs per entry, recorder against the
-    sync debug mode; launch facts; the shared-memory model against ptxas
-    and every profiled launch, the 2^25-row streamed pool included);
-    then each fixture kernel timed cold and warm beside its plain
-    version and its bound.  Fails on a missed fixture, a blocking
-    finding, a model drift, a recorder count below the debug mode's, or
-    a fixture kernel that differs from its plain version."""
+def analysis_checks():
+    """Phase 1b's checks: the contract checker (``repro_torch.analysis``)
+    on the card, timing nothing.  The fixture kernels against their
+    plain versions bit for bit (``batch_loop`` at 1, 33 and 4,096
+    queries); the self-test in a launch window (every fixture caught at
+    a ``fixtures.cu`` or ``fixtures.py`` line, each kernel fixture
+    launched); then every contract over the real entries in process
+    (host syncs per entry, recorder against the sync debug mode; launch
+    facts; the shared-memory model against ptxas and every profiled
+    launch, the 2^25-row streamed pool included).  Fails on a missed
+    fixture, a blocking finding, a model drift, a recorder count below
+    the debug mode's, or a fixture kernel that differs from its plain
+    version.  Returns (the kernel fixtures, their max |d| from plain,
+    the self-test's launches) for ``fixture_timings``."""
     from repro_torch.analysis import fixtures as fx
     from repro_torch.analysis.__main__ import (DEFAULT_ALLOWLIST, run_all,
                                                run_fixture_selftest,
@@ -720,6 +756,17 @@ def analysis_phase(flush_buf):
     del facts
     gc.collect()
     torch.cuda.empty_cache()
+    return kernel_fixtures, errs, launches
+
+
+def fixture_timings(checked, flush_buf):
+    """Phase 1b's timings: each fixture kernel that ``analysis_checks``
+    held to its plain version, timed cold and warm beside its plain
+    version and its bound; their rows of the kernel table."""
+    from repro_torch.analysis import fixtures as fx
+
+    dev = torch.device("cuda")
+    kernel_fixtures, errs, launches = checked
     rows = {}
     for name, f in kernel_fixtures.items():
         call, row = f.call, f.call.__name__
@@ -1251,10 +1298,10 @@ def timed_launches(fns, flush_buf):
 
 
 # ------------------------------------------------------ the main path
-def bulkload_and_read(name, n_keys, force_flow, seed, m, win, epochs=None):
-    """Phase 2a / 3a: bulk load (the flow trained ``epochs``, or the
-    default), the read-only batches and one batch of unloaded keys, all
-    checked."""
+def bulkload_and_read(name, n_keys, force_flow, seed, m, win, train=None):
+    """Phase 2a / 3a: bulk load (the flow trained with the
+    ``FlowTrainConfig`` fields in ``train``, or the default), the
+    read-only batches and one batch of unloaded keys, all checked."""
     t0 = time.perf_counter()
     keys = m.make_dataset(name, n_keys)
     wl = m.make_workload(keys, m.WorkloadConfig(
@@ -1268,10 +1315,8 @@ def bulkload_and_read(name, n_keys, force_flow, seed, m, win, epochs=None):
 
     def bulkload(force):
         torch.cuda.reset_peak_memory_stats()
-        train = (m.FlowTrainConfig() if epochs is None
-                 else m.FlowTrainConfig(epochs=epochs))
         nfl = m.NFL(m.NFLConfig(backend="flat", force_flow=force,
-                                flow_train=train))
+                                flow_train=m.FlowTrainConfig(**(train or {}))))
         t = time.perf_counter()
         nfl.bulkload(wl.load_keys, wl.load_payloads)
         torch.cuda.synchronize()
@@ -2672,7 +2717,7 @@ def sharded_load_and_read(base, m, win):
         torch.cuda.reset_peak_memory_stats()
         nfl = m.NFL(m.NFLConfig(
             backend="flat", shards=N_SHARDS, force_flow=force,
-            flow_train=m.FlowTrainConfig(epochs=SHARDED_FLOW_EPOCHS)))
+            flow_train=m.FlowTrainConfig(**FLOW_TRAIN)))
         t = time.perf_counter()
         nfl.bulkload(wl.load_keys, wl.load_payloads)
         torch.cuda.synchronize()
@@ -3462,7 +3507,7 @@ def fault_ladder(st, win, rng, cap):
     """2f's F: three traces, slack deadlines and admission off.  The stall
     leg, ``FE_STALL`` requests, is mixed as M (submitted at once) over
     a fold started just before it, so that its write calls tick the fold
-    under ``fold_stall_s`` (at 2^24 keys no leg's writes start one: a
+    under ``fold_stall_s`` (at 2^23 keys no leg's writes start one: a
     fold starts past a run of ``rebuild_frac`` of the live keys).  The
     error legs, ``FE_FAULT`` requests each, are point-only (as the JAX tests inject errors only into
     point traces: an error in a fold's verify chunk is raised after the
@@ -4248,8 +4293,6 @@ def decode_profile(lm, tag="[lm]", state=None):
     leaves it), else on a fresh state after two steps.  Informational:
     where the profiler sees no device events, the counts read "not
     measured" and nothing fails."""
-    from torch.profiler import ProfilerActivity, profile
-
     model, params = lm["model"], lm["params"]
     dev = torch.device("cuda")
     tokens = torch.zeros((LM_SLOTS, 1), dtype=torch.long, device=dev)
@@ -4257,28 +4300,20 @@ def decode_profile(lm, tag="[lm]", state=None):
         state = model.init_decode_state(LM_SLOTS, lm["max_len"])
         for _ in range(2):
             _lg, state = model.decode_step(params, state, tokens)
-    torch.cuda.synchronize()
     out = dict(device_ops=None, device_ms=None, wall_ms=None,
                flash_decode_ms=None, flash_decode_share=None,
                cache_len=[int(n) for n in state["cache_len"].tolist()])
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            model.decode_step(params, state, tokens)
-            torch.cuda.synchronize()
-            out["wall_ms"] = (time.perf_counter() - t) * 1e3
-        evs = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    except Exception as exc:          # informational: never fails the smoke
-        log(f"{tag} decode step profile: not measured ({exc!r})")
+    prof, out["wall_ms"] = profile_call(
+        lambda: model.decode_step(params, state, tokens))
+    if prof is None:
         return out
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == cuda and not e.is_user_annotation()]
     if evs:
         out["device_ops"] = len(evs)
-        out["device_ms"] = sum(e.time_range.elapsed_us() for e in evs) / 1e3
-        out["flash_decode_ms"] = sum(
-            e.time_range.elapsed_us() for e in evs
-            if any(n in e.name for n in FD_KERNELS)) / 1e3
+        out["device_ms"] = device_ms(evs)
+        out["flash_decode_ms"] = device_ms(evs, FD_KERNELS)
         out["flash_decode_share"] = (out["flash_decode_ms"]
                                      / max(out["device_ms"], 1e-9))
     log(f"{tag} decode step of {LM_SLOTS} slots under torch.profiler "
@@ -4423,13 +4458,14 @@ def route_check(model, params, state, tag):
     return err
 
 
-def dense_phase(win, seed, card):
+def dense_phase(win, seed, card, r1_art=None):
     """Phase 6d: qwen3-14b at its full published config, random bf16
     weights on the card from the seed, served as phase 6 serves
     falcon-mamba-7b; 40 ``flash_decode`` launches a decode step, none in
     a prefill; the batcher against a batch-1 replay; layer 0's kernel
     route against the plain route on the served cache; one long-context
-    decode step profiled."""
+    decode step profiled.  Then, on the same parameters, phase r1 at
+    ``r1_art``'s batch (``roofline_decode``)."""
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
 
@@ -4484,6 +4520,9 @@ def dense_phase(win, seed, card):
         out["decode_profile"] = decode_profile(lm, "[dense]", batcher.state)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[dense] phase 6d {out['seconds']:.1f} s ({card})")
+    if r1_art is not None:
+        del batcher
+        out["r1"] = roofline_decode(win, lm, r1_art, card)
     return out
 
 
@@ -4677,8 +4716,7 @@ def decode_shape_checks(k, flush_buf, seed):
             fail(f"flash_decode disagrees with its plain version ({what})")
         err = max(err, e)
         if what == DENSE_ARCH:
-            rows, bytes_ = decode_bytes(kc, lens, b, h)
-            bound = bytes_ / HBM_BYTES_PER_S * 1e3
+            rows, bytes_, bound = decode_bound(k, kc, lens, b, h)
             cold, warm, host = timed_launches(
                 [lambda: k.flash_decode(q, kc, vc, kl)] * 16, flush_buf)
             lib, lib_cold = sdpa_ms(q, kc, vc, kl, flush_buf)
@@ -4713,11 +4751,6 @@ def sm_rates():
     return sms * FP32_PER_SM_PER_CLOCK * hz, sms * SFU_PER_SM_PER_CLOCK * hz
 
 
-def sfu_per_s() -> float:
-    """exp2 results per second: SMs x 16 per clock x the max SM clock."""
-    return sm_rates()[1]
-
-
 def scan_row(caps, k, flush_buf):
     """Phase 7: mamba_scan against plain on layer 0's real inputs and on
     their first 1,000 positions, timed launch by launch over the captured
@@ -4740,32 +4773,37 @@ def scan_row(caps, k, flush_buf):
         err = max(err, e)
     b, l, di = caps[0][0].shape
     n = caps[0][2].shape[2]
-    bytes_ = b * l * di * 4 * 3 + b * l * n * 4 * 2 + di * n * 4
-    exps = b * l * di * n
-    rate = sfu_per_s()
+    # the kernel's work function: what the dry run counts on meta
+    work = k.scan_work(b, l, di, n)
+    bytes_, exps = work["bytes"], work["exps"]
+    fp32, rate = sm_rates()
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = exps / rate * 1e3
+    t_flops = work["flops_f32"] / (2 * fp32) * 1e3     # two FLOPs an FMA
     plan = k.scan_plan(b, l, di, n)
     log(f"mamba_scan plan at {(b, l, di, n)}: {plan._asdict()}")
     fns = [lambda a=a: k.mamba_scan(*a) for a in caps]
     cold, warm, host = timed_launches(fns, flush_buf)
     ms, ms_warm = statistics.median(cold), statistics.median(warm)
     plain_ms = time_ms(lambda: k.mamba_scan_plain(*caps[0]), 1, 1)
-    bound = max(t_bytes, t_ops)
+    bound = max(t_bytes, t_ops, t_flops)
     log(f"mamba_scan: median over {len(fns)} layers' inputs {ms:.5f} ms "
         f"cold L2 (min {min(cold):.5f}, max {max(cold):.5f}), {ms_warm:.5f} "
         f"ms warm L2; host issue {host:.5f} ms/call; plain {plain_ms:.3f} "
-        f"ms; bytes {bytes_} -> {t_bytes:.5f} ms, {exps} exponentials at "
-        f"{rate:.4g}/s -> {t_ops:.5f} ms; ms/bound {ms / bound:.1f}")
+        f"ms; scan_work: bytes {bytes_} -> {t_bytes:.5f} ms, {exps} "
+        f"exponentials at {rate:.4g}/s -> {t_ops:.5f} ms, "
+        f"{work['flops_f32']} f32 FLOPs -> {t_flops:.5f} ms; ms/bound "
+        f"{ms / bound:.1f}")
     return {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:67",
         "launches": None, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_by": "bytes" if t_bytes >= bound else "operations",
         "library_ms": None, "ms_warm_l2": ms_warm, "host_ms_per_call": host,
-        "bytes_ms": t_bytes, "exp_ms": t_ops, "sfu_per_s": rate,
+        "bytes_ms": t_bytes, "exp_ms": t_ops, "flops_ms": t_flops,
+        "sfu_per_s": rate,
         "shape": [b, l, di, n], "plan": plan._asdict()}
 
 
@@ -4836,11 +4874,18 @@ def sdpa_ms(q, kc, vc, kl, flush_buf):
     return mean, cold
 
 
-def decode_bytes(kc, kv_len, b, h):
-    """K and V rows below kv_len, read once, plus q and o in f32."""
+def decode_bound(k, kc, kv_len, b, h):
+    """(positions, bytes, bound ms) from ``flash_decode``'s work function
+    (what the dry run counts on meta) at these lengths: the K and V rows
+    below kv_len read once, q and o in f32; the larger of its bytes over
+    the card's rate and its f32 FLOPs and exponentials over theirs."""
     s, kh, d = kc.shape[1:]
     rows = int(np.minimum(kv_len, s).sum())
-    return rows, rows * kh * d * kc.element_size() * 2 + 2 * b * h * d * 4
+    work = k.decode_work(b, h, kh, s, d, kc.element_size(), rows)
+    fp32, sfu = sm_rates()
+    ms = max(work["bytes"] / HBM_BYTES_PER_S,
+             work["flops_f32"] / (2 * fp32), work["exps"] / sfu) * 1e3
+    return rows, work["bytes"], ms
 
 
 def flash_decode_row(k, flush_buf, q, kc, vc, kv_len):
@@ -4882,8 +4927,7 @@ def flash_decode_row(k, flush_buf, q, kc, vc, kv_len):
     if kv_len[0] != 0:
         fail("flash_decode inputs lost their kv_len 0 row")
     plan = k.device_plan(q, kc)
-    rows, bytes_ = decode_bytes(kc, kv_len, b, h)
-    bound = bytes_ / HBM_BYTES_PER_S * 1e3
+    rows, bytes_, bound = decode_bound(k, kc, kv_len, b, h)
     fns = [lambda: k.flash_decode(q, kc, vc, kl)] * 16
     cold, warm, host = timed_launches(fns, flush_buf)
     ms, ms_warm = statistics.median(cold), statistics.median(warm)
@@ -4897,8 +4941,7 @@ def flash_decode_row(k, flush_buf, q, kc, vc, kv_len):
         f"{bound:.5f} ms; ms/bound {ms / bound:.2f}; plan {plan._asdict()}")
     a1 = cases[2][1]
     plan1 = k.device_plan(a1[0], a1[1])
-    rows1, bytes1 = decode_bytes(kc, kv_len[one:one + 1], 1, h)
-    bound1 = bytes1 / HBM_BYTES_PER_S * 1e3
+    rows1, bytes1, bound1 = decode_bound(k, kc, kv_len[one:one + 1], 1, h)
     cold1, warm1, _h1 = timed_launches([lambda: k.flash_decode(*a1)] * 16,
                                        flush_buf)
     ms1 = statistics.median(cold1)
@@ -4939,6 +4982,421 @@ def flash_decode_rows(row32, err, at6d):
     row.update({f"{key}_32k": v for key, v in row32.items()
                 if key not in keep and key != "max_abs_err"})
     return row
+
+
+# ------------------------------------------------------------- phase r
+def roofline_dryruns(root):
+    """Phase r's dry runs, started before the build, each in its own
+    ``python -m repro_torch.launch.dryrun`` process on the host's CPU
+    (meta tensors; ``CUDA_VISIBLE_DEVICES`` empty, so none touches the
+    card): r1 qwen3-14b ``decode_32k`` at the largest batch that fits;
+    r2 falcon-mamba-7b ``prefill_32k`` at phase 6's depth, at the largest
+    batch and at batch 1; r3 internlm2-1.8b ``train_4k`` at t1's batch
+    and microbatches.  Returns {key: (process, artifact dir, log)}."""
+    import shutil
+
+    cells = {
+        "r1": ["--arch", DENSE_ARCH, "--shape", "decode_32k"],
+        "r2": ["--arch", LM_ARCH, "--shape", "prefill_32k", "--layers",
+               str(LM_DEPTH)],
+        "r2_b1": ["--arch", LM_ARCH, "--shape", "prefill_32k", "--layers",
+                  str(LM_DEPTH), "--batch", "1"],
+        "r3": ["--arch", TRAIN_ARCH, "--shape", "train_4k", "--batch",
+               str(TRAIN_BATCH), "--microbatches", str(TRAIN_MICRO)]}
+    out = root / "build" / "smoke_dryrun"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [str(root / "src")] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    procs = {}
+    for key, args in cells.items():
+        d = out / key
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        logf = open(out / f"{key}.log", "w")
+        procs[key] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+             "--out-dir", str(d)], cwd=root, env=env, stdout=logf,
+            stderr=subprocess.STDOUT), d, logf)
+    return procs
+
+
+def roofline_artifacts(procs):
+    """The dry runs' artifacts, waiting for any still running (each
+    process has ended when this returns)."""
+    t0 = time.perf_counter()
+    arts = {}
+    for key, (proc, d, logf) in procs.items():
+        rc = proc.wait(timeout=900)
+        logf.close()
+        found = sorted(d.glob("*.json"))
+        if rc or len(found) != 1:
+            fail(f"phase r's dry run {key} exited {rc} ({logf.name})")
+        with open(found[0]) as f:
+            arts[key] = art = json.load(f)
+        log(f"[r] dry run {key}: {art['arch']} {art['shape']} at "
+            f"{art['n_layers']} layers, batch {art['batch']} a card "
+            f"({art['cards']:g} cards for the global batch), predicted peak "
+            f"{art['counts']['peak_bytes'] / 1e9:.3f} GB (fits 80 GB: "
+            f"{art['fits']}); counted in {art['seconds']:.1f} s on meta")
+    log(f"[r] waited {time.perf_counter() - t0:.1f} s for the dry runs")
+    return arts
+
+
+def check_fit(tag, art, ran, why="") -> None:
+    """Fails where the card contradicts the dry run's fit verdict: a
+    cell predicted to fit that ran out of memory (``ran`` False), or one
+    predicted not to fit that ran."""
+    pred = art["counts"]["peak_bytes"] / 1e9
+    if ran and not art["fits"]:
+        fail(f"{tag}: predicted not to fit ({pred:.2f} GB) but it ran")
+    if not ran and art["fits"]:
+        fail(f"{tag}: predicted to fit ({pred:.2f} GB) but the card ran "
+             f"out of memory: {why}")
+    log(f"[{tag}] fit verdict held: predicted {pred:.2f} GB, "
+        f"{'ran' if ran else 'out of memory'}")
+
+
+def with_dryruns(root, work):
+    """``work()`` with phase r's dry runs beside it on the host's CPU
+    (the kernels' build, and in the full smoke phase 1b's checks, which
+    time nothing on the host's clock), then the wait for the dry runs:
+    (what ``work`` returned, their artifacts, {"wait_s": the wait}).  A
+    failure in ``work`` stops the dry runs."""
+    procs = roofline_dryruns(root)
+    try:
+        out = work()
+    except BaseException:
+        for proc, _d, logf in procs.values():
+            proc.kill()
+            proc.wait()
+            logf.close()
+        raise
+    t0 = time.perf_counter()
+    arts = roofline_artifacts(procs)
+    return out, arts, {"wait_s": time.perf_counter() - t0}
+
+
+def fit_verdict(tag, art, run):
+    """``run()``, the card's side of a phase r cell, held to the dry
+    run's fit verdict (``check_fit``): its result, or None where the card
+    ran out of memory as predicted."""
+    try:
+        out = run()
+    except torch.cuda.OutOfMemoryError as exc:
+        check_fit(tag, art, False, str(exc))
+        return None
+    check_fit(tag, art, True)
+    return out
+
+
+def out_of_memory(art, t0):
+    """A phase r cell's record where the card ran out of memory, as its
+    dry run predicted: nothing measured."""
+    return {"batch": art["batch"], "out_of_memory": True,
+            "peak_predicted_gb": art["counts"]["peak_bytes"] / 1e9,
+            "seconds": time.perf_counter() - t0}
+
+
+def peak_line(tag, art, measured, what="max_memory_allocated"):
+    """The predicted and measured peaks and their ratio (measured over
+    predicted), printed; returns them."""
+    pred = art["counts"]["peak_bytes"]
+    log(f"[{tag}] peak: predicted {pred / 1e9:.3f} GB (dry run), measured "
+        f"{measured / 1e9:.3f} GB ({what}); measured/predicted "
+        f"{measured / pred:.4f}")
+    return {"peak_predicted_gb": pred / 1e9, "peak_measured_gb":
+            measured / 1e9, "peak_ratio": measured / pred}
+
+
+def profile_call(fn):
+    """``fn()`` once under ``torch.profiler`` (CPU and CUDA): (the
+    profiler, host wall ms), or (None, wall ms) where it fails: the
+    profile is informational."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+    except Exception as exc:      # informational: never fails the smoke
+        log(f"profile: not measured ({exc!r})")
+        return None, None
+    return prof, wall
+
+
+def device_ms(raw, names=()):
+    """Summed device time (ms) of a profile's CUDA kernels, copies and
+    fills (``raw``: the profiler's raw events), all or those whose name
+    holds one of ``names``; the ranges that ``record_function`` mirrors
+    onto the device's timeline are spans, not work, and do not count."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.duration_ns() for e in raw
+               if e.device_type() == cuda and not e.is_user_annotation()
+               and (not names or any(n in e.name() for n in names))) / 1e6
+
+
+def roofline_decode(win, lm, art, card):
+    """Phase r1: qwen3-14b's ``decode_32k`` cell on the card at the dry
+    run's per-card batch, on phase 6d's parameters: a zero cache of
+    32,768 positions with ``cache_len`` 32,767 (6d's long-context step),
+    ``R_DECODE_STEPS`` decode steps, each in a counted window
+    (``flash_decode`` once an attention a step), then one more under
+    ``torch.profiler``; beside the dry run's ``memory_s`` and peak."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.utils.roofline import analyze_artifact
+
+    t0 = time.perf_counter()
+    model, params, cfg = lm["model"], lm["params"], lm["cfg"]
+    dev = model.device
+    b, s = art["batch"], SHAPES["decode_32k"].seq_len
+    ana = analyze_artifact(art)
+    expect = kernel_attn_per_step(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_peak(dev)
+
+    def run():
+        state = model.init_decode_state(b, s)
+        state["cache_len"].fill_(s - 1)
+        tokens = torch.zeros((b, 1), dtype=torch.long, device=dev)
+        times, per, finite = [], [], True
+        for _ in range(R_DECODE_STEPS):
+            t = time.perf_counter()
+            (logits, state), counts = win.run(
+                lambda: model.decode_step(params, state, tokens))
+            finite &= bool(torch.isfinite(logits).all())
+            times.append((time.perf_counter() - t) * 1e3)
+            per.append(counts["flash_decode"])
+        prof, wall = profile_call(
+            lambda: model.decode_step(params, state, tokens))
+        peak = torch.cuda.max_memory_allocated()
+        del state
+        return times, per, finite, prof, wall, peak
+
+    res = fit_verdict("r1", art, run)
+    if res is None:
+        return out_of_memory(art, t0)
+    times, per, finite, prof, wall, peak = res
+    if not finite or set(per) != {expect}:
+        fail(f"r1: flash_decode launched {per} times in {R_DECODE_STEPS} "
+             f"steps (expected {expect} a step); finite logits {finite}")
+    raw = prof.profiler.kineto_results.events() if prof is not None else []
+    dev_ms = device_ms(raw) if raw else None
+    fd_ms = device_ms(raw, FD_KERNELS) if raw else None
+    out = dict(batch=b, cards=art["cards"], step_ms=times,
+               step_ms_median=statistics.median(times),
+               flash_decode_per_step=expect, device_ms=dev_ms,
+               flash_decode_ms=fd_ms, profiled_wall_ms=wall,
+               memory_s=ana["memory_s"], compute_s=ana["compute_s"],
+               bound=ana["bound"], **peak_line("r1", art, peak))
+    log(f"[r1] {cfg.name} decode_32k at the dry run's batch {b} a card "
+        f"({art['cards']:g} cards for 128 rows), cache_len {s - 1} of {s}: "
+        f"{R_DECODE_STEPS} steps, host ms {[round(x, 2) for x in times]} "
+        f"(median {out['step_ms_median']:.2f}); flash_decode {per} "
+        f"launches a step; one step under torch.profiler: device ms "
+        f"{dev_ms if raw else 'not measured'} (flash_decode "
+        f"{fd_ms if raw else 'not measured'}); dry run: memory_s "
+        f"{ana['memory_s'] * 1e3:.3f} ms, compute_s "
+        f"{ana['compute_s'] * 1e3:.3f} ms, bound {ana['bound']}; {card}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def roofline_prefill(win, lm, art, art1, card):
+    """Phase r2: falcon-mamba-7b's ``prefill_32k`` cell at batch 1 on
+    phase 6's model (32 layers, the scan kernel), ``R_PREFILLS`` prefills
+    of 32,768 random tokens, each in a counted window (``mamba_scan``
+    once a layer); the last one's ms beside the batch-1 dry run's bound,
+    and the dry run's per-card batch beside it."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.utils.roofline import analyze_artifact
+
+    t0 = time.perf_counter()
+    model, params, cfg = lm["model"], lm["params"], lm["cfg"]
+    dev = model.device
+    l = SHAPES["prefill_32k"].seq_len
+    ana = analyze_artifact(art1)
+    tokens = torch.as_tensor(np.random.default_rng(800).integers(
+        0, cfg.vocab, (1, l)).astype(np.int32), device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_peak(dev)
+
+    def run():
+        ms, per, finite = [], [], True
+        for _ in range(R_PREFILLS):
+            t = time.perf_counter()
+            (_state, logits), counts = win.run(
+                lambda: model.prefill(params, tokens, l + 1))
+            finite &= bool(torch.isfinite(logits).all())
+            ms.append((time.perf_counter() - t) * 1e3)
+            per.append(counts["mamba_scan"])
+        return ms, per, finite, torch.cuda.max_memory_allocated()
+
+    res = fit_verdict("r2", art1, run)
+    if res is None:
+        return out_of_memory(art1, t0)
+    ms, per, finite, peak = res
+    if not finite or set(per) != {cfg.n_layers}:
+        fail(f"r2: mamba_scan launched {per} times in {R_PREFILLS} prefills "
+             f"of {cfg.n_layers} layers; finite logits {finite}")
+    out = dict(ms=ms, bound_ms=ana["step_s"] * 1e3,
+               compute_ms=ana["compute_s"] * 1e3,
+               memory_ms=ana["memory_s"] * 1e3, bound=ana["bound"],
+               dryrun_batch=art["batch"], dryrun_cards=art["cards"],
+               **peak_line("r2", art1, peak))
+    log(f"[r2] {cfg.name} prefill_32k at {cfg.n_layers} layers, batch 1: "
+        f"ms {[round(x, 1) for x in ms]} (host clock to a sync, the first "
+        f"warms); dry run at batch 1: compute {out['compute_ms']:.2f} ms, "
+        f"memory {out['memory_ms']:.2f} ms, bound {out['bound_ms']:.2f} ms "
+        f"({ana['bound']}); last/bound {ms[-1] / out['bound_ms']:.2f}; "
+        f"mamba_scan {per} launches a prefill; the dry run's per-card batch "
+        f"{art['batch']} ({art['cards']:g} cards for 32 rows); {card}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+_PRODUCTS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm"}
+
+
+def _spans(pairs):
+    """{thread: (sorted starts, ends)} of the union of ``(thread, start,
+    end)`` intervals (nested ones merged)."""
+    by = collections.defaultdict(list)
+    for t, a, b in pairs:
+        by[t].append((a, b))
+    out = {}
+    for t, iv in by.items():
+        iv.sort()
+        merged = [list(iv[0])]
+        for a, b in iv[1:]:
+            if a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        out[t] = ([m[0] for m in merged], [m[1] for m in merged])
+    return out
+
+
+def _inside(spans, thread, ts) -> bool:
+    import bisect
+
+    if thread not in spans:
+        return False
+    starts, ends = spans[thread]
+    i = bisect.bisect_right(starts, ts) - 1
+    return i >= 0 and ts <= ends[i]
+
+
+def step_split(raw, tag):
+    """A profiled train step's device time (ms) in three parts, from the
+    profiler's raw events (``raw``): the f32 attention's ops, the matrix
+    products (``_PRODUCTS``; bf16 outside the attention on this path),
+    and the rest; plus what no op launched, and the total.  A kernel
+    belongs to the op that launched it.  An op is the attention's when it
+    ran inside a ``tag`` range (the forward, and its recompute under
+    remat) or inside a backward node whose forward op did: the profiler
+    pairs a node with its forward op by (sequence number, thread).  The
+    ranges that ``record_function`` mirrors onto the device's timeline
+    are spans, not work, and do not count."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    ops, tags, nodes, kernels = {}, [], [], []
+    for e in raw:
+        dev = e.device_type()
+        if dev == cpu:
+            t, a, name = e.start_thread_id(), e.start_ns(), e.name()
+            if name == tag:
+                tags.append((t, a, a + e.duration_ns()))
+            elif e.scope() == 1:            # a backward node
+                nodes.append((e.sequence_nr(), e.fwd_thread_id(), t, a,
+                              a + e.duration_ns()))
+            else:
+                ops[e.correlation_id()] = (t, a, name in _PRODUCTS,
+                                           e.sequence_nr())
+        elif dev == cuda and not e.is_user_annotation():
+            kernels.append((e.linked_correlation_id(), e.duration_ns()))
+    tag_spans = _spans(tags)
+    keys = {(q, t) for t, a, _p, q in ops.values()
+            if q >= 0 and _inside(tag_spans, t, a)}
+    node_spans = _spans((t, a, b) for q, f, t, a, b in nodes
+                        if (q, f) in keys)
+    parts = {"attention": 0.0, "products": 0.0, "rest": 0.0,
+             "unattributed": 0.0}
+    for corr, ns in kernels:
+        op = ops.get(corr)
+        if op is None:
+            parts["unattributed"] += ns
+        elif _inside(tag_spans, op[0], op[1]) \
+                or _inside(node_spans, op[0], op[1]):
+            parts["attention"] += ns
+        else:
+            parts["products" if op[2] else "rest"] += ns
+    parts["total"] = sum(parts.values())
+    return {key: v / 1e6 for key, v in parts.items()}
+
+
+def roofline_train(win, trainer, t1, art, card):
+    """Phase r3: one more t1 step (internlm2-1.8b, 8 x 4,096 as 2
+    microbatches) under ``torch.profiler`` with the chunked attention in
+    an ``ATTN_TAG`` range; its device time split three ways
+    (``step_split``), beside the dry run's compute (bf16 and f32 apart)
+    and memory terms; t1's median step and peak beside the dry run's.
+    t1 has run: a dry run that predicted its shape not to fit fails."""
+    from repro_torch.models import attention
+    from repro_torch.utils.roofline import analyze_artifact
+
+    check_fit("r3", art, True)
+    t0 = time.perf_counter()
+    ana = analyze_artifact(art)
+    orig = attention.flash_attention
+
+    def tagged(*args, **kwargs):
+        with torch.profiler.record_function(ATTN_TAG):
+            return orig(*args, **kwargs)
+
+    step = len(trainer.metrics_log) + 1
+    attention.flash_attention = tagged
+    try:
+        (prof, wall), _c = win.run(
+            lambda: profile_call(lambda: trainer.run(step)))
+    finally:
+        attention.flash_attention = orig
+    no_launches(_c, "r3's profiled step")
+    out = dict(step_ms_median=t1["step_ms_median"],
+               compute_s=ana["compute_s"], compute_bf16_s=ana["compute_bf16_s"],
+               compute_f32_s=ana["compute_f32_s"], sfu_s=ana["sfu_s"],
+               memory_s=ana["memory_s"], bound=ana["bound"],
+               profiled_wall_ms=wall,
+               **peak_line("r3", art, t1["peak_gib"] * 2**30,
+                           "t1's max_memory_allocated"))
+    if prof is not None:
+        t = time.perf_counter()
+        parts = step_split(prof.profiler.kineto_results.events(), ATTN_TAG)
+        total = parts.pop("total")
+        out.update(device_ms=total, parts_ms=parts,
+                   attention_share=parts["attention"] / max(total, 1e-9),
+                   parse_s=time.perf_counter() - t)
+    log(f"[r3] {TRAIN_ARCH} train_4k at t1's shape ({TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, {TRAIN_MICRO} microbatches): t1's median step "
+        f"{t1['step_ms_median']:.1f} ms; dry run compute "
+        f"{ana['compute_s'] * 1e3:.1f} ms (bf16 "
+        f"{ana['compute_bf16_s'] * 1e3:.1f}, f32 "
+        f"{ana['compute_f32_s'] * 1e3:.1f}, SFU {ana['sfu_s'] * 1e3:.1f}), "
+        f"memory {ana['memory_s'] * 1e3:.1f} ms, bound {ana['bound']}; one "
+        f"step under torch.profiler ({wall} ms wall): device ms "
+        f"{out.get('device_ms', 'not measured')}, parts "
+        f"{out.get('parts_ms', 'not measured')}, attention share "
+        f"{out.get('attention_share', 'not measured')} (measured inside the "
+        f"step; extrapolated from one layer alone: "
+        f"{t1.get('attn_share_of_step_extrapolated', 'not measured')}); "
+        f"{card}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 # ----------------------------------------------------------------- main
@@ -5370,9 +5828,10 @@ def train_windows(win, fn, what):
     return out
 
 
-def train_full(win, card):
+def train_full(win, card, r3_art=None):
     """t1: internlm2-1.8b at its full published config through
-    ``Trainer.run``, one counted window a step."""
+    ``Trainer.run``, one counted window a step; then, with ``r3_art``,
+    phase r3 on the same trainer (``roofline_train``)."""
     from repro_torch.data.tokens import SyntheticTokens
     from repro_torch.models.model import build_model
     from repro_torch.train.optimizer import AdamWConfig
@@ -5433,10 +5892,12 @@ def train_full(win, card):
         f"{flops / BF16_PEAK:.3f} of the bf16 dense peak (989 TFLOP/s at "
         f"700 W; card: {card}); peak {out['peak_gib']} GiB; "
         f"stragglers {out['stragglers']}")
+    out.update(attention_share(cfg, med))
+    if r3_art is not None:
+        out["r3"] = roofline_train(win, trainer, out, r3_art, card)
     del trainer, model
     gc.collect()
     torch.cuda.empty_cache()
-    out.update(attention_share(cfg, med))
     return out
 
 
@@ -5739,8 +6200,9 @@ def train_collectives(tmp_dir):
     return out
 
 
-def training_phase(win, card, root):
-    """Phase t: LM training on the card (t1-t5), inside its budget."""
+def training_phase(win, card, root, r3_art=None):
+    """Phase t: LM training on the card (t1-t5), inside its budget (phase
+    r3, run on t1's trainer, is phase r's and not counted in it)."""
     t_phase = time.perf_counter()
     walls = {}
 
@@ -5752,14 +6214,16 @@ def training_phase(win, card, root):
 
     work = root / "build" / "smoke_train"
     work.mkdir(parents=True, exist_ok=True)
-    out = {"t1": leg("t1", lambda: train_full(win, card))}
+    out = {"t1": leg("t1", lambda: train_full(win, card, r3_art))}
     gc.collect()
     torch.cuda.empty_cache()
     out["t2"] = leg("t2", lambda: train_families(win))
     out["t3"] = leg("t3", lambda: train_restart(win, work / "ckpt"))
     out["t4"] = leg("t4", lambda: train_example(win, work / "example"))
     out["t5"] = leg("t5", lambda: train_collectives(work))
-    wall = time.perf_counter() - t_phase
+    r3_s = out["t1"].get("r3", {}).get("seconds", 0.0)
+    walls["t1"] -= r3_s
+    wall = time.perf_counter() - t_phase - r3_s
     out["walls"] = walls
     log(f"[t] phase wall {wall:.1f} s (budget {TRAIN_BUDGET_S} s; legs "
         f"{ {k: round(v, 1) for k, v in walls.items()} }); {card}")
@@ -5824,15 +6288,17 @@ class Kernels:
         self.streamed_lookup_plain = streamed_lookup_plain
         self.index_probe, self.index_probe_plain = (index_probe,
                                                     index_probe_plain)
-        from repro_torch.kernels.flash_decode import (device_plan,
+        from repro_torch.kernels.flash_decode import (decode_work,
+                                                      device_plan,
                                                       flash_decode,
                                                       flash_decode_plain)
         from repro_torch.kernels.mamba_scan import (mamba_scan,
                                                     mamba_scan_plain,
-                                                    scan_plan)
+                                                    scan_plan, scan_work)
 
         self.mamba_scan, self.mamba_scan_plain = mamba_scan, mamba_scan_plain
-        self.scan_plan = scan_plan
+        self.scan_plan, self.scan_work = scan_plan, scan_work
+        self.decode_work = decode_work
         self.flash_decode = flash_decode
         self.flash_decode_plain = flash_decode_plain
         self.device_plan = device_plan
@@ -5857,26 +6323,35 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"device: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.device_count()} visible")
-    phase_build(build)
-    m, k = Mods(), Kernels()
-    win = Windows(m.ops)
-    dev = torch.device("cuda")
-    flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    # phase r's dry runs share the host's CPU with the build alone
     walls = {}
 
     def wall(tag, t0):
         walls[tag] = time.perf_counter() - t0
         log(f"phase {tag}: {walls[tag]:.1f} s wall")
 
-    # ---- the contract checker and its fixture kernels
+    def build_and_check():
+        phase_build(build)
+        t0 = time.perf_counter()
+        out = analysis_checks()
+        wall("contract checker", t0)
+        return out
+
+    # ---- the build and the contract checker, phase r's dry runs beside
+    checked, r_arts, r_out = with_dryruns(root, build_and_check)
+    m, k = Mods(), Kernels()
+    win = Windows(m.ops)
+    dev = torch.device("cuda")
+    flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     t0 = time.perf_counter()
-    fixture_rows = analysis_phase(flush_buf)
-    wall("contract checker", t0)
+    fixture_rows = fixture_timings(checked, flush_buf)
+    del checked
+    wall("fixture kernel timings", t0)
 
     # ---- longlat, flow on
     t0 = time.perf_counter()
     ll = bulkload_and_read("longlat", LONGLAT_KEYS, None, 0, m, win,
-                           epochs=LONGLAT_FLOW_EPOCHS)
+                           train=FLOW_TRAIN)
     if not ll["use_flow"]:
         fail("longlat phase did not serve with the flow on")
     wall("longlat reads", t0)
@@ -5945,7 +6420,8 @@ def main() -> int:
 
     # ---- lognormal, flow off
     t0 = time.perf_counter()
-    ln = bulkload_and_read("lognormal", LOGNORMAL_KEYS, False, 1, m, win)
+    ln = bulkload_and_read("lognormal", LOGNORMAL_KEYS, False, 1, m, win,
+                           train=FLOW_TRAIN)
     look[False] = time_lookup(ln, k, split_key_bits, flush_buf)
     streamed[False] = time_streamed(ln, k, split_key_bits, flush_buf,
                                     look[False])
@@ -6018,13 +6494,16 @@ def main() -> int:
     lm["replay"] = lm_replay(lm)
     lm["decode_profile"] = decode_profile(lm)
     caps, lm["branches"] = lm_branches(lm, 0)
+    r_out["r2"] = roofline_prefill(win, lm, r_arts["r2"], r_arts["r2_b1"],
+                                   card)
     del lm["model"], lm["params"]
     gc.collect()
     torch.cuda.empty_cache()
     wall("lm serving (6)", t0)
     # ---- the other LM families, phase 6's tensors freed
     t0 = time.perf_counter()
-    dense = dense_phase(win, 0, card)
+    dense = dense_phase(win, 0, card, r_arts["r1"])
+    r_out["r1"] = dense.pop("r1")
     gc.collect()
     torch.cuda.empty_cache()
     wall("dense serving (6d)", t0)
@@ -6056,8 +6535,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    trained = training_phase(win, card, root)
+    trained = training_phase(win, card, root, r_arts["r3"])
+    r_out["r3"] = trained["t1"].pop("r3")
     wall("lm training (t)", t0)
+    r_wall = r_out["wait_s"] + sum(r_out[key]["seconds"]
+                                   for key in ("r1", "r2", "r3"))
+    log(f"[r] phase r wall {r_wall:.1f} s (budget {R_BUDGET_S} s; r1 "
+        f"{r_out['r1']['seconds']:.1f}, r2 {r_out['r2']['seconds']:.1f}, "
+        f"r3 {r_out['r3']['seconds']:.1f}, waiting for the dry runs "
+        f"{r_out['wait_s']:.1f}); {card}")
+    log("[r] summary " + json.dumps(r_out, default=str))
+    if r_wall > R_BUDGET_S:
+        fail(f"phase r took {r_wall:.1f} s, past its {R_BUDGET_S} s budget")
     log("[train] summary " + json.dumps(trained, default=str))
     log("[paper] summary " + json.dumps(paper, default=str))
     log("[lm] summary " + json.dumps({key: lm[key] for key in

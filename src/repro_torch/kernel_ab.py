@@ -7,7 +7,7 @@ source trees, and of sharded read batches on one card.
 
 Each ``ROOT`` is the root of a checkout of the port (``src/repro_torch``).
 One process prepares the inputs the way ``chip_smoke.py`` makes them,
-serving through the first tree's package:
+at the sizes below, serving through the first tree's package:
 ``longlat`` at 2^25 keys, half bulk-loaded with the default configs
 (flow on), the 64 zipf read batches of 65,536 on the fresh index, 16
 chunks of 4,096 loaded keys in key order (the size of ``rebuild()``'s
@@ -87,6 +87,10 @@ KERNELS = tuple(CASES)
 WORK = ROOT / "build" / "kernel_ab"
 N_VERIFY_CHUNKS = 16
 VERIFY_CHUNK = 4096
+# the load and write trace these timings have always used, larger than
+# the smoke's own since the smoke was cut to fit its time limit
+LONGLAT_KEYS = 1 << 25
+N_WRITE_BATCHES = 64
 
 # per tree label, per variant: (file under kernels/csrc, text, replacement)
 VARIANTS = {
@@ -301,7 +305,7 @@ def prepare(out: Path, tree: str, kernels=KERNELS,
     m = cs.Mods()
     win = Win(m.ops)
     dev = torch.device("cuda")
-    ll = cs.bulkload_and_read("longlat", cs.LONGLAT_KEYS, None, 0, m, win)
+    ll = cs.bulkload_and_read("longlat", LONGLAT_KEYS, None, 0, m, win)
     nfl = ll["nfl"]
     if not nfl.use_flow:
         raise SystemExit("longlat did not serve with the flow on")
@@ -348,7 +352,7 @@ def prepare(out: Path, tree: str, kernels=KERNELS,
         # batch (NFL._pkeys)
         save["nf_full"] = torch.from_numpy(nfl._feats(ll["wl"].load_keys))
         wl = m.make_workload(ll["keys"], m.WorkloadConfig(
-            mix="write_heavy", n_ops=cs.N_WRITE_BATCHES * cs.BATCH,
+            mix="write_heavy", n_ops=N_WRITE_BATCHES * cs.BATCH,
             batch_size=cs.BATCH, zipf_s=0.99, seed=ll["seed"]))
         save["nf_batch"] = [torch.from_numpy(nfl._feats(k[op != 0]))
                             for op, k, _p in wl.batches]
@@ -358,7 +362,7 @@ def prepare(out: Path, tree: str, kernels=KERNELS,
     if read_rounds:
         save["stats"]["reads"] = read_calls(ll, read_rounds)
     if points or "fused_range_scan" in need:
-        ins_k, _ = cs.write_stream(ll, m, win, cs.N_WRITE_BATCHES, False)
+        ins_k, _ = cs.write_stream(ll, m, win, N_WRITE_BATCHES, False)
         ins_u = np.unique(ins_k)
         cs.readback(ll, ins_u, win, "inserted keys read back")
         save["tiered"] = lookups([ins_u[i:i + cs.BATCH]

@@ -16,6 +16,12 @@ Semantics are the Pallas wrapper's: q [B, H, D] pre-scaled, k/v
 row with ``kv_len == 0`` gives 0 (``flash_decode_ref``, a full softmax,
 gives NaN there).  ``kv_len > S`` is not defined by the JAX wrapper; here
 both versions read positions below ``min(kv_len, S)``.
+
+On meta tensors (the dry run) ``flash_decode`` checks its inputs as on
+the card, returns an empty output and hands ``decode_work`` to the work
+counter, every row read to S (``kv_len`` has no values there); it
+launches nothing and counts no launch.  ``decode_work`` is also the
+bound that ``chip_smoke.py`` holds the kernel to.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 from repro_torch.kernels import build, counters
 
 __all__ = ["flash_decode", "flash_decode_plain", "decode_plan", "device_plan",
-           "DecodePlan", "TILE", "NEG_INF", "MAX_HEAD_DIM"]
+           "decode_work", "DecodePlan", "TILE", "NEG_INF", "MAX_HEAD_DIM"]
 
 TILE = 16            # csrc/flash_decode.cu TILE: positions per warp tile
 GROUP_MAX = 8        # csrc/flash_decode.cu GMAX: q heads per block
@@ -113,6 +119,19 @@ def _card(device: torch.device, dtype: torch.dtype, d: int, group: int):
 _RESIDENT: dict = {}
 
 
+def decode_work(b: int, h: int, kh: int, s: int, d: int, itemsize: int,
+                rows: Optional[int] = None) -> dict:
+    """The least work of one decode attention: ``rows`` K/V positions
+    read (the sum over the batch of ``min(kv_len, S)``; default every row
+    full, B x S), each K and V row once in the cache's ``itemsize``, q
+    and o in f32 (``bytes``); per position and q head a dot product with
+    k and one with v (``flops_f32``, 4 D) and one exponential
+    (``exps``)."""
+    rows = b * s if rows is None else rows
+    return {"bytes": rows * kh * d * itemsize * 2 + 2 * b * h * d * 4,
+            "flops_f32": 4 * h * d * rows, "exps": h * rows}
+
+
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        kv_len: torch.Tensor,
                        plan: Optional[DecodePlan] = None) -> torch.Tensor:
@@ -179,10 +198,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H a multiple of KH.  ``plan`` defaults to ``decode_plan`` for the
     card and the kernel's occupancy; the kernel takes tiles of ``TILE``
     only.  CUDA tensors launch ``csrc/flash_decode.cu`` (and count the
-    call); CPU tensors run ``flash_decode_plain``."""
+    call); CPU tensors run ``flash_decode_plain``; meta tensors count
+    ``decode_work``."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, kv_len, plan)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     for t in (q, k, v, kv_len):
         if t.device != q.device or not t.is_contiguous():
@@ -204,6 +224,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 0 < d <= MAX_HEAD_DIM or b > 65535:
         raise ValueError(f"flash_decode takes 0 < D <= {MAX_HEAD_DIM} and "
                          "B <= 65535")
+    if q.device.type == "meta":
+        counters.count_work("flash_decode", decode_work(
+            b, h, kh, s, d, k.element_size()))
+        return torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     if plan is None:
         plan = device_plan(q, k)
     if plan.tile != TILE or plan.split_len % TILE \

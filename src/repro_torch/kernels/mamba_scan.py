@@ -15,6 +15,11 @@ from ``h_0 = 0``; returns y and drops the final state, as the JAX
 wrapper does.  The JAX function's ``chunk`` and ``dblock`` size TPU
 blocks (VMEM tiling); the plan's ``chunk`` sizes the shared-memory stages
 instead, and the card needs no padding of L and takes any di.
+
+On meta tensors (the dry run) ``mamba_scan`` checks its inputs as on the
+card, returns an empty y and hands ``scan_work`` to the work counter;
+it launches nothing and counts no launch.  ``scan_work`` is also the
+bound that ``chip_smoke.py`` holds the kernel to.
 """
 
 from __future__ import annotations
@@ -26,8 +31,8 @@ import torch
 
 from repro_torch.kernels import build, counters
 
-__all__ = ["mamba_scan", "mamba_scan_plain", "scan_plan", "ScanPlan",
-           "MAX_STATE"]
+__all__ = ["mamba_scan", "mamba_scan_plain", "scan_plan", "scan_work",
+           "ScanPlan", "MAX_STATE"]
 
 MAX_STATE = 128      # LANES x the widest NPL the kernel is built for
 CHANNEL_TILE = 32    # csrc/mamba_scan.cu CT: channels per block
@@ -79,6 +84,16 @@ def scan_plan(b: int, l: int, di: int, n: int) -> ScanPlan:
     return ScanPlan(g, npl, chunk, ct, -(-di // ct) * b, smem(chunk))
 
 
+def scan_work(b: int, l: int, di: int, n: int) -> dict:
+    """The least work of one scan of [B, L, di] x N: ``bytes`` moved
+    once each (dt, xi and y f32 [B, L, di]; b_in and c_out f32 [B, L, N];
+    a_log f32 [di, N]), ``exps`` (one ``exp(dt * A)`` a state element a
+    step) and ``flops_f32`` (``dt * A``, the state's FMA and y's FMA: 6 a
+    state element a step)."""
+    return {"bytes": 4 * (3 * b * l * di + 2 * b * l * n + di * n),
+            "exps": b * l * di * n, "flops_f32": 6 * b * l * di * n}
+
+
 def mamba_scan_plain(dt: torch.Tensor, xi: torch.Tensor, b_in: torch.Tensor,
                      c_out: torch.Tensor, a_log: torch.Tensor
                      ) -> torch.Tensor:
@@ -109,10 +124,10 @@ def mamba_scan(dt: torch.Tensor, xi: torch.Tensor, b_in: torch.Tensor,
     b_in, c_out: f32[B, L, N]; a_log: f32[di, N]; all contiguous on one
     device, N <= 128.  CUDA tensors launch ``csrc/mamba_scan.cu`` as
     ``scan_plan`` cuts it (and count the launch); CPU tensors run
-    ``mamba_scan_plain``."""
+    ``mamba_scan_plain``; meta tensors count ``scan_work``."""
     if dt.device.type == "cpu":
         return mamba_scan_plain(dt, xi, b_in, c_out, a_log)
-    if dt.device.type != "cuda":
+    if dt.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {dt.device}")
     for t in (dt, xi, b_in, c_out, a_log):
         if t.device != dt.device or not t.is_contiguous():
@@ -132,6 +147,9 @@ def mamba_scan(dt: torch.Tensor, xi: torch.Tensor, b_in: torch.Tensor,
     if not 0 < n <= MAX_STATE or b > 65535:
         raise ValueError(f"mamba_scan takes 0 < N <= {MAX_STATE} and "
                          "B <= 65535")
+    if dt.device.type == "meta":
+        counters.count_work("mamba_scan", scan_work(b, l, di, n))
+        return torch.empty((b, l, di), dtype=torch.float32, device=dt.device)
     plan = scan_plan(b, l, di, n)
     y = torch.empty((b, l, di), dtype=torch.float32, device=dt.device)
     if y.numel() == 0:

@@ -1,0 +1,295 @@
+"""One-card dry run: what each (architecture x shape) cell needs of an
+80 GB H100, counted on the meta device without a card.
+
+Port of ``repro.launch.dryrun``, on a design of its own.  The JAX dry run
+lowers and compiles each cell's step against 512 placeholder TPU devices
+and reads XLA's memory and cost analyses.  Here the step itself (the
+train step of ``make_train_step``, ``model.prefill``, or ``decode_step``
+over a full cache) runs on ``torch.device("meta")`` under
+``utils.roofline.WorkCounter``: every op's FLOPs, bytes and exponentials,
+each kernel wrapper's work function, and the peak of live storage bytes,
+with nothing allocated.  Counts are taken at the cell's two probe depths
+and fitted in depth (``probe_cell``, ``roofline.run_probe``).
+
+There is no mesh: the one-card question is what batch a card holds.
+With ``batch=None`` the dry run takes the largest power of two, up to
+the global batch, whose predicted peak fits ``HBM_BYTES``: an affine
+model in batch over two probe batches proposes it, and counts confirm
+it (halved while a count says it does not fit, doubled while the model
+and a count say the next one fits).  A cell
+that does not fit even at batch 1 records ``fits: false`` and its bytes.
+``cards`` is the global batch over the per-card batch.
+
+Training runs the JAX dry run's microbatches (``TRAIN_MICROBATCHES``,
+at most the per-card batch) and arctic-480b's Adafactor with bf16
+accumulation; the metrics are not read back (``.tolist()`` has no values
+on meta).  Mamba1 prefills go through the selective-scan kernel, as
+``launch.serve`` sets them to.
+
+Artifacts land in ``build/dryrun/<arch>__<shape>.json``; the report is
+``python -m repro_torch.utils.report``.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
+        [--batch B] [--layers N] [--microbatches M] [--out-dir DIR]
+        [--continue-on-error]
+
+``--layers`` cuts the depth (as ``chip_smoke.py`` cuts falcon-mamba-7b
+to 32 layers), ``--microbatches`` overrides ``TRAIN_MICROBATCHES``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+import traceback
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+
+from repro_torch.configs import ARCHS, SHAPES, applicable_shapes, get_config
+from repro_torch.models.model import (build_model, decode_state_shapes,
+                                      input_specs)
+from repro_torch.train.optimizer import AdafactorConfig
+from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                          make_train_step)
+from repro_torch.utils.roofline import (HBM_BYTES, WorkCounter,
+                                        corrected_totals, probe_config,
+                                        run_probe)
+
+__all__ = ["dryrun_cell", "count_step", "probe_cell", "train_config",
+           "cell_config",
+           "TRAIN_MICROBATCHES", "ARTIFACT_DIR"]
+
+ARTIFACT_DIR = os.path.normpath(os.path.join(
+    os.path.dirname(__file__), "..", "..", "..", "build", "dryrun"))
+
+# gradient-accumulation microbatches per arch for train_4k, the JAX dry
+# run's (loss-equivalent; one microbatch after another)
+TRAIN_MICROBATCHES = {
+    "arctic-480b": 16,
+    "gemma2-9b": 2,
+    "qwen3-14b": 2,
+    "llama-3.2-vision-11b": 4,
+    "zamba2-2.7b": 4,
+}
+
+
+def train_config(arch: str, batch: int,
+                 microbatches: Optional[int] = None) -> TrainConfig:
+    """The JAX dry run's train config at ``batch`` rows a card:
+    ``microbatches`` (default ``TRAIN_MICROBATCHES``) cut to the batch;
+    arctic-480b's Adafactor with bf16 accumulation, AdamW otherwise."""
+    mb = min(microbatches or TRAIN_MICROBATCHES.get(arch, 1), batch)
+    if arch == "arctic-480b":
+        return TrainConfig(optimizer=AdafactorConfig(), microbatches=mb,
+                           accum_dtype="bfloat16")
+    return TrainConfig(microbatches=mb)
+
+
+def cell_config(cfg, kind: str):
+    """The config a step of ``kind`` runs: Mamba1 prefills through the
+    scan kernel (``launch.serve``'s setting)."""
+    if kind == "prefill" and cfg.ssm is not None and cfg.ssm.version == 1:
+        return dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, use_scan_kernel=True))
+    return cfg
+
+
+def _inputs(cfg, shape, batch: int, device: torch.device):
+    """``input_specs`` at ``batch`` rows; off meta, zeros of those shapes
+    (token 0 is in every vocabulary)."""
+    ins = input_specs(cfg, dataclasses.replace(shape, global_batch=batch))
+    if device.type == "meta":
+        return ins
+    return {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+            for k, v in ins.items()}
+
+
+def count_step(arch: str, cfg, shape, batch: int,
+               microbatches: Optional[int] = None,
+               device: str = "meta") -> Dict[str, float]:
+    """One pass of the step of ``shape.kind`` at ``batch`` rows under a
+    ``WorkCounter``, on meta (the dry run) or, at small sizes, on a real
+    device: the parameters (and the optimizer state, or the decode
+    state) and the inputs are made first and held as the step's
+    arguments; then the step's work and peak (``WorkCounter.result``)."""
+    cfg = cell_config(cfg, shape.kind)
+    model = build_model(cfg, device=device)
+    gen = torch.Generator(device="cpu" if model.device.type == "meta"
+                          else model.device).manual_seed(0)
+    with WorkCounter() as wc:
+        if shape.kind == "train":
+            tcfg = train_config(arch, batch, microbatches)
+            state = init_train_state(model, gen, tcfg)
+            ins = _inputs(cfg, shape, batch, model.device)
+            wc.begin_step()
+            make_train_step(model, tcfg)(state, ins)
+        else:
+            params = model.init(gen)
+            ins = _inputs(cfg, shape, batch, model.device)
+            extra = {k: v for k, v in ins.items() if k != "tokens"} or None
+            if shape.kind == "prefill":
+                wc.begin_step()
+                with torch.no_grad():
+                    model.prefill(params, ins["tokens"], shape.seq_len + 1,
+                                  extra=extra)
+            else:   # decode: the cache live at seq_len - 1, one token more
+                state = (decode_state_shapes(cfg, batch, shape.seq_len)
+                         if model.device.type == "meta" else
+                         model.init_decode_state(batch, shape.seq_len))
+                wc.begin_step()
+                with torch.no_grad():
+                    logits, _ = model.decode_step(params, state,
+                                                  ins["tokens"], extra=extra)
+                    torch.argmax(logits, -1)
+        return wc.result()
+
+
+def probe_cell(arch: str, shape_name: str, cfg, batch: int,
+               microbatches: Optional[int] = None) -> Dict:
+    """``run_probe`` of the cell's step (``count_step``) at ``batch``
+    rows a card: its counts at ``cfg``'s probe depths, fitted in depth."""
+    shape = SHAPES[shape_name]
+    return run_probe(cfg, lambda c: count_step(arch, c, shape, batch,
+                                               microbatches),
+                     train=shape.kind == "train")
+
+
+def _choose_batch(arch, shape_name, cfg, microbatches):
+    """(batch, its probe, the search's record): the largest power of two
+    up to the global batch whose counted peak fits.  Counts decide; an
+    affine model in batch, through the two largest batches counted,
+    spares counts.  Fitted first over the microbatch count and twice it
+    (so each microbatch grows), it proposes the batch to count; that
+    count confirms it or halves it; then, while the model predicts the
+    next doubling to fit, a count again confirms it (a peak can grow
+    slower than affine: MoE dispatch is cut into token chunks)."""
+    shape = SHAPES[shape_name]
+    g = shape.global_batch
+    mb = (microbatches or TRAIN_MICROBATCHES.get(arch, 1)
+          if shape.kind == "train" else 1)
+    probes, peaks = {}, {}
+
+    def fits(b):
+        if b not in probes:
+            probes[b] = probe_cell(arch, shape_name, cfg, b, microbatches)
+            peaks[b] = corrected_totals({"n_layers": cfg.n_layers},
+                                        probes[b])["peak_bytes"]
+        return peaks[b] <= HBM_BYTES
+
+    def predicted_fit(b):
+        lo, hi = sorted(peaks)[-2:]
+        return (peaks[hi] + (peaks[hi] - peaks[lo]) / (hi - lo) * (b - hi)
+                <= HBM_BYTES)
+
+    b1, b2 = min(mb, g), min(2 * mb, g)
+    pick = b1
+    if fits(b1) and b2 > b1 and fits(b2):
+        pick = b2
+        while pick * 2 <= g and predicted_fit(pick * 2):
+            pick *= 2
+    while pick > 1 and not fits(pick):
+        pick //= 2
+    while (pick * 2 <= g and fits(pick) and predicted_fit(pick * 2)
+           and fits(pick * 2)):
+        pick *= 2
+    affine = ({"batches": [b1, b2], "peaks": [peaks[b1], peaks[b2]]}
+              if b2 > b1 and b2 in peaks else None)
+    record = {"affine": affine,
+              "probed": {str(b): p for b, p in sorted(peaks.items())}}
+    return pick, probes[pick], record
+
+
+def dryrun_cell(arch: str, shape_name: str, batch: Optional[int] = None,
+                cfg=None, save: bool = True,
+                microbatches: Optional[int] = None,
+                out_dir: Optional[str] = None) -> Dict[str, Any]:
+    """One cell: the per-card batch (``batch``, or the largest that
+    fits), the depth probes at it and their totals at ``cfg.n_layers``;
+    saved to ``out_dir`` (default ``ARTIFACT_DIR``) unless ``save`` is
+    False."""
+    cfg = cfg or get_config(arch)
+    shape = SHAPES[shape_name]
+    t0 = time.time()
+    if batch is None:
+        batch, prb, search = _choose_batch(arch, shape_name, cfg,
+                                           microbatches)
+    else:
+        prb = probe_cell(arch, shape_name, cfg, batch, microbatches)
+        search = None
+    art = {"arch": arch, "shape": shape_name, "kind": shape.kind,
+           "n_layers": cfg.n_layers, "batch": batch,
+           "global_batch": shape.global_batch,
+           "cards": shape.global_batch / batch, "probe": prb,
+           "batch_search": search, "params": cfg.param_count(),
+           "active_params": cfg.active_param_count()}
+    if shape.kind == "train":
+        art["microbatches"] = train_config(arch, batch,
+                                           microbatches).microbatches
+    tot = corrected_totals(art, prb)
+    art["counts"] = {k: v for k, v in tot.items() if k != "corrected"}
+    art["fits"] = tot["peak_bytes"] <= HBM_BYTES
+    art["seconds"] = time.time() - t0
+    flops = sum(v for k, v in tot.items() if k.startswith("flops_"))
+    print(f"[dryrun] {arch} {shape_name}: batch {batch} a card "
+          f"({art['cards']:g} cards), {flops / 1e9:.1f} GFLOP, "
+          f"{tot['bytes'] / 1e9:.1f} GB accessed, peak "
+          f"{tot['peak_bytes'] / 1e9:.2f} GB (fits 80 GB: {art['fits']}); "
+          f"{art['seconds']:.1f} s")
+    if save:
+        out_dir = out_dir or ARTIFACT_DIR
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, f"{arch}__{shape_name}.json"),
+                  "w") as f:
+            json.dump(art, f, indent=1)
+    return art
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None,
+                    help="architecture id (default: all)")
+    ap.add_argument("--shape", default=None,
+                    help="shape name (default: all applicable)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="rows a card (default: the largest that fits)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth cut (default: the config's depth)")
+    ap.add_argument("--microbatches", type=int, default=None,
+                    help="training microbatches (default: "
+                    "TRAIN_MICROBATCHES)")
+    ap.add_argument("--out-dir", default=None)
+    ap.add_argument("--continue-on-error", action="store_true")
+    args = ap.parse_args(argv)
+
+    archs = [args.arch] if args.arch else list(ARCHS)
+    failures = []
+    for arch in archs:
+        shapes = ([args.shape] if args.shape
+                  else list(applicable_shapes(get_config(arch))))
+        for shape in shapes:
+            cfg = get_config(arch)
+            if args.layers:
+                cfg = probe_config(cfg, args.layers)
+            try:
+                dryrun_cell(arch, shape, batch=args.batch, cfg=cfg,
+                            microbatches=args.microbatches,
+                            out_dir=args.out_dir)
+            except Exception as e:  # noqa: BLE001
+                failures.append((arch, shape, repr(e)))
+                traceback.print_exc()
+                if not args.continue_on_error:
+                    raise
+    if failures:
+        print(f"\n{len(failures)} FAILURES:")
+        for f in failures:
+            print("  ", f)
+        raise SystemExit(1)
+    print("\nAll dry-run cells counted.")
+
+
+if __name__ == "__main__":
+    main()

@@ -56,9 +56,9 @@ def _init_dec_layer(init: Initializer, cfg: ModelConfig):
             "mlp": init_mlp(init, cfg.d_model, cfg.d_ff, cfg.act)}
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig
-                ) -> Dict[str, Any]:
-    init = Initializer(generator, dtype_of(cfg.param_dtype))
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                device: Optional[torch.device] = None) -> Dict[str, Any]:
+    init = Initializer(generator, dtype_of(cfg.param_dtype), device)
     return {
         "embed": init.normal((cfg.vocab, cfg.d_model), 1.0),
         "enc_pos": init.normal((cfg.enc_seq, cfg.d_model), 0.02),

@@ -44,12 +44,15 @@ class Initializer:
     more than 2^28 elements slice by slice along its first axis).  The
     two libraries give different numbers from the same seed; the tests
     carry the JAX parameters across instead
-    (``weights.model_params_from_numpy``).
+    (``weights.model_params_from_numpy``).  ``device`` defaults to the
+    generator's; ``"meta"`` takes a CPU generator (a meta tensor has no
+    values, and meta has no generator of its own).
     """
 
-    def __init__(self, generator: torch.Generator, dtype: torch.dtype):
+    def __init__(self, generator: torch.Generator, dtype: torch.dtype,
+                 device: Optional[torch.device] = None):
         self.generator = generator
-        self.device = generator.device
+        self.device = generator.device if device is None else device
         self.dtype = dtype
 
     def _draw(self, shape, stddev: float) -> torch.Tensor:

@@ -135,12 +135,12 @@ _LAYER_INIT = {"dense": _init_dense_layer, "vlm": _init_dense_layer,
                "hybrid": _init_ssm_layer}
 
 
-def init_params(generator: torch.Generator, cfg: ModelConfig
-                ) -> Dict[str, Any]:
-    """Random parameters on the generator's device, with the JAX tree's
-    shapes and dtypes."""
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                device: Optional[torch.device] = None) -> Dict[str, Any]:
+    """Random parameters on ``device`` (default: the generator's), with
+    the JAX tree's shapes and dtypes."""
     _check_family(cfg)
-    init = Initializer(generator, dtype_of(cfg.param_dtype))
+    init = Initializer(generator, dtype_of(cfg.param_dtype), device)
     params: Dict[str, Any] = {
         "embed": init.normal((cfg.vocab, cfg.d_model), 1.0),
         "final_norm": init.zeros((cfg.d_model,)),

@@ -1,25 +1,39 @@
-"""Phase 6d of a checkout's ``chip_smoke.py``, alone, in a fresh process.
+"""One phase of a checkout's ``chip_smoke.py``, alone, in a fresh process.
 
-    python3 src/repro_torch/smoke_phase.py ROOT
+    python3 src/repro_torch/smoke_phase.py ROOT [6d|r]
 
 ``ROOT`` is the root of a checkout of the port (its ``chip_smoke.py``
-and ``src``).  Builds that checkout's kernels, then serves qwen3-14b at
-its full config as phase 6d does (``chip_smoke.dense_phase``: prefill
-tokens/s, TTFT, decode step ms, every check of the phase).  In a fresh
-process a one-time cost (an import, a first call) falls on the first
-requests, as it does on a newly launched server, where the full smoke
-has paid it in an earlier phase.  To compare checkouts, run it once per
-checkout in turns (A, B, B, A) on one card.  Needs a CUDA device.
+and ``src``).  Builds that checkout's kernels, then runs one phase with
+every check it has in the full smoke:
+
+* ``6d`` (the default) serves qwen3-14b at its full config as phase 6d
+  does (``chip_smoke.dense_phase``: prefill tokens/s, TTFT, decode step
+  ms).  In a fresh process a one-time cost (an import, a first call)
+  falls on the first requests, as it does on a newly launched server,
+  where the full smoke has paid it in an earlier phase.  To compare
+  checkouts, run it once per checkout in turns (A, B, B, A) on one card.
+* ``r`` runs phase r: its dry runs beside the build, then r2 on phase
+  6's model, r1 inside phase 6d and r3 after phase t's t1
+  (``chip_smoke.roofline_*``), and prints phase r's summary.
+
+Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import gc
+import json
 import os
 import sys
+import time
+from pathlib import Path
 
 
 def main(argv) -> None:
     root = os.path.abspath(argv[1])
+    phase = argv[2] if len(argv) > 2 else "6d"
+    if phase not in ("6d", "r"):
+        raise SystemExit(f"unknown phase {phase!r}: 6d or r")
     os.chdir(root)
     sys.path[:0] = [root, os.path.join(root, "src")]
     import torch
@@ -29,9 +43,25 @@ def main(argv) -> None:
 
     card = cs.card_line()
     cs.log("tree", root, card)
-    cs.phase_build(build)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cs.dense_phase(cs.Windows(ops), 0, card)
+    if phase == "6d":
+        cs.phase_build(build)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cs.dense_phase(cs.Windows(ops), 0, card)
+        return
+    t0 = time.perf_counter()
+    _, arts, out = cs.with_dryruns(Path(root), lambda: cs.phase_build(build))
+    win = cs.Windows(ops)
+    lm = cs.lm_serve(win, 0)
+    out["r2"] = cs.roofline_prefill(win, lm, arts["r2"], arts["r2_b1"], card)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["r1"] = cs.dense_phase(win, 0, card, arts["r1"])["r1"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["r3"] = cs.train_full(win, card, arts["r3"])["r3"]
+    cs.log("[r] summary " + json.dumps(out, default=str))
+    cs.log(f"total {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -1274,6 +1274,31 @@ def test_flash_decode_kernel_matches_plain(cuda, dtype, b, h, kh, d, s):
     torch.testing.assert_close(ok, op, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("kernel", ["flash_decode", "mamba_scan"])
+def test_cuda_tensors_launch_under_a_work_counter(cuda, kernel):
+    """A card tensor never takes the meta branch: under the dry run's
+    work counter each wrapper still launches its kernel (one launch
+    counted) and hands the counter no kernel work."""
+    from repro_torch.utils.roofline import WorkCounter
+
+    if kernel == "flash_decode":
+        g = torch.Generator().manual_seed(3)
+        q = torch.randn(2, 8, 64, generator=g).to(cuda)
+        k = torch.randn(2, 100, 2, 64, generator=g).to(torch.bfloat16)
+        args = (q, k.to(cuda), k.to(cuda),
+                torch.tensor([100, 7], dtype=torch.int32, device=cuda))
+        fn, plain, tol = flash_decode, flash_decode_plain, 2e-5
+    else:
+        args = _scan_args(2, 33, 40, 16, 5, cuda)
+        fn, plain, tol = mamba_scan, mamba_scan_plain, SCAN_TOL
+    before = fn.launches
+    with WorkCounter() as wc:
+        got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and not wc.kernels
+    torch.testing.assert_close(got, plain(*args), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("b,h,kh,d,s,lens,plan", [

@@ -1,0 +1,90 @@
+"""``chip_smoke.py``'s phase r fit verdict, on the CPU with fake dry-run
+artifacts and a fake model: a verdict that the card contradicts fails
+the smoke (predicted to fit and out of memory, or predicted not to fit
+and run), and a cell out of memory as predicted records that and
+measures nothing."""
+
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+
+
+def _art(fits, arch, shape, batch):
+    return {"arch": arch, "shape": shape, "kind": shape.split("_")[0],
+            "batch": batch, "cards": 16.0, "n_layers": 1, "probe": None,
+            "fits": fits, "counts": {"peak_bytes": 72e9 if fits else 90e9,
+                                     "bytes": 1e9, "flops_bf16": 1e9}}
+
+
+def _oom(*_args, **_kwargs):
+    raise torch.cuda.OutOfMemoryError("fake: out of memory")
+
+
+class _Model:
+    device = torch.device("cpu")
+    init_decode_state = staticmethod(_oom)
+    prefill = staticmethod(_oom)
+
+
+class _Windows:
+    def run(self, fn):
+        return fn(), {}
+
+
+@pytest.mark.parametrize("fits,oom,held", [
+    (True, False, True), (False, True, True),
+    (True, True, False), (False, False, False)],
+    ids=["fits-ran", "no-fit-oom", "fits-oom", "no-fit-ran"])
+def test_fit_verdict(fits, oom, held):
+    art = _art(fits, "qwen3-14b", "decode_32k", 8)
+
+    def run():
+        if oom:
+            _oom()
+        return "measured"
+
+    if not held:
+        with pytest.raises(SystemExit, match="FAIL: r1: predicted"):
+            cs.fit_verdict("r1", art, run)
+    else:
+        assert cs.fit_verdict("r1", art, run) == (None if oom else "measured")
+
+
+CELLS = [("r1", "qwen3-14b", "decode_32k"),
+         ("r2", "falcon-mamba-7b", "prefill_32k")]
+
+
+@pytest.mark.parametrize("fits", [False, True], ids=["no-fit", "fits"])
+@pytest.mark.parametrize("tag,arch,shape", CELLS, ids=[c[0] for c in CELLS])
+def test_cell_out_of_memory(tag, arch, shape, fits):
+    """r1 and r2 on a model that runs out of memory: a record of it where
+    the dry run predicted that, a failed smoke where it predicted a fit."""
+    art = _art(fits, arch, shape, 1)
+    lm = {"model": _Model(), "params": None, "cfg": get_config(arch)}
+
+    def cell():
+        if tag == "r1":
+            return cs.roofline_decode(_Windows(), lm, art, "card")
+        return cs.roofline_prefill(_Windows(), lm, art, art, "card")
+
+    if fits:
+        with pytest.raises(SystemExit, match="ran out of memory"):
+            cell()
+        return
+    out = cell()
+    assert out["out_of_memory"] and out["batch"] == 1
+    assert out["peak_predicted_gb"] == 90.0 and out["seconds"] >= 0
+
+
+def test_r3_fails_where_t1_ran_against_the_prediction():
+    """t1 has run by r3: a dry run that said its shape does not fit is
+    contradicted before anything is traced."""
+    art = _art(False, "internlm2-1.8b", "train_4k", 8)
+    with pytest.raises(SystemExit, match="predicted not to fit"):
+        cs.roofline_train(None, None, {}, art, "card")
