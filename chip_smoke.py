@@ -483,6 +483,18 @@ FD_TOL = 2e-5
 # 200M keys (the trees are host-side Python, probed key by key; at 2^20
 # loaded keys phase 8 took 105.6 s of its 90 s budget on an H100 80GB
 # HBM3 at 700 W, LIPP's bulk load 23.3 s of it)
+MESH_BUDGET_S = 45.0           # phase m: m1 + m2 + m3
+M1_STEPS = 4                   # m1: decode steps on the (1, 1) mesh
+MESH_ULPS = 4                  # m1 on more cards: 6d's bf16-ulp rule
+M2_DATA = 16                   # m2: the meshes (M2_DATA, k), rank 0 alone
+M2_MODELS = (2, 4, 8)
+M2_STEPS = 3                   # m2: decode steps over the full cache
+# m2: measured / dry-run per-card peak, stated before the first chip call
+M2_PEAK_BOUND = (0.95, 1.10)
+M3_LAYERS = 2                  # m3: internlm2-1.8b at full width
+M3_STEPS = 4
+M3_SEQ = 1024
+M3_BATCH = 8
 TRAIN_ARCH = "internlm2-1.8b"  # phase t: trained at its full config
 TRAIN_SEQ = 4096
 TRAIN_BATCH = 8                # as TRAIN_MICRO microbatches
@@ -4458,13 +4470,14 @@ def route_check(model, params, state, tag):
     return err
 
 
-def dense_phase(win, seed, card, r1_art=None):
+def dense_phase(win, seed, card, r1_art=None, mesh=False):
     """Phase 6d: qwen3-14b at its full published config, random bf16
     weights on the card from the seed, served as phase 6 serves
     falcon-mamba-7b; 40 ``flash_decode`` launches a decode step, none in
     a prefill; the batcher against a batch-1 replay; layer 0's kernel
     route against the plain route on the served cache; one long-context
-    decode step profiled.  Then, on the same parameters, phase r1 at
+    decode step profiled.  Then, on the same parameters and served
+    cache, phase m (``mesh``: ``mesh_phase``), and phase r1 at
     ``r1_art``'s batch (``roofline_decode``)."""
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
@@ -4520,9 +4533,310 @@ def dense_phase(win, seed, card, r1_art=None):
         out["decode_profile"] = decode_profile(lm, "[dense]", batcher.state)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[dense] phase 6d {out['seconds']:.1f} s ({card})")
+    if mesh:
+        out["m"] = mesh_phase(win, lm, batcher.state, card)
     if r1_art is not None:
         del batcher
         out["r1"] = roofline_decode(win, lm, r1_art, card)
+    return out
+
+
+# ------------------------------------------------------------- phase m
+def mesh_decode_verdict(world, ref, got, ref_tok, got_tok, what):
+    """m1's verdict on one decode step: on one card (a world of 1, the
+    mesh (1, 1)) the mesh route's logits and tokens are bit-equal to the
+    unsharded route's; on more cards each mesh token scores within
+    ``MESH_ULPS`` bf16 ulps of the unsharded route's maximum logit of
+    its row, and every logit within that of the unsharded one."""
+    if world == 1:
+        if not (bit_equal(ref, got) and torch.equal(ref_tok, got_tok)):
+            fail(f"{what}: the (1, 1) mesh's logits or tokens are not "
+                 "bit-equal to the unsharded decode route's")
+        return 0.0
+    worst = 0.0
+    for r in range(ref.shape[0]):
+        mx = float(ref[r].max())
+        bound = MESH_ULPS * bf16_ulp(mx)
+        gap = mx - float(ref[r, int(got_tok[r])])
+        dev = float((ref[r] - got[r]).abs().max())
+        if gap > bound or dev > bound:
+            fail(f"{what}: row {r}: token gap {gap}, max |d| {dev} past "
+                 f"{MESH_ULPS} bf16 ulps ({bound})")
+        worst = max(worst, dev / bound)
+    return worst
+
+
+def mesh_peak_verdict(tag, measured, predicted):
+    """m2's memory verdict: the measured per-card peak over the mesh dry
+    run's within ``M2_PEAK_BOUND``."""
+    ratio = measured / predicted
+    lo, hi = M2_PEAK_BOUND
+    log(f"[{tag}] peak: mesh dry run {predicted / 1e9:.3f} GB, measured "
+        f"{measured / 1e9:.3f} GB; measured/predicted {ratio:.4f} (bound "
+        f"{lo}-{hi})")
+    if not lo <= ratio <= hi:
+        fail(f"{tag}: measured/predicted peak {ratio:.4f} outside "
+             f"{M2_PEAK_BOUND}")
+    return ratio
+
+
+def per_step_launches(per, expect, what):
+    """Every step launched ``flash_decode`` ``expect`` times."""
+    if set(per) != {expect}:
+        fail(f"{what}: flash_decode launched {per} times in "
+             f"{len(per)} steps (expected {expect} a step)")
+
+
+def _clone_state(state):
+    return {k: v.clone() for k, v in state.items()}
+
+
+def mesh_m1(win, lm, served, card):
+    """m1: the launched mesh over this process's world (one process: a
+    world of 1 and the mesh (1, 1), whatever ``device_count``): 6d's
+    parameters placed by ``param_sharding`` (no copy: every leaf is its
+    own block) decode 8 slots over copies of 6d's served cache, beside
+    the unsharded route on another copy, ``M1_STEPS`` steps."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import place
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import state_sharding
+
+    model, params, cfg = lm["model"], lm["params"], lm["cfg"]
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    mesh = make_mesh_shape((1, 1), ("data", "model"), model.device.type)
+    world = dist.get_world_size()
+    mm = build_model(cfg, device=model.device, mesh=mesh)
+    pm = mm.place(params)
+    same = all(a is b for a, b in zip(leaves(pm), leaves(params)))
+    b, s = served["k_cache"].shape[1], served["k_cache"].shape[2]
+    ref = _clone_state(served)
+    got = place(_clone_state(served), state_sharding(cfg, mesh, b, s))
+    g = torch.Generator(device=model.device).manual_seed(800)
+    tok = torch.randint(0, cfg.vocab, (b, 1), generator=g,
+                        device=model.device)
+    rtok, per, worst = tok, [], 0.0
+    # counters move for CUDA launches only (a CPU rehearsal counts none)
+    expect = kernel_attn_per_step(cfg) if model.device.type == "cuda" else 0
+    for i in range(M1_STEPS):
+        rl, ref = model.decode_step(params, ref, rtok)
+        (ml, got), counts = win.run(lambda: mm.decode_step(pm, got, tok))
+        per.append(counts["flash_decode"])
+        rtok, tok = rl.argmax(-1, keepdim=True), ml.argmax(-1, keepdim=True)
+        worst = max(worst, mesh_decode_verdict(
+            world, rl, ml, rtok, tok, f"m1 step {i}"))
+    per_step_launches(per, expect, "m1")
+    if not bit_equal(ref["k_cache"], got["k_cache"]) and world == 1:
+        fail("m1: the mesh route wrote another K cache")
+    del ref, got
+    dist.destroy_process_group()
+    out = dict(cards=cards, world=world, mesh=[1, 1], steps=M1_STEPS,
+               flash_decode_per_step=per, bit_equal=world == 1,
+               params_placed_without_copy=same, worst_ulp_share=worst,
+               seconds=time.perf_counter() - t0)
+    log(f"[m1] {cards} card(s) visible; world {world}, mesh (1, 1) "
+        f"(data, model); {cfg.name} placed by param_sharding "
+        f"(no copy: {same}), {M1_STEPS} decode steps of {b} slots over 6d's "
+        f"served cache ({s} positions): logits and tokens bit-equal to "
+        f"the unsharded route: {world == 1}; flash_decode {per} a step; "
+        f"{out['seconds']:.1f} s; {card}")
+    return out
+
+
+def _rank_params(cfg, plan, dev, seed):
+    """Random bf16 parameters in the shapes of the rank's blocks, drawn
+    on the card (the norm weights zero, as ``init`` makes them)."""
+    from repro_torch.models.model import build_model
+
+    whole = build_model(cfg, device="meta").init(torch.Generator())
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def walk(t, sh, key=""):
+        if isinstance(t, dict):
+            return {k: walk(v, sh[k], k) for k, v in t.items()}
+        shape = sh.local_shape(t.shape)
+        if key.startswith("ln") or key.endswith("norm"):
+            return torch.zeros(shape, dtype=t.dtype, device=dev)
+        return (torch.randn(shape, generator=g, device=dev) * 0.02).to(
+            t.dtype)
+
+    return walk(whole, plan.shardings)
+
+
+def mesh_m2(win, card):
+    """m2: one rank of a (``M2_DATA``, k) mesh, k in ``M2_MODELS``, under
+    a fake process group of its size (every collective returns at once,
+    moving nothing: communication is counted, not timed): qwen3-14b's
+    ``decode_32k`` at the mesh dry run's per-card batch, only rank 0's
+    blocks and cache on the card; the peak against the dry run's, a
+    step's ms between CUDA events and its device ms under
+    ``torch.profiler``, ``flash_decode`` at (40/k, 8/k) heads against its
+    plain version and timed, and the counted collective bytes a step
+    against the dry run's."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.kernels import flash_decode as fdk
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import dryrun_cell
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.models.model import build_model
+
+    cfg = lm_config(DENSE_ARCH)
+    dev = lm_device()
+    cuda = dev.type == "cuda"
+    shape = SHAPES["decode_32k"]
+    rows = []
+    for k in M2_MODELS:
+        t0 = time.perf_counter()
+        mesh = make_mesh_shape((M2_DATA, k), ("data", "model"), dev.type,
+                               fake=True)
+        art = dryrun_cell(DENSE_ARCH, "decode_32k", cfg=cfg, mesh=mesh,
+                          save=False)
+        t_dry = time.perf_counter() - t0
+        mm = build_model(cfg, device=dev, mesh=mesh)
+        plan = mm.plan
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        params = _rank_params(cfg, plan, dev, 900 + k)
+        state = mm.init_decode_state(shape.global_batch, shape.seq_len)
+        state["cache_len"].fill_(shape.seq_len - 1)
+        b = state["k_cache"].shape[1]
+        tokens = torch.zeros((b, 1), dtype=torch.long, device=dev)
+        per, ms, coll, peak = [], [], [], None
+        for _ in range(M2_STEPS):
+            tp.collective_counts(reset=True)
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            (_lg, state), counts = win.run(
+                lambda: mm.decode_step(params, state, tokens))
+            if cuda:
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+            per.append(counts["flash_decode"])
+            coll.append(tp.collective_counts()["total"])
+        dev_ms = fd_ms = None   # not measured off the card
+        if cuda:
+            peak = torch.cuda.max_memory_allocated() - base
+            prof, _wall = profile_call(
+                lambda: mm.decode_step(params, state, tokens))
+            if prof is not None:
+                raw = prof.profiler.kineto_results.events()
+                dev_ms, fd_ms = device_ms(raw), device_ms(raw, FD_KERNELS)
+        per_step_launches(per, kernel_attn_per_step(cfg) if cuda else 0,
+                          f"m2 k={k}")
+        # flash_decode at the rank's heads, against its plain version
+        kc, vc = state["k_cache"][0], state["v_cache"][0]
+        kc.normal_(generator=torch.Generator(device=dev).manual_seed(k))
+        vc.normal_(generator=torch.Generator(device=dev).manual_seed(k + 1))
+        kvh = kc.shape[2]
+        q = torch.randn((b, kvh * cfg.attn.n_heads // cfg.attn.kv_heads,
+                         cfg.attn.head_dim), device=dev)
+        kl = state["cache_len"]
+        ker = ops.flash_decode(q, kc, vc, kl)
+        pln = fdk.flash_decode_plain(q, kc, vc, kl)
+        err = float((ker - pln).abs().max())
+        if not torch.allclose(ker, pln, rtol=FD_TOL, atol=FD_TOL):
+            fail(f"m2 k={k}: flash_decode at {q.shape[1]}/{kvh} heads "
+                 f"disagrees with its plain version (max |d| {err})")
+        dry = art["collective_bytes"]["total"]
+        if abs(coll[-1] - dry) > 1e-6 * dry:
+            fail(f"m2 k={k}: the step counted {coll[-1]} collective bytes, "
+                 f"its dry run {dry}")
+        pred = art["counts"]["peak_bytes"]
+        kern_ms = ratio = None   # not measured off the card
+        if cuda:
+            kern_ms = time_ms(lambda: ops.flash_decode(q, kc, vc, kl), 5)
+            ratio = mesh_peak_verdict(f"m2 k={k}", peak, pred)
+        ops.reset_launch_counts()   # the comparison's launches: not main path
+        row = dict(k=k, mesh=[M2_DATA, k], world=M2_DATA * k, batch=b,
+                   heads=[q.shape[1], kvh], head_split=art["head_split"],
+                   peak_measured_gb=peak and peak / 1e9,
+                   peak_predicted_gb=pred / 1e9,
+                   peak_ratio=ratio, step_ms=ms, device_ms=dev_ms,
+                   flash_decode_device_ms=fd_ms,
+                   flash_decode_per_step=per, flash_decode_ms=kern_ms,
+                   flash_decode_max_abs_err=err,
+                   collective_bytes_per_step=coll[-1],
+                   collective_bytes_dry_run=dry,
+                   dry_run_s=t_dry)
+        del params, state, kc, vc, q, ker, pln
+        dist.destroy_process_group()
+        row["seconds"] = time.perf_counter() - t0
+        log(f"[m2] rank 0 of ({M2_DATA}, {k}) (world {M2_DATA * k}, fake "
+            f"process group: collectives stubbed, counted not timed): "
+            f"batch {b} a card over 32,768 positions, heads "
+            f"{row['heads']}; step ms (CUDA events; the host issues it) "
+            f"{[round(x, 3) for x in ms]}, device ms of one step under "
+            f"torch.profiler {dev_ms} (flash_decode {fd_ms}); "
+            f"flash_decode {per} a step, "
+            f"{kern_ms} ms at {row['heads']} heads (max |d| vs plain "
+            f"{err}); collective bytes a step {coll[-1]:.4g} (dry run "
+            f"{row['collective_bytes_dry_run']:.4g}); {row['seconds']:.1f} s; "
+            f"{card}")
+        rows.append(row)
+    return rows
+
+
+def mesh_m3(card):
+    """m3: ``launch.train --mesh 1x1:data,model --elastic-demo`` on
+    internlm2-1.8b at full width and ``M3_LAYERS`` layers, and the same
+    launch without a mesh: the losses agree within ``RESTART_TOL`` (the
+    card's backward is not bit-deterministic: two unsharded runs differ
+    too)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch_train
+
+    t0 = time.perf_counter()
+    args = ["--arch", TRAIN_ARCH, "--layers", str(M3_LAYERS), "--steps",
+            str(M3_STEPS), "--seq", str(M3_SEQ), "--batch", str(M3_BATCH),
+            "--device", lm_device().type]
+    plain = launch_train.main(args)
+    meshed = launch_train.main(args + ["--mesh", "1x1:data,model",
+                                       "--elastic-demo"])
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    a = [m["loss"] for m in plain.metrics_log]
+    b = [m["loss"] for m in meshed.metrics_log]
+    rel = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+    log(f"[m3] {TRAIN_ARCH} at full width, {M3_LAYERS} layers, "
+        f"{M3_BATCH} x {M3_SEQ}: launch.train losses {a}; --mesh "
+        f"1x1:data,model --elastic-demo {b}; max rel diff {rel} (bound "
+        f"{RESTART_TOL}); {time.perf_counter() - t0:.1f} s; {card}")
+    if len(a) != M3_STEPS or len(b) != M3_STEPS or rel > RESTART_TOL:
+        fail(f"m3: the mesh launcher's losses {b} are not the unsharded "
+             f"trainer's {a}")
+    del plain, meshed
+    return dict(losses=a, mesh_losses=b, max_rel=rel,
+                seconds=time.perf_counter() - t0)
+
+
+def mesh_phase(win, lm, served, card):
+    """Phase m: m1, m2 and m3 within ``MESH_BUDGET_S``."""
+    t0 = time.perf_counter()
+    out = {"m1": mesh_m1(win, lm, served, card)}
+    out["m2"] = mesh_m2(win, card)
+    out["m3"] = mesh_m3(card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[m] phase m {out['seconds']:.1f} s (budget {MESH_BUDGET_S} s; m1 "
+        f"{out['m1']['seconds']:.1f}, m2 "
+        f"{sum(r['seconds'] for r in out['m2']):.1f}, m3 "
+        f"{out['m3']['seconds']:.1f}); {card}")
+    log("[m] summary " + json.dumps(out, default=str))
+    if out["seconds"] > MESH_BUDGET_S:
+        fail(f"phase m took {out['seconds']:.1f} s, past its "
+             f"{MESH_BUDGET_S} s budget")
     return out
 
 
@@ -6502,8 +6816,9 @@ def main() -> int:
     wall("lm serving (6)", t0)
     # ---- the other LM families, phase 6's tensors freed
     t0 = time.perf_counter()
-    dense = dense_phase(win, 0, card, r_arts["r1"])
+    dense = dense_phase(win, 0, card, r_arts["r1"], mesh=True)
     r_out["r1"] = dense.pop("r1")
+    dense.pop("m")   # phase m printed its summary
     gc.collect()
     torch.cuda.empty_cache()
     wall("dense serving (6d)", t0)

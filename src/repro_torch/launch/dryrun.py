@@ -11,7 +11,23 @@ each kernel wrapper's work function, and the peak of live storage bytes,
 with nothing allocated.  Counts are taken at the cell's two probe depths
 and fitted in depth (``probe_cell``, ``roofline.run_probe``).
 
-There is no mesh: the one-card question is what batch a card holds.
+**On a mesh** (``--mesh 16x16:data,model``, the JAX production mesh;
+``--multi-pod`` its (2, 16, 16) ``pod,data,model``; any ``dxm`` shape),
+as the JAX dry run: the dense family only (the others are refused by
+name), each rank at the global batch of ``SHAPES`` over the mesh's
+data-parallel ranks, training at the JAX microbatch rule (at most the
+rank's rows).  ``count_step`` counts rank 0's step on the meta device
+under a fake process group of the mesh's size (``launch.mesh``): its
+local shards (``param_sharding``, ``decode_state_specs``), the weights
+it gathers and the collectives it calls, each counted in wire bytes by
+kind and by axis (``tensor_parallel.collective_counts``, recorded as
+the JAX ``collective_bytes``), nothing moved.  The artifact records the
+mesh, per-card FLOPs by unit, bytes, argument and peak bytes, and
+whether the attention heads split over ``model`` (``head_split``; where
+they do not, every rank holds and computes every kv head: its cache
+and the gathered weights are in its bytes).
+
+Without a mesh, the one-card question is what batch a card holds.
 With ``batch=None`` the dry run takes the largest power of two, up to
 the global batch, whose predicted peak fits ``HBM_BYTES``: an affine
 model in batch over two probe batches proposes it, and counts confirm
@@ -26,12 +42,13 @@ accumulation; the metrics are not read back (``.tolist()`` has no values
 on meta).  Mamba1 prefills go through the selective-scan kernel, as
 ``launch.serve`` sets them to.
 
-Artifacts land in ``build/dryrun/<arch>__<shape>.json``; the report is
-``python -m repro_torch.utils.report``.
+Artifacts land in ``build/dryrun/<arch>__<shape>.json`` (on a mesh
+``<arch>__<shape>__<d>x<m>.json``); the report is ``python -m
+repro_torch.utils.report``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
         [--batch B] [--layers N] [--microbatches M] [--out-dir DIR]
-        [--continue-on-error]
+        [--mesh DxM:data,model | --multi-pod] [--continue-on-error]
 
 ``--layers`` cuts the depth (as ``chip_smoke.py`` cuts falcon-mamba-7b
 to 32 layers), ``--microbatches`` overrides ``TRAIN_MICROBATCHES``.
@@ -50,17 +67,20 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 from repro_torch.configs import ARCHS, SHAPES, applicable_shapes, get_config
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist.sharding import place
 from repro_torch.models.model import (build_model, decode_state_shapes,
                                       input_specs)
+from repro_torch.models.transformer import MESH_FAMILIES, mesh_plan
 from repro_torch.train.optimizer import AdafactorConfig
 from repro_torch.train.train_step import (TrainConfig, init_train_state,
-                                          make_train_step)
+                                          make_train_step, state_sharding)
 from repro_torch.utils.roofline import (HBM_BYTES, WorkCounter,
                                         corrected_totals, probe_config,
                                         run_probe)
 
 __all__ = ["dryrun_cell", "count_step", "probe_cell", "train_config",
-           "cell_config",
+           "cell_config", "mesh_tag", "parse_mesh", "data_ways",
            "TRAIN_MICROBATCHES", "ARTIFACT_DIR"]
 
 ARTIFACT_DIR = os.path.normpath(os.path.join(
@@ -108,53 +128,81 @@ def _inputs(cfg, shape, batch: int, device: torch.device):
             for k, v in ins.items()}
 
 
+def mesh_tag(mesh) -> str:
+    return "x".join(str(int(n)) for n in mesh.shape)
+
+
+def data_ways(mesh) -> int:
+    """The mesh's data-parallel ranks (its batch axes' product)."""
+    n = 1
+    for a in tp.BATCH_AXES:
+        n *= tp.axis_size(mesh, a)
+    return n
+
+
 def count_step(arch: str, cfg, shape, batch: int,
                microbatches: Optional[int] = None,
-               device: str = "meta") -> Dict[str, float]:
+               device: str = "meta", mesh=None) -> Dict[str, float]:
     """One pass of the step of ``shape.kind`` at ``batch`` rows under a
     ``WorkCounter``, on meta (the dry run) or, at small sizes, on a real
     device: the parameters (and the optimizer state, or the decode
     state) and the inputs are made first and held as the step's
-    arguments; then the step's work and peak (``WorkCounter.result``)."""
+    arguments; then the step's work and peak (``WorkCounter.result``).
+    On ``mesh``, ``batch`` is the rank's rows and everything made is the
+    rank's shard (the whole tensors are made and dropped before the
+    step); the row adds ``coll.<key>`` for each collective count."""
     cfg = cell_config(cfg, shape.kind)
-    model = build_model(cfg, device=device)
+    model = build_model(cfg, device=device, mesh=mesh)
     gen = torch.Generator(device="cpu" if model.device.type == "meta"
                           else model.device).manual_seed(0)
     with WorkCounter() as wc:
         if shape.kind == "train":
             tcfg = train_config(arch, batch, microbatches)
             state = init_train_state(model, gen, tcfg)
+            if mesh is not None:
+                state = place(state, state_sharding(model, state))
             ins = _inputs(cfg, shape, batch, model.device)
             wc.begin_step()
+            tp.collective_counts(reset=True)
             make_train_step(model, tcfg)(state, ins)
         else:
-            params = model.init(gen)
+            params = model.place(model.init(gen))
             ins = _inputs(cfg, shape, batch, model.device)
             extra = {k: v for k, v in ins.items() if k != "tokens"} or None
             if shape.kind == "prefill":
                 wc.begin_step()
+                tp.collective_counts(reset=True)
                 with torch.no_grad():
                     model.prefill(params, ins["tokens"], shape.seq_len + 1,
                                   extra=extra)
             else:   # decode: the cache live at seq_len - 1, one token more
-                state = (decode_state_shapes(cfg, batch, shape.seq_len)
-                         if model.device.type == "meta" else
-                         model.init_decode_state(batch, shape.seq_len))
+                if mesh is not None:
+                    state = model.init_decode_state(
+                        batch * data_ways(mesh), shape.seq_len)
+                elif model.device.type == "meta":
+                    state = decode_state_shapes(cfg, batch, shape.seq_len)
+                else:
+                    state = model.init_decode_state(batch, shape.seq_len)
                 wc.begin_step()
+                tp.collective_counts(reset=True)
                 with torch.no_grad():
                     logits, _ = model.decode_step(params, state,
                                                   ins["tokens"], extra=extra)
                     torch.argmax(logits, -1)
-        return wc.result()
+        row = wc.result()
+    coll = tp.collective_counts(reset=True)
+    if mesh is not None:
+        row.update({f"coll.{k}": float(v) for k, v in coll.items()})
+    return row
 
 
 def probe_cell(arch: str, shape_name: str, cfg, batch: int,
-               microbatches: Optional[int] = None) -> Dict:
+               microbatches: Optional[int] = None, mesh=None) -> Dict:
     """``run_probe`` of the cell's step (``count_step``) at ``batch``
     rows a card: its counts at ``cfg``'s probe depths, fitted in depth."""
     shape = SHAPES[shape_name]
     return run_probe(cfg, lambda c: count_step(arch, c, shape, batch,
-                                               microbatches),
+                                               microbatches, mesh=mesh),
                      train=shape.kind == "train")
 
 
@@ -203,49 +251,94 @@ def _choose_batch(arch, shape_name, cfg, microbatches):
     return pick, probes[pick], record
 
 
+def _mesh_batch(arch, cfg, shape, mesh, microbatches):
+    """(rows a rank, its microbatch count) at the JAX global batch."""
+    if cfg.family not in MESH_FAMILIES:
+        raise ValueError(f"{arch} ({cfg.family}) is refused on a mesh: "
+                         f"only the {', '.join(MESH_FAMILIES)} family runs "
+                         "on one")
+    dp = data_ways(mesh)
+    if shape.global_batch % dp:
+        raise ValueError(f"{arch}: a global batch of {shape.global_batch} "
+                         f"does not split over {dp} data-parallel ranks")
+    batch = shape.global_batch // dp
+    mb = microbatches or TRAIN_MICROBATCHES.get(arch, 1)
+    return batch, min(mb, max(batch, 1))
+
+
 def dryrun_cell(arch: str, shape_name: str, batch: Optional[int] = None,
                 cfg=None, save: bool = True,
                 microbatches: Optional[int] = None,
-                out_dir: Optional[str] = None) -> Dict[str, Any]:
+                out_dir: Optional[str] = None, mesh=None) -> Dict[str, Any]:
     """One cell: the per-card batch (``batch``, or the largest that
-    fits), the depth probes at it and their totals at ``cfg.n_layers``;
-    saved to ``out_dir`` (default ``ARTIFACT_DIR``) unless ``save`` is
+    fits; on ``mesh`` the global batch over its data-parallel ranks),
+    the depth probes at it and their totals at ``cfg.n_layers``; saved
+    to ``out_dir`` (default ``ARTIFACT_DIR``) unless ``save`` is
     False."""
     cfg = cfg or get_config(arch)
     shape = SHAPES[shape_name]
     t0 = time.time()
-    if batch is None:
+    search = None
+    if mesh is not None:
+        batch, microbatches = _mesh_batch(arch, cfg, shape, mesh,
+                                          microbatches)
+        prb = probe_cell(arch, shape_name, cfg, batch, microbatches, mesh)
+    elif batch is None:
         batch, prb, search = _choose_batch(arch, shape_name, cfg,
                                            microbatches)
     else:
         prb = probe_cell(arch, shape_name, cfg, batch, microbatches)
-        search = None
+    cards = (mesh.size() if mesh is not None
+             else shape.global_batch / batch)
     art = {"arch": arch, "shape": shape_name, "kind": shape.kind,
            "n_layers": cfg.n_layers, "batch": batch,
            "global_batch": shape.global_batch,
-           "cards": shape.global_batch / batch, "probe": prb,
+           "cards": cards, "probe": prb,
            "batch_search": search, "params": cfg.param_count(),
            "active_params": cfg.active_param_count()}
+    if mesh is not None:
+        art["mesh"] = dict(zip(mesh.mesh_dim_names,
+                               (int(n) for n in mesh.shape)))
+        art["n_devices"] = int(mesh.size())
+        art["head_split"] = mesh_plan(cfg, mesh).heads
     if shape.kind == "train":
         art["microbatches"] = train_config(arch, batch,
                                            microbatches).microbatches
     tot = corrected_totals(art, prb)
-    art["counts"] = {k: v for k, v in tot.items() if k != "corrected"}
+    art["counts"] = {k: v for k, v in tot.items()
+                     if k != "corrected" and not k.startswith("coll.")}
+    if mesh is not None:
+        art["collective_bytes"] = {k[5:]: v for k, v in tot.items()
+                                   if k.startswith("coll.")}
     art["fits"] = tot["peak_bytes"] <= HBM_BYTES
     art["seconds"] = time.time() - t0
     flops = sum(v for k, v in tot.items() if k.startswith("flops_"))
-    print(f"[dryrun] {arch} {shape_name}: batch {batch} a card "
+    coll = art.get("collective_bytes", {}).get("total", 0.0)
+    where = (f" mesh {mesh_tag(mesh)} (heads "
+             f"{'split' if art['head_split'] else 'replicated'} over model)"
+             if mesh is not None else "")
+    print(f"[dryrun] {arch} {shape_name}{where}: batch {batch} a card "
           f"({art['cards']:g} cards), {flops / 1e9:.1f} GFLOP, "
-          f"{tot['bytes'] / 1e9:.1f} GB accessed, peak "
-          f"{tot['peak_bytes'] / 1e9:.2f} GB (fits 80 GB: {art['fits']}); "
-          f"{art['seconds']:.1f} s")
+          f"{tot['bytes'] / 1e9:.1f} GB accessed, args "
+          f"{tot['argument_bytes'] / 1e9:.2f} GB, peak "
+          f"{tot['peak_bytes'] / 1e9:.2f} GB (fits 80 GB: {art['fits']}), "
+          f"collectives {coll / 1e9:.2f} GB; {art['seconds']:.1f} s")
     if save:
         out_dir = out_dir or ARTIFACT_DIR
         os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, f"{arch}__{shape_name}.json"),
-                  "w") as f:
+        name = f"{arch}__{shape_name}"
+        if mesh is not None:
+            name += f"__{mesh_tag(mesh)}"
+        with open(os.path.join(out_dir, name + ".json"), "w") as f:
             json.dump(art, f, indent=1)
     return art
+
+
+def parse_mesh(spec: str):
+    """``"16x16:data,model"`` -> ((16, 16), ("data", "model"))."""
+    shape_s, axes_s = spec.split(":")
+    return (tuple(int(x) for x in shape_s.split("x")),
+            tuple(axes_s.split(",")))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -262,12 +355,29 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="training microbatches (default: "
                     "TRAIN_MICROBATCHES)")
     ap.add_argument("--out-dir", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. '16x16:data,model': one rank of that mesh, "
+                    "under a fake process group (dense family only)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the (2, 16, 16) pod,data,model mesh")
     ap.add_argument("--continue-on-error", action="store_true")
     args = ap.parse_args(argv)
 
+    mesh = None
+    if args.mesh or args.multi_pod:
+        from repro_torch.launch.mesh import make_mesh_shape
+
+        shape, axes = (parse_mesh(args.mesh) if args.mesh else
+                       ((2, 16, 16), ("pod", "data", "model")))
+        mesh = make_mesh_shape(shape, axes, "meta", fake=True)
     archs = [args.arch] if args.arch else list(ARCHS)
     failures = []
     for arch in archs:
+        fam = get_config(arch).family
+        if mesh is not None and not args.arch and fam not in MESH_FAMILIES:
+            print(f"[dryrun] {arch} ({fam}): refused on a mesh: only the "
+                  f"{', '.join(MESH_FAMILIES)} family runs on one")
+            continue
         shapes = ([args.shape] if args.shape
                   else list(applicable_shapes(get_config(arch))))
         for shape in shapes:
@@ -277,7 +387,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             try:
                 dryrun_cell(arch, shape, batch=args.batch, cfg=cfg,
                             microbatches=args.microbatches,
-                            out_dir=args.out_dir)
+                            out_dir=args.out_dir, mesh=mesh)
             except Exception as e:  # noqa: BLE001
                 failures.append((arch, shape, repr(e)))
                 traceback.print_exc()

@@ -23,24 +23,41 @@ two routes fixed by the config alone (``decode_route``):
 
 ``project_new_kv`` gives the new token's K/V; ``write_new_kv`` writes it
 into a cache in place (a position at or past the cache's length is
-dropped, as JAX's scatter drops it).  The JAX sharding hints
-(``constrain``) and ``attention_specs`` have no counterpart on one card.
+dropped, as JAX's scatter drops it).
+
+On a mesh (``transformer``'s dense family), ``attention_specs`` places
+the weights as JAX does: ``wq`` ``("fsdp", "heads")``, ``wk``/``wv``
+``("fsdp", "kv_heads")``, ``wo`` ``("heads", "fsdp")``, so ``heads``
+splits the flat ``n_heads * head_dim`` axis.  ``local_attention`` gives
+the weights a rank computes with: the ``fsdp`` blocks gathered, and the
+heads split over ``model`` only where ``kv_heads`` divides by it (then
+every rank's columns are whole heads, its q heads exactly those of its
+kv heads); elsewhere (qwen3-14b's 8 kv heads at ``model`` 16, where a
+rank stores half a kv head) the ``model`` blocks are gathered too and
+every rank computes every head.  ``tp_self_attention`` and
+``tp_decode_attention`` run the meshless functions on those weights, a
+rank's heads in and ``wo``'s row-parallel partial sums summed over
+``model`` out; the decode attention's ``ops.flash_decode`` gets the
+rank's local q and kv heads.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import AttnConfig
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Initializer, rms_norm, rope, softcap
 
-__all__ = ["init_attention", "self_attention", "cross_attention",
-           "decode_attention", "decode_route", "flash_attention",
-           "project_new_kv", "write_new_kv", "update_kv_cache",
-           "BIG_WINDOW", "NEG_INF"]
+__all__ = ["init_attention", "attention_specs", "heads_split",
+           "local_attention", "tp_self_attention", "tp_decode_attention",
+           "self_attention", "cross_attention", "decode_attention",
+           "decode_route", "flash_attention", "project_new_kv",
+           "write_new_kv", "update_kv_cache", "BIG_WINDOW", "NEG_INF"]
 
 NEG_INF = -1e30
 BIG_WINDOW = 1 << 30   # a global layer's window (transformer._windows_for)
@@ -61,6 +78,76 @@ def init_attention(init: Initializer, d_model: int, a: AttnConfig
         p["q_norm"] = init.zeros((dh,))
         p["k_norm"] = init.zeros((dh,))
     return p
+
+
+def attention_specs(a: AttnConfig):
+    """Logical axes of ``init_attention``'s leaves (JAX
+    ``attention_specs``)."""
+    s = {
+        "wq": ("fsdp", "heads"),
+        "wk": ("fsdp", "kv_heads"),
+        "wv": ("fsdp", "kv_heads"),
+        "wo": ("heads", "fsdp"),
+    }
+    if a.qk_norm:
+        s["q_norm"] = (None,)
+        s["k_norm"] = (None,)
+    return s
+
+
+def heads_split(a: AttnConfig, mesh) -> bool:
+    """Whether a rank computes only its own heads: ``model`` > 1 and
+    ``kv_heads`` divides by it."""
+    m = tp.axis_size(mesh, "model")
+    return m > 1 and a.kv_heads % m == 0
+
+
+def local_attention(p, shardings, a: AttnConfig, mesh):
+    """(weights, config, split) a rank computes its attention with, from
+    its local shards ``p`` placed by ``shardings`` (``NamedSharding`` per
+    leaf): the ``fsdp`` blocks gathered (their gradients summed back over
+    the data axes), the ``model`` blocks kept where the heads split
+    (``heads_split``; the config then counts the rank's heads, and the
+    replicated ``q_norm``/``k_norm`` enter through ``copy_to``, so their
+    gradients sum over the ranks' heads) and gathered otherwise (every
+    rank then computes every head and keeps its block of each
+    gradient)."""
+    split = heads_split(a, mesh)
+    keep = ("model",) if split else ()
+    w = {}
+    for k, x in p.items():
+        x = tp.materialize(x, shardings[k].spec, mesh, keep)
+        if split and k in ("q_norm", "k_norm"):
+            x = tp.copy_to(x, mesh, "model")
+        w[k] = x
+    if split:
+        m = tp.axis_size(mesh, "model")
+        a = dataclasses.replace(a, n_heads=a.n_heads // m,
+                                kv_heads=a.kv_heads // m)
+    return w, a, split
+
+
+def tp_self_attention(x, w, a: AttnConfig, split: bool, mesh,
+                      positions, window=None, chunk_q: int = 512,
+                      chunk_k: int = 1024) -> torch.Tensor:
+    """``self_attention`` on ``local_attention``'s weights: x enters the
+    rank's heads through ``copy_to`` and ``wo``'s partial sums leave
+    through ``reduce_from`` over ``model`` (both the identity unless the
+    heads split)."""
+    if not split:
+        return self_attention(x, w, a, positions, window, chunk_q, chunk_k)
+    out = self_attention(tp.copy_to(x, mesh, "model"), w, a, positions,
+                         window, chunk_q, chunk_k)
+    return tp.reduce_from(out, mesh, "model")
+
+
+def tp_decode_attention(x, w, a: AttnConfig, split: bool, mesh, k_cache,
+                        v_cache, cache_len, window=None) -> torch.Tensor:
+    """``decode_attention`` of the rank's heads against its cache shard
+    (``kv_heads`` over ``model`` where the heads split), ``wo``'s partial
+    sums summed over ``model``."""
+    out = decode_attention(x, w, a, k_cache, v_cache, cache_len, window)
+    return tp.reduce_from(out, mesh, "model") if split else out
 
 
 def _project_qkv(x, x_kv, p, a: AttnConfig, positions, kv_positions,

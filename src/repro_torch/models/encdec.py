@@ -18,7 +18,10 @@ under autograd each encoder and decoder layer is one ``layers.remat``
 block of ``cfg.remat``, as the JAX ``_remat`` wraps the scan body.
 Copied from the reference: ``prefill``
 leaves the self-attention K/V caches zero, so decoding attends over zero
-K/V at the prompt's positions.
+K/V at the prompt's positions.  ``param_specs`` and
+``decode_state_specs`` are the JAX tables of logical axes; the mesh runs
+the dense family only, so the JAX module's ``constrain`` hints have no
+counterpart yet.
 """
 
 from __future__ import annotations
@@ -32,10 +35,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (Initializer, chunked_cross_entropy,
                                        dtype_of, init_mlp, remat, rms_norm,
                                        swiglu)
-from repro_torch.models.transformer import _slice, _stack_init
+from repro_torch.models.transformer import (_mlp_specs, _slice,
+                                            _stack_init, _stack_specs)
 
-__all__ = ["init_params", "encode", "train_loss", "init_decode_state",
-           "decode_step", "prefill"]
+__all__ = ["init_params", "param_specs", "encode", "train_loss",
+           "init_decode_state", "decode_state_specs", "decode_step",
+           "prefill"]
 
 _F32 = torch.float32
 
@@ -68,6 +73,27 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
         "dec_layers": _stack_init(_init_dec_layer, init, cfg.n_layers, cfg),
         "final_norm": init.zeros((cfg.d_model,)),
     }
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axes of every parameter leaf (JAX ``param_specs``)."""
+    enc = {"ln1": (None,), "attn": attn.attention_specs(cfg.attn),
+           "ln2": (None,), "mlp": _mlp_specs(cfg, cfg.act)}
+    dec = {"ln1": (None,), "attn": attn.attention_specs(cfg.attn),
+           "ln_cross": (None,), "cross": attn.attention_specs(cfg.attn),
+           "ln2": (None,), "mlp": _mlp_specs(cfg, cfg.act)}
+    return {"embed": ("vocab", "fsdp"), "enc_pos": (None, None),
+            "enc_layers": _stack_specs(enc), "enc_norm": (None,),
+            "dec_layers": _stack_specs(dec), "final_norm": (None,)}
+
+
+def decode_state_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axes of the decode state (JAX ``decode_state_specs``)."""
+    return {"cache_len": ("batch",),
+            "k_cache": (None, "batch", "kv_seq", "kv_heads", None),
+            "v_cache": (None, "batch", "kv_seq", "kv_heads", None),
+            "cross_k": (None, "batch", None, "kv_heads", None),
+            "cross_v": (None, "batch", None, "kv_heads", None)}
 
 
 def _frames(extra, cfg: ModelConfig) -> torch.Tensor:

@@ -9,6 +9,15 @@ unembedding and the log-sum-exp run per sequence chunk, and each chunk's
 [B, c, V] logits are recomputed in the backward pass (the JAX body's
 ``jax.checkpoint``), so no more than one chunk's logits is ever held.
 ``remat`` wraps a block in the JAX ``cfg.remat`` policy for training.
+
+On a mesh (the dense family): ``tp_swiglu`` is the MLP column parallel
+(``w_up``/``w_gate`` over ``mlp``) then row parallel (``w_down``), its
+partial sums summed over ``model``; ``xent_sums`` (the loss's sum and
+count, without the division) takes the unembedding's ``vocab`` block of
+a rank and then runs the log-sum-exp across ``model`` (a max and a sum
+of exponentials over the ranks, the target's logit from the rank that
+holds it), as JAX shards ``vocab`` over ``model``.  ``rms_norm`` and
+``rope`` stay replicated.
 """
 
 from __future__ import annotations
@@ -20,9 +29,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch.dist import tensor_parallel as tp
+
 __all__ = ["dtype_of", "Initializer", "rms_norm", "softcap", "rope",
            "init_dense", "init_mlp", "swiglu", "gelu_mlp",
-           "chunked_cross_entropy", "remat", "checkpointed"]
+           "chunked_cross_entropy", "xent_sums", "tp_swiglu", "remat",
+           "checkpointed"]
 
 _F32 = torch.float32
 # a normal leaf past this many elements is drawn in slices along its first
@@ -143,6 +155,19 @@ def swiglu(x: torch.Tensor, p: Dict[str, torch.Tensor],
 gelu_mlp = swiglu  # same entry point; act selects the nonlinearity
 
 
+def tp_swiglu(x: torch.Tensor, p: Dict[str, torch.Tensor], act: str,
+              split: bool, mesh) -> torch.Tensor:
+    """``swiglu`` on a rank's ``mlp`` columns (``p`` gathered over
+    ``fsdp``, ``mlp`` kept): x enters through ``copy_to`` and the
+    row-parallel partial sums leave through ``reduce_from`` over
+    ``model``.  Unsplit (``split`` False: ``model`` 1, or ``d_ff`` not
+    dividing), ``swiglu`` itself on the whole weights."""
+    if not split:
+        return swiglu(x, p, act)
+    out = swiglu(tp.copy_to(x, mesh, "model"), p, act)
+    return tp.reduce_from(out, mesh, "model")
+
+
 # ================================================================ training
 def _requires_grad(tree) -> bool:
     if isinstance(tree, torch.Tensor):
@@ -208,6 +233,62 @@ def _xent_chunk(xc, unembed, tc, mc, logit_scale: float,
     return nll.sum(), mc.sum()
 
 
+def _xent_chunk_tp(xc, unembed, tc, mc, logit_scale: float,
+                   cap: Optional[float], mesh, lo: int):
+    """``_xent_chunk`` with the logits' ``vocab`` over ``model``: this
+    rank's logits are those of the rows ``[lo, lo + V_local)``."""
+    logits = (xc * logit_scale) @ unembed.T                   # [B, c, Vl]
+    logits = softcap(logits.to(_F32), cap)
+    m = tp.all_reduce(logits.detach().amax(dim=-1), mesh, "model",
+                      torch.distributed.ReduceOp.MAX)
+    se = torch.exp(logits - m[..., None]).sum(dim=-1)
+    lse = m + torch.log(tp.reduce_from(se, mesh, "model"))
+    t = tc - lo
+    own = (t >= 0) & (t < logits.shape[-1])
+    gold = torch.gather(logits, -1, t.clamp(0, logits.shape[-1] - 1)
+                        [..., None])[..., 0]
+    gold = tp.reduce_from(torch.where(own, gold, 0.0), mesh, "model")
+    nll = (lse - gold) * mc
+    return nll.sum(), mc.sum()
+
+
+def xent_sums(x: torch.Tensor, unembed: torch.Tensor,
+              targets: torch.Tensor, chunk: int,
+              logit_softcap: Optional[float] = None,
+              mask: Optional[torch.Tensor] = None, logit_scale: float = 1.0,
+              mesh=None, vocab_split: bool = False):
+    """(sum of the masked nll, sum of the mask), f32 scalars, of
+    ``chunked_cross_entropy``.  With ``vocab_split`` the rows of
+    ``unembed`` are this rank's ``vocab`` block over ``model`` of
+    ``mesh``, x enters through ``copy_to`` and each chunk's log-sum-exp
+    runs across the ranks (``_xent_chunk_tp``)."""
+    b, l, _d = x.shape
+    n_chunks = max(l // chunk, 1)
+    c = l // n_chunks
+    if n_chunks * c != l:
+        raise ValueError(f"chunked_cross_entropy: L={l} is not {n_chunks} "
+                         f"chunks of {c} (as in the JAX package)")
+    targets = targets.long()
+    if mask is None:
+        mask = torch.ones((b, l), dtype=_F32, device=x.device)
+    mask = mask.to(_F32)
+    if vocab_split:
+        x = tp.copy_to(x, mesh, "model")
+        lo = tp.axis_index(mesh, "model") * unembed.shape[0]
+        fn = functools.partial(_xent_chunk_tp, mesh=mesh, lo=lo)
+    else:
+        fn = _xent_chunk
+    total = torch.zeros((), dtype=_F32, device=x.device)
+    count = torch.zeros((), dtype=_F32, device=x.device)
+    for i in range(n_chunks):
+        sl = slice(i * c, (i + 1) * c)
+        nll, n = checkpointed(fn, x[:, sl], unembed, targets[:, sl],
+                              mask[:, sl], logit_scale, logit_softcap)
+        total = total + nll
+        count = count + n
+    return total, count
+
+
 def chunked_cross_entropy(x: torch.Tensor, unembed: torch.Tensor,
                           targets: torch.Tensor, chunk: int,
                           logit_softcap: Optional[float] = None,
@@ -222,22 +303,6 @@ def chunked_cross_entropy(x: torch.Tensor, unembed: torch.Tensor,
     soft-capped, then log-sum-exp minus the target's logit, times
     ``mask`` (all ones when None).  The sums carry across chunks in f32
     in chunk order and the mean divides by ``max(sum(mask), 1)``."""
-    b, l, _d = x.shape
-    n_chunks = max(l // chunk, 1)
-    c = l // n_chunks
-    if n_chunks * c != l:
-        raise ValueError(f"chunked_cross_entropy: L={l} is not {n_chunks} "
-                         f"chunks of {c} (as in the JAX package)")
-    targets = targets.long()
-    if mask is None:
-        mask = torch.ones((b, l), dtype=_F32, device=x.device)
-    mask = mask.to(_F32)
-    total = torch.zeros((), dtype=_F32, device=x.device)
-    count = torch.zeros((), dtype=_F32, device=x.device)
-    for i in range(n_chunks):
-        sl = slice(i * c, (i + 1) * c)
-        nll, n = checkpointed(_xent_chunk, x[:, sl], unembed, targets[:, sl],
-                              mask[:, sl], logit_scale, logit_softcap)
-        total = total + nll
-        count = count + n
+    total, count = xent_sums(x, unembed, targets, chunk, logit_softcap,
+                             mask, logit_scale)
     return total / torch.clamp(count, min=1.0)

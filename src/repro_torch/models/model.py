@@ -12,13 +12,24 @@ prefill reads ``extra["patches"]`` and the encdec prefill
 ``extra["frames"]``.  ``train_loss(params, batch)`` -> (loss, {"nll",
 "aux"}) differentiates under autograd (``train.train_step`` takes the
 gradients); ``batch`` holds ``tokens``/``targets`` and the vlm
-``patches`` or encdec ``frames``.  The JAX
-``param_specs``/``decode_state_specs`` are sharding layouts with no
-counterpart on one card.
+``patches`` or encdec ``frames``.  ``param_specs()`` and
+``decode_state_specs()`` are the JAX trees of logical axes.
+
+``build_model(cfg, device, mesh=...)`` (a ``DeviceMesh`` with axes among
+"pod", "data", "model"; the dense family only, the others raise) makes
+the mesh's ``transformer.MeshPlan`` once (``plan``) and passes it to
+every entry point, which runs on this rank's local shards:
+``place(params)`` cuts them from whole parameters (``param_sharding`` on
+each leaf's shape), ``train_loss`` takes the
+rank's rows and returns its part of the global loss,
+``prefill``/``decode_step`` take the rank's rows and return their
+logits over the whole vocabulary, and ``init_decode_state(batch,
+max_len)`` takes the whole batch and returns the rank's shard of the
+state (``decode_state_specs``).
 
 ``input_specs`` and ``decode_state_shapes`` are the dry run's input
 surface: meta tensors with the JAX names, shapes and dtypes, no
-storage.  The JAX logical axes have no use on one card.
+storage; ``input_axes`` gives their JAX logical axes.
 """
 
 from __future__ import annotations
@@ -29,11 +40,13 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.dist.sharding import place
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
 
-__all__ = ["ModelAPI", "build_model", "input_specs", "decode_state_shapes"]
+__all__ = ["ModelAPI", "build_model", "input_specs", "input_axes",
+           "decode_state_shapes"]
 
 _META = torch.device("meta")
 
@@ -47,17 +60,25 @@ class ModelAPI:
     prefill: Callable[..., Tuple[Any, torch.Tensor]]
     decode_step: Callable[..., Tuple[torch.Tensor, Any]]
     init_decode_state: Callable[[int, int], Any]
+    param_specs: Callable[[], Any] = None
+    decode_state_specs: Callable[[], Any] = None
+    mesh: Any = None
+    plan: Any = None
+    place: Callable[[Any], Any] = None
 
 
 def build_model(cfg: ModelConfig,
-                device: Optional[Union[str, torch.device]] = None
-                ) -> ModelAPI:
+                device: Optional[Union[str, torch.device]] = None,
+                mesh=None) -> ModelAPI:
     dev = resolve_device(device)
     if cfg.family == "encdec":
         mod = encdec_mod
     else:
         tfm._check_family(cfg)
         mod = tfm
+    # the mesh's plan, made once, goes to every entry point
+    plan = None if mesh is None else tfm.mesh_plan(cfg, mesh)
+    kw = {} if plan is None else {"plan": plan}
 
     def init(generator: torch.Generator):
         want = "cpu" if dev.type == "meta" else dev.type
@@ -70,13 +91,20 @@ def build_model(cfg: ModelConfig,
         cfg=cfg,
         device=dev,
         init=init,
-        train_loss=lambda params, batch: mod.train_loss(params, batch, cfg),
+        train_loss=lambda params, batch: mod.train_loss(params, batch, cfg,
+                                                        **kw),
         prefill=lambda params, tokens, max_len, extra=None: mod.prefill(
-            params, tokens, cfg, max_len, extra=extra),
+            params, tokens, cfg, max_len, extra=extra, **kw),
         decode_step=lambda params, state, tokens, extra=None: mod.decode_step(
-            params, state, tokens, cfg, extra=extra),
+            params, state, tokens, cfg, extra=extra, **kw),
         init_decode_state=lambda batch, max_len: mod.init_decode_state(
-            cfg, batch, max_len, dev),
+            cfg, batch, max_len, dev, **kw),
+        param_specs=lambda: mod.param_specs(cfg),
+        decode_state_specs=lambda: mod.decode_state_specs(cfg),
+        mesh=mesh,
+        plan=plan,
+        place=((lambda params: params) if plan is None
+               else (lambda params: place(params, plan.shardings))),
     )
 
 
@@ -102,6 +130,14 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig
         specs[extra[0]] = torch.empty((gb, extra[1], cfg.d_model),
                                       dtype=torch.float32, device=_META)
     return specs
+
+
+def input_axes(cfg: ModelConfig, shape: ShapeConfig
+               ) -> Dict[str, Tuple]:
+    """The JAX logical axes of each ``input_specs`` entry."""
+    axes = {k: ("batch",) + (None,) * (v.dim() - 1)
+            for k, v in input_specs(cfg, shape).items()}
+    return axes
 
 
 def decode_state_shapes(cfg: ModelConfig, batch: int, max_len: int

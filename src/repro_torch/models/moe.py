@@ -11,8 +11,10 @@ of the duplicated tokens, the experts run as batched products, and the
 combine gathers each pair's row and sums over k.  The Switch
 load-balancing and router z losses are returned as JAX returns them
 (``aux`` f32, averaged over token chunks).  arctic's dense residual
-branch lives in the transformer block.  The JAX sharding hints and
-``moe_specs`` have no counterpart on one card.
+branch lives in the transformer block.  ``moe_specs`` is the JAX
+table of logical axes (``experts`` over ``model``, ``fsdp`` over
+``data``); the mesh runs the dense family only, so the JAX module's
+sharding hints inside ``moe_block`` have no counterpart yet.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import Initializer
 
-__all__ = ["init_moe", "moe_block", "route"]
+__all__ = ["init_moe", "moe_specs", "moe_block", "route"]
 
 _F32 = torch.float32
 
@@ -38,6 +40,16 @@ def init_moe(init: Initializer, d_model: int, m: MoEConfig
         "we_gate": init.normal((e, d_model, f), d_model ** -0.5),
         "we_up": init.normal((e, d_model, f), d_model ** -0.5),
         "we_down": init.normal((e, f, d_model), f ** -0.5),
+    }
+
+
+def moe_specs(m: MoEConfig):
+    """Logical axes of ``init_moe``'s leaves (JAX ``moe_specs``)."""
+    return {
+        "router": (None, None),
+        "we_gate": ("experts", "fsdp", None),
+        "we_up": ("experts", "fsdp", None),
+        "we_down": ("experts", None, "fsdp"),
     }
 
 

@@ -22,8 +22,10 @@ transformer passes ``cfg.remat != "none"``) recomputes each chunk's
 body's ``jax.checkpoint`` does.  ``mamba_scan`` has no backward kernel
 (the Pallas kernel has none either), so ``use_scan_kernel`` under
 autograd raises on every device rather than differentiate the plain
-version.  The JAX module's sharding hints (``constrain``) and
-``mamba_specs`` have no counterpart on one card.
+version.  ``mamba_specs`` is the JAX table of logical axes
+(``d_inner`` over ``model`` unless ``batch_tp``); the mesh runs the
+dense family only, so the JAX module's sharding hints (``constrain``)
+have no counterpart yet.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import Initializer, checkpointed, rms_norm
 
-__all__ = ["init_mamba", "mamba_block", "mamba_scan_inputs",
+__all__ = ["init_mamba", "mamba_specs", "mamba_block", "mamba_scan_inputs",
            "mamba_decode_step", "init_ssm_state"]
 
 _F32 = torch.float32
@@ -81,6 +83,36 @@ def init_mamba(init: Initializer, d_model: int, s: SSMConfig
             "gate_norm": init.zeros((di,)),
         })
     return p
+
+
+def mamba_specs(d_model: int, s: SSMConfig):
+    """Logical axes of ``init_mamba``'s leaves (JAX ``mamba_specs``)."""
+    di_ax = None if s.batch_tp else "d_inner"
+    base = {
+        "w_in": ("fsdp", di_ax),
+        "conv_w": (None, di_ax),
+        "conv_b": (di_ax,),
+        "w_out": (di_ax, "fsdp"),
+    }
+    if s.version == 1:
+        base.update({
+            "w_bc": (di_ax, None),
+            "w_dt_down": (di_ax, None),
+            "w_dt_up": (None, di_ax),
+            "dt_bias": (di_ax,),
+            "A_log": (di_ax, None),
+            "D": (di_ax,),
+        })
+    else:
+        base.update({
+            "w_bc": ("fsdp", None),
+            "w_dt": ("fsdp", None),
+            "dt_bias": (None,),
+            "A_log": (None,),
+            "D": (None,),
+            "gate_norm": (di_ax,),
+        })
+    return base
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -32,26 +32,52 @@ after a prefill attends over zero K/V at the prompt's positions; the
 ssm and hybrid prefills return ``ssm_h`` and ``ssm_conv`` zero (the
 reference's scans drop the final state).  The vlm prefill does fill
 ``cross_k``/``cross_v`` from the patches (without ``k_norm``, as there).
+
+**On a mesh** (a ``MeshPlan`` passed as ``plan``; ``models.model``
+builds one for a model built with a ``mesh``): ``param_specs`` and
+``decode_state_specs`` are the JAX tables of logical axes for every
+family, and the dense family runs ``forward``, ``train_loss``,
+``prefill``, ``decode_step`` and ``logits_of`` on each rank's local
+shards (``param_sharding`` on each leaf's shape, ``guarded_spec``):
+rows over the batch axes, weights over ``fsdp`` gathered for their use
+(``tensor_parallel.materialize``), attention heads (where ``kv_heads``
+divides), MLP columns and vocabulary over ``model``
+(``attention.local_attention``, ``layers.tp_swiglu``,
+``layers.xent_sums``).  ``train_loss`` returns the rank's part of the
+global mean (its nll sum over the global mask count), which
+``train.train_step`` sums over the batch axes; ``decode_step`` and
+``prefill`` return the rank's rows' logits over the whole vocabulary.
+The blocks are the meshless ones: every tensor-parallel move is the
+identity without a plan.  The JAX ``constrain`` sites (the embedding's
+output, the decode step's, the logits) keep their names.  The other
+families raise on a mesh (``mesh_plan``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist.sharding import (NamedSharding, constrain,
+                                       param_sharding)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (Initializer, chunked_cross_entropy,
-                                       dtype_of, init_mlp, remat, rms_norm,
-                                       softcap, swiglu)
+from repro_torch.models.layers import (Initializer, dtype_of, init_mlp,
+                                       remat, rms_norm, softcap, swiglu,
+                                       tp_swiglu, xent_sums)
 
-__all__ = ["init_params", "forward", "train_loss", "init_decode_state",
-           "decode_step", "prefill", "layer_params", "FAMILIES"]
+__all__ = ["init_params", "param_specs", "forward", "train_loss",
+           "init_decode_state", "decode_state_specs", "decode_step",
+           "prefill", "logits_of", "layer_params", "mesh_plan",
+           "state_sharding", "MeshPlan", "FAMILIES", "MESH_FAMILIES"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+MESH_FAMILIES = ("dense",)
 BIG_WINDOW = attn.BIG_WINDOW
 _F32 = torch.float32
 
@@ -159,6 +185,173 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     return params
 
 
+# ============================================================ sharding specs
+def _mlp_specs(cfg: ModelConfig, act: str):
+    s = {"w_up": ("fsdp", "mlp"), "w_down": ("mlp", "fsdp")}
+    if act == "swiglu":
+        s["w_gate"] = ("fsdp", "mlp")
+    return s
+
+
+def _dense_layer_specs(cfg: ModelConfig):
+    return {"ln1": (None,), "attn": attn.attention_specs(cfg.attn),
+            "ln2": (None,), "mlp": _mlp_specs(cfg, cfg.act)}
+
+
+def _moe_layer_specs(cfg: ModelConfig):
+    s = {"ln1": (None,), "attn": attn.attention_specs(cfg.attn),
+         "ln2": (None,), "moe": moe_mod.moe_specs(cfg.moe)}
+    if cfg.moe.dense_residual_d_ff:
+        s["dense_mlp"] = _mlp_specs(cfg, "swiglu")
+    return s
+
+
+def _ssm_layer_specs(cfg: ModelConfig):
+    return {"ln": (None,), "ssm": ssm_mod.mamba_specs(cfg.d_model, cfg.ssm)}
+
+
+def _cross_layer_specs(cfg: ModelConfig):
+    return {"ln": (None,), "attn": attn.attention_specs(cfg.attn),
+            "gate": ()}
+
+
+def _stack_specs(specs):
+    """Prepend the layer axis (None) to every leaf spec tuple."""
+    if isinstance(specs, dict):
+        return {k: _stack_specs(v) for k, v in specs.items()}
+    return (None,) + specs
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axes of every parameter leaf (JAX ``param_specs``)."""
+    _check_family(cfg)
+    specs: Dict[str, Any] = {"embed": ("vocab", "fsdp"),
+                             "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ("vocab", "fsdp")
+    fam = cfg.family
+    if fam == "dense":
+        specs["layers"] = _stack_specs(_dense_layer_specs(cfg))
+    elif fam == "moe":
+        specs["layers"] = _stack_specs(_moe_layer_specs(cfg))
+    elif fam in ("ssm", "hybrid"):
+        specs["layers"] = _stack_specs(_ssm_layer_specs(cfg))
+        if fam == "hybrid":
+            specs["shared_attn"] = _dense_layer_specs(cfg)
+    else:  # vlm
+        specs["layers"] = _stack_specs(_dense_layer_specs(cfg))
+        specs["cross_layers"] = _stack_specs(_cross_layer_specs(cfg))
+    return specs
+
+
+def decode_state_specs(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Logical axes of the decode state (JAX ``decode_state_specs``)."""
+    _check_family(cfg)
+    specs: Dict[str, Any] = {"cache_len": ("batch",)}
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm", "hybrid"):
+        specs["k_cache"] = (None, "batch", "kv_seq", "kv_heads", None)
+        specs["v_cache"] = (None, "batch", "kv_seq", "kv_heads", None)
+    if fam == "vlm":
+        specs["cross_k"] = (None, "batch", None, "kv_heads", None)
+        specs["cross_v"] = (None, "batch", None, "kv_heads", None)
+    if fam in ("ssm", "hybrid"):
+        if cfg.ssm.version == 1:
+            specs["ssm_h"] = (None, "batch", "d_inner", None)
+        else:
+            specs["ssm_h"] = (None, "batch", "d_inner", None, None)
+        specs["ssm_conv"] = (None, "batch", None, "d_inner")
+    return specs
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """How a dense model runs on ``mesh``: each parameter leaf's
+    ``NamedSharding`` (``guarded_spec`` on its shape), a layer's (the
+    layer axis dropped), and which products split over ``model``: the
+    attention heads (``kv_heads`` divides), the MLP columns (``d_ff``
+    does) and the vocabulary (``vocab`` does).  ``batch_axes`` are the
+    mesh's data axes of size > 1, ``dp`` their product."""
+    cfg: ModelConfig
+    mesh: Any
+    shardings: Dict[str, Any]
+    layer: Dict[str, Any]
+    heads: bool
+    mlp: bool
+    vocab: bool
+    batch_axes: Tuple[str, ...]
+    dp: int
+
+
+def _drop_layer_axis(tree):
+    if isinstance(tree, dict):
+        return {k: _drop_layer_axis(v) for k, v in tree.items()}
+    return NamedSharding(tree.mesh, tuple(tree.spec)[1:])
+
+
+def _splits(sharding: NamedSharding, dim: int) -> bool:
+    """Whether ``dim`` splits over a ``model`` axis of size > 1."""
+    spec = tuple(sharding.spec)
+    e = spec[dim] if dim < len(spec) else None
+    return (tp.axis_size(sharding.mesh, "model") > 1
+            and (e == "model" or (isinstance(e, tuple) and "model" in e)))
+
+
+def _check_mesh_family(cfg: ModelConfig) -> None:
+    if cfg.family not in MESH_FAMILIES:
+        raise ValueError(f"{cfg.name} ({cfg.family}): only the "
+                         f"{', '.join(MESH_FAMILIES)} family runs on a "
+                         "mesh")
+
+
+def _batch_axes(mesh) -> Tuple[Tuple[str, ...], int]:
+    """The mesh's data axes of size > 1 and the product of their
+    sizes."""
+    bat = tuple(a for a in tp.BATCH_AXES if tp.axis_size(mesh, a) > 1)
+    dp = 1
+    for a in bat:
+        dp *= tp.axis_size(mesh, a)
+    return bat, dp
+
+
+def mesh_plan(cfg: ModelConfig, mesh) -> MeshPlan:
+    """The ``MeshPlan`` of ``cfg`` on ``mesh`` (``models.model`` builds
+    it once per model); raises for a family the mesh does not run."""
+    _check_mesh_family(cfg)
+    shapes = init_params(torch.Generator(), cfg, torch.device("meta"))
+    sh = param_sharding(param_specs(cfg), mesh, shapes)
+    lay = _drop_layer_axis(sh["layers"])
+    bat, dp = _batch_axes(mesh)
+    return MeshPlan(cfg=cfg, mesh=mesh, shardings=sh, layer=lay,
+                    heads=attn.heads_split(cfg.attn, mesh),
+                    mlp=_splits(lay["mlp"]["w_up"], 1),
+                    vocab=_splits(sh["embed"], 0), batch_axes=bat, dp=dp)
+
+
+def _state_leaves(cfg: ModelConfig, batch: int, max_len: int):
+    """{name: (shape, dtype)} of the dense decode state (no tensor is
+    made: the dry run counts what is)."""
+    a = cfg.attn
+    kv = (cfg.n_layers, batch, max_len, a.kv_heads, a.head_dim)
+    dt = dtype_of(cfg.compute_dtype)
+    return {"cache_len": ((batch,), torch.int32), "k_cache": (kv, dt),
+            "v_cache": (kv, dt)}
+
+
+def state_sharding(cfg: ModelConfig, mesh, batch: int, max_len: int):
+    """The decode state's ``NamedSharding`` tree for ``batch`` rows over
+    the whole mesh (``decode_state_specs``, guarded on each leaf's
+    shape); raises unless ``batch`` splits over the batch axes."""
+    _check_mesh_family(cfg)
+    _bat, dp = _batch_axes(mesh)
+    if batch % dp:
+        raise ValueError(f"a batch of {batch} does not split over the "
+                         f"mesh's {dp} data-parallel ranks")
+    shapes = {k: v[0] for k, v in _state_leaves(cfg, batch,
+                                               max_len).items()}
+    return param_sharding(decode_state_specs(cfg), mesh, shapes)
+
+
 # ============================================================ layer bodies
 def _windows_for(cfg: ModelConfig) -> List[int]:
     """Per-layer attention window (gemma2 alternates local/global: even
@@ -170,13 +363,15 @@ def _windows_for(cfg: ModelConfig) -> List[int]:
     return w
 
 
-def _dense_block(x, lp, cfg: ModelConfig, positions, window):
+def _dense_block(x, lp, cfg: ModelConfig, positions, window,
+                 plan: Optional[MeshPlan] = None):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    h = attn.self_attention(h, lp["attn"], cfg.attn, positions, window=window,
-                            chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
+    w, a, split = _attn_weights(lp, cfg, plan)
+    h = attn.tp_self_attention(h, w, a, split, _mesh(plan), positions,
+                               window, cfg.attn_chunk_q, cfg.attn_chunk_k)
     x = x + h
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + swiglu(h, lp["mlp"], cfg.act)
+    return x + _mlp(h, lp, cfg, plan)
 
 
 def _moe_ffn(h, lp, cfg: ModelConfig):
@@ -230,14 +425,71 @@ def _groups(cfg: ModelConfig, k: int):
     return out
 
 
+# ================================================================== mesh
+def _mesh(plan: Optional[MeshPlan]):
+    return None if plan is None else plan.mesh
+
+
+def _keep(split: bool) -> Tuple[str, ...]:
+    return ("model",) if split else ()
+
+
+def _embed(params, tokens, plan: Optional[MeshPlan]):
+    """The embedding rows of ``tokens``; on a mesh from the rank's
+    ``vocab`` block: rows it does not hold are zero, and the sum over
+    ``model`` fills them (the JAX ``constrain`` of the embedding's
+    output)."""
+    if plan is None:
+        return params["embed"][tokens]
+    mesh = plan.mesh
+    w = tp.materialize(params["embed"], plan.shardings["embed"].spec, mesh,
+                       _keep(plan.vocab))
+    if not plan.vocab:
+        return w[tokens]
+    vl = w.shape[0]
+    t = tokens - tp.axis_index(mesh, "model") * vl
+    own = (t >= 0) & (t < vl)
+    e = torch.where(own[..., None], w[t.clamp(0, vl - 1)],
+                    torch.zeros((), dtype=w.dtype, device=w.device))
+    return tp.reduce_from(e, mesh, "model")
+
+
+def _unembed(params, cfg: ModelConfig, plan: Optional[MeshPlan]):
+    """The unembedding (the rank's ``vocab`` block where it splits)."""
+    key = "embed" if cfg.tie_embeddings else "unembed"
+    if plan is None:
+        return params[key]
+    return tp.materialize(params[key], plan.shardings[key].spec, plan.mesh,
+                          _keep(plan.vocab))
+
+
+def _attn_weights(lp, cfg: ModelConfig, plan: Optional[MeshPlan]):
+    """(weights, config, heads split) of a layer's attention:
+    ``attention.local_attention`` on a mesh, the layer's own without."""
+    if plan is None:
+        return lp["attn"], cfg.attn, False
+    return attn.local_attention(lp["attn"], plan.layer["attn"], cfg.attn,
+                                plan.mesh)
+
+
+def _mlp(h, lp, cfg: ModelConfig, plan: Optional[MeshPlan]):
+    if plan is None:
+        return swiglu(h, lp["mlp"], cfg.act)
+    w = {k: tp.materialize(v, plan.layer["mlp"][k].spec, plan.mesh,
+                           _keep(plan.mlp))
+         for k, v in lp["mlp"].items()}
+    return tp_swiglu(h, w, cfg.act, plan.mlp, plan.mesh)
+
+
 # ================================================================= forward
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-            extra: Optional[Dict[str, torch.Tensor]] = None
+            extra: Optional[Dict[str, torch.Tensor]] = None,
+            plan: Optional[MeshPlan] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, L] -> (hidden [B, L, D], aux_loss f32)."""
     _check_family(cfg)
     l = tokens.shape[1]
-    x = params["embed"][tokens]
+    x = constrain(_embed(params, tokens, plan), "batch", "seq", None)
     positions = torch.arange(l, dtype=torch.int32, device=x.device)
     windows = _windows_for(cfg)
     fam = cfg.family
@@ -245,7 +497,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     dense = remat(_dense_block, cfg.remat)
     if fam == "dense":
         for i in range(cfg.n_layers):
-            x = dense(x, layer_params(params, i), cfg, positions, windows[i])
+            x = dense(x, layer_params(params, i), cfg, positions, windows[i],
+                      plan)
     elif fam == "vlm":
         k = cfg.cross_attn_every
         patches = _patches(extra, cfg).to(x.dtype)
@@ -278,30 +531,46 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     return x, aux
 
 
-def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+               plan: Optional[MeshPlan] = None):
     """Mean next-token nll plus the MoE aux loss -> (loss, {"nll",
     "aux"}).  ``batch`` has ``tokens`` and ``targets`` [B, L], optionally
-    ``mask`` [B, L], and vlm's ``patches``."""
-    x, aux = forward(params, batch["tokens"].long(), cfg, extra=batch)
-    unembed = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    ``mask`` [B, L], and vlm's ``patches``.  On a mesh, the rank's part
+    of the global mean: its rows' nll sum over the mask's count summed
+    over the batch axes."""
+    x, aux = forward(params, batch["tokens"].long(), cfg, extra=batch,
+                     plan=plan)
     scale = cfg.d_model ** -0.5 if cfg.tie_embeddings else 1.0
-    nll = chunked_cross_entropy(
-        x, unembed, batch["targets"], cfg.loss_chunk,
+    total, count = xent_sums(
+        x, _unembed(params, cfg, plan), batch["targets"], cfg.loss_chunk,
         logit_softcap=cfg.logit_softcap, mask=batch.get("mask"),
-        logit_scale=scale)
+        logit_scale=scale, mesh=_mesh(plan),
+        vocab_split=plan is not None and plan.vocab)
+    if plan is not None and plan.batch_axes:
+        count = tp.all_reduce(count.detach().clone(), plan.mesh,
+                              plan.batch_axes)
+    nll = total / torch.clamp(count, min=1.0)
     return nll + aux, {"nll": nll, "aux": aux}
 
 
 # ================================================================== decode
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device) -> Dict[str, torch.Tensor]:
+                      device, plan: Optional[MeshPlan] = None
+                      ) -> Dict[str, torch.Tensor]:
     """The JAX decode state, all zero: ``cache_len`` i32[B]; dense, moe
     and vlm ``k_cache``/``v_cache`` [L, B, max_len, KH, Dh] in the compute
     dtype; vlm ``cross_k``/``cross_v`` [L / cross_attn_every, B,
     n_patches, KH, Dh]; ssm and hybrid ``ssm_h`` (f32) and ``ssm_conv``;
     hybrid one K/V cache per group, [L / hybrid_attn_every, B, max_len,
-    KH, Dh]."""
+    KH, Dh].  On a mesh, the rank's shard of the state of ``batch`` rows
+    over the mesh (``state_sharding``)."""
     _check_family(cfg)
+    if plan is not None:
+        sh = state_sharding(cfg, plan.mesh, batch, max_len)
+        return {k: torch.zeros(sh[k].local_shape(shape), dtype=dt,
+                               device=device)
+                for k, (shape, dt) in _state_leaves(cfg, batch,
+                                                    max_len).items()}
     dtype = dtype_of(cfg.compute_dtype)
     fam = cfg.family
     a = cfg.attn
@@ -329,20 +598,23 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     return state
 
 
-def _attn_decode_block(x, lp, cfg: ModelConfig, kc, vc, new_len, window):
+def _attn_decode_block(x, lp, cfg: ModelConfig, kc, vc, new_len, window,
+                       plan: Optional[MeshPlan] = None):
     """One dense (or moe) block in decode mode: the new token's K/V is
-    written into kc/vc [B, S, KH, Dh] at ``new_len - 1``, in place."""
+    written into kc/vc [B, S, KH, Dh] at ``new_len - 1``, in place (on a
+    mesh, the rank's heads into its cache shard)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    k_new, v_new = attn.project_new_kv(h, lp["attn"], cfg.attn, new_len - 1)
+    w, a, split = _attn_weights(lp, cfg, plan)
+    k_new, v_new = attn.project_new_kv(h, w, a, new_len - 1)
     attn.write_new_kv(kc, vc, k_new, v_new, new_len - 1)
-    h = attn.decode_attention(h, lp["attn"], cfg.attn, kc, vc, new_len,
-                              window=window)
+    h = attn.tp_decode_attention(h, w, a, split, _mesh(plan), kc, vc,
+                                 new_len, window)
     x = x + h
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
         h, _aux = _moe_ffn(h, lp, cfg)
     else:
-        h = swiglu(h, lp["mlp"], cfg.act)
+        h = _mlp(h, lp, cfg, plan)
     return x + h
 
 
@@ -357,21 +629,27 @@ def _ssm_decode(x, params, state, cfg: ModelConfig, i, nh, nconv):
     return x + y
 
 
-def logits_of(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def logits_of(params, x: torch.Tensor, cfg: ModelConfig,
+              plan: Optional[MeshPlan] = None) -> torch.Tensor:
     """Unembedding of hidden states x [..., D] (scaled by D^-0.5 where the
-    embeddings are tied), in the compute dtype."""
-    unembed = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    embeddings are tied), in the compute dtype; on a mesh, the rank's
+    rows over the whole vocabulary."""
     scale = cfg.d_model ** -0.5 if cfg.tie_embeddings else 1.0
-    return (x * scale) @ unembed.T
+    logits = (x * scale) @ _unembed(params, cfg, plan).T
+    if plan is None or not plan.vocab:
+        return logits
+    logits = constrain(logits, *(("batch",) * (logits.dim() - 1)), "vocab")
+    return tp.all_gather(logits, plan.mesh, "model", -1)
 
 
 def decode_step(params, state, tokens: torch.Tensor, cfg: ModelConfig,
-                extra: Optional[Dict[str, torch.Tensor]] = None):
+                extra: Optional[Dict[str, torch.Tensor]] = None,
+                plan: Optional[MeshPlan] = None):
     """tokens [B, 1] -> (logits f32[B, V], new_state).  Writes the K/V
     caches of ``state`` in place (see the module docstring); ``extra`` is
     not read (the vlm cross K/V is in the state)."""
     _check_family(cfg)
-    x = params["embed"][tokens]
+    x = constrain(_embed(params, tokens, plan), "batch", None, None)
     new_len = state["cache_len"] + 1
     windows = _windows_for(cfg)
     fam = cfg.family
@@ -380,7 +658,7 @@ def decode_step(params, state, tokens: torch.Tensor, cfg: ModelConfig,
         for i in range(cfg.n_layers):
             x = _attn_decode_block(x, layer_params(params, i), cfg,
                                    state["k_cache"][i], state["v_cache"][i],
-                                   new_len, windows[i])
+                                   new_len, windows[i], plan)
     elif fam == "vlm":
         k = cfg.cross_attn_every
         plen = torch.full_like(new_len, cfg.n_patches)
@@ -411,19 +689,22 @@ def decode_step(params, state, tokens: torch.Tensor, cfg: ModelConfig,
         new_state["ssm_h"], new_state["ssm_conv"] = nh, nconv
     new_state["cache_len"] = new_len
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_of(params, x[:, 0], cfg).to(_F32)
+    logits = logits_of(params, x[:, 0], cfg, plan).to(_F32)
     return softcap(logits, cfg.logit_softcap), new_state
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
-            extra: Optional[Dict[str, torch.Tensor]] = None):
+            extra: Optional[Dict[str, torch.Tensor]] = None,
+            plan: Optional[MeshPlan] = None):
     """Run the full prompt and build the decode state.  Returns (state,
     logits [B, V] in the compute dtype, no softcap, as the reference).
     The self-attention caches and the recurrent state stay zero (see the
-    module docstring); vlm's cross K/V is computed from the patches."""
+    module docstring); vlm's cross K/V is computed from the patches.  On
+    a mesh, ``tokens`` are the rank's rows and the state its shard."""
     b, l = tokens.shape
-    state = init_decode_state(cfg, b, max_len, tokens.device)
-    x, _ = forward(params, tokens, cfg, extra=extra)
+    state = init_decode_state(cfg, b * (1 if plan is None else plan.dp),
+                              max_len, tokens.device, plan)
+    x, _ = forward(params, tokens, cfg, extra=extra, plan=plan)
     if cfg.family == "vlm":
         a = cfg.attn
         patches = _patches(extra, cfg)
@@ -439,4 +720,4 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
                 state[name][g] = kv.to(state[name].dtype)
     state["cache_len"] = torch.full((b,), l, dtype=torch.int32,
                                     device=tokens.device)
-    return state, logits_of(params, x[:, -1], cfg)
+    return state, logits_of(params, x[:, -1], cfg, plan)

@@ -8,6 +8,13 @@ free list and registers the ``(seq, block) -> page`` mapping in an
 sequence's logically contiguous view: one batched page-table lookup,
 then one ``index_select`` along the page axis of each pool.  ``append``
 writes one token's K/V [L, KH, Dh] in place.
+
+On a mesh (``mesh=``) the pools are placed by the model's
+``decode_state_specs``: ``kv_heads`` over ``model`` where the heads
+divide (``guarded_spec``), and ``batch`` over the data axes, which here
+means that each data rank's cache holds the pages of the sequences it
+serves.  A rank keeps only its shard: ``kv_heads`` counts its heads and
+``append`` takes its heads' K/V.
 """
 
 from __future__ import annotations
@@ -36,8 +43,19 @@ class PagedKVConfig:
 
 class PagedKVCache:
     def __init__(self, cfg: PagedKVConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
+        if mesh is not None:
+            from repro_torch.dist.sharding import NamedSharding, guarded_spec
+
+            shape = (cfg.n_layers, cfg.n_pages, cfg.page_size,
+                     cfg.kv_heads, cfg.head_dim)
+            spec = guarded_spec(shape, (None, None, None, "kv_heads", None),
+                                mesh)
+            cfg = dataclasses.replace(cfg, kv_heads=NamedSharding(
+                mesh, spec).local_shape(shape)[3])
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         shape = (cfg.n_layers, cfg.n_pages, cfg.page_size, cfg.kv_heads,
                  cfg.head_dim)

@@ -1,6 +1,6 @@
 """One phase of a checkout's ``chip_smoke.py``, alone, in a fresh process.
 
-    python3 src/repro_torch/smoke_phase.py ROOT [6d|r]
+    python3 src/repro_torch/smoke_phase.py ROOT [6d|r|m]
 
 ``ROOT`` is the root of a checkout of the port (its ``chip_smoke.py``
 and ``src``).  Builds that checkout's kernels, then runs one phase with
@@ -12,6 +12,10 @@ every check it has in the full smoke:
   falls on the first requests, as it does on a newly launched server,
   where the full smoke has paid it in an earlier phase.  To compare
   checkouts, run it once per checkout in turns (A, B, B, A) on one card.
+* ``m`` serves qwen3-14b as 6d does, then runs phase m on its weights
+  and served cache (``chip_smoke.mesh_phase``: m1 on the launched (1, 1)
+  mesh, m2 one rank of (16, k) meshes under fake process groups, m3
+  ``launch.train --mesh 1x1:data,model --elastic-demo``).
 * ``r`` runs phase r: its dry runs beside the build, then r2 on phase
   6's model, r1 inside phase 6d and r3 after phase t's t1
   (``chip_smoke.roofline_*``), and prints phase r's summary.
@@ -32,8 +36,8 @@ from pathlib import Path
 def main(argv) -> None:
     root = os.path.abspath(argv[1])
     phase = argv[2] if len(argv) > 2 else "6d"
-    if phase not in ("6d", "r"):
-        raise SystemExit(f"unknown phase {phase!r}: 6d or r")
+    if phase not in ("6d", "r", "m"):
+        raise SystemExit(f"unknown phase {phase!r}: 6d, r or m")
     os.chdir(root)
     sys.path[:0] = [root, os.path.join(root, "src")]
     import torch
@@ -43,10 +47,10 @@ def main(argv) -> None:
 
     card = cs.card_line()
     cs.log("tree", root, card)
-    if phase == "6d":
+    if phase in ("6d", "m"):
         cs.phase_build(build)
         torch.backends.cuda.matmul.allow_tf32 = False
-        cs.dense_phase(cs.Windows(ops), 0, card)
+        cs.dense_phase(cs.Windows(ops), 0, card, mesh=phase == "m")
         return
     t0 = time.perf_counter()
     _, arts, out = cs.with_dryruns(Path(root), lambda: cs.phase_build(build))

@@ -20,13 +20,27 @@ npz cannot hold bf16).  Layout per step::
   writes them on a background thread; ``wait_pending`` joins it;
 * **multi-host**: each process writes ``shard_<rank>.pt`` (rank 0 on one
   process); restore merges whatever shard files exist;
+* **topology-free on a mesh**: with ``shardings`` (the state's
+  ``NamedSharding`` tree) each rank writes the blocks it holds, each
+  with its offsets in the whole leaf, and only the ranks at coordinate 0
+  of every axis a leaf is replicated over write it; the ranks stage into
+  one directory (``step_<n>.tmp.mesh``), meet at a barrier over every
+  mesh axis, and rank 0 writes ``manifest.json`` (each leaf's whole
+  shape) and ``COMMIT``.  ``restore_latest`` fills each leaf's target
+  region (with ``shardings``, this rank's block on the new mesh; without,
+  the whole leaf) from the parts of the blocks that overlap it, whatever
+  mesh wrote them, bit for bit.  Each shard file is memory-mapped, so a
+  rank reads the bytes of its own region and the files' small indexes,
+  not the whole checkpoint; ``READ_BYTES`` counts the bytes copied out
+  of blocks;
 * **retention**: the newest ``keep`` committed steps stay, older ones go.
 
 Leaves are flattened in the JAX order: dict keys sorted, lists and
 tuples (NamedTuples, a ``TrainState`` among them, field by field) in
-order; ``tree_flatten`` names each by its path.  ``restore_latest`` returns CPU tensors in the
-structure of ``tree_like``, each cast to its leaf's dtype; the caller
-places them on a device, so the format is topology-free.
+order; ``tree_flatten`` names each by its path.  ``restore_latest``
+returns CPU tensors in the structure of ``tree_like``, each cast to its
+leaf's dtype; the caller places them on a device, so the format is
+topology-free.
 """
 
 from __future__ import annotations
@@ -43,10 +57,12 @@ import torch
 from repro_torch.train.optimizer import tree_unflatten
 
 __all__ = ["save", "save_async", "restore_latest", "latest_step",
-           "wait_pending", "tree_flatten", "tree_unflatten"]
+           "wait_pending", "tree_flatten", "tree_unflatten", "READ_BYTES"]
 
 FORMAT = "repro_torch-checkpoint-1"
 _pending: Dict[str, threading.Thread] = {}
+# bytes ``restore_latest`` has copied out of checkpoint blocks
+READ_BYTES = {"n": 0}
 
 
 def _children(tree) -> Optional[List[Tuple[str, Any]]]:
@@ -85,8 +101,87 @@ def _host_index() -> int:
     return 0
 
 
+def _mesh_barrier(mesh) -> None:
+    """Every rank of the mesh has reached this call once each has
+    returned from it (a barrier over each axis in turn)."""
+    dist = torch.distributed
+    for name in mesh.mesh_dim_names:
+        if mesh.size(mesh.mesh_dim_names.index(name)) > 1:
+            dist.barrier(group=mesh.get_group(name))
+
+
+def _writes(sh, ndim: int) -> bool:
+    """Whether this rank writes its block: coordinate 0 on every axis
+    the leaf is replicated over."""
+    coord = sh.coordinate()
+    return all(coord[a] == 0 for a in sh.replicated_over(ndim))
+
+
+def _save_mesh(ckpt_dir, step, tree, extra, keep, shardings) -> str:
+    mesh = tree_flatten(shardings)[0][1].mesh
+    rank0 = all(c == 0 for c in (mesh.get_coordinate() or (1,)))
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if os.path.exists(os.path.join(final, "COMMIT")):
+        return final  # every rank sees the committed step alike
+    tmp = final + ".tmp.mesh"
+    if rank0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    _mesh_barrier(mesh)
+    flat = tree_flatten(tree)
+    shs = [sh for _p, sh in tree_flatten(shardings)]
+    blocks, offsets, shapes = {}, {}, []
+    for i, ((_p, x), sh) in enumerate(zip(flat, shs)):
+        whole = sh.whole_shape(x.shape)
+        shapes.append(whole)
+        if _writes(sh, x.dim()):
+            blocks[f"leaf_{i}"] = _to_host(x)
+            offsets[f"leaf_{i}"] = list(sh.offsets(whole))
+    rank = torch.distributed.get_rank()
+    torch.save({"blocks": blocks, "offsets": offsets},
+               os.path.join(tmp, f"shard_{rank}.pt"))
+    _mesh_barrier(mesh)
+    if rank0:
+        manifest = {
+            "format": FORMAT, "step": step, "n_leaves": len(flat),
+            "mesh": dict(zip(mesh.mesh_dim_names,
+                             (int(n) for n in mesh.shape))),
+            "leaves": [{"path": p, "shape": shapes[i],
+                        "dtype": str(x.dtype).replace("torch.", "")}
+                       for i, (p, x) in enumerate(flat)],
+            "extra": extra or {},
+        }
+        _commit(tmp, final, manifest)
+        _gc(ckpt_dir, keep)
+    _mesh_barrier(mesh)
+    return final
+
+
+def _commit(tmp: str, final: str, manifest: Dict) -> None:
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    with open(os.path.join(tmp, "COMMIT"), "w") as f:
+        f.write("ok")
+    if os.path.exists(os.path.join(final, "COMMIT")):
+        shutil.rmtree(tmp, ignore_errors=True)
+        return
+    try:
+        os.replace(tmp, final)
+    except OSError:
+        # a concurrent save won the rename race for this step; theirs is
+        # equally valid: drop ours
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def save(ckpt_dir: str, step: int, tree: Any,
-         extra: Optional[Dict[str, Any]] = None, keep: int = 3) -> str:
+         extra: Optional[Dict[str, Any]] = None, keep: int = 3,
+         shardings: Any = None) -> str:
+    """Write ``tree`` as step ``step``; with ``shardings`` (its leaves'
+    ``NamedSharding``), every rank of the mesh calls it with its local
+    shards."""
+    if shardings is not None:
+        return _save_mesh(ckpt_dir, step, tree, extra, keep, shardings)
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     if os.path.exists(os.path.join(final, "COMMIT")):
@@ -105,24 +200,22 @@ def save(ckpt_dir: str, step: int, tree: Any,
                    for i, (p, _x) in enumerate(flat)],
         "extra": extra or {},
     }
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    with open(os.path.join(tmp, "COMMIT"), "w") as f:
-        f.write("ok")
-    try:
-        os.replace(tmp, final)
-    except OSError:
-        # a concurrent save won the rename race for this step; theirs is
-        # equally valid: drop ours
-        shutil.rmtree(tmp, ignore_errors=True)
+    _commit(tmp, final, manifest)
     _gc(ckpt_dir, keep)
     return final
 
 
 def save_async(ckpt_dir: str, step: int, tree: Any,
-               extra: Optional[Dict[str, Any]] = None, keep: int = 3) -> None:
+               extra: Optional[Dict[str, Any]] = None, keep: int = 3,
+               shardings: Any = None) -> None:
     """Snapshot to host memory now, write in the background (after the
-    directory's previous background save has finished)."""
+    directory's previous background save has finished).  On a mesh
+    (``shardings``) the save meets every rank at barriers, which a
+    background thread must not interleave with the training's
+    collectives: it is written now."""
+    if shardings is not None:
+        save(ckpt_dir, step, tree, extra, keep, shardings)
+        return
     wait_pending(ckpt_dir)
     snapshot = tree_unflatten(tree, [_to_host(x)
                                      for _p, x in tree_flatten(tree)])
@@ -157,10 +250,68 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore_latest(ckpt_dir: str, tree_like: Any
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name.replace("torch.", ""))
+
+
+def _overlap(o, n, to, tn):
+    """(source, destination) index tuples of the overlap of a block at
+    offsets ``o`` of shape ``n`` with a region at ``to`` of shape ``tn``,
+    or None where they do not meet."""
+    lo = [max(a, b) for a, b in zip(o, to)]
+    hi = [min(a + x, b + y) for a, x, b, y in zip(o, n, to, tn)]
+    if any(h <= l for l, h in zip(lo, hi)):
+        return None
+    return (tuple(slice(l - a, h - a) for l, h, a in zip(lo, hi, o)),
+            tuple(slice(l - b, h - b) for l, h, b in zip(lo, hi, to)))
+
+
+def _read_regions(path: str, manifest: Dict, regions) -> List[torch.Tensor]:
+    """Leaf ``i``'s region ``regions[i]`` (offsets, shape) filled from the
+    overlapping parts of the blocks of every shard file: a mesh's blocks
+    at their offsets, a plain file's leaves whole (a region two files
+    hold is read from the first)."""
+    out = [torch.empty(shape, dtype=_dtype(manifest["leaves"][i]["dtype"]))
+           for i, (_o, shape) in enumerate(regions)]
+    filled = [0] * len(out)
+    seen = set()
+    for name in sorted(os.listdir(path)):
+        if not (name.startswith("shard_") and name.endswith(".pt")):
+            continue
+        got = torch.load(os.path.join(path, name), map_location="cpu",
+                         weights_only=True, mmap=True)
+        blocks = got.get("blocks", got)
+        offsets = got.get("offsets", {})
+        for key, block in blocks.items():
+            i = int(key.split("_")[1])
+            o = tuple(offsets.get(key, (0,) * block.dim()))
+            if (i, o) in seen:
+                continue
+            seen.add((i, o))
+            cut = _overlap(o, block.shape, *regions[i])
+            if cut is None:
+                continue
+            part = block[cut[0]]
+            out[i][cut[1]] = part
+            filled[i] += part.numel()
+            READ_BYTES["n"] += part.numel() * part.element_size()
+        del got, blocks
+    for i, x in enumerate(out):
+        if filled[i] != x.numel():
+            raise ValueError(f"{path}: the blocks of "
+                             f"{manifest['leaves'][i]['path']} cover "
+                             f"{filled[i]} of the {x.numel()} elements "
+                             "asked for")
+    return out
+
+
+def restore_latest(ckpt_dir: str, tree_like: Any, shardings: Any = None
                    ) -> Optional[Tuple[int, Any, Dict]]:
     """Restore the newest committed checkpoint into the structure of
-    ``tree_like`` -> (step, tree of CPU tensors, extra), or None."""
+    ``tree_like`` -> (step, tree of CPU tensors, extra), or None.  With
+    ``shardings`` (``tree_like``'s leaves are local shards on a mesh)
+    each leaf is this rank's block of the whole one, read from the
+    blocks that overlap it."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None
@@ -169,22 +320,23 @@ def restore_latest(ckpt_dir: str, tree_like: Any
         manifest = json.load(f)
     if manifest.get("format") != FORMAT:
         raise ValueError(f"{path}: not a {FORMAT} checkpoint")
-    flat: Dict[str, torch.Tensor] = {}
-    for name in sorted(os.listdir(path)):
-        if name.startswith("shard_") and name.endswith(".pt"):
-            flat.update(torch.load(os.path.join(path, name),
-                                   map_location="cpu", weights_only=True))
     like = tree_flatten(tree_like)
     if len(like) != manifest["n_leaves"]:
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                          f"the tree expects {len(like)}")
-    leaves = []
-    for i, (p, x) in enumerate(like):
-        got = flat[f"leaf_{i}"]
-        if tuple(got.shape) != tuple(x.shape):
-            raise ValueError(f"{p}: checkpoint shape {tuple(got.shape)}, "
+    shs = ([sh for _p, sh in tree_flatten(shardings)] if shardings
+           is not None else [None] * len(like))
+    regions = []
+    for (p, x), sh, meta in zip(like, shs, manifest["leaves"]):
+        whole = tuple(meta["shape"])
+        region = ((sh.offsets(whole), sh.local_shape(whole)) if sh is not None
+                  else ((0,) * len(whole), whole))
+        if tuple(region[1]) != tuple(x.shape):
+            raise ValueError(f"{p}: checkpoint shape {tuple(region[1])}, "
                              f"the tree expects {tuple(x.shape)}")
-        leaves.append(got.to(x.dtype))
+        regions.append(region)
+    got = _read_regions(path, manifest, regions)
+    leaves = [g.to(x.dtype) for g, (_p, x) in zip(got, like)]
     return step, tree_unflatten(tree_like, leaves), manifest.get("extra", {})
 
 

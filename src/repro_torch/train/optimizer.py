@@ -21,6 +21,18 @@ parameters in place, AdamW a slice of at most 2^26 elements at a time
 v is 15.1 GB); ``make_optimizer`` returns them.  ``adamw_update`` and
 ``adafactor_update`` return new trees and leave their inputs as they
 were, as the JAX functions do: they run the in-place update on copies.
+
+On a mesh each leaf is a rank's local shard.  The updates then take the
+leaves' ``NamedSharding`` tree (``shardings``): every reduction over a
+split dimension (the global norm, Adafactor's row and column means, the
+update's and the parameter's RMS) sums its local part over the mesh
+axes that split it, and Adafactor decides what it factors and what it
+updates layer by layer on the global shapes.  A reduction over axes of
+size 1 is the meshless one, op for op.  ``opt_state_sharding`` places
+the state as the JAX dry run does (``_opt_state_sds``): AdamW ``m``/``v``
+as the parameters, Adafactor ``vr`` as the parameter without its last
+axis (all of it if unfactored), ``vc`` without its second-to-last (a
+replicated placeholder if unfactored), ``step`` replicated.
 """
 
 from __future__ import annotations
@@ -34,7 +46,7 @@ __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
            "adamw_update_", "clip_by_global_norm", "global_norm",
            "tree_leaves", "tree_unflatten", "AdafactorConfig", "AdafactorState",
            "adafactor_init", "adafactor_update", "adafactor_update_",
-           "make_optimizer"]
+           "make_optimizer", "opt_state_sharding"]
 
 _F32 = torch.float32
 # elements per slice of an in-place update (its f32 temporaries)
@@ -104,9 +116,93 @@ def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
                       m=_tree_map(zeros, params), v=_tree_map(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+# ------------------------------------------------------- sharded reductions
+def _split_axes(sh, dims) -> Tuple[str, ...]:
+    """The mesh axes (of size > 1) that split any of ``dims`` of a leaf
+    placed by ``sh`` (None: a meshless leaf)."""
+    if sh is None:
+        return ()
+    from repro_torch.dist.sharding import axis_sizes, spec_axes
+
+    sizes = axis_sizes(sh.mesh)
+    spec = tuple(sh.spec)
+    return tuple(a for d in dims if d < len(spec)
+                 for a in spec_axes(spec[d]) if sizes[a] > 1)
+
+
+def _global_shape(x: torch.Tensor, sh) -> Tuple[int, ...]:
+    if sh is None:
+        return tuple(x.shape)
+    return tuple(n * w for n, (w, _i) in zip(x.shape, sh.splits(x.dim())))
+
+
+def _sum_over(x: torch.Tensor, sh, axes) -> torch.Tensor:
+    if not axes:
+        return x
+    from repro_torch.dist import tensor_parallel as tp
+
+    return tp.all_reduce(x, sh.mesh, axes)
+
+
+def _mean(x: torch.Tensor, sh, dim=None, keepdim: bool = False):
+    """``x.mean(dim)`` of the global tensor whose local shard ``x`` is
+    (``dim`` None: over every element); split dims summed over their
+    axes."""
+    nd = x.dim()
+    dims = tuple(range(nd)) if dim is None else (dim % nd,)
+    axes = _split_axes(sh, dims)
+    if not axes:
+        return (torch.mean(x) if dim is None
+                else x.mean(dim=dim, keepdim=keepdim))
+    n = 1
+    g = _global_shape(x, sh)
+    for d in dims:
+        n *= g[d]
+    part = torch.sum(x) if dim is None else x.sum(dim=dim, keepdim=keepdim)
+    return _sum_over(part, sh, axes) / n
+
+
+def _leaf_shardings(shardings, n: int):
+    return [None] * n if shardings is None else tree_leaves(shardings)
+
+
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """The global L2 norm; with ``shardings``, each leaf's local sum of
+    squares summed over the axes that split it."""
+    leaves = tree_leaves(tree)
+    if shardings is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves))
+    return torch.sqrt(sum(
+        _sum_over(torch.sum(torch.square(x.float())), sh,
+                  _split_axes(sh, range(x.dim())))
+        for x, sh in zip(leaves, tree_leaves(shardings))))
+
+
+def opt_state_sharding(state, shardings, params=None):
+    """The ``NamedSharding`` tree of an optimizer state for parameters
+    placed by ``shardings`` (see the module docstring); ``params`` are
+    the whole parameters (Adafactor compares their shapes)."""
+    from repro_torch.dist.sharding import NamedSharding
+
+    mesh = tree_leaves(shardings)[0].mesh
+    rep = NamedSharding(mesh, ())
+    if isinstance(state, AdamWState):
+        return AdamWState(step=rep, m=shardings, v=shardings)
+
+    def vr(sh, p, v):
+        spec = tuple(sh.spec) + (None,) * (p.dim() - len(sh.spec))
+        return sh if tuple(v.shape) == tuple(p.shape) \
+            else NamedSharding(mesh, spec[:-1])
+
+    def vc(sh, p, v):
+        spec = tuple(sh.spec) + (None,) * (p.dim() - len(sh.spec))
+        return rep if tuple(v.shape) == (1,) \
+            else NamedSharding(mesh, spec[:-2] + spec[-1:])
+
+    return AdafactorState(step=rep,
+                          vr=_tree_map(vr, shardings, params, state.vr),
+                          vc=_tree_map(vc, shardings, params, state.vc))
 
 
 def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
@@ -136,9 +232,9 @@ def _bias_corrections(step, b1, b2):
     return bc1, bc2
 
 
-def _clip_scale(grads, grad_clip):
+def _clip_scale(grads, grad_clip, shardings=None):
     """(pre-clip global norm, the clip's scale or None)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, shardings)
     if grad_clip is None:
         return norm, None
     return norm, torch.clamp(grad_clip / (norm + 1e-12), max=1.0)
@@ -158,12 +254,12 @@ def _slices(*leaves):
 
 @torch.no_grad()
 def adamw_update_(grads, state: AdamWState, params, cfg: AdamWConfig,
-                  lr: Optional[float] = None):
+                  lr: Optional[float] = None, shardings=None):
     """One AdamW step written into ``state.m``, ``state.v`` and ``params``
     in place -> (params, new_state, pre-clip grad norm): global-norm
     clipping, then per slice the moments, their bias corrections, epsilon
     after the square root, and decoupled weight decay, in f32."""
-    gnorm, scale = _clip_scale(grads, cfg.grad_clip)
+    gnorm, scale = _clip_scale(grads, cfg.grad_clip, shardings)
     step = state.step + 1
     lr_t = cfg.lr if lr is None else lr
     b1, b2 = cfg.b1, cfg.b2
@@ -202,36 +298,44 @@ class AdafactorState(NamedTuple):
     vc: Any              # column statistics (or a (1,) placeholder)
 
 
-def _factored(p, cfg: AdafactorConfig) -> bool:
-    return p.dim() >= 2 and min(p.shape[-2:]) >= cfg.min_dim_factored
+def _factored(p, cfg: AdafactorConfig, sh=None) -> bool:
+    shape = _global_shape(p, sh)
+    return len(shape) >= 2 and min(shape[-2:]) >= cfg.min_dim_factored
 
 
-def adafactor_init(params, cfg: AdafactorConfig) -> AdafactorState:
-    def init_vr(p):
-        shape = p.shape[:-1] if _factored(p, cfg) else p.shape
+def adafactor_init(params, cfg: AdafactorConfig,
+                   shardings=None) -> AdafactorState:
+    def init_vr(p, sh=None):
+        shape = p.shape[:-1] if _factored(p, cfg, sh) else p.shape
         return torch.zeros(shape, dtype=_F32, device=p.device)
 
-    def init_vc(p):
-        shape = (p.shape[:-2] + p.shape[-1:] if _factored(p, cfg)
+    def init_vc(p, sh=None):
+        shape = (p.shape[:-2] + p.shape[-1:] if _factored(p, cfg, sh)
                  else (1,))
         return torch.zeros(shape, dtype=_F32, device=p.device)
 
     dev = tree_leaves(params)[0].device
+    trees = (params,) if shardings is None else (params, shardings)
     return AdafactorState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
-        vr=_tree_map(init_vr, params), vc=_tree_map(init_vc, params))
+        vr=_tree_map(init_vr, *trees), vc=_tree_map(init_vc, *trees))
 
 
 def _adafactor_one(g, vr, vc, p, cfg: AdafactorConfig, beta2, lr_t,
-                   factored: bool):
-    """One matrix's (or one layer's) update -> (p_new, vr_new, vc_new)."""
+                   factored: bool, sh=None):
+    """One matrix's (or one layer's) update -> (p_new, vr_new, vc_new);
+    ``sh`` places the local shard ``p`` (None: the whole leaf)."""
     g32 = g.float()
     g2 = torch.square(g32) + cfg.eps1
     if factored:
-        vr_new = beta2 * vr + (1 - beta2) * g2.mean(dim=-1)
-        vc_new = beta2 * vc + (1 - beta2) * g2.mean(dim=-2)
-        # rank-1 reconstruction of the second moment
-        denom = vr_new.mean(dim=-1, keepdim=True)
+        vr_new = beta2 * vr + (1 - beta2) * _mean(g2, sh, -1)
+        vc_new = beta2 * vc + (1 - beta2) * _mean(g2, sh, -2)
+        # rank-1 reconstruction of the second moment (vr's last axis is
+        # the parameter's second-to-last)
+        axes = _split_axes(sh, (g.dim() - 2,))
+        denom = (vr_new.mean(dim=-1, keepdim=True) if not axes else
+                 _sum_over(vr_new.sum(dim=-1, keepdim=True), sh, axes)
+                 / _global_shape(g, sh)[-2])
         vhat = (vr_new[..., None] * vc_new[..., None, :]
                 / torch.clamp(denom[..., None], min=cfg.eps1))
     else:
@@ -240,10 +344,10 @@ def _adafactor_one(g, vr, vc, p, cfg: AdafactorConfig, beta2, lr_t,
         vhat = vr_new
     u = g32 * torch.rsqrt(vhat + cfg.eps1)
     # RMS update clipping (Adafactor section 6)
-    rms_u = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+    rms_u = torch.sqrt(_mean(torch.square(u), sh) + 1e-30)
     u = u / torch.clamp(rms_u / cfg.clip_threshold, min=1.0)
     p32 = p.float()
-    scale = torch.clamp(torch.sqrt(torch.mean(torch.square(p32))),
+    scale = torch.clamp(torch.sqrt(_mean(torch.square(p32), sh)),
                         min=cfg.eps2)
     delta = lr_t * scale * u
     if cfg.weight_decay:
@@ -251,12 +355,23 @@ def _adafactor_one(g, vr, vc, p, cfg: AdafactorConfig, beta2, lr_t,
     return (p32 - delta).to(p.dtype), vr_new, vc_new
 
 
-def _per_layer(p, cfg: AdafactorConfig) -> bool:
+def _per_layer(p, cfg: AdafactorConfig, sh=None) -> bool:
     """A layer-stacked factored leaf past 2^26 elements updates layer by
     layer (the JAX ``lax.map``: one layer's f32 temporaries, per-layer
     statistics)."""
-    return (p.dim() >= 3 and _factored(p, cfg)
-            and p.numel() * 4 > _PER_LAYER_BYTES)
+    n = 1
+    for d in _global_shape(p, sh):
+        n *= d
+    return p.dim() >= 3 and _factored(p, cfg, sh) and n * 4 > _PER_LAYER_BYTES
+
+
+def _layer_sharding(sh):
+    """A layer's placement: the leaf's without its (unsplit) layer axis."""
+    if sh is None:
+        return None
+    from repro_torch.dist.sharding import NamedSharding
+
+    return NamedSharding(sh.mesh, tuple(sh.spec)[1:])
 
 
 def _adafactor_step(state: AdafactorState, cfg: AdafactorConfig, lr):
@@ -277,22 +392,27 @@ def adafactor_update(grads, state: AdafactorState, params,
 
 @torch.no_grad()
 def adafactor_update_(grads, state: AdafactorState, params,
-                      cfg: AdafactorConfig, lr: Optional[float] = None):
+                      cfg: AdafactorConfig, lr: Optional[float] = None,
+                      shardings=None):
     """One Adafactor step written into ``state.vr``, ``state.vc`` and
     ``params`` in place, a leaf (or a layer of a ``_per_layer`` leaf) at
     a time -> (params, new_state, pre-clip grad norm)."""
-    gnorm, scale = _clip_scale(grads, cfg.grad_clip)
+    gnorm, scale = _clip_scale(grads, cfg.grad_clip, shardings)
     step, beta2, lr_t = _adafactor_step(state, cfg, lr)
-    for g, vr, vc, p in zip(tree_leaves(grads), tree_leaves(state.vr),
-                            tree_leaves(state.vc), tree_leaves(params)):
-        fac = _factored(p, cfg)
+    ps_ = tree_leaves(params)
+    for g, vr, vc, p, sh in zip(tree_leaves(grads), tree_leaves(state.vr),
+                                tree_leaves(state.vc), ps_,
+                                _leaf_shardings(shardings, len(ps_))):
+        fac = _factored(p, cfg, sh)
+        per = _per_layer(p, cfg, sh)
         parts = ([(g[i], vr[i], vc[i], p[i]) for i in range(p.shape[0])]
-                 if _per_layer(p, cfg) else [(g, vr, vc, p)])
+                 if per else [(g, vr, vc, p)])
+        psh = _layer_sharding(sh) if per else sh
         for gs, vrs, vcs, ps in parts:
             if scale is not None:
                 gs = gs * scale.to(gs.dtype)
             pn, vrn, vcn = _adafactor_one(gs, vrs, vcs, ps, cfg, beta2,
-                                          lr_t, fac)
+                                          lr_t, fac, psh)
             ps.copy_(pn)
             vrs.copy_(vrn)
             if fac:
@@ -300,12 +420,15 @@ def adafactor_update_(grads, state: AdafactorState, params,
     return params, AdafactorState(step=step, vr=state.vr, vc=state.vc), gnorm
 
 
-def make_optimizer(cfg):
+def make_optimizer(cfg, shardings=None):
     """(init, update) pair for either optimizer config; the update writes
     the state and the parameters in place (``adamw_update_``,
-    ``adafactor_update_``)."""
+    ``adafactor_update_``).  ``shardings`` places local-shard parameters
+    on a mesh (see the module docstring)."""
     if isinstance(cfg, AdafactorConfig):
-        return (lambda p: adafactor_init(p, cfg),
-                lambda g, s, p, lr=None: adafactor_update_(g, s, p, cfg, lr))
+        return (lambda p: adafactor_init(p, cfg, shardings),
+                lambda g, s, p, lr=None: adafactor_update_(
+                    g, s, p, cfg, lr, shardings))
     return (lambda p: adamw_init(p, cfg),
-            lambda g, s, p, lr=None: adamw_update_(g, s, p, cfg, lr))
+            lambda g, s, p, lr=None: adamw_update_(g, s, p, cfg, lr,
+                                                   shardings))

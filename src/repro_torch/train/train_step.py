@@ -13,6 +13,18 @@ schedule's learning rate for the step before it.
 
 The step writes the optimizer state and the parameters in place
 (``make_optimizer``'s update), as the JAX trainer donates its state.
+
+For a model built on a mesh (``build_model(..., mesh=...)``) the state's
+leaves are the rank's local shards and the batch is its rows.  Each
+``fsdp`` weight is gathered for its use and its gradient
+reduce-scattered back over ``data`` inside the backward
+(``tensor_parallel.materialize``); after it, every gradient is summed
+over the batch axes its leaf is not split over (a replicated leaf's
+gradient, and every leaf's over ``pod``), the loss and its metrics
+likewise (``train_loss`` gives each rank its part of the global mean),
+and the optimizer reduces over the split axes (``make_optimizer``'s
+``shardings``).  The microbatch count keeps the JAX rule: at most the
+rank's rows (the global batch over the data-parallel extent).
 """
 
 from __future__ import annotations
@@ -27,7 +39,8 @@ from repro_torch.train.optimizer import (AdamWConfig, make_optimizer,
 from repro_torch.train.schedule import ScheduleConfig, make_schedule
 
 __all__ = ["TrainConfig", "TrainState", "make_train_step",
-           "init_train_state", "loss_and_grads"]
+           "init_train_state", "loss_and_grads", "state_sharding",
+           "param_shardings"]
 
 _F32 = torch.float32
 
@@ -53,11 +66,30 @@ class TrainState(NamedTuple):
 
 def init_train_state(model, generator: torch.Generator,
                      tcfg: TrainConfig) -> TrainState:
+    """The whole state (on a mesh too: ``state_sharding`` places it)."""
     params = model.init(generator)
     opt_init, _ = make_optimizer(tcfg.optimizer)
     dev = tree_leaves(params)[0].device
     return TrainState(params, opt_init(params),
                       torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def param_shardings(model):
+    """The parameters' ``NamedSharding`` tree of a model on a mesh (None
+    without one)."""
+    return None if model.plan is None else model.plan.shardings
+
+
+def state_sharding(model, state: TrainState) -> TrainState:
+    """The ``NamedSharding`` tree of a whole train state on the model's
+    mesh: parameters by ``param_specs``, the optimizer state by
+    ``opt_state_sharding``, ``step`` replicated."""
+    from repro_torch.dist.sharding import NamedSharding
+    from repro_torch.train.optimizer import opt_state_sharding
+
+    psh = param_shardings(model)
+    return TrainState(psh, opt_state_sharding(state.opt, psh, state.params),
+                      NamedSharding(model.mesh, ()))
 
 
 def loss_and_grads(model, params, batch):
@@ -77,13 +109,34 @@ def _microbatch(batch: Dict[str, torch.Tensor], m: int, i: int):
             for k, v in batch.items()}
 
 
+def _reduce(model, shardings, loss, metrics, grads):
+    """Sums over the batch axes: each gradient over those its leaf is not
+    split over, the loss and the metrics over all."""
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.dist.sharding import spec_axes
+
+    mesh = model.mesh
+    batch = tuple(a for a in tp.BATCH_AXES if tp.axis_size(mesh, a) > 1)
+    out = []
+    for g, sh in zip(grads, tree_leaves(shardings)):
+        split = {a for e in sh.spec for a in spec_axes(e)}
+        out.append(tp.all_reduce(g, mesh, [a for a in batch
+                                           if a not in split]))
+    if batch:
+        loss = tp.all_reduce(loss.clone(), mesh, batch)
+        metrics = {k: tp.all_reduce(v.clone(), mesh, batch)
+                   for k, v in metrics.items()}
+    return loss, metrics, out
+
+
 def make_train_step(model, tcfg: TrainConfig) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``, the state's
     tensors updated in place; ``metrics`` holds
     scalar tensors ``loss``, ``grad_norm``, ``lr``, ``nll`` and ``aux``
     (read them back to time the device's step)."""
     schedule = make_schedule(tcfg.schedule)
-    _, opt_update = make_optimizer(tcfg.optimizer)
+    shardings = param_shardings(model)
+    _, opt_update = make_optimizer(tcfg.optimizer, shardings)
     m = tcfg.microbatches
     acc_dtype = (torch.bfloat16 if tcfg.accum_dtype == "bfloat16"
                  else torch.float32)
@@ -106,6 +159,9 @@ def make_train_step(model, tcfg: TrainConfig) -> Callable:
                 loss = loss + l / m
             grads = g_acc
             metrics = {"nll": loss, "aux": torch.zeros_like(loss)}
+        if shardings is not None:
+            loss, metrics, grads = _reduce(model, shardings, loss, metrics,
+                                           grads)
         lr = schedule(state.step)
         new_params, new_opt, gnorm = opt_update(
             tree_unflatten(params, grads), state.opt, params, lr=lr)

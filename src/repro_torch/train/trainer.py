@@ -15,9 +15,22 @@ Port of ``repro.train.trainer``:
   that raises partway may leave it half updated; then ``run`` writes no
   final checkpoint and re-raises, and a restart resumes from the last
   one committed;
-* re-placement: ``remesh(mesh)`` copies the state to the host and places
-  it on the new mesh's device (on one card: the card again, as the JAX
-  launcher's demo re-meshes onto the same mesh).
+* placement on a mesh: ``Trainer(..., mesh=mesh)`` runs the model built
+  on ``mesh`` (``build_model(..., mesh=...)``): ``_place`` keeps each
+  rank's block of the parameters and the optimizer state
+  (``train_step.state_sharding``: AdamW ``m``/``v`` as the parameters,
+  Adafactor ``vr``/``vc`` by the JAX dry run's rule), every rank draws
+  the data's whole batch and trains on its rows (its block over the
+  batch axes), and checkpoints are written block by block and restore
+  onto any mesh (``train.checkpoint``);
+* re-placement: ``remesh(mesh)`` moves the state onto another mesh, a
+  smaller one included (a rank past it keeps no state and stops), or
+  onto no mesh (the model's device), block by block: every rank of the
+  old mesh writes its blocks into a staging checkpoint (a fresh
+  directory in ``ckpt_dir``, or in the temporary directory: either must
+  be one file system for every rank) and every rank reads back only
+  the parts that overlap its new blocks, so no rank holds more than
+  its own blocks of the old and the new layout.
 
 The step updates the state in place, as the JAX trainer donates it.
 The step time is taken after the step's metrics are read back to the
@@ -27,6 +40,8 @@ host, so it is the device's time.
 from __future__ import annotations
 
 import dataclasses
+import os
+import shutil
 import signal
 import time
 from typing import Any, Dict, List, Optional
@@ -36,7 +51,8 @@ import torch
 
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.train_step import (TrainConfig, TrainState,
-                                          init_train_state, make_train_step)
+                                          init_train_state, make_train_step,
+                                          state_sharding)
 
 __all__ = ["TrainerConfig", "Trainer"]
 
@@ -63,18 +79,53 @@ def _mesh_device(mesh, default: torch.device) -> torch.device:
 
 class Trainer:
     def __init__(self, model, cfg: TrainerConfig, data, mesh=None):
-        self.model = model
         self.cfg = cfg
         self.data = data
-        self.mesh = mesh
-        self.device = _mesh_device(mesh, model.device)
         self.metrics_log: List[Dict[str, float]] = []
         self.straggler_events: List[Dict[str, float]] = []
         self._step_time_ema = None
         self._step_time_var = 0.0
         self._stop = False
-        self._train_step = make_train_step(model, cfg.train)
         self.state: Optional[TrainState] = None
+        self._sh = None
+        self._set_mesh(model, mesh)
+
+    def _set_mesh(self, model, mesh) -> None:
+        if model.mesh is not mesh:
+            from repro_torch.models.model import build_model
+
+            model = build_model(model.cfg, device=_mesh_device(
+                mesh, model.device), mesh=mesh)
+        self.model = model
+        self.mesh = mesh
+        self.device = _mesh_device(mesh, model.device)
+        self._train_step = make_train_step(model, self.cfg.train)
+
+    @property
+    def active(self) -> bool:
+        """Whether this rank holds a block of the mesh (always without
+        one)."""
+        return self.mesh is None or self.mesh.get_coordinate() is not None
+
+    def _shardings(self, state):
+        return None if self.mesh is None else state_sharding(self.model,
+                                                             state)
+
+    def _rows(self, x: np.ndarray) -> np.ndarray:
+        """This rank's block of a whole batch's rows."""
+        if self.mesh is None:
+            return x
+        from repro_torch.dist import tensor_parallel as tp
+
+        idx, ways = 0, 1
+        for a in tp.BATCH_AXES:
+            n = tp.axis_size(self.mesh, a)
+            idx, ways = idx * n + tp.axis_index(self.mesh, a), ways * n
+        if x.shape[0] % ways:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split "
+                             f"over {ways} data-parallel ranks")
+        b = x.shape[0] // ways
+        return x[idx * b:(idx + 1) * b]
 
     # ------------------------------------------------------------ lifecycle
     def initialize(self) -> int:
@@ -85,7 +136,8 @@ class Trainer:
                                              self.cfg.train))
         start = 0
         if self.cfg.ckpt_dir:
-            restored = ckpt.restore_latest(self.cfg.ckpt_dir, state)
+            restored = ckpt.restore_latest(self.cfg.ckpt_dir, state,
+                                           self._sh)
             if restored is not None:
                 start, tree, extra = restored
                 # into the fresh state's tensors: no second copy on the card
@@ -99,20 +151,71 @@ class Trainer:
         return start
 
     def _place(self, state):
+        """The whole ``state`` -> this rank's blocks on its device."""
+        from repro_torch.dist.sharding import place
+
+        self._sh = self._shardings(state)
+        if self._sh is not None:
+            state = place(state, self._sh)
         return ckpt.tree_unflatten(state, [
             x.to(self.device) for _p, x in ckpt.tree_flatten(state)])
 
+    def _staging_dir(self) -> str:
+        """A fresh directory, the same on every rank of the world."""
+        import tempfile
+
+        dist = torch.distributed
+        many = dist.is_initialized() and dist.get_world_size() > 1
+        name = [None]
+        if not many or dist.get_rank() == 0:
+            if self.cfg.ckpt_dir:
+                os.makedirs(self.cfg.ckpt_dir, exist_ok=True)
+            name[0] = tempfile.mkdtemp(prefix=".remesh_",
+                                       dir=self.cfg.ckpt_dir or None)
+        if many:
+            dist.broadcast_object_list(name, src=0)
+        return name[0]
+
     def remesh(self, new_mesh) -> None:
-        """Elastic scale: move the state onto another mesh's device."""
-        host = ckpt.tree_unflatten(self.state, [
-            x.to("cpu") for _p, x in ckpt.tree_flatten(self.state)])
+        """Elastic scale: move the state onto another mesh (a rank past
+        a smaller mesh keeps none and stops training).  Every rank of
+        the world calls it; see the module docstring."""
+        from repro_torch.dist.sharding import place
+
+        state, old = self.state, self._sh
         self.state = None
-        self.mesh = new_mesh
-        self.device = _mesh_device(new_mesh, self.model.device)
-        self.state = self._place(host)
+        if old is None:    # the whole state is here: place it at once
+            self._set_mesh(self.model, new_mesh)
+            self.state = self._place(state) if self.active else None
+            return
+        # the whole state's shapes, on meta: no storage
+        whole = ckpt.tree_unflatten(state, [
+            torch.empty(sh.whole_shape(x.shape), dtype=x.dtype,
+                        device="meta")
+            for (_p, x), (_q, sh) in zip(ckpt.tree_flatten(state),
+                                         ckpt.tree_flatten(old))])
+        stage = self._staging_dir()
+        ckpt.save(stage, int(state.step), state, shardings=old)
+        del state
+        self._set_mesh(self.model, new_mesh)
+        self._sh = None
+        if self.active:
+            self._sh = self._shardings(whole)
+            like = whole if self._sh is None else place(whole, self._sh)
+            _step, tree, _extra = ckpt.restore_latest(stage, like, self._sh)
+            self.state = ckpt.tree_unflatten(tree, [
+                x.to(self.device) for _p, x in ckpt.tree_flatten(tree)])
+        dist = torch.distributed
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            shutil.rmtree(stage, ignore_errors=True)
 
     # ----------------------------------------------------------------- run
     def run(self, n_steps: int) -> Dict[str, Any]:
+        if self.state is None and not self.active:
+            return {"final_step": None, "final_loss": None,
+                    "stragglers": 0}
         start = (self.initialize() if self.state is None
                  else int(self.state.step))
         prev_handlers = {}
@@ -127,9 +230,10 @@ class Trainer:
                 if self._stop:
                     break
                 b = self.data.next_batch()
-                batch = {"tokens": torch.from_numpy(b.tokens).to(self.device),
-                         "targets": torch.from_numpy(b.targets).to(
-                             self.device)}
+                batch = {"tokens": torch.from_numpy(
+                             self._rows(b.tokens)).to(self.device),
+                         "targets": torch.from_numpy(
+                             self._rows(b.targets)).to(self.device)}
                 t0 = time.perf_counter()
                 torn = True
                 self.state, metrics = self._train_step(self.state, batch)
@@ -165,7 +269,7 @@ class Trainer:
             extra["data"] = self.data.state_dict()
         fn = ckpt.save if sync else ckpt.save_async
         fn(self.cfg.ckpt_dir, step, self.state, extra=extra,
-           keep=self.cfg.keep)
+           keep=self.cfg.keep, shardings=self._sh)
 
     def _watchdog(self, step: int, dt: float) -> None:
         """EMA z-score straggler detection (the first step seeds it)."""

@@ -35,9 +35,17 @@ Depth probes stay, for time rather than for XLA: a full-depth
 ``prefill_32k`` pass on meta runs thousands of chunk pairs a layer.
 Serving counts are affine in depth, training's quadratic (``run_probe``);
 the fit is exact for FLOPs, bytes and exponentials, and the peak's
-within a few small transients.  One card has no mesh and no
-collective: ``collective_s`` stays in the result at 0.0 so the report
-keeps the JAX layout.
+within a few small transients.
+
+On a mesh (``launch.dryrun --mesh``) the artifact carries the rank's
+collective bytes by axis (``collective_bytes``, ``<kind>@<axis>``);
+``collective_s`` is each axis's bytes over its link: ``NVLINK_BW``
+(900 GB/s, the H100 SXM5 data sheet's NVLink bandwidth a GPU) for an
+axis whose ranks lie inside one 8-card node, ``NIC_BW`` (50 GB/s: DGX
+H100's one 400 Gb/s ConnectX-7 NIC a GPU) for one that crosses nodes.
+Ranks are laid out row-major over the mesh, so an axis of size ``s``
+and stride ``t`` (the product of the later axes' sizes) stays inside a
+node when ``s * t <= 8``.  Without a mesh ``collective_s`` is 0.
 """
 
 from __future__ import annotations
@@ -54,7 +62,8 @@ from torch.utils.flop_counter import flop_registry
 
 __all__ = ["PEAK_BF16", "PEAK_FP32", "PEAK_TF32", "HBM_BW", "HBM_BYTES",
            "SFU_PER_S", "SFU_PER_SM_PER_CLOCK", "FP32_PER_SM_PER_CLOCK",
-           "PEAKS", "WorkCounter", "probe_depths",
+           "PEAKS", "NVLINK_BW", "NIC_BW", "NODE_CARDS", "link_bw",
+           "collective_seconds", "WorkCounter", "probe_depths",
            "probe_config", "run_probe", "corrected_totals",
            "flash_onchip_bytes", "model_flops", "analyze_artifact"]
 
@@ -73,6 +82,32 @@ FP32_PER_SM_PER_CLOCK = 128
 # exp2 results per second: 132 SMs x 16 a clock x 1.98 GHz (max SM clock)
 SFU_PER_S = 132 * SFU_PER_SM_PER_CLOCK * 1.98e9
 PEAKS = {"bf16": PEAK_BF16, "tf32": PEAK_TF32, "f32": PEAK_FP32}
+# links between cards: NVLink 4 inside a node (the H100 SXM5 data sheet,
+# 900 GB/s a GPU), one 400 Gb/s NIC a GPU across nodes (DGX H100)
+NVLINK_BW = 900e9            # bytes/s
+NIC_BW = 50e9                # bytes/s
+NODE_CARDS = 8
+
+
+def link_bw(mesh: Dict[str, int], axis: str) -> float:
+    """The link an axis of a row-major mesh (``{axis: size}`` in order)
+    runs on: NVLink inside a node, the NIC across nodes."""
+    names = list(mesh)
+    stride = 1
+    for a in names[names.index(axis) + 1:]:
+        stride *= mesh[a]
+    return NVLINK_BW if mesh[axis] * stride <= NODE_CARDS else NIC_BW
+
+
+def collective_seconds(art: Dict, coll: Optional[Dict] = None) -> float:
+    """Each axis's counted collective bytes over its link (0 without a
+    mesh)."""
+    mesh = art.get("mesh")
+    coll = art.get("collective_bytes", {}) if coll is None else coll
+    if not mesh:
+        return 0.0
+    return sum(v / link_bw(mesh, k.split("@")[1]) for k, v in coll.items()
+               if "@" in k and not k.startswith("n_"))
 
 _aten = torch.ops.aten
 # ops that allocate and write nothing
@@ -335,7 +370,9 @@ def analyze_artifact(art: Dict) -> Dict:
     sfu_s = tot.get("exps", 0.0) / SFU_PER_S
     compute_s = sum(compute.values()) + sfu_s
     memory_s = tot["bytes"] / HBM_BW
-    terms = {"compute": compute_s, "memory": memory_s, "collective": 0.0}
+    collective_s = collective_seconds(art)
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": collective_s}
     bound = max(terms, key=terms.get)
     step_s = max(terms.values())
     cards = art["cards"]
@@ -346,7 +383,11 @@ def analyze_artifact(art: Dict) -> Dict:
         "batch": art["batch"], "cards": cards,
         "compute_s": compute_s, "compute_bf16_s": compute["bf16"],
         "compute_f32_s": compute["f32"] + compute["tf32"], "sfu_s": sfu_s,
-        "memory_s": memory_s, "collective_s": 0.0, "bound": bound,
+        "memory_s": memory_s, "collective_s": collective_s, "bound": bound,
+        "mesh": "x".join(str(n) for n in art["mesh"].values())
+        if art.get("mesh") else "1",
+        "collective_bytes": art.get("collective_bytes", {}).get("total",
+                                                                0.0),
         "step_s": step_s, "model_flops": mf,
         "useful_frac": mf / (flops * cards) if flops else 0.0,
         "roofline_frac": (mf / step_s / (PEAK_BF16 * cards)

@@ -74,3 +74,265 @@ def run_rank(rank, world, init_file, out_dir):
     dist.barrier()
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
+
+
+# ------------------------------------------------------------------ the mesh
+# ``test_torch_mesh.py``: a dense smoke model on a (2, 2) data x model
+# mesh of 4 gloo ranks.  "divides": qwen3-14b's smoke config (4 heads, 2
+# kv heads: a rank computes its own heads); "replicated": 1 kv head (the
+# flat kv columns still split, half a head a rank, so every rank gathers
+# them and computes every head).
+MESH_ARCH = "qwen3-14b"
+MESH_CASES = {"divides": 2, "replicated": 1}
+MESH_ROWS, MESH_LEN, MESH_S = 4, 16, 16     # global rows, positions, cache
+MESH_LR = 5e-3
+
+
+def mesh_cfg(kv_heads, get_config):
+    """The case's config (``get_config`` of either package)."""
+    import dataclasses
+
+    cfg = get_config(MESH_ARCH, smoke=True)
+    return dataclasses.replace(cfg, attn=dataclasses.replace(
+        cfg.attn, kv_heads=kv_heads))
+
+
+def mesh_batch(cfg, seed=21):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, cfg.vocab, (MESH_ROWS, MESH_LEN)).astype(np.int32),
+            rng.integers(0, cfg.vocab, (MESH_ROWS, MESH_LEN)).astype(np.int32))
+
+
+def mesh_decode_inputs(cfg, seed=22):
+    """(k_cache, v_cache, cache_len, tokens) of one decode step: random
+    caches of ``MESH_S`` positions, lengths before the step."""
+    rng = np.random.default_rng(seed)
+    a = cfg.attn
+    shape = (cfg.n_layers, MESH_ROWS, MESH_S, a.kv_heads, a.head_dim)
+    kc = rng.standard_normal(shape).astype(np.float32)
+    vc = rng.standard_normal(shape).astype(np.float32)
+    lens = np.array([5, 9, 12, 3], np.int32)
+    toks = rng.integers(0, cfg.vocab, (MESH_ROWS, 1)).astype(np.int32)
+    return kc, vc, lens, toks
+
+
+def flat_params(tree, prefix=""):
+    """{path: array} of a nested dict (either package's tree)."""
+    out = {}
+    for k in sorted(tree):
+        p = f"{prefix}/{k}" if prefix else k
+        if isinstance(tree[k], dict):
+            out.update(flat_params(tree[k], p))
+        else:
+            out[p] = tree[k]
+    return out
+
+
+def unflat_params(flat):
+    tree = {}
+    for path, v in flat.items():
+        node = tree
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
+
+
+def _rows(mesh):
+    from repro_torch.dist import tensor_parallel as tp
+
+    b = MESH_ROWS // tp.axis_size(mesh, "data")
+    i = tp.axis_index(mesh, "data")
+    return slice(i * b, (i + 1) * b)
+
+
+def _mesh_case(cfg, params, mesh):
+    import copy
+
+    from repro_torch.dist.sharding import place
+    from repro_torch.dist.tensor_parallel import gather_tree
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import build_model
+    from repro_torch.train.checkpoint import tree_flatten
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import (AdafactorConfig, AdamWConfig,
+                                             tree_unflatten)
+    from repro_torch.train.schedule import ScheduleConfig
+
+    model = build_model(cfg, "cpu", mesh=mesh)
+    plan = model.plan
+    psh = plan.shardings
+    pm = model.place(params)
+    mine = _rows(mesh)
+    toks, tg = (torch.from_numpy(a) for a in mesh_batch(cfg))
+    batch = {"tokens": toks[mine], "targets": tg[mine]}
+    out = {"local_shapes": {p: tuple(x.shape) for p, x in
+                            flat_params(pm).items()},
+           "heads": plan.heads, "mlp": plan.mlp, "vocab": plan.vocab}
+    with torch.no_grad():
+        x, _ = tfm.forward(pm, toks[mine], cfg, plan=plan)
+        out["logits"] = tfm.logits_of(pm, x, cfg, plan)
+    loss, met, grads = ts.loss_and_grads(model, pm, batch)
+    loss, met, grads = ts._reduce(model, psh, loss, met, grads)
+    out["loss"] = loss
+    out["grads"] = gather_tree(tree_unflatten(pm, grads), psh)
+
+    sched = ScheduleConfig(peak_lr=MESH_LR, warmup_steps=1, total_steps=10)
+    for name, opt in (("adamw", AdamWConfig(lr=MESH_LR)),
+                      ("adafactor", AdafactorConfig(lr=MESH_LR,
+                                                    min_dim_factored=64))):
+        tcfg = ts.TrainConfig(optimizer=opt, schedule=sched, microbatches=2)
+        whole = ts.TrainState(copy.deepcopy(params),
+                              ts.make_optimizer(opt)[0](params),
+                              torch.zeros((), dtype=torch.int32))
+        sh = ts.state_sharding(model, whole)
+        state = place(whole, sh)
+        for _ in range(2):
+            state, m = ts.make_train_step(model, tcfg)(state, batch)
+        out[name] = {"state": dict(tree_flatten(gather_tree(state, sh))),
+                     "metrics": {k: float(v) for k, v in m.items()}}
+
+    kc, vc, lens, dt = mesh_decode_inputs(cfg)
+    whole = {"k_cache": torch.from_numpy(kc), "v_cache": torch.from_numpy(vc),
+             "cache_len": torch.from_numpy(lens)}
+    ssh = tfm.state_sharding(cfg, mesh, MESH_ROWS, MESH_S)
+    st = place(whole, ssh)
+    out["cache_local"] = tuple(st["k_cache"].shape)
+    logits, new = model.decode_step(pm, st, torch.from_numpy(dt)[mine])
+    out["decode_logits"] = logits
+    out["decode_state"] = gather_tree(new, ssh)
+    return out
+
+
+def unsharded_steps(cfg, params, opt):
+    """The meshless port's two steps of ``_mesh_case`` on the whole
+    batch (the Adafactor reference)."""
+    import copy
+
+    from repro_torch.models.model import build_model
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.checkpoint import tree_flatten
+    from repro_torch.train.schedule import ScheduleConfig
+
+    model = build_model(cfg, "cpu")
+    sched = ScheduleConfig(peak_lr=MESH_LR, warmup_steps=1, total_steps=10)
+    tcfg = ts.TrainConfig(optimizer=opt, schedule=sched, microbatches=2)
+    state = ts.TrainState(copy.deepcopy(params),
+                          ts.make_optimizer(opt)[0](params),
+                          torch.zeros((), dtype=torch.int32))
+    toks, tg = (torch.from_numpy(a) for a in mesh_batch(cfg))
+    for _ in range(2):
+        state, m = ts.make_train_step(model, tcfg)(
+            state, {"tokens": toks, "targets": tg})
+    return ({p: x.clone() for p, x in tree_flatten(state)},
+            {k: float(v) for k, v in m.items()})
+
+
+def _trainer(cfg, mesh, ckpt_dir, steps):
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import ScheduleConfig
+    from repro_torch.train.train_step import TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=MESH_LR),
+                       schedule=ScheduleConfig(peak_lr=MESH_LR,
+                                               warmup_steps=1,
+                                               total_steps=10))
+    data = SyntheticTokens(vocab=cfg.vocab, seq=MESH_LEN,
+                           local_batch=MESH_ROWS)
+    t = Trainer(build_model(cfg, "cpu"),
+                TrainerConfig(train=tcfg, ckpt_dir=ckpt_dir,
+                              ckpt_every=100), data, mesh=mesh)
+    t.run(steps)
+    return t
+
+
+def _whole(trainer):
+    """The trainer's whole state, gathered from every rank's blocks."""
+    from repro_torch.dist.tensor_parallel import gather_tree
+    from repro_torch.train.checkpoint import tree_flatten
+
+    st = (trainer.state if trainer._sh is None
+          else gather_tree(trainer.state, trainer._sh))
+    return st, {p: x.clone() for p, x in tree_flatten(st)}
+
+
+def _nbytes(tree):
+    from repro_torch.train.checkpoint import tree_flatten
+
+    return sum(x.numel() * x.element_size() for _p, x in tree_flatten(tree))
+
+
+def _checkpoint_case(cfg, mesh, out_dir):
+    """Uninterrupted on (2, 2) for 4 steps; saved at step 2 on (2, 2),
+    restored on (1, 2) (ranks 0-1; ranks 2-3 hold no block) and onto no
+    mesh, and run on to step 4; then the saved run re-meshed onto (1, 2).
+    Each restore counts the bytes it copies out of blocks beside the
+    bytes of the blocks it fills."""
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.train import checkpoint as ckpt
+
+    ck = os.path.join(out_dir, "mesh_ckpt")
+    full = _trainer(cfg, mesh, None, 4)
+    saved = _trainer(cfg, mesh, ck, 2)
+    like, at2 = _whole(saved)
+    sub = make_mesh_shape((1, 2), ("data", "model"), "cpu")
+    out = {"uninterrupted": [m["loss"] for m in full.metrics_log],
+           "saved": at2}
+    n0 = ckpt.READ_BYTES["n"]
+    resumed = _trainer(cfg, sub, ck, 2)    # restores step 2: no step run
+    out["active"] = resumed.active
+    if resumed.active:
+        out["read"] = (ckpt.READ_BYTES["n"] - n0, _nbytes(resumed.state))
+        out["restored"] = _whole(resumed)[1]
+        n0 = ckpt.READ_BYTES["n"]
+        step, tree, _extra = ckpt.restore_latest(ck, like)
+        out["read_meshless"] = (ckpt.READ_BYTES["n"] - n0, _nbytes(tree))
+        out["meshless"] = (step, {p: x for p, x
+                                  in ckpt.tree_flatten(tree)})
+        resumed.run(4)
+        out["resumed"] = [m["loss"] for m in resumed.metrics_log]
+    dist.barrier()
+    n0 = ckpt.READ_BYTES["n"]
+    saved.remesh(sub)
+    out["remesh_active"] = saved.active
+    if saved.active:
+        out["remesh_read"] = (ckpt.READ_BYTES["n"] - n0,
+                              _nbytes(saved.state))
+        out["remeshed"] = _whole(saved)[1]
+    dist.barrier()
+    out["remesh_left"] = sorted(n for n in os.listdir(ck)
+                                if n.startswith(".remesh"))
+    return out
+
+
+def run_mesh_rank(rank, world, init_file, out_dir):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.weights import model_params_from_numpy
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    mesh = make_mesh_shape((2, 2), ("data", "model"), "cpu")
+    out = {}
+    for case, kv in MESH_CASES.items():
+        cfg = mesh_cfg(kv, get_config)
+        flat = dict(np.load(os.path.join(out_dir, f"params_{case}.npz")))
+        params = model_params_from_numpy(unflat_params(flat), cfg, "cpu")
+        out[case] = _mesh_case(cfg, params, mesh)
+    cfg = mesh_cfg(MESH_CASES["divides"], get_config)
+    out["ckpt"] = _checkpoint_case(cfg, mesh, out_dir)
+    t = launch_train.main(["--smoke", "--device", "cpu", "--steps", "4",
+                           "--seq", "16", "--batch", "4", "--mesh",
+                           "2x2:data,model", "--elastic-demo"])
+    out["elastic"] = {"losses": [m["loss"] for m in t.metrics_log],
+                      "mesh": None if t.mesh is None else tuple(t.mesh.shape),
+                      "active": t.active}
+    dist.barrier()
+    torch.save(out, os.path.join(out_dir, f"mesh_rank{rank}.pt"))
+    dist.destroy_process_group()

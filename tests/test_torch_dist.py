@@ -130,3 +130,27 @@ def test_mesh_shape_checked_on_one_process():
         make_mesh_shape((2, 2), ("data", "model"), "cpu")
     with pytest.raises(ValueError, match="length"):
         make_mesh_shape((1,), ("data", "model"), "cpu")
+
+
+def test_mesh_needs_a_card_unless_the_cpu_is_asked_for():
+    """``launch.mesh`` resolves its device as every entry point does:
+    ``None`` is the card, and raises without one (it once built a gloo
+    CPU mesh instead); ``"cpu"`` and ``"meta"`` only when asked for."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_shape, make_production_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: None resolves to it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh_shape((1, 1), ("data", "model"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_production_mesh(fake=True)
+    assert not dist.is_initialized()
+    mesh = make_production_mesh(device_type="meta", fake=True)
+    try:
+        assert tuple(mesh.shape) == (16, 16)
+        assert mesh.mesh_dim_names == ("data", "model")
+        assert dist.get_world_size() == 256
+    finally:
+        dist.destroy_process_group()

@@ -88,3 +88,54 @@ def test_r3_fails_where_t1_ran_against_the_prediction():
     art = _art(False, "internlm2-1.8b", "train_4k", 8)
     with pytest.raises(SystemExit, match="predicted not to fit"):
         cs.roofline_train(None, None, {}, art, "card")
+
+
+# ------------------------------------------------------------- phase m
+def test_m1_bit_equality_on_one_card():
+    ref = torch.randn(8, 64)
+    tok = ref.argmax(-1, keepdim=True)
+    assert cs.mesh_decode_verdict(1, ref, ref.clone(), tok, tok.clone(),
+                                  "m1") == 0.0
+    off = ref.clone()
+    off[3, 5] = torch.nextafter(off[3, 5], torch.tensor(1e9))
+    with pytest.raises(SystemExit, match="bit-equal"):
+        cs.mesh_decode_verdict(1, ref, off, tok, tok, "m1")
+    with pytest.raises(SystemExit, match="bit-equal"):
+        cs.mesh_decode_verdict(1, ref, ref, tok, (tok + 1) % 64, "m1")
+
+
+def test_m1_ulp_rule_on_more_cards():
+    """On more cards: within ``MESH_ULPS`` bf16 ulps of the unsharded
+    route, a token flip allowed only on a near tie."""
+    ref = torch.zeros(2, 16)
+    ref[:, 3] = 8.0
+    ref[:, 4] = 8.0 - cs.bf16_ulp(8.0)          # a near tie with 3
+    tok = ref.argmax(-1, keepdim=True)
+    near = ref.clone()
+    near[:, 4] += 2 * cs.bf16_ulp(8.0)
+    flipped = near.argmax(-1, keepdim=True)
+    assert not torch.equal(flipped, tok)
+    assert cs.mesh_decode_verdict(4, ref, near, tok, flipped, "m1") <= 1.0
+    far = ref.clone()
+    far[0, 7] += (cs.MESH_ULPS + 1) * cs.bf16_ulp(8.0)
+    with pytest.raises(SystemExit, match="bf16 ulps"):
+        cs.mesh_decode_verdict(4, ref, far, tok, tok, "m1")
+
+
+@pytest.mark.parametrize("ratio,held", [(1.0, True), (0.96, True),
+                                        (1.09, True), (0.90, False),
+                                        (1.15, False)])
+def test_m2_peak_ratio_bound(ratio, held):
+    pred = 22e9
+    if held:
+        assert cs.mesh_peak_verdict("m2", ratio * pred, pred) == \
+            pytest.approx(ratio)
+    else:
+        with pytest.raises(SystemExit, match="outside"):
+            cs.mesh_peak_verdict("m2", ratio * pred, pred)
+
+
+def test_mesh_launch_counts():
+    cs.per_step_launches([40, 40, 40], 40, "m2")
+    with pytest.raises(SystemExit, match="expected 40"):
+        cs.per_step_launches([40, 39, 40], 40, "m2")
