@@ -201,6 +201,17 @@ Phases (any failure exits non-zero before the result lines):
    (``FD_TOL``); one decode step on the served cache under
    ``torch.profiler`` (device time and ``flash_decode``'s share,
    informational).
+m. the mesh, within ``MESH_BUDGET_S`` (90 s): on 6d's model, m1
+   qwen3-14b on the launched (1, 1) mesh against the unsharded route
+   (bit-equal, 40 ``flash_decode`` a step), m2 rank 0 of (16, k) under
+   fake process groups against the mesh dry run (peak, collective
+   bytes, ``flash_decode`` at the rank's heads vs plain), m3 the mesh
+   launcher's losses; then, 6d's model freed, m4 granite-moe-1b-a400m,
+   falcon-mamba-7b (a prefill, then decode) and zamba2-2.7b on the
+   (1, 1) mesh (bit-equal, exact windows), m5 rank 0 of arctic-480b's
+   ``decode_32k`` on (16, 16) and of falcon-mamba-7b's ``prefill_32k``
+   on (16, k) as m2 (``mamba_scan`` at the rank's channels vs plain),
+   m6 as m3 on granite-moe-1b-a400m.
 6m. every other architecture at its published widths, one at a time,
    its depth cut (``FAMILY_DEPTH``: gemma2-9b 2 layers, one local and
    one global; phi4-mini and internlm2 2; granite-moe all 24; arctic-480b
@@ -314,7 +325,7 @@ r. three cells on the card beside their own one-card dry run (budget
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are zeroed just before each driven step (each
-front-end leg included) of phases 2, 3, 4, 6, 6d, 6m, 8 and t (and the fixtures' before the self-test of 1b) and read
+front-end leg included) of phases 2, 3, 4, 6, 6d, m, 6m, 8 and t (and the fixtures' before the self-test of 1b) and read
 just after; the kernels' launches in phases 1b's contract run, 5 and 7
 and those that compute ground truth, replay or compare fall between
 those windows and do not count.  Phase t's windows (each driven train step,
@@ -483,7 +494,7 @@ FD_TOL = 2e-5
 # 200M keys (the trees are host-side Python, probed key by key; at 2^20
 # loaded keys phase 8 took 105.6 s of its 90 s budget on an H100 80GB
 # HBM3 at 700 W, LIPP's bulk load 23.3 s of it)
-MESH_BUDGET_S = 45.0           # phase m: m1 + m2 + m3
+MESH_BUDGET_S = 90.0           # phase m: m1-m3, then m4-m6
 M1_STEPS = 4                   # m1: decode steps on the (1, 1) mesh
 MESH_ULPS = 4                  # m1 on more cards: 6d's bf16-ulp rule
 M2_DATA = 16                   # m2: the meshes (M2_DATA, k), rank 0 alone
@@ -495,6 +506,20 @@ M3_LAYERS = 2                  # m3: internlm2-1.8b at full width
 M3_STEPS = 4
 M3_SEQ = 1024
 M3_BATCH = 8
+# m4: the (1, 1) mesh against the unsharded route, three more families
+M4_MOE_ARCH = "granite-moe-1b-a400m"    # full config
+M4_HYBRID_ARCH = "zamba2-2.7b"          # full depth
+M4_BATCH = 8                   # decode rows over a 2,080-position cache
+M4_CACHE = LM_PROMPT[1] + LM_NEW
+M4_PREFILL = (2, 1024)         # falcon-mamba-7b's prefill rows x tokens
+# m5: one rank under a fake group against the mesh dry run
+M5_MOE = ("arctic-480b", "decode_32k", (16, 16))
+M5_SSM_MODELS = (2, 4, 8)      # falcon-mamba-7b prefill_32k on (16, k)
+M5_STEPS = 2
+M5_SCAN_LEN = 2048             # positions of the scan's kernel-vs-plain check
+# m6: launch.train on granite-moe-1b-a400m at full width, depth cut
+M6_ARCH = "granite-moe-1b-a400m"
+M6_LAYERS = 2
 TRAIN_ARCH = "internlm2-1.8b"  # phase t: trained at its full config
 TRAIN_SEQ = 4096
 TRAIN_BATCH = 8                # as TRAIN_MICRO microbatches
@@ -4477,7 +4502,8 @@ def dense_phase(win, seed, card, r1_art=None, mesh=False):
     a prefill; the batcher against a batch-1 replay; layer 0's kernel
     route against the plain route on the served cache; one long-context
     decode step profiled.  Then, on the same parameters and served
-    cache, phase m (``mesh``: ``mesh_phase``), and phase r1 at
+    cache, phase m's dense legs (``mesh``: ``mesh_phase``; the caller
+    runs its other legs, ``mesh_families_phase``), and phase r1 at
     ``r1_art``'s batch (``roofline_decode``)."""
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
@@ -4580,11 +4606,42 @@ def mesh_peak_verdict(tag, measured, predicted):
     return ratio
 
 
-def per_step_launches(per, expect, what):
-    """Every step launched ``flash_decode`` ``expect`` times."""
+def per_step_launches(per, expect, what, kernel="flash_decode"):
+    """Every step launched ``kernel`` ``expect`` times."""
     if set(per) != {expect}:
-        fail(f"{what}: flash_decode launched {per} times in "
+        fail(f"{what}: {kernel} launched {per} times in "
              f"{len(per)} steps (expected {expect} a step)")
+
+
+def collective_verdict(tag, counted, dry):
+    """m2's and m5's communication verdict: the bytes a step counted
+    equal its mesh dry run's (to 1e-6 of them)."""
+    if abs(counted - dry) > 1e-6 * dry:
+        fail(f"{tag}: the step counted {counted} collective bytes, its dry "
+             f"run {dry}")
+
+
+def kernel_verdict(tag, name, got, want, tol):
+    """A kernel's output against its plain version on the same inputs,
+    within ``tol`` (rtol and atol); returns the max |d|."""
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        fail(f"{tag}: {name} disagrees with its plain version (max |d| "
+             f"{err}, tolerance {tol})")
+    return err
+
+
+def loss_verdict(tag, plain, meshed, steps, tol):
+    """m3's and m6's verdict: ``steps`` losses each, the mesh launcher's
+    within ``tol`` (relative) of the unsharded launcher's."""
+    if len(plain) != steps or len(meshed) != steps:
+        fail(f"{tag}: {len(plain)} and {len(meshed)} losses, expected "
+             f"{steps} each")
+    rel = max(abs(x - y) / abs(x) for x, y in zip(plain, meshed))
+    if rel > tol:
+        fail(f"{tag}: the mesh launcher's losses {meshed} are not the "
+             f"unsharded trainer's {plain}")
+    return rel
 
 
 def _clone_state(state):
@@ -4750,9 +4807,7 @@ def mesh_m2(win, card):
             fail(f"m2 k={k}: flash_decode at {q.shape[1]}/{kvh} heads "
                  f"disagrees with its plain version (max |d| {err})")
         dry = art["collective_bytes"]["total"]
-        if abs(coll[-1] - dry) > 1e-6 * dry:
-            fail(f"m2 k={k}: the step counted {coll[-1]} collective bytes, "
-                 f"its dry run {dry}")
+        collective_verdict(f"m2 k={k}", coll[-1], dry)
         pred = art["counts"]["peak_bytes"]
         kern_ms = ratio = None   # not measured off the card
         if cuda:
@@ -4809,30 +4864,474 @@ def mesh_m3(card):
         dist.destroy_process_group()
     a = [m["loss"] for m in plain.metrics_log]
     b = [m["loss"] for m in meshed.metrics_log]
-    rel = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+    rel = loss_verdict("m3", a, b, M3_STEPS, RESTART_TOL)
     log(f"[m3] {TRAIN_ARCH} at full width, {M3_LAYERS} layers, "
         f"{M3_BATCH} x {M3_SEQ}: launch.train losses {a}; --mesh "
         f"1x1:data,model --elastic-demo {b}; max rel diff {rel} (bound "
         f"{RESTART_TOL}); {time.perf_counter() - t0:.1f} s; {card}")
-    if len(a) != M3_STEPS or len(b) != M3_STEPS or rel > RESTART_TOL:
-        fail(f"m3: the mesh launcher's losses {b} are not the unsharded "
-             f"trainer's {a}")
+    del plain, meshed
+    return dict(losses=a, mesh_losses=b, max_rel=rel,
+                seconds=time.perf_counter() - t0)
+
+
+def _mesh_11(dev):
+    """The launched (1, 1) mesh over this process's world."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_shape
+
+    mesh = make_mesh_shape((1, 1), ("data", "model"), dev.type)
+    return mesh, dist.get_world_size()
+
+
+def _random_state(cfg, b, s, dev, seed, lens):
+    """A whole decode state of ``b`` rows over ``s`` positions: random
+    K/V caches and recurrent state (std 0.5), ``cache_len`` ``lens``."""
+    from repro_torch.models.transformer import _state_leaves
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for key, (shape, dt) in _state_leaves(cfg, b, s).items():
+        if key == "cache_len":
+            out[key] = lens.to(device=dev, dtype=dt)
+        else:
+            out[key] = (torch.randn(shape, generator=g, device=dev)
+                        * 0.5).to(dt)
+    return out
+
+
+def _m4_decode(win, world, model, params, mm, pm, mesh, state, tok, what):
+    """``M1_STEPS`` decode steps on the unsharded route and on the (1, 1)
+    mesh, each from its own copy of ``state``: per step the logits and
+    tokens bit-equal, and the launches of the mesh step's window."""
+    from repro_torch.dist.sharding import place
+    from repro_torch.models.transformer import state_sharding
+
+    cfg = model.cfg
+    b = state["cache_len"].shape[0]
+    s = state["k_cache"].shape[2] if "k_cache" in state else M4_CACHE
+    ref = _clone_state(state)
+    got = place(_clone_state(state), state_sharding(cfg, mesh, b, s))
+    rtok, per = tok, []
+    for i in range(M1_STEPS):
+        rl, ref = model.decode_step(params, ref, rtok)
+        (ml, got), counts = win.run(lambda: mm.decode_step(pm, got, tok))
+        per.append(counts["flash_decode"])
+        rtok, tok = rl.argmax(-1, keepdim=True), ml.argmax(-1, keepdim=True)
+        mesh_decode_verdict(world, rl, ml, rtok, tok, f"{what} step {i}")
+    for key in ref:
+        if world == 1 and not bit_equal(ref[key], got[key]):
+            fail(f"{what}: the mesh route wrote another {key}")
+    return per
+
+
+def _m4_model(cfg, dev, seed, mesh):
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    mm = build_model(cfg, device=dev, mesh=mesh)
+    pm = mm.place(params)
+    same = all(a is b for a, b in zip(leaves(pm), leaves(params)))
+    if not same:
+        fail(f"m4 {cfg.name}: placing on the (1, 1) mesh copied a leaf")
+    return model, params, mm, pm
+
+
+def mesh_m4(win, card):
+    """m4: the (1, 1) mesh against the unsharded route for the moe, ssm
+    and hybrid families, each at its published widths: granite-moe-1b-
+    a400m (full config) decodes ``M4_BATCH`` rows over a random
+    ``M4_CACHE``-position cache, ``M1_STEPS`` steps; falcon-mamba-7b at
+    phase 6's ``LM_DEPTH`` layers (through the scan kernel) prefills
+    ``M4_PREFILL`` tokens, then decodes ``M1_STEPS`` steps from its
+    state; zamba2-2.7b at full depth decodes ``M1_STEPS`` steps over a
+    random cache and recurrent state.  Logits, tokens and the states
+    written are bit-equal, and every step's (and the prefill's) launch
+    window exact: ``flash_decode`` once per attention on the kernel
+    route, ``mamba_scan`` once per Mamba1 layer.  A (1, 1) mesh splits
+    nothing, so the MoE block gets no mesh context and the Mamba layers
+    whole weights: m4 checks the mesh route's placement and dispatch,
+    not the sharded numerics (those are held on 4 gloo ranks,
+    ``tests/test_torch_mesh_families.py``; m5 runs the sharded code
+    under fake groups)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    dev = lm_device()
+    cuda = dev.type == "cuda"
+    mesh, world = _mesh_11(dev)
+    g = torch.Generator(device=dev).manual_seed(810)
+    out = {"world": world, "mesh": [1, 1]}
+    lens = torch.randint(M4_CACHE // 2, M4_CACHE - M1_STEPS, (M4_BATCH,),
+                         generator=g, device=dev)
+
+    # moe: granite-moe-1b-a400m
+    t1 = time.perf_counter()
+    cfg = lm_config(M4_MOE_ARCH)
+    model, params, mm, pm = _m4_model(cfg, dev, 811, mesh)
+    state = _random_state(cfg, M4_BATCH, M4_CACHE, dev, 812, lens)
+    tok = torch.randint(0, cfg.vocab, (M4_BATCH, 1), generator=g,
+                        device=dev)
+    expect = kernel_attn_per_step(cfg) if cuda else 0
+    per = _m4_decode(win, world, model, params, mm, pm, mesh, state, tok,
+                     f"m4 {cfg.name}")
+    per_step_launches(per, expect, f"m4 {cfg.name}")
+    out["moe"] = dict(arch=cfg.name, layers=cfg.n_layers,
+                      flash_decode_per_step=per,
+                      seconds=time.perf_counter() - t1)
+    del model, params, mm, pm, state
+
+    # ssm: falcon-mamba-7b at phase 6's depth, prefill then decode
+    t1 = time.perf_counter()
+    base = lm_config(LM_ARCH)
+    cfg = dataclasses.replace(
+        base, n_layers=min(LM_DEPTH, base.n_layers),
+        ssm=dataclasses.replace(base.ssm, use_scan_kernel=True))
+    model, params, mm, pm = _m4_model(cfg, dev, 813, mesh)
+    b, l = M4_PREFILL
+    toks = torch.randint(0, cfg.vocab, (b, l), generator=g, device=dev)
+    with torch.no_grad():
+        ref_state, ref_logits = model.prefill(params, toks, l + M1_STEPS)
+        (got_state, got_logits), counts = win.run(
+            lambda: mm.prefill(pm, toks, l + M1_STEPS))
+    scans = counts["mamba_scan"]
+    per_step_launches([scans], cfg.n_layers if cuda else 0,
+                      f"m4 {cfg.name} prefill", "mamba_scan")
+    if counts["flash_decode"]:
+        fail(f"m4 {cfg.name}: the prefill launched flash_decode")
+    rt = ref_logits.argmax(-1, keepdim=True)
+    mesh_decode_verdict(world, ref_logits, got_logits, rt,
+                        got_logits.argmax(-1, keepdim=True),
+                        f"m4 {cfg.name} prefill")
+    if world == 1 and not all(bit_equal(ref_state[k], got_state[k])
+                              for k in ref_state):
+        fail(f"m4 {cfg.name}: the (1, 1) prefill's state differs")
+    per = _m4_decode(win, world, model, params, mm, pm, mesh, ref_state,
+                     rt, f"m4 {cfg.name}")
+    per_step_launches(per, 0, f"m4 {cfg.name}")
+    out["ssm"] = dict(arch=cfg.name, layers=cfg.n_layers, prefill=[b, l],
+                      mamba_scan_per_prefill=scans,
+                      flash_decode_per_step=per,
+                      seconds=time.perf_counter() - t1)
+    del model, params, mm, pm, ref_state, got_state
+
+    # hybrid: zamba2-2.7b at full depth
+    t1 = time.perf_counter()
+    cfg = lm_config(M4_HYBRID_ARCH)
+    model, params, mm, pm = _m4_model(cfg, dev, 814, mesh)
+    state = _random_state(cfg, M4_BATCH, M4_CACHE, dev, 815, lens)
+    state["ssm_h"].mul_(0.2)
+    tok = torch.randint(0, cfg.vocab, (M4_BATCH, 1), generator=g,
+                        device=dev)
+    per = _m4_decode(win, world, model, params, mm, pm, mesh, state, tok,
+                     f"m4 {cfg.name}")
+    per_step_launches(per, kernel_attn_per_step(cfg) if cuda else 0,
+                      f"m4 {cfg.name}")
+    out["hybrid"] = dict(arch=cfg.name, layers=cfg.n_layers,
+                         flash_decode_per_step=per,
+                         seconds=time.perf_counter() - t1)
+    del model, params, mm, pm, state
+    dist.destroy_process_group()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    out["bit_equal"] = world == 1
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[m4] world {world}, mesh (1, 1) (data, model), against the "
+        f"unsharded route, logits, tokens and states bit-equal: "
+        f"{world == 1}; {out['moe']['arch']} {out['moe']['layers']} "
+        f"layers, {M1_STEPS} decode steps of {M4_BATCH} rows over "
+        f"{M4_CACHE} positions, flash_decode "
+        f"{out['moe']['flash_decode_per_step']} a step "
+        f"({out['moe']['seconds']:.1f} s); {out['ssm']['arch']} "
+        f"{out['ssm']['layers']} layers, a {b} x {l} prefill with "
+        f"mamba_scan {scans} times, then {M1_STEPS} decode steps "
+        f"({out['ssm']['seconds']:.1f} s); {out['hybrid']['arch']} "
+        f"{out['hybrid']['layers']} layers, flash_decode "
+        f"{out['hybrid']['flash_decode_per_step']} a step "
+        f"({out['hybrid']['seconds']:.1f} s); {out['seconds']:.1f} s; "
+        f"{card}")
+    return out
+
+
+def _fit_batch(arch, shape_name, cfg, mesh):
+    """(artifact, note): the mesh dry run at the JAX per-card batch, or,
+    where it says the rank does not fit, at the largest power of two
+    below that does."""
+    from repro_torch.launch.dryrun import dryrun_cell
+
+    art = dryrun_cell(arch, shape_name, cfg=cfg, mesh=mesh, save=False)
+    note = None
+    b = art["batch"]
+    while not art["fits"] and b > 1:
+        b //= 2
+        art = dryrun_cell(arch, shape_name, batch=b, cfg=cfg, mesh=mesh,
+                          save=False)
+        note = (f"the JAX per-card batch does not fit the dry run's "
+                f"80 GB; batch {b} a card")
+    return art, note
+
+
+def _m5_run(win, tag, mm, step, cuda, kernel, expect):
+    """``M5_STEPS`` steps of ``step`` in launch windows: the peak above
+    the arguments' base, ms between CUDA events, device ms under the
+    profiler, counted collective bytes."""
+    from repro_torch.dist import tensor_parallel as tp
+
+    per, ms, coll = [], [], []
+    for _ in range(M5_STEPS):
+        tp.collective_counts(reset=True)
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        _out, counts = win.run(step)
+        if cuda:
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        per.append(counts[kernel])
+        coll.append(tp.collective_counts()["total"])
+        del _out
+    per_step_launches(per, expect if cuda else 0, tag, kernel)
+    dev_ms = None   # not measured off the card
+    if cuda:
+        prof, _wall = profile_call(step)
+        if prof is not None:
+            dev_ms = device_ms(prof.profiler.kineto_results.events())
+    return per, ms, coll, dev_ms
+
+
+def _m5_row(tag, art, note, peak, per, ms, coll, dev_ms, kernel, err,
+            kern_ms, t0, card):
+    dry = art["collective_bytes"]["total"]
+    collective_verdict(tag, coll[-1], dry)
+    pred = art["counts"]["peak_bytes"]
+    ratio = None   # not measured off the card
+    if peak is not None:
+        ratio = mesh_peak_verdict(tag, peak, pred)
+    row = dict(mesh=list(art["mesh"].values()), batch=art["batch"],
+               note=note, head_split=art["head_split"],
+               experts_split=art["experts_split"],
+               ssm_split=art["ssm_split"],
+               peak_measured_gb=peak and peak / 1e9,
+               peak_predicted_gb=pred / 1e9, peak_ratio=ratio, step_ms=ms,
+               device_ms=dev_ms, per_step={kernel: per},
+               kernel_max_abs_err=err, kernel_ms=kern_ms,
+               collective_bytes_per_step=coll[-1],
+               collective_bytes_dry_run=dry,
+               collective_bytes_by_kind={
+                   k: v for k, v in art["collective_bytes"].items()
+                   if not k.startswith("n_") and "@" not in k},
+               seconds=time.perf_counter() - t0)
+    log(f"[{tag}] rank 0 (fake process group: collectives stubbed, "
+        f"counted not timed): batch {row['batch']} a card"
+        f"{' (' + note + ')' if note else ''}; peak {row['peak_measured_gb']}"
+        f" GB against the mesh dry run's {row['peak_predicted_gb']:.3f} "
+        f"({ratio}); step ms (CUDA events) {[round(x, 3) for x in ms]}, "
+        f"device ms {dev_ms}; {kernel} {per} a step, {kern_ms} ms at the "
+        f"rank's shape (max |d| vs plain {err}); collective bytes a step "
+        f"{coll[-1]:.6g} (dry run {dry:.6g}; by kind "
+        f"{row['collective_bytes_by_kind']}); {row['seconds']:.1f} s; "
+        f"{card}")
+    return row
+
+
+def _m5_base(cuda):
+    gc.collect()
+    if not cuda:
+        return 0
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return base
+
+
+def mesh_m5(win, card):
+    """m5: one rank under a fake process group of its mesh's size (every
+    collective returns at once, moving nothing: communication is
+    counted, not timed), only its blocks on the card, against the mesh
+    dry run of the same step: arctic-480b's ``decode_32k`` on (16, 16)
+    (its share of the 953 GB model, the rank's rows' whole cache: 8 kv
+    heads do not split 16 ways) and falcon-mamba-7b's ``prefill_32k`` at
+    ``LM_DEPTH`` layers on (16, k), k in ``M5_SSM_MODELS`` (``d_inner``
+    8192/k a rank).  The peak within ``M2_PEAK_BOUND`` of the dry run's,
+    the counted collective bytes of a step equal to its (all-to-all
+    included), and the kernel at the rank's shape against its plain
+    version: ``flash_decode`` at the rank's heads, ``mamba_scan`` at its
+    channels over the first ``M5_SCAN_LEN`` positions."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import flash_decode as fdk
+    from repro_torch.kernels import mamba_scan as msk
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.models.model import build_model
+
+    dev = lm_device()
+    cuda = dev.type == "cuda"
+    rows = []
+
+    # arctic-480b decode_32k on (16, 16)
+    t0 = time.perf_counter()
+    arch, shape_name, mshape = M5_MOE
+    cfg = lm_config(arch)
+    shape = SHAPES[shape_name]
+    mesh = make_mesh_shape(mshape, ("data", "model"), dev.type, fake=True)
+    art, note = _fit_batch(arch, shape_name, cfg, mesh)
+    mm = build_model(cfg, device=dev, mesh=mesh)
+    base = _m5_base(cuda)
+    params = _rank_params(cfg, mm.plan, dev, 950)
+    dp = mshape[0]
+    state = mm.init_decode_state(art["batch"] * dp, shape.seq_len)
+    state["cache_len"].fill_(shape.seq_len - 1)
+    b = state["cache_len"].shape[0]
+    tokens = torch.zeros((b, 1), dtype=torch.long, device=dev)
+
+    def step():
+        with torch.no_grad():
+            return mm.decode_step(params, state, tokens)[0]
+
+    per, ms, coll, dev_ms = _m5_run(win, "m5 arctic", mm, step, cuda,
+                                    "flash_decode",
+                                    kernel_attn_per_step(cfg))
+    peak = torch.cuda.max_memory_allocated() - base if cuda else None
+    kc, vc = state["k_cache"][0], state["v_cache"][0]
+    kc.normal_(generator=torch.Generator(device=dev).manual_seed(951))
+    vc.normal_(generator=torch.Generator(device=dev).manual_seed(952))
+    kvh = kc.shape[2]
+    q = torch.randn((b, kvh * cfg.attn.n_heads // cfg.attn.kv_heads,
+                     cfg.attn.head_dim), device=dev)
+    kl = state["cache_len"]
+    err = kernel_verdict("m5 arctic", "flash_decode",
+                         ops.flash_decode(q, kc, vc, kl),
+                         fdk.flash_decode_plain(q, kc, vc, kl), FD_TOL)
+    kern_ms = (time_ms(lambda: ops.flash_decode(q, kc, vc, kl), 5)
+               if cuda else None)
+    ops.reset_launch_counts()   # the comparison's launches: not main path
+    del params, state, kc, vc, q
+    dist.destroy_process_group()
+    rows.append(_m5_row(f"m5 {arch} {shape_name} {mshape}", art, note,
+                        peak, per, ms, coll, dev_ms, "flash_decode", err,
+                        kern_ms, t0, card))
+
+    # falcon-mamba-7b prefill_32k at LM_DEPTH layers on (16, k)
+    base_cfg = lm_config(LM_ARCH)
+    cfg = dataclasses.replace(base_cfg,
+                              n_layers=min(LM_DEPTH, base_cfg.n_layers))
+    shape = SHAPES["prefill_32k"]
+    for k in M5_SSM_MODELS:
+        t0 = time.perf_counter()
+        mesh = make_mesh_shape((16, k), ("data", "model"), dev.type,
+                               fake=True)
+        art, note = _fit_batch(LM_ARCH, "prefill_32k", cfg, mesh)
+        run_cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, use_scan_kernel=True))     # as the dry run's cell
+        mm = build_model(run_cfg, device=dev, mesh=mesh)
+        base = _m5_base(cuda)
+        params = _rank_params(run_cfg, mm.plan, dev, 960 + k)
+        tokens = torch.zeros((art["batch"], shape.seq_len),
+                             dtype=torch.long, device=dev)
+
+        def step():
+            with torch.no_grad():
+                return mm.prefill(params, tokens, shape.seq_len + 1)[1]
+
+        per, ms, coll, dev_ms = _m5_run(win, f"m5 falcon k={k}", mm, step,
+                                        cuda, "mamba_scan", cfg.n_layers)
+        peak = torch.cuda.max_memory_allocated() - base if cuda else None
+        di = cfg.ssm.expand * cfg.d_model // k
+        g = torch.Generator(device=dev).manual_seed(970 + k)
+        shp = (art["batch"], M5_SCAN_LEN)
+        dt = torch.nn.functional.softplus(
+            torch.randn(shp + (di,), generator=g, device=dev) - 1.0)
+        xi = torch.randn(shp + (di,), generator=g, device=dev)
+        bb = torch.randn(shp + (cfg.ssm.state_dim,), generator=g,
+                         device=dev)
+        cc = torch.randn(shp + (cfg.ssm.state_dim,), generator=g,
+                         device=dev)
+        a_log = params["layers"]["ssm"]["A_log"][0].float().contiguous()
+        if tuple(a_log.shape) != (di, cfg.ssm.state_dim):
+            fail(f"m5 falcon k={k}: the rank's A_log block is "
+                 f"{tuple(a_log.shape)}, not ({di}, {cfg.ssm.state_dim})")
+        err = kernel_verdict(f"m5 falcon k={k}", "mamba_scan",
+                             ops.mamba_scan(dt, xi, bb, cc, a_log),
+                             msk.mamba_scan_plain(dt, xi, bb, cc, a_log),
+                             SCAN_TOL)
+        kern_ms = (time_ms(lambda: ops.mamba_scan(dt, xi, bb, cc, a_log), 3)
+                   if cuda else None)
+        ops.reset_launch_counts()
+        del params, tokens, dt, xi, bb, cc
+        dist.destroy_process_group()
+        rows.append(_m5_row(f"m5 {LM_ARCH} prefill_32k (16, {k})", art,
+                            note, peak, per, ms, coll, dev_ms, "mamba_scan",
+                            err, kern_ms, t0, card))
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_m6(card):
+    """m6: ``launch.train --mesh 1x1:data,model --elastic-demo`` on
+    granite-moe-1b-a400m at full width and ``M6_LAYERS`` layers and the
+    same launch without a mesh: the losses agree within ``RESTART_TOL``.
+    On the (1, 1) mesh the MoE block runs unsplit (no expert split, one
+    data rank), so m6 checks the mesh trainer's placement, checkpoint
+    and re-mesh around it, not expert parallelism."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch_train
+
+    t0 = time.perf_counter()
+    args = ["--arch", M6_ARCH, "--layers", str(M6_LAYERS), "--steps",
+            str(M3_STEPS), "--seq", str(M3_SEQ), "--batch", str(M3_BATCH),
+            "--device", lm_device().type]
+    plain = launch_train.main(args)
+    meshed = launch_train.main(args + ["--mesh", "1x1:data,model",
+                                       "--elastic-demo"])
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    a = [m["loss"] for m in plain.metrics_log]
+    b = [m["loss"] for m in meshed.metrics_log]
+    rel = loss_verdict("m6", a, b, M3_STEPS, RESTART_TOL)
+    log(f"[m6] {M6_ARCH} at full width, {M6_LAYERS} layers, {M3_BATCH} x "
+        f"{M3_SEQ}: launch.train losses {a}; --mesh 1x1:data,model "
+        f"--elastic-demo {b}; max rel diff {rel} (bound {RESTART_TOL}); "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
     del plain, meshed
     return dict(losses=a, mesh_losses=b, max_rel=rel,
                 seconds=time.perf_counter() - t0)
 
 
 def mesh_phase(win, lm, served, card):
-    """Phase m: m1, m2 and m3 within ``MESH_BUDGET_S``."""
+    """Phase m's dense legs m1, m2 and m3, on 6d's model (m4-m6 run
+    after 6d has freed it: ``mesh_families_phase``)."""
     t0 = time.perf_counter()
     out = {"m1": mesh_m1(win, lm, served, card)}
     out["m2"] = mesh_m2(win, card)
     out["m3"] = mesh_m3(card)
     out["seconds"] = time.perf_counter() - t0
-    log(f"[m] phase m {out['seconds']:.1f} s (budget {MESH_BUDGET_S} s; m1 "
-        f"{out['m1']['seconds']:.1f}, m2 "
-        f"{sum(r['seconds'] for r in out['m2']):.1f}, m3 "
-        f"{out['m3']['seconds']:.1f}); {card}")
+    return out
+
+
+def mesh_families_phase(win, card, out):
+    """Phase m's moe, ssm and hybrid legs m4, m5 and m6 after ``out``
+    (``mesh_phase``'s), the whole phase within ``MESH_BUDGET_S``."""
+    t0 = time.perf_counter()
+    out["m4"] = mesh_m4(win, card)
+    out["m5"] = mesh_m5(win, card)
+    out["m6"] = mesh_m6(card)
+    out["seconds_m4_m6"] = time.perf_counter() - t0
+    out["seconds"] += out["seconds_m4_m6"]
+    legs = {key: out[key]["seconds"] if isinstance(out[key], dict)
+            else sum(r["seconds"] for r in out[key])
+            for key in ("m1", "m2", "m3", "m4", "m5", "m6")}
+    log(f"[m] phase m {out['seconds']:.1f} s (budget {MESH_BUDGET_S} s; "
+        + ", ".join(f"{key} {v:.1f}" for key, v in legs.items())
+        + f"; m4-m6 {out['seconds_m4_m6']:.1f}); {card}")
     log("[m] summary " + json.dumps(out, default=str))
     if out["seconds"] > MESH_BUDGET_S:
         fail(f"phase m took {out['seconds']:.1f} s, past its "
@@ -6818,10 +7317,17 @@ def main() -> int:
     t0 = time.perf_counter()
     dense = dense_phase(win, 0, card, r_arts["r1"], mesh=True)
     r_out["r1"] = dense.pop("r1")
-    dense.pop("m")   # phase m printed its summary
+    m_out = dense.pop("m")
     gc.collect()
     torch.cuda.empty_cache()
     wall("dense serving (6d)", t0)
+    # ---- phase m's moe, ssm and hybrid legs, 6d's model freed
+    t0 = time.perf_counter()
+    mesh_families_phase(win, card, m_out)   # prints phase m's summary
+    del m_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall("mesh families (m4-m6)", t0)
     t0 = time.perf_counter()
     families = families_phase(win, 0, card)
     wall("families (6m)", t0)

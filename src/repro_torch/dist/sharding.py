@@ -233,14 +233,16 @@ class NamedSharding:
                      in zip(shape, self.splits(len(shape))))
 
     def shard(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's block of the whole tensor ``x`` (``x`` itself
-        where nothing is split: no copy)."""
+        """This rank's block of the whole tensor ``x``: a copy of its own
+        (a contiguous slice, say a block of a one-layer stack's second
+        axis, would otherwise keep the whole tensor's storage alive), or
+        ``x`` itself where nothing is split."""
         loc = self.local_shape(x.shape)
         if tuple(loc) == tuple(x.shape):
             return x
         idx = tuple(slice(o, o + n) for o, n in
                     zip(self.offsets(x.shape), loc))
-        return x[idx].contiguous()
+        return x[idx].clone(memory_format=torch.contiguous_format)
 
     def replicated_over(self, ndim: int) -> Tuple[str, ...]:
         """The mesh axes no dimension is split over."""

@@ -13,15 +13,27 @@ them explicitly, as Megatron-LM and ZeRO do; these are the moves:
   gradient over the axes (an ``fsdp`` weight: every data rank saw other
   rows) or ``"slice"`` keeps this rank's block (every rank computed the
   same gradient);
+* ``exchange(x, dim, send, recv, axis)``: the all-to-all along one
+  dimension, even or not (each rank sends its own sizes to each other
+  rank), as ``models.ssm`` moves a flat ``d_inner`` block; its gradient
+  sends the pieces back;
 * ``all_reduce``, ``all_gather``: outside autograd.
+
+A fake process group (``launch.mesh``) may leave a receive buffer as it
+was, so a gather whose values index memory (``models.moe``'s expert
+counts) asks for a zero-filled one (``all_gather(..., zeros=True)``);
+every other receive buffer is left unfilled, as a real group overwrites
+it whole.
 
 An axis of size 1 moves nothing and calls nothing, so a (1, 1) mesh runs
 exactly the ops of the meshless path.  Every call that moves data adds
 its per-rank wire bytes to ``COUNTS`` under the JAX ``collective_bytes``
 rule (``repro.utils.hlo``): all-reduce ``2 (s-1)/s`` of its bytes,
 all-gather ``(s-1)/s`` of its result, reduce-scatter ``s-1`` times its
-result; by kind (``"all-reduce"``, ``"all-gather"``,
-``"reduce-scatter"``), by ``"<kind>@<axis>"``, and ``n_<kind>``.  On
+result, all-to-all the bytes it sends to the other ranks (``(s-1)/s`` of
+its result where the pieces are even); by kind (``"all-reduce"``,
+``"all-gather"``, ``"reduce-scatter"``, ``"all-to-all"``), by
+``"<kind>@<axis>"``, and ``n_<kind>``.  On
 ``meta`` tensors (the dry run) nothing is called, only counted; under a
 fake process group the calls move nothing.
 """
@@ -36,8 +48,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["axis_size", "axis_index", "copy_to", "reduce_from", "gather",
-           "materialize", "all_reduce", "all_gather", "gather_tree",
-           "collective_counts",
+           "exchange", "materialize", "all_reduce", "all_gather",
+           "gather_tree", "collective_counts",
            "BATCH_AXES", "COUNTS"]
 
 # the mesh axes an activation's rows split over (``LOGICAL_RULES["batch"]``)
@@ -110,14 +122,17 @@ def _all_reduce(x: torch.Tensor, mesh, axis: str,
     return x
 
 
-def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
-    """The blocks of ``x`` over ``axis`` concatenated along ``dim``."""
+def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int,
+                zeros: bool = False) -> torch.Tensor:
+    """The blocks of ``x`` over ``axis`` concatenated along ``dim``
+    (received into a zero-filled buffer where ``zeros``)."""
     s = axis_size(mesh, axis)
     if s == 1:
         return x
     src = x.movedim(dim, 0).contiguous()
-    out = torch.empty((s * src.shape[0],) + tuple(src.shape[1:]),
-                      dtype=x.dtype, device=x.device)
+    new = torch.zeros if zeros else torch.empty
+    out = new((s * src.shape[0],) + tuple(src.shape[1:]), dtype=x.dtype,
+              device=x.device)
     _count("all-gather", axis, (s - 1) / s * _nbytes(out))
     if x.device.type != "meta":
         _gather_into(out, src, group=_group(mesh, axis))
@@ -142,6 +157,24 @@ def _reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int
             out.copy_(src[i * out.shape[0]:(i + 1) * out.shape[0]])
         else:
             _scatter_into(out, src, group=_group(mesh, axis))
+    return out.movedim(0, dim)
+
+
+def _exchange(x: torch.Tensor, mesh, axis: str, dim: int,
+              send: Sequence[int], recv: Sequence[int]) -> torch.Tensor:
+    """``x`` cut along ``dim`` into consecutive pieces of ``send[j]``
+    rows, piece ``j`` sent to rank ``j`` of ``axis``; the ``recv[i]``
+    rows from rank ``i`` concatenated along ``dim`` in rank order."""
+    me = axis_index(mesh, axis)
+    src = x.movedim(dim, 0).contiguous()
+    row = _nbytes(src) // max(src.shape[0], 1)
+    out = torch.empty((sum(recv),) + tuple(src.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    _count("all-to-all", axis,
+           float(row * (sum(send) - send[me])))
+    if x.device.type != "meta":
+        dist.all_to_all_single(out, src, list(recv), list(send),
+                               group=_group(mesh, axis))
     return out.movedim(0, dim)
 
 
@@ -194,6 +227,19 @@ class _Gather(torch.autograd.Function):
         return g, None, None, None, None
 
 
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, send, recv):
+        ctx.args = mesh, axis, dim, send, recv
+        return _exchange(x, mesh, axis, dim, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, send, recv = ctx.args
+        return (_exchange(g, mesh, axis, dim, recv, send), None, None, None,
+                None, None)
+
+
 def copy_to(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if axis_size(mesh, axis) == 1:
         return x
@@ -216,6 +262,18 @@ def gather(x: torch.Tensor, mesh, axes: Axes, dim: int,
     if grad not in ("reduce_scatter", "slice"):
         raise ValueError(f"unknown gather gradient {grad!r}")
     return _Gather.apply(x, mesh, axes, dim, grad)
+
+
+def exchange(x: torch.Tensor, dim: int, send: Sequence[int],
+             recv: Sequence[int], mesh, axis: str) -> torch.Tensor:
+    """The uneven all-to-all along ``dim``: consecutive pieces of
+    ``send[j]`` rows to rank ``j`` of ``axis``, the ``recv[i]`` rows of
+    rank ``i`` concatenated in rank order (every rank's ``send`` must
+    match the ``recv`` of the ranks it sends to).  Its gradient sends
+    the pieces back."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _Exchange.apply(x, mesh, axis, dim, tuple(send), tuple(recv))
 
 
 def materialize(w: torch.Tensor, spec, mesh, keep: Sequence[str] = ()
@@ -247,10 +305,12 @@ def all_reduce(x: torch.Tensor, mesh, axes: Axes,
 
 
 @torch.no_grad()
-def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int) -> torch.Tensor:
-    """The blocks of ``x`` over ``axes`` along ``dim`` (no gradient)."""
+def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int,
+               zeros: bool = False) -> torch.Tensor:
+    """The blocks of ``x`` over ``axes`` along ``dim`` (no gradient),
+    received into zero-filled buffers where ``zeros``."""
     for a in reversed(_axes(axes)):
-        x = _all_gather(x, mesh, a, dim)
+        x = _all_gather(x, mesh, a, dim, zeros)
     return x
 
 

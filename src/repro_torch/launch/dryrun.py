@@ -13,19 +13,22 @@ and fitted in depth (``probe_cell``, ``roofline.run_probe``).
 
 **On a mesh** (``--mesh 16x16:data,model``, the JAX production mesh;
 ``--multi-pod`` its (2, 16, 16) ``pod,data,model``; any ``dxm`` shape),
-as the JAX dry run: the dense family only (the others are refused by
-name), each rank at the global batch of ``SHAPES`` over the mesh's
-data-parallel ranks, training at the JAX microbatch rule (at most the
+as the JAX dry run: the dense, moe, ssm and hybrid families (vlm and
+encdec are refused by name), each rank at the global batch of
+``SHAPES`` over the mesh's data-parallel ranks, training at the JAX microbatch rule (at most the
 rank's rows).  ``count_step`` counts rank 0's step on the meta device
 under a fake process group of the mesh's size (``launch.mesh``): its
 local shards (``param_sharding``, ``decode_state_specs``), the weights
 it gathers and the collectives it calls, each counted in wire bytes by
 kind and by axis (``tensor_parallel.collective_counts``, recorded as
-the JAX ``collective_bytes``), nothing moved.  The artifact records the
-mesh, per-card FLOPs by unit, bytes, argument and peak bytes, and
-whether the attention heads split over ``model`` (``head_split``; where
-they do not, every rank holds and computes every kv head: its cache
-and the gathered weights are in its bytes).
+the JAX ``collective_bytes``; the MoE expert counts' all-gather and the
+Mamba layers' all-to-all among them), nothing moved.  The artifact
+records the mesh, per-card FLOPs by unit, bytes, argument and peak
+bytes, and what splits over ``model``: the attention heads
+(``head_split``; where they do not, every rank holds and computes every
+kv head: its cache and the gathered weights are in its bytes), the
+experts (``experts_split``) and the Mamba layers' ``d_inner``
+(``ssm_split``).
 
 Without a mesh, the one-card question is what batch a card holds.
 With ``batch=None`` the dry run takes the largest power of two, up to
@@ -140,6 +143,14 @@ def data_ways(mesh) -> int:
     return n
 
 
+def _mesh_rows(shape, batch: int, mesh) -> int:
+    """The whole batch of a mesh step whose rank holds ``batch`` rows
+    (the rank's rows, where the global batch does not split over the
+    data ranks: every rank holds them)."""
+    dp = data_ways(mesh)
+    return batch if shape.global_batch % dp else batch * dp
+
+
 def count_step(arch: str, cfg, shape, batch: int,
                microbatches: Optional[int] = None,
                device: str = "meta", mesh=None) -> Dict[str, float]:
@@ -178,7 +189,7 @@ def count_step(arch: str, cfg, shape, batch: int,
             else:   # decode: the cache live at seq_len - 1, one token more
                 if mesh is not None:
                     state = model.init_decode_state(
-                        batch * data_ways(mesh), shape.seq_len)
+                        _mesh_rows(shape, batch, mesh), shape.seq_len)
                 elif model.device.type == "meta":
                     state = decode_state_shapes(cfg, batch, shape.seq_len)
                 else:
@@ -251,17 +262,23 @@ def _choose_batch(arch, shape_name, cfg, microbatches):
     return pick, probes[pick], record
 
 
-def _mesh_batch(arch, cfg, shape, mesh, microbatches):
-    """(rows a rank, its microbatch count) at the JAX global batch."""
+def _mesh_batch(arch, cfg, shape, mesh, microbatches, batch=None):
+    """(rows a rank, its microbatch count) at the JAX global batch (or
+    ``batch`` rows a rank, where one is given)."""
     if cfg.family not in MESH_FAMILIES:
         raise ValueError(f"{arch} ({cfg.family}) is refused on a mesh: "
-                         f"only the {', '.join(MESH_FAMILIES)} family runs "
+                         f"only the {', '.join(MESH_FAMILIES)} families run "
                          "on one")
     dp = data_ways(mesh)
     if shape.global_batch % dp:
-        raise ValueError(f"{arch}: a global batch of {shape.global_batch} "
-                         f"does not split over {dp} data-parallel ranks")
-    batch = shape.global_batch // dp
+        if shape.kind != "decode" or cfg.family == "moe":
+            raise ValueError(f"{arch}: a global batch of "
+                             f"{shape.global_batch} does not split over "
+                             f"{dp} data-parallel ranks")
+        # every data rank holds every row, as guarded_spec places a batch
+        # that does not split (long_500k's one row)
+        return batch or shape.global_batch, 1
+    batch = batch or shape.global_batch // dp
     mb = microbatches or TRAIN_MICROBATCHES.get(arch, 1)
     return batch, min(mb, max(batch, 1))
 
@@ -271,7 +288,8 @@ def dryrun_cell(arch: str, shape_name: str, batch: Optional[int] = None,
                 microbatches: Optional[int] = None,
                 out_dir: Optional[str] = None, mesh=None) -> Dict[str, Any]:
     """One cell: the per-card batch (``batch``, or the largest that
-    fits; on ``mesh`` the global batch over its data-parallel ranks),
+    fits; on ``mesh`` ``batch`` or the global batch over its
+    data-parallel ranks),
     the depth probes at it and their totals at ``cfg.n_layers``; saved
     to ``out_dir`` (default ``ARTIFACT_DIR``) unless ``save`` is
     False."""
@@ -281,7 +299,7 @@ def dryrun_cell(arch: str, shape_name: str, batch: Optional[int] = None,
     search = None
     if mesh is not None:
         batch, microbatches = _mesh_batch(arch, cfg, shape, mesh,
-                                          microbatches)
+                                          microbatches, batch)
         prb = probe_cell(arch, shape_name, cfg, batch, microbatches, mesh)
     elif batch is None:
         batch, prb, search = _choose_batch(arch, shape_name, cfg,
@@ -297,10 +315,13 @@ def dryrun_cell(arch: str, shape_name: str, batch: Optional[int] = None,
            "batch_search": search, "params": cfg.param_count(),
            "active_params": cfg.active_param_count()}
     if mesh is not None:
+        plan = mesh_plan(cfg, mesh)
         art["mesh"] = dict(zip(mesh.mesh_dim_names,
                                (int(n) for n in mesh.shape)))
         art["n_devices"] = int(mesh.size())
-        art["head_split"] = mesh_plan(cfg, mesh).heads
+        art["head_split"] = plan.heads
+        art["experts_split"] = plan.experts
+        art["ssm_split"] = plan.ssm
     if shape.kind == "train":
         art["microbatches"] = train_config(arch, batch,
                                            microbatches).microbatches
@@ -315,8 +336,10 @@ def dryrun_cell(arch: str, shape_name: str, batch: Optional[int] = None,
     flops = sum(v for k, v in tot.items() if k.startswith("flops_"))
     coll = art.get("collective_bytes", {}).get("total", 0.0)
     where = (f" mesh {mesh_tag(mesh)} (heads "
-             f"{'split' if art['head_split'] else 'replicated'} over model)"
-             if mesh is not None else "")
+             f"{'split' if art['head_split'] else 'replicated'}, experts "
+             f"{'split' if art['experts_split'] else 'replicated'}, "
+             f"d_inner {'split' if art['ssm_split'] else 'replicated'} "
+             "over model)" if mesh is not None else "")
     print(f"[dryrun] {arch} {shape_name}{where}: batch {batch} a card "
           f"({art['cards']:g} cards), {flops / 1e9:.1f} GFLOP, "
           f"{tot['bytes'] / 1e9:.1f} GB accessed, args "
@@ -357,7 +380,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--out-dir", default=None)
     ap.add_argument("--mesh", default=None,
                     help="e.g. '16x16:data,model': one rank of that mesh, "
-                    "under a fake process group (dense family only)")
+                    "under a fake process group (dense, moe, ssm and "
+                    "hybrid families)")
     ap.add_argument("--multi-pod", action="store_true",
                     help="the (2, 16, 16) pod,data,model mesh")
     ap.add_argument("--continue-on-error", action="store_true")
@@ -376,7 +400,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         fam = get_config(arch).family
         if mesh is not None and not args.arch and fam not in MESH_FAMILIES:
             print(f"[dryrun] {arch} ({fam}): refused on a mesh: only the "
-                  f"{', '.join(MESH_FAMILIES)} family runs on one")
+                  f"{', '.join(MESH_FAMILIES)} families run on one")
             continue
         shapes = ([args.shape] if args.shape
                   else list(applicable_shapes(get_config(arch))))

@@ -6,7 +6,7 @@ Port of ``repro.launch.train``, with the same arguments plus
 ``--mesh dxm:data,model`` builds a ``DeviceMesh`` over the launched
 world (``launch.mesh``: one process a card and NCCL, gloo with
 ``--device cpu``; a launcher such as ``torchrun`` sets the world), and
-the trainer runs the dense model on it
+the trainer runs the dense, moe, ssm or hybrid model on it
 (every rank draws the whole batch and trains on its rows).
 ``--elastic-demo`` trains half the steps, re-meshes through
 ``Trainer.remesh`` onto the mesh halved along its first axis of even

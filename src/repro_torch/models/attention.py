@@ -25,7 +25,8 @@ two routes fixed by the config alone (``decode_route``):
 into a cache in place (a position at or past the cache's length is
 dropped, as JAX's scatter drops it).
 
-On a mesh (``transformer``'s dense family), ``attention_specs`` places
+On a mesh (``transformer``'s dense and moe layers and the hybrid's
+shared block), ``attention_specs`` places
 the weights as JAX does: ``wq`` ``("fsdp", "heads")``, ``wk``/``wv``
 ``("fsdp", "kv_heads")``, ``wo`` ``("heads", "fsdp")``, so ``heads``
 splits the flat ``n_heads * head_dim`` axis.  ``local_attention`` gives

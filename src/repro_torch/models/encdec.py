@@ -19,9 +19,9 @@ block of ``cfg.remat``, as the JAX ``_remat`` wraps the scan body.
 Copied from the reference: ``prefill``
 leaves the self-attention K/V caches zero, so decoding attends over zero
 K/V at the prompt's positions.  ``param_specs`` and
-``decode_state_specs`` are the JAX tables of logical axes; the mesh runs
-the dense family only, so the JAX module's ``constrain`` hints have no
-counterpart yet.
+``decode_state_specs`` are the JAX tables of logical axes; encdec does
+not run on a mesh yet (``transformer.MESH_FAMILIES``), so the JAX
+module's ``constrain`` hints have no counterpart yet.
 """
 
 from __future__ import annotations

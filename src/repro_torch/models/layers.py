@@ -10,14 +10,16 @@ unembedding and the log-sum-exp run per sequence chunk, and each chunk's
 ``jax.checkpoint``), so no more than one chunk's logits is ever held.
 ``remat`` wraps a block in the JAX ``cfg.remat`` policy for training.
 
-On a mesh (the dense family): ``tp_swiglu`` is the MLP column parallel
+On a mesh: ``tp_swiglu`` is the MLP column parallel
 (``w_up``/``w_gate`` over ``mlp``) then row parallel (``w_down``), its
 partial sums summed over ``model``; ``xent_sums`` (the loss's sum and
 count, without the division) takes the unembedding's ``vocab`` block of
 a rank and then runs the log-sum-exp across ``model`` (a max and a sum
 of exponentials over the ranks, the target's logit from the rank that
 holds it), as JAX shards ``vocab`` over ``model``.  ``rms_norm`` and
-``rope`` stay replicated.
+``rope`` stay replicated; ``tp_rms_norm`` is the norm of a vector whose
+last axis splits over ``model`` (Mamba2's ``gate_norm`` over a rank's
+``d_inner`` block: the sum of squares summed over the ranks).
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ from repro_torch.dist import tensor_parallel as tp
 
 __all__ = ["dtype_of", "Initializer", "rms_norm", "softcap", "rope",
            "init_dense", "init_mlp", "swiglu", "gelu_mlp",
-           "chunked_cross_entropy", "xent_sums", "tp_swiglu", "remat",
+           "chunked_cross_entropy", "xent_sums", "tp_swiglu",
+           "tp_rms_norm", "remat",
            "checkpointed"]
 
 _F32 = torch.float32
@@ -99,6 +102,23 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     dtype."""
     x32 = x.to(_F32)
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps))
+            * (1.0 + w.to(_F32))).to(x.dtype)
+
+
+def tp_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, mesh
+                ) -> torch.Tensor:
+    """``rms_norm`` of the vector whose blocks over ``model`` the ranks
+    hold (x [..., n/m], w its block of the weight): the mean square is
+    the sum of the ranks' sums of squares over n (``rms_norm`` itself
+    where ``model`` is 1)."""
+    m = tp.axis_size(mesh, "model")
+    if m == 1:
+        return rms_norm(x, w, eps)
+    x32 = x.to(_F32)
+    ss = torch.sum(torch.square(x32), dim=-1, keepdim=True)
+    ss = tp.copy_to(tp.reduce_from(ss, mesh, "model"), mesh, "model")
+    var = ss / (x.shape[-1] * m)
     return ((x32 * torch.rsqrt(var + eps))
             * (1.0 + w.to(_F32))).to(x.dtype)
 

@@ -16,7 +16,8 @@ gradients); ``batch`` holds ``tokens``/``targets`` and the vlm
 ``decode_state_specs()`` are the JAX trees of logical axes.
 
 ``build_model(cfg, device, mesh=...)`` (a ``DeviceMesh`` with axes among
-"pod", "data", "model"; the dense family only, the others raise) makes
+"pod", "data", "model"; the dense, moe, ssm and hybrid families, vlm
+and encdec raise) makes
 the mesh's ``transformer.MeshPlan`` once (``plan``) and passes it to
 every entry point, which runs on this rank's local shards:
 ``place(params)`` cuts them from whole parameters (``param_sharding`` on

@@ -23,24 +23,49 @@ body's ``jax.checkpoint`` does.  ``mamba_scan`` has no backward kernel
 (the Pallas kernel has none either), so ``use_scan_kernel`` under
 autograd raises on every device rather than differentiate the plain
 version.  ``mamba_specs`` is the JAX table of logical axes
-(``d_inner`` over ``model`` unless ``batch_tp``); the mesh runs the
-dense family only, so the JAX module's sharding hints (``constrain``)
-have no counterpart yet.
+(``d_inner`` over ``model`` unless ``batch_tp``).
+
+**On a mesh** (``ctx``, an ``SSMMesh``; ``local_mamba`` gives the
+weights a rank computes with), a layer runs on a rank's block of
+``d_inner`` (the channels are independent through the conv and the
+scan).  ``w_in`` is ``[D, 2 di]``
+  with ``d_inner`` on the flat ``2 di`` axis, so rank r of ``model`` m
+  stores the flat columns ``[r 2di/m, (r+1) 2di/m)``: at m = 2 rank 0
+holds all of ``xi`` and rank 1 all of ``z``.  The block projects with
+its stored columns and then moves the activation (one uneven all-to-all
+over ``model``, ``tensor_parallel.exchange``) so that each rank holds
+its channels of both ``xi`` and ``z``; no weight is gathered over
+``model``.  Mamba1's ``w_bc`` and ``w_dt_down`` rows are channel
+blocks, so ``bc`` and the low-rank ``dt`` are partial sums, summed over
+``model`` and entering the channels again through ``copy_to``.
+Mamba2's ``w_bc``, ``w_dt``, ``dt_bias``, ``A_log`` and ``D`` are
+replicated: a rank takes its heads' entries (the rule ``inner_splits``
+checks: its ``di/m`` channels are whole heads), and their gradients sum
+over ``model``; ``gate_norm``'s mean square spans all of ``d_inner``
+(``layers.tp_rms_norm``).  ``w_out``'s partial sums leave through
+``reduce_from``.  The decode state ``ssm_h`` and ``ssm_conv`` hold the
+rank's channels.  ``batch_tp`` (the JAX ``"batch_model"`` rows,
+``d_inner`` unsplit) does not run on a model axis > 1
+(``transformer.mesh_plan`` raises).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import Initializer, checkpointed, rms_norm
+from repro_torch.models.layers import (Initializer, checkpointed, rms_norm,
+                                       tp_rms_norm)
 
 __all__ = ["init_mamba", "mamba_specs", "mamba_block", "mamba_scan_inputs",
-           "mamba_decode_step", "init_ssm_state"]
+           "mamba_decode_step", "init_ssm_state", "SSMMesh",
+           "inner_splits", "local_mamba", "pair_plan"]
 
 _F32 = torch.float32
 
@@ -113,6 +138,96 @@ def mamba_specs(d_model: int, s: SSMConfig):
             "gate_norm": (di_ax,),
         })
     return base
+
+
+# ====================================================================== mesh
+@dataclasses.dataclass(frozen=True)
+class SSMMesh:
+    """A Mamba layer on a rank's ``d_inner`` block of ``mesh`` (see the
+    module docstring)."""
+    mesh: Any
+
+
+_MAMBA2_REPLICATED = ("w_dt", "dt_bias", "A_log", "D")
+
+
+def inner_splits(d_model: int, s: SSMConfig, mesh) -> bool:
+    """Whether a layer runs on each rank's ``d_inner`` block: ``model``
+    > 1, ``d_inner`` divides by ``model`` (so every
+    ``d_inner`` leaf is split, ``guarded_spec``), and for Mamba2 a rank's
+    ``d_inner / model`` channels are whole heads (``head_dim`` divides
+    them)."""
+    m = tp.axis_size(mesh, "model")
+    di = s.expand * d_model
+    if m == 1 or di % m:
+        return False
+    return s.version == 1 or (di // m) % s.head_dim == 0
+
+
+def _narrow(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The block of ``x`` along ``dim`` rank ``model`` index stores."""
+    m = tp.axis_size(mesh, "model")
+    n = x.shape[dim] // m
+    return x.narrow(dim, tp.axis_index(mesh, "model") * n, n)
+
+
+def local_mamba(p: Dict[str, torch.Tensor], shardings, s: SSMConfig,
+                mesh, inner: bool) -> Dict[str, torch.Tensor]:
+    """The weights a rank computes a layer with, from its local shards
+    ``p`` placed by ``shardings``: every ``fsdp`` block gathered (its
+    gradient summed back over the data axes).  ``inner``: the
+    ``d_inner`` blocks kept, and Mamba2's replicated leaves through
+    ``copy_to`` (their gradients sum over ``model``), cut to the rank's
+    heads; else whole weights."""
+    keep = ("model",) if inner else ()
+    w = {k: tp.materialize(x, shardings[k].spec, mesh, keep)
+         for k, x in p.items()}
+    if inner and s.version == 2:
+        for k in ("w_bc",) + _MAMBA2_REPLICATED:
+            w[k] = tp.copy_to(w[k], mesh, "model")
+        for k in _MAMBA2_REPLICATED:
+            w[k] = _narrow(w[k], w[k].dim() - 1, mesh)
+    return w
+
+
+def _pair_channels(xz: torch.Tensor, mesh) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """(xi, z), each [..., di/m], of the rank's flat block xz [..., 2di/m]
+    of ``x @ w_in``.  The flat axis is 2m sub-blocks of di/m channels
+    (``xi``'s m, then ``z``'s); rank j holds sub-blocks 2j and 2j+1, and
+    sub-block q belongs to rank q mod m: one uneven all-to-all over
+    ``model``.  Rank r receives its ``xi`` from rank r // 2 and its
+    ``z`` from rank (m + r) // 2, in that order."""
+    m = tp.axis_size(mesh, "model")
+    if m == 1:
+        return torch.chunk(xz, 2, dim=-1)
+    w = xz.shape[-1] // 2
+    swap, send, recv = pair_plan(m, tp.axis_index(mesh, "model"))
+    if swap:
+        xz = torch.cat([xz[..., w:], xz[..., :w]], dim=-1)
+    got = tp.exchange(xz, xz.dim() - 1, [n * w for n in send],
+                      [n * w for n in recv], mesh, "model")
+    return got[..., :w], got[..., w:]
+
+
+def pair_plan(m: int, j: int) -> Tuple[bool, list, list]:
+    """``_pair_channels``' exchange on rank j of m: (whether its two
+    sub-blocks go out in the other order, sub-blocks sent to each rank,
+    sub-blocks received from each rank).  Sub-block q (of 2m) belongs to
+    rank q mod m; the pieces travel in destination order."""
+    dest = [(2 * j + i) % m for i in (0, 1)]
+    send, recv = [0] * m, [0] * m
+    for d in dest:
+        send[d] += 1
+    for q in (j, m + j):
+        recv[q // 2] += 1
+    return dest[1] < dest[0], send, recv
+
+
+def _psum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Partial sums over ``model`` summed, entering the channels again
+    (``reduce_from`` then ``copy_to``)."""
+    return tp.copy_to(tp.reduce_from(x, mesh, "model"), mesh, "model")
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -194,23 +309,56 @@ def _chunked_scan(dt, xi, b_in, c_out, a, chunk: int,
                        remat_chunks)
 
 
-def mamba_scan_inputs(x: torch.Tensor, p: Dict[str, torch.Tensor]
+def _project(x: torch.Tensor, p: Dict[str, torch.Tensor],
+             ctx: Optional[SSMMesh]):
+    """(x as the channels take it, xi, z) of ``x @ w_in``: on a rank's
+    ``d_inner`` block, x enters through ``copy_to`` and the flat block
+    is moved to the rank's channels (``_pair_channels``)."""
+    if ctx is None:
+        return (x,) + tuple(torch.chunk(x @ p["w_in"], 2, dim=-1))
+    x = tp.copy_to(x, ctx.mesh, "model")
+    return (x,) + _pair_channels(x @ p["w_in"], ctx.mesh)
+
+
+def _sum(x: torch.Tensor, ctx: Optional[SSMMesh]) -> torch.Tensor:
+    return x if ctx is None else _psum(x, ctx.mesh)
+
+
+def _leave(y: torch.Tensor, ctx: Optional[SSMMesh]) -> torch.Tensor:
+    """``w_out``'s product leaving the layer (partial sums over ``model``
+    summed on a rank's ``d_inner`` block)."""
+    return y if ctx is None else tp.reduce_from(y, ctx.mesh, "model")
+
+
+def _gate_norm(y: torch.Tensor, w: torch.Tensor, ctx: Optional[SSMMesh]):
+    if ctx is None:
+        return rms_norm(y, w)
+    return tp_rms_norm(y, w, 1e-6, ctx.mesh)
+
+
+def _dt1(xi: torch.Tensor, p, ctx: Optional[SSMMesh]) -> torch.Tensor:
+    """Mamba1's dt [B, L, di] in f32: the low-rank projection in the
+    compute dtype, then softplus, then the cast, as in JAX."""
+    low = _sum(xi @ p["w_dt_down"], ctx)
+    return F.softplus(low @ p["w_dt_up"] + p["dt_bias"].to(xi.dtype)
+                      ).to(_F32)
+
+
+def mamba_scan_inputs(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                      ctx: Optional[SSMMesh] = None
                       ) -> Tuple[torch.Tensor, ...]:
     """The selective scan's inputs as ``mamba_block`` makes them from
     x [B, L, D]: (dt, xi, b_in, c_out), contiguous f32, and the gate z in
-    x's dtype.  The dt projection runs in the compute dtype, then
-    softplus, then the cast to f32, as in the JAX package."""
+    x's dtype (on a rank's ``d_inner`` block, its channels)."""
     dtype = x.dtype
-    xz = x @ p["w_in"]
-    xi, z = torch.chunk(xz, 2, dim=-1)
+    _x, xi, z = _project(x, p, ctx)
     xi = _causal_conv(xi, p["conv_w"], p["conv_b"])
     xi = F.silu(xi.to(_F32)).to(dtype)
-    bc = xi @ p["w_bc"]
+    bc = _sum(xi @ p["w_bc"], ctx)
     b_in, c_out = (t.contiguous() for t in torch.chunk(bc.to(_F32), 2,
                                                        dim=-1))
-    dt = F.softplus((xi @ p["w_dt_down"]) @ p["w_dt_up"]
-                    + p["dt_bias"].to(dtype)).to(_F32)       # [B, L, di]
-    return dt, xi.to(_F32), b_in, c_out, z
+    dt = _dt1(xi, p, ctx)                                    # [B, L, di]
+    return dt, xi.to(_F32).contiguous(), b_in, c_out, z
 
 
 def _chunk2(h_prev, dt_c, xh_c, b_c, cout_c, a):
@@ -245,13 +393,16 @@ def _no_scan_backward(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> None:
 
 
 def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], d_model: int,
-                s: SSMConfig, remat_chunks: bool = False) -> torch.Tensor:
-    """Prefill and training forward. x [B, L, D] -> [B, L, D]."""
+                s: SSMConfig, remat_chunks: bool = False,
+                ctx: Optional[SSMMesh] = None) -> torch.Tensor:
+    """Prefill and training forward. x [B, L, D] -> [B, L, D].  On a
+    mesh, ``p`` is ``local_mamba``'s and ``ctx`` the rank's (see the
+    module docstring)."""
     dtype = x.dtype
     if s.version == 1:
         if s.use_scan_kernel:
             _no_scan_backward(x, p)
-        dt, xi32, b_in, c_out, z = mamba_scan_inputs(x, p)
+        dt, xi32, b_in, c_out, z = mamba_scan_inputs(x, p, ctx)
         if s.use_scan_kernel:
             y = kops.mamba_scan(dt, xi32, b_in, c_out, p["A_log"])
         else:
@@ -260,24 +411,23 @@ def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], d_model: int,
                               remat_chunks)
         y = y + p["D"] * xi32
         y = y.to(dtype) * F.silu(z.to(_F32)).to(dtype)
-        return y @ p["w_out"]
+        return _leave(y @ p["w_out"], ctx)
     b, l, _ = x.shape
-    di = s.expand * d_model
+    xw, xi, z = _project(x, p, ctx)
+    di = xi.shape[-1]
     nh = di // s.head_dim
-    xz = x @ p["w_in"]
-    xi, z = torch.chunk(xz, 2, dim=-1)
     xi = _causal_conv(xi, p["conv_w"], p["conv_b"])
     xi = F.silu(xi.to(_F32)).to(dtype)
-    bc = x @ p["w_bc"]
+    bc = xw @ p["w_bc"]
     b_in, c_out = torch.chunk(bc.to(_F32), 2, dim=-1)         # [B, L, N]
-    dt = F.softplus((x @ p["w_dt"]).to(_F32) + p["dt_bias"])  # [B, L, H]
+    dt = F.softplus((xw @ p["w_dt"]).to(_F32) + p["dt_bias"])  # [B, L, H]
     a = -torch.exp(p["A_log"])                                # [H]
     xh = xi.reshape(b, l, nh, s.head_dim).to(_F32)
     y = _chunked_scan2(dt, xh, b_in, c_out, a, s.chunk, remat_chunks)
     y = y + p["D"][:, None] * xh
     y = y.reshape(b, l, di).to(dtype)
-    y = rms_norm(y * F.silu(z.to(_F32)).to(dtype), p["gate_norm"])
-    return y @ p["w_out"]
+    y = _gate_norm(y * F.silu(z.to(_F32)).to(dtype), p["gate_norm"], ctx)
+    return _leave(y @ p["w_out"], ctx)
 
 
 def init_ssm_state(batch: int, d_model: int, s: SSMConfig,
@@ -294,25 +444,24 @@ def init_ssm_state(batch: int, d_model: int, s: SSMConfig,
 
 def mamba_decode_step(x: torch.Tensor, state: Dict[str, torch.Tensor],
                       p: Dict[str, torch.Tensor], d_model: int,
-                      s: SSMConfig
+                      s: SSMConfig, ctx: Optional[SSMMesh] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token recurrence. x [B, 1, D]; returns (y [B, 1, D], new
-    state); the given state is not modified."""
+    state); the given state is not modified.  On a rank's ``d_inner``
+    block (``ctx``), ``state`` and ``p`` hold its channels."""
     b = x.shape[0]
     dtype = x.dtype
-    di = s.expand * d_model
-    xz = x @ p["w_in"]
-    xi, z = torch.chunk(xz, 2, dim=-1)                       # [B, 1, di]
+    xw, xi, z = _project(x, p, ctx)                          # [B, 1, di]
+    di = xi.shape[-1]
     conv_buf = torch.cat([state["conv"], xi], dim=1)         # [B, K, di]
     xi = (conv_buf * p["conv_w"][None]).sum(dim=1, keepdim=True) \
         + p["conv_b"]
     xi = F.silu(xi.to(_F32)).to(dtype)
     new_conv = conv_buf[:, 1:]
     if s.version == 1:
-        bc = xi @ p["w_bc"]
+        bc = _sum(xi @ p["w_bc"], ctx)
         b_in, c_out = torch.chunk(bc.to(_F32), 2, dim=-1)
-        dt = F.softplus((xi @ p["w_dt_down"]) @ p["w_dt_up"]
-                        + p["dt_bias"].to(dtype)).to(_F32)[:, 0]  # [B, di]
+        dt = _dt1(xi, p, ctx)[:, 0]                          # [B, di]
         a = -torch.exp(p["A_log"])
         a_bar = torch.exp(dt[..., None] * a)                 # [B, di, N]
         xi0 = xi[:, 0].to(_F32)
@@ -321,11 +470,11 @@ def mamba_decode_step(x: torch.Tensor, state: Dict[str, torch.Tensor],
         y = torch.einsum("bdn,bn->bd", h, c_out[:, 0])
         y = y + p["D"] * xi0
         y = y[:, None].to(dtype) * F.silu(z.to(_F32)).to(dtype)
-        return y @ p["w_out"], {"h": h, "conv": new_conv}
+        return _leave(y @ p["w_out"], ctx), {"h": h, "conv": new_conv}
     nh = di // s.head_dim
-    bc = x @ p["w_bc"]
+    bc = xw @ p["w_bc"]
     b_in, c_out = torch.chunk(bc.to(_F32), 2, dim=-1)        # [B, 1, N]
-    dt = F.softplus((x @ p["w_dt"]).to(_F32) + p["dt_bias"])[:, 0]  # [B, H]
+    dt = F.softplus((xw @ p["w_dt"]).to(_F32) + p["dt_bias"])[:, 0]  # [B, H]
     a = -torch.exp(p["A_log"])
     a_bar = torch.exp(dt * a)                                # [B, H]
     xh = xi[:, 0].reshape(b, nh, s.head_dim).to(_F32)
@@ -334,5 +483,5 @@ def mamba_decode_step(x: torch.Tensor, state: Dict[str, torch.Tensor],
     y = torch.einsum("bhdn,bn->bhd", h, c_out[:, 0])
     y = y + p["D"][:, None] * xh
     y = y.reshape(b, 1, di).to(dtype)
-    y = rms_norm(y * F.silu(z.to(_F32)).to(dtype), p["gate_norm"])
-    return y @ p["w_out"], {"h": h, "conv": new_conv}
+    y = _gate_norm(y * F.silu(z.to(_F32)).to(dtype), p["gate_norm"], ctx)
+    return _leave(y @ p["w_out"], ctx), {"h": h, "conv": new_conv}

@@ -36,21 +36,28 @@ reference's scans drop the final state).  The vlm prefill does fill
 **On a mesh** (a ``MeshPlan`` passed as ``plan``; ``models.model``
 builds one for a model built with a ``mesh``): ``param_specs`` and
 ``decode_state_specs`` are the JAX tables of logical axes for every
-family, and the dense family runs ``forward``, ``train_loss``,
-``prefill``, ``decode_step`` and ``logits_of`` on each rank's local
-shards (``param_sharding`` on each leaf's shape, ``guarded_spec``):
-rows over the batch axes, weights over ``fsdp`` gathered for their use
+family, and the dense, moe, ssm and hybrid families
+(``MESH_FAMILIES``) run ``forward``, ``train_loss``, ``prefill``,
+``decode_step`` and ``logits_of`` on each rank's local shards
+(``param_sharding`` on each leaf's shape, ``guarded_spec``): rows over
+the batch axes, weights over ``fsdp`` gathered for their use
 (``tensor_parallel.materialize``), attention heads (where ``kv_heads``
 divides), MLP columns and vocabulary over ``model``
 (``attention.local_attention``, ``layers.tp_swiglu``,
-``layers.xent_sums``).  ``train_loss`` returns the rank's part of the
-global mean (its nll sum over the global mask count), which
-``train.train_step`` sums over the batch axes; ``decode_step`` and
-``prefill`` return the rank's rows' logits over the whole vocabulary.
-The blocks are the meshless ones: every tensor-parallel move is the
-identity without a plan.  The JAX ``constrain`` sites (the embedding's
-output, the decode step's, the logits) keep their names.  The other
-families raise on a mesh (``mesh_plan``).
+``layers.xent_sums``), experts over ``model`` with the reference's
+global capacity (``moe.moe_block``), and Mamba layers on a rank's
+``d_inner`` block (``ssm.local_mamba``; ``batch_tp`` raises on a model
+axis > 1).  zamba2's ``shared_attn`` is a dense block with
+its own shardings.  ``train_loss`` returns the rank's part of the
+global mean (its nll sum over the global mask count, and its part of
+the MoE ``aux``), which ``train.train_step`` sums over the batch axes;
+``decode_step`` and ``prefill`` return the rank's rows' logits over the
+whole vocabulary, and the decode state is the rank's shard (K/V caches
+over the kv heads where they split, ``ssm_h``/``ssm_conv`` over
+``d_inner``).  The blocks are the meshless ones: every tensor-parallel
+move is the identity without a plan.  The JAX ``constrain`` sites (the
+embedding's output, the decode step's, the logits) keep their names.
+vlm and encdec raise on a mesh (``mesh_plan``).
 """
 
 from __future__ import annotations
@@ -77,7 +84,7 @@ __all__ = ["init_params", "param_specs", "forward", "train_loss",
            "state_sharding", "MeshPlan", "FAMILIES", "MESH_FAMILIES"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
-MESH_FAMILIES = ("dense",)
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 BIG_WINDOW = attn.BIG_WINDOW
 _F32 = torch.float32
 
@@ -266,12 +273,15 @@ def decode_state_specs(cfg: ModelConfig) -> Dict[str, Tuple]:
 
 @dataclasses.dataclass(frozen=True)
 class MeshPlan:
-    """How a dense model runs on ``mesh``: each parameter leaf's
+    """How a model runs on ``mesh``: each parameter leaf's
     ``NamedSharding`` (``guarded_spec`` on its shape), a layer's (the
     layer axis dropped), and which products split over ``model``: the
     attention heads (``kv_heads`` divides), the MLP columns (``d_ff``
-    does) and the vocabulary (``vocab`` does).  ``batch_axes`` are the
-    mesh's data axes of size > 1, ``dp`` their product."""
+    does: the dense MLP, arctic's dense residual or zamba2's shared
+    block), the vocabulary (``vocab`` does), the experts (``n_experts``
+    does) and ``d_inner`` (``ssm``, where ``ssm.inner_splits``).
+    ``batch_axes`` are the mesh's data axes of size > 1, ``dp`` their
+    product."""
     cfg: ModelConfig
     mesh: Any
     shardings: Dict[str, Any]
@@ -281,6 +291,8 @@ class MeshPlan:
     vocab: bool
     batch_axes: Tuple[str, ...]
     dp: int
+    experts: bool = False
+    ssm: bool = False
 
 
 def _drop_layer_axis(tree):
@@ -297,11 +309,16 @@ def _splits(sharding: NamedSharding, dim: int) -> bool:
             and (e == "model" or (isinstance(e, tuple) and "model" in e)))
 
 
-def _check_mesh_family(cfg: ModelConfig) -> None:
+def _check_mesh_family(cfg: ModelConfig, mesh) -> None:
     if cfg.family not in MESH_FAMILIES:
         raise ValueError(f"{cfg.name} ({cfg.family}): only the "
-                         f"{', '.join(MESH_FAMILIES)} family runs on a "
+                         f"{', '.join(MESH_FAMILIES)} families run on a "
                          "mesh")
+    if (cfg.ssm is not None and cfg.ssm.batch_tp
+            and tp.axis_size(mesh, "model") > 1):
+        raise ValueError(f"{cfg.name}: SSMConfig.batch_tp (rows over "
+                         "model, d_inner unsplit) does not run on a model "
+                         "axis > 1")
 
 
 def _batch_axes(mesh) -> Tuple[Tuple[str, ...], int]:
@@ -314,37 +331,79 @@ def _batch_axes(mesh) -> Tuple[Tuple[str, ...], int]:
     return bat, dp
 
 
+def _mlp_block_shardings(cfg: ModelConfig, sh, lay):
+    """The shardings of the dense MLP a family runs (None: none)."""
+    if cfg.family == "hybrid":
+        return sh["shared_attn"]["mlp"]
+    return lay.get("mlp", lay.get("dense_mlp"))
+
+
 def mesh_plan(cfg: ModelConfig, mesh) -> MeshPlan:
     """The ``MeshPlan`` of ``cfg`` on ``mesh`` (``models.model`` builds
     it once per model); raises for a family the mesh does not run."""
-    _check_mesh_family(cfg)
+    _check_mesh_family(cfg, mesh)
     shapes = init_params(torch.Generator(), cfg, torch.device("meta"))
     sh = param_sharding(param_specs(cfg), mesh, shapes)
     lay = _drop_layer_axis(sh["layers"])
     bat, dp = _batch_axes(mesh)
+    mlp = _mlp_block_shardings(cfg, sh, lay)
     return MeshPlan(cfg=cfg, mesh=mesh, shardings=sh, layer=lay,
-                    heads=attn.heads_split(cfg.attn, mesh),
-                    mlp=_splits(lay["mlp"]["w_up"], 1),
-                    vocab=_splits(sh["embed"], 0), batch_axes=bat, dp=dp)
+                    heads=(cfg.attn is not None
+                           and attn.heads_split(cfg.attn, mesh)),
+                    mlp=mlp is not None and _splits(mlp["w_up"], 1),
+                    vocab=_splits(sh["embed"], 0), batch_axes=bat, dp=dp,
+                    experts=("moe" in lay
+                             and _splits(lay["moe"]["we_gate"], 0)),
+                    ssm=(cfg.ssm is not None
+                         and ssm_mod.inner_splits(cfg.d_model, cfg.ssm,
+                                                  mesh)))
 
 
 def _state_leaves(cfg: ModelConfig, batch: int, max_len: int):
-    """{name: (shape, dtype)} of the dense decode state (no tensor is
+    """{name: (shape, dtype)} of the whole decode state (no tensor is
     made: the dry run counts what is)."""
-    a = cfg.attn
-    kv = (cfg.n_layers, batch, max_len, a.kv_heads, a.head_dim)
     dt = dtype_of(cfg.compute_dtype)
-    return {"cache_len": ((batch,), torch.int32), "k_cache": (kv, dt),
-            "v_cache": (kv, dt)}
+    fam = cfg.family
+    a = cfg.attn
+    out = {"cache_len": ((batch,), torch.int32)}
+    if fam in ("dense", "moe", "vlm"):
+        kv = (cfg.n_layers, batch, max_len, a.kv_heads, a.head_dim)
+        out["k_cache"] = out["v_cache"] = (kv, dt)
+    if fam == "vlm":
+        cross = (cfg.n_layers // cfg.cross_attn_every, batch, cfg.n_patches,
+                 a.kv_heads, a.head_dim)
+        out["cross_k"] = out["cross_v"] = (cross, dt)
+    if fam in ("ssm", "hybrid"):
+        s = cfg.ssm
+        di = s.expand * cfg.d_model
+        h = ((batch, di, s.state_dim) if s.version == 1 else
+             (batch, di // s.head_dim, s.head_dim, s.state_dim))
+        out["ssm_h"] = ((cfg.n_layers,) + h, _F32)
+        out["ssm_conv"] = ((cfg.n_layers, batch, s.conv_width - 1, di), dt)
+    if fam == "hybrid":
+        kv = (cfg.n_layers // cfg.hybrid_attn_every, batch, max_len,
+              a.kv_heads, a.head_dim)
+        out["k_cache"] = out["v_cache"] = (kv, dt)
+    return out
 
 
 def state_sharding(cfg: ModelConfig, mesh, batch: int, max_len: int):
     """The decode state's ``NamedSharding`` tree for ``batch`` rows over
     the whole mesh (``decode_state_specs``, guarded on each leaf's
-    shape); raises unless ``batch`` splits over the batch axes."""
-    _check_mesh_family(cfg)
+    shape: rows that do not split over the batch axes are on every data
+    rank, as long_500k's one row; an MoE model raises there)."""
+    _check_mesh_family(cfg, mesh)
+    s, m = cfg.ssm, tp.axis_size(mesh, "model")
+    di = 0 if s is None else s.expand * cfg.d_model
+    if s is not None and s.version == 2 and di % m == 0 \
+            and (di // m) % s.head_dim:
+        raise ValueError(
+            f"{cfg.name}: a decode state on a model axis of {m} splits "
+            f"ssm_conv's d_inner ({di}) but not ssm_h's heads: a rank's "
+            f"d_inner block must be whole heads of {s.head_dim}")
     _bat, dp = _batch_axes(mesh)
-    if batch % dp:
+    if batch % dp and cfg.family == "moe":
+        # routing counts each data rank's rows as its own
         raise ValueError(f"a batch of {batch} does not split over the "
                          f"mesh's {dp} data-parallel ranks")
     shapes = {k: v[0] for k, v in _state_leaves(cfg, batch,
@@ -363,38 +422,64 @@ def _windows_for(cfg: ModelConfig) -> List[int]:
     return w
 
 
-def _dense_block(x, lp, cfg: ModelConfig, positions, window,
-                 plan: Optional[MeshPlan] = None):
+def _self_attn(x, lp, cfg: ModelConfig, positions, window,
+               plan: Optional[MeshPlan], sh):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    w, a, split = _attn_weights(lp, cfg, plan)
+    w, a, split = _attn_weights(lp, cfg, plan, sh)
     h = attn.tp_self_attention(h, w, a, split, _mesh(plan), positions,
                                window, cfg.attn_chunk_q, cfg.attn_chunk_k)
-    x = x + h
+    return x + h
+
+
+def _dense_block(x, lp, cfg: ModelConfig, positions, window,
+                 plan: Optional[MeshPlan] = None, sh=None):
+    """A dense block; ``sh`` its shardings on a mesh (default a
+    stacked layer's, ``plan.layer``)."""
+    x = _self_attn(x, lp, cfg, positions, window, plan, sh)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _mlp(h, lp, cfg, plan)
+    return x + _mlp(h, lp["mlp"], cfg, plan, _sh(plan, sh, "mlp"))
 
 
-def _moe_ffn(h, lp, cfg: ModelConfig):
-    y, aux = moe_mod.moe_block(h, lp["moe"], cfg.moe)
+def _moe_ffn(h, lp, cfg: ModelConfig, plan: Optional[MeshPlan] = None):
+    if plan is None:
+        y, aux = moe_mod.moe_block(h, lp["moe"], cfg.moe)
+    else:
+        w = {k: tp.materialize(v, plan.layer["moe"][k].spec, plan.mesh,
+                               _keep(plan.experts))
+             for k, v in lp["moe"].items()}
+        ctx = (moe_mod.moe_mesh(plan.mesh, plan.experts, plan.batch_axes)
+               if plan.experts or plan.dp > 1 else None)
+        y, aux = moe_mod.moe_block(h, w, cfg.moe, ctx)
     if cfg.moe.dense_residual_d_ff:
-        y = y + swiglu(h, lp["dense_mlp"], cfg.act)
+        y = y + _mlp(h, lp["dense_mlp"], cfg, plan,
+                     _sh(plan, None, "dense_mlp"))
     return y, aux
 
 
-def _moe_block(x, lp, cfg: ModelConfig, positions, window):
-    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    h = attn.self_attention(h, lp["attn"], cfg.attn, positions, window=window,
-                            chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
-    x = x + h
+def _moe_block(x, lp, cfg: ModelConfig, positions, window,
+               plan: Optional[MeshPlan] = None):
+    x = _self_attn(x, lp, cfg, positions, window, plan, None)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    y, aux = _moe_ffn(h, lp, cfg)
+    y, aux = _moe_ffn(h, lp, cfg, plan)
     return x + y, aux
 
 
-def _ssm_block(x, lp, cfg: ModelConfig):
+def _mamba(lp, cfg: ModelConfig, plan: Optional[MeshPlan]):
+    """(weights, ``SSMMesh`` or None) a rank runs layer ``lp``'s Mamba
+    block with."""
+    if plan is None:
+        return lp["ssm"], None
+    w = ssm_mod.local_mamba(lp["ssm"], plan.layer["ssm"], cfg.ssm,
+                            plan.mesh, plan.ssm)
+    return w, ssm_mod.SSMMesh(plan.mesh) if plan.ssm else None
+
+
+def _ssm_block(x, lp, cfg: ModelConfig, plan: Optional[MeshPlan] = None):
     h = rms_norm(x, lp["ln"], cfg.norm_eps)
-    return x + ssm_mod.mamba_block(h, lp["ssm"], cfg.d_model, cfg.ssm,
-                                   remat_chunks=cfg.remat != "none")
+    w, ctx = _mamba(lp, cfg, plan)
+    return x + ssm_mod.mamba_block(h, w, cfg.d_model, cfg.ssm,
+                                   remat_chunks=cfg.remat != "none",
+                                   ctx=ctx)
 
 
 def _cross_block(x, cp, patches, cfg: ModelConfig):
@@ -463,22 +548,32 @@ def _unembed(params, cfg: ModelConfig, plan: Optional[MeshPlan]):
                           _keep(plan.vocab))
 
 
-def _attn_weights(lp, cfg: ModelConfig, plan: Optional[MeshPlan]):
-    """(weights, config, heads split) of a layer's attention:
-    ``attention.local_attention`` on a mesh, the layer's own without."""
+def _sh(plan: Optional[MeshPlan], sh, key: str):
+    """The shardings of ``key`` in a block's (``sh``, default a stacked
+    layer's) on a mesh (None without one)."""
+    if plan is None:
+        return None
+    return (plan.layer if sh is None else sh)[key]
+
+
+def _attn_weights(lp, cfg: ModelConfig, plan: Optional[MeshPlan], sh=None):
+    """(weights, config, heads split) of a block's attention:
+    ``attention.local_attention`` on a mesh (``sh`` the block's
+    shardings, default a stacked layer's), the block's own without."""
     if plan is None:
         return lp["attn"], cfg.attn, False
-    return attn.local_attention(lp["attn"], plan.layer["attn"], cfg.attn,
-                                plan.mesh)
+    return attn.local_attention(lp["attn"], _sh(plan, sh, "attn"),
+                                cfg.attn, plan.mesh)
 
 
-def _mlp(h, lp, cfg: ModelConfig, plan: Optional[MeshPlan]):
+def _mlp(h, p, cfg: ModelConfig, plan: Optional[MeshPlan], sh):
+    """The MLP of weights ``p`` (shardings ``sh`` on a mesh)."""
     if plan is None:
-        return swiglu(h, lp["mlp"], cfg.act)
-    w = {k: tp.materialize(v, plan.layer["mlp"][k].spec, plan.mesh,
-                           _keep(plan.mlp))
-         for k, v in lp["mlp"].items()}
-    return tp_swiglu(h, w, cfg.act, plan.mlp, plan.mesh)
+        return swiglu(h, p, cfg.act)
+    split = _splits(sh["w_up"], 1)
+    w = {k: tp.materialize(v, sh[k].spec, plan.mesh, _keep(split))
+         for k, v in p.items()}
+    return tp_swiglu(h, w, cfg.act, split, plan.mesh)
 
 
 # ================================================================= forward
@@ -512,21 +607,22 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         moe = remat(_moe_block, cfg.remat)
         for i in range(cfg.n_layers):
             x, a = moe(x, layer_params(params, i), cfg, positions,
-                       windows[i])
+                       windows[i], plan)
             aux = aux + a
     elif fam == "ssm":
         ssm = remat(_ssm_block, cfg.remat)
         for i in range(cfg.n_layers):
-            x = ssm(x, layer_params(params, i), cfg)
+            x = ssm(x, layer_params(params, i), cfg, plan)
     else:  # hybrid
         k = cfg.hybrid_attn_every
         ssm = remat(_ssm_block, cfg.remat)
+        shared = None if plan is None else plan.shardings["shared_attn"]
         for lo, hi in _groups(cfg, k):
             for i in range(lo, hi):
-                x = ssm(x, layer_params(params, i), cfg)
+                x = ssm(x, layer_params(params, i), cfg, plan)
             if hi - lo == k:
                 x = dense(x, params["shared_attn"], cfg, positions,
-                          BIG_WINDOW)
+                          BIG_WINDOW, plan, shared)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
 
@@ -565,46 +661,24 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     KH, Dh].  On a mesh, the rank's shard of the state of ``batch`` rows
     over the mesh (``state_sharding``)."""
     _check_family(cfg)
-    if plan is not None:
-        sh = state_sharding(cfg, plan.mesh, batch, max_len)
-        return {k: torch.zeros(sh[k].local_shape(shape), dtype=dt,
-                               device=device)
-                for k, (shape, dt) in _state_leaves(cfg, batch,
-                                                    max_len).items()}
-    dtype = dtype_of(cfg.compute_dtype)
-    fam = cfg.family
-    a = cfg.attn
-
-    def zeros(shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
-
-    state = {"cache_len": zeros((batch,), torch.int32)}
-    if fam in ("dense", "moe", "vlm"):
-        shape = (cfg.n_layers, batch, max_len, a.kv_heads, a.head_dim)
-        state["k_cache"], state["v_cache"] = zeros(shape), zeros(shape)
-    if fam == "vlm":
-        shape = (cfg.n_layers // cfg.cross_attn_every, batch, cfg.n_patches,
-                 a.kv_heads, a.head_dim)
-        state["cross_k"], state["cross_v"] = zeros(shape), zeros(shape)
-    if fam in ("ssm", "hybrid"):
-        s = cfg.ssm
-        one = ssm_mod.init_ssm_state(batch, cfg.d_model, s, dtype, device)
-        state["ssm_h"] = zeros((cfg.n_layers,) + tuple(one["h"].shape), _F32)
-        state["ssm_conv"] = zeros((cfg.n_layers,) + tuple(one["conv"].shape))
-    if fam == "hybrid":
-        shape = (cfg.n_layers // cfg.hybrid_attn_every, batch, max_len,
-                 a.kv_heads, a.head_dim)
-        state["k_cache"], state["v_cache"] = zeros(shape), zeros(shape)
-    return state
+    leaves = _state_leaves(cfg, batch, max_len)
+    if plan is None:
+        return {k: torch.zeros(shape, dtype=dt, device=device)
+                for k, (shape, dt) in leaves.items()}
+    sh = state_sharding(cfg, plan.mesh, batch, max_len)
+    return {k: torch.zeros(sh[k].local_shape(shape), dtype=dt,
+                           device=device)
+            for k, (shape, dt) in leaves.items()}
 
 
 def _attn_decode_block(x, lp, cfg: ModelConfig, kc, vc, new_len, window,
-                       plan: Optional[MeshPlan] = None):
+                       plan: Optional[MeshPlan] = None, sh=None):
     """One dense (or moe) block in decode mode: the new token's K/V is
     written into kc/vc [B, S, KH, Dh] at ``new_len - 1``, in place (on a
-    mesh, the rank's heads into its cache shard)."""
+    mesh, the rank's heads into its cache shard; ``sh`` the block's
+    shardings, default a stacked layer's)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    w, a, split = _attn_weights(lp, cfg, plan)
+    w, a, split = _attn_weights(lp, cfg, plan, sh)
     k_new, v_new = attn.project_new_kv(h, w, a, new_len - 1)
     attn.write_new_kv(kc, vc, k_new, v_new, new_len - 1)
     h = attn.tp_decode_attention(h, w, a, split, _mesh(plan), kc, vc,
@@ -612,18 +686,20 @@ def _attn_decode_block(x, lp, cfg: ModelConfig, kc, vc, new_len, window,
     x = x + h
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
-        h, _aux = _moe_ffn(h, lp, cfg)
+        h, _aux = _moe_ffn(h, lp, cfg, plan)
     else:
-        h = _mlp(h, lp, cfg, plan)
+        h = _mlp(h, lp["mlp"], cfg, plan, _sh(plan, sh, "mlp"))
     return x + h
 
 
-def _ssm_decode(x, params, state, cfg: ModelConfig, i, nh, nconv):
+def _ssm_decode(x, params, state, cfg: ModelConfig, i, nh, nconv,
+                plan: Optional[MeshPlan] = None):
     lp = layer_params(params, i)
     hn = rms_norm(x, lp["ln"], cfg.norm_eps)
+    w, ctx = _mamba(lp, cfg, plan)
     y, st = ssm_mod.mamba_decode_step(
         hn, {"h": state["ssm_h"][i], "conv": state["ssm_conv"][i]},
-        lp["ssm"], cfg.d_model, cfg.ssm)
+        w, cfg.d_model, cfg.ssm, ctx)
     nh[i] = st["h"]
     nconv[i] = st["conv"]
     return x + y
@@ -678,14 +754,16 @@ def decode_step(params, state, tokens: torch.Tensor, cfg: ModelConfig,
         nh = torch.empty_like(state["ssm_h"])
         nconv = torch.empty_like(state["ssm_conv"])
         k = cfg.hybrid_attn_every if fam == "hybrid" else cfg.n_layers
+        shared = (None if plan is None or fam != "hybrid"
+                  else plan.shardings["shared_attn"])
         for g, (lo, hi) in enumerate(_groups(cfg, k)):
             for i in range(lo, hi):
-                x = _ssm_decode(x, params, state, cfg, i, nh, nconv)
+                x = _ssm_decode(x, params, state, cfg, i, nh, nconv, plan)
             if fam == "hybrid" and hi - lo == k:
                 x = _attn_decode_block(x, params["shared_attn"], cfg,
                                        state["k_cache"][g],
                                        state["v_cache"][g], new_len,
-                                       BIG_WINDOW)
+                                       BIG_WINDOW, plan, shared)
         new_state["ssm_h"], new_state["ssm_conv"] = nh, nconv
     new_state["cache_len"] = new_len
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -15,7 +15,13 @@ every check it has in the full smoke:
 * ``m`` serves qwen3-14b as 6d does, then runs phase m on its weights
   and served cache (``chip_smoke.mesh_phase``: m1 on the launched (1, 1)
   mesh, m2 one rank of (16, k) meshes under fake process groups, m3
-  ``launch.train --mesh 1x1:data,model --elastic-demo``).
+  ``launch.train --mesh 1x1:data,model --elastic-demo``), and, with 6d's
+  model freed, its moe, ssm and hybrid legs
+  (``chip_smoke.mesh_families_phase``: m4 granite-moe-1b-a400m,
+  falcon-mamba-7b and zamba2-2.7b on the (1, 1) mesh against the
+  unsharded route, m5 one rank of arctic-480b on (16, 16) and of
+  falcon-mamba-7b on (16, k) against the mesh dry run, m6 the mesh
+  launcher on granite-moe-1b-a400m).
 * ``r`` runs phase r: its dry runs beside the build, then r2 on phase
   6's model, r1 inside phase 6d and r3 after phase t's t1
   (``chip_smoke.roofline_*``), and prints phase r's summary.
@@ -50,7 +56,14 @@ def main(argv) -> None:
     if phase in ("6d", "m"):
         cs.phase_build(build)
         torch.backends.cuda.matmul.allow_tf32 = False
-        cs.dense_phase(cs.Windows(ops), 0, card, mesh=phase == "m")
+        win = cs.Windows(ops)
+        out = cs.dense_phase(win, 0, card, mesh=phase == "m")
+        if phase == "m":
+            m_out = out.pop("m")
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
+            cs.mesh_families_phase(win, card, m_out)
         return
     t0 = time.perf_counter()
     _, arts, out = cs.with_dryruns(Path(root), lambda: cs.phase_build(build))

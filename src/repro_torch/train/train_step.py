@@ -24,7 +24,11 @@ gradient, and every leaf's over ``pod``), the loss and its metrics
 likewise (``train_loss`` gives each rank its part of the global mean),
 and the optimizer reduces over the split axes (``make_optimizer``'s
 ``shardings``).  The microbatch count keeps the JAX rule: at most the
-rank's rows (the global batch over the data-parallel extent).
+rank's rows (the global batch over the data-parallel extent).  A rank's
+rows are ``rank_rows``': for each microbatch i, its block of the JAX
+step's global microbatch i, so the step's i-th slice of them is that
+block and every microbatch groups the reference's rows (an MoE routes
+each microbatch as one global set).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, List, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.train.optimizer import (AdamWConfig, make_optimizer,
@@ -40,7 +45,7 @@ from repro_torch.train.schedule import ScheduleConfig, make_schedule
 
 __all__ = ["TrainConfig", "TrainState", "make_train_step",
            "init_train_state", "loss_and_grads", "state_sharding",
-           "param_shardings"]
+           "param_shardings", "rank_rows"]
 
 _F32 = torch.float32
 
@@ -102,6 +107,28 @@ def loss_and_grads(model, params, batch):
              for g, p in zip(grads, leaves)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
+
+
+def rank_rows(n: int, mesh, microbatches: int = 1) -> np.ndarray:
+    """The indices of this rank's rows of a global batch of ``n``: for
+    each microbatch i in turn (the JAX step's rows ``[i n/m, (i+1) n/m)``)
+    block r of it, r this rank's row-major index over the batch axes.
+    One microbatch gives the contiguous block r; no mesh, every row."""
+    from repro_torch.dist import tensor_parallel as tp
+
+    if mesh is None:
+        return np.arange(n)
+    r, ways = 0, 1
+    for a in tp.BATCH_AXES:
+        s = tp.axis_size(mesh, a)
+        r, ways = r * s + tp.axis_index(mesh, a), ways * s
+    if n % (ways * microbatches):
+        raise ValueError(f"a batch of {n} rows does not split into "
+                         f"{microbatches} microbatches over {ways} "
+                         "data-parallel ranks")
+    mb, b = n // microbatches, n // (microbatches * ways)
+    return (np.arange(microbatches)[:, None] * mb + r * b
+            + np.arange(b)[None, :]).reshape(-1)
 
 
 def _microbatch(batch: Dict[str, torch.Tensor], m: int, i: int):

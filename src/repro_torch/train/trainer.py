@@ -21,7 +21,8 @@ Port of ``repro.train.trainer``:
   (``train_step.state_sharding``: AdamW ``m``/``v`` as the parameters,
   Adafactor ``vr``/``vc`` by the JAX dry run's rule), every rank draws
   the data's whole batch and trains on its rows (its block over the
-  batch axes), and checkpoints are written block by block and restore
+  batch axes of each microbatch, ``train_step.rank_rows``), and
+  checkpoints are written block by block and restore
   onto any mesh (``train.checkpoint``);
 * re-placement: ``remesh(mesh)`` moves the state onto another mesh, a
   smaller one included (a rank past it keeps no state and stops), or
@@ -52,7 +53,7 @@ import torch
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.train_step import (TrainConfig, TrainState,
                                           init_train_state, make_train_step,
-                                          state_sharding)
+                                          rank_rows, state_sharding)
 
 __all__ = ["TrainerConfig", "Trainer"]
 
@@ -112,20 +113,10 @@ class Trainer:
                                                              state)
 
     def _rows(self, x: np.ndarray) -> np.ndarray:
-        """This rank's block of a whole batch's rows."""
-        if self.mesh is None:
-            return x
-        from repro_torch.dist import tensor_parallel as tp
-
-        idx, ways = 0, 1
-        for a in tp.BATCH_AXES:
-            n = tp.axis_size(self.mesh, a)
-            idx, ways = idx * n + tp.axis_index(self.mesh, a), ways * n
-        if x.shape[0] % ways:
-            raise ValueError(f"a batch of {x.shape[0]} rows does not split "
-                             f"over {ways} data-parallel ranks")
-        b = x.shape[0] // ways
-        return x[idx * b:(idx + 1) * b]
+        """This rank's rows of a whole batch (``train_step.rank_rows``:
+        its block of each microbatch)."""
+        return x[rank_rows(x.shape[0], self.mesh,
+                           self.cfg.train.microbatches)]
 
     # ------------------------------------------------------------ lifecycle
     def initialize(self) -> int:

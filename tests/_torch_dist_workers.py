@@ -147,6 +147,15 @@ def _rows(mesh):
     return slice(i * b, (i + 1) * b)
 
 
+def _step_rows(toks, tg, mesh, microbatches):
+    """A train step's batch on this rank: its block of each microbatch
+    (``rank_rows``, as the trainer feeds it)."""
+    from repro_torch.train.train_step import rank_rows
+
+    mine = torch.from_numpy(rank_rows(MESH_ROWS, mesh, microbatches))
+    return {"tokens": toks[mine], "targets": tg[mine]}
+
+
 def _mesh_case(cfg, params, mesh):
     import copy
 
@@ -189,7 +198,8 @@ def _mesh_case(cfg, params, mesh):
         sh = ts.state_sharding(model, whole)
         state = place(whole, sh)
         for _ in range(2):
-            state, m = ts.make_train_step(model, tcfg)(state, batch)
+            state, m = ts.make_train_step(model, tcfg)(
+                state, _step_rows(toks, tg, mesh, 2))
         out[name] = {"state": dict(tree_flatten(gather_tree(state, sh))),
                      "metrics": {k: float(v) for k, v in m.items()}}
 
@@ -205,7 +215,7 @@ def _mesh_case(cfg, params, mesh):
     return out
 
 
-def unsharded_steps(cfg, params, opt):
+def unsharded_steps(cfg, params, opt, microbatches=2):
     """The meshless port's two steps of ``_mesh_case`` on the whole
     batch (the Adafactor reference)."""
     import copy
@@ -217,7 +227,8 @@ def unsharded_steps(cfg, params, opt):
 
     model = build_model(cfg, "cpu")
     sched = ScheduleConfig(peak_lr=MESH_LR, warmup_steps=1, total_steps=10)
-    tcfg = ts.TrainConfig(optimizer=opt, schedule=sched, microbatches=2)
+    tcfg = ts.TrainConfig(optimizer=opt, schedule=sched,
+                          microbatches=microbatches)
     state = ts.TrainState(copy.deepcopy(params),
                           ts.make_optimizer(opt)[0](params),
                           torch.zeros((), dtype=torch.int32))
@@ -335,4 +346,185 @@ def run_mesh_rank(rank, world, init_file, out_dir):
                       "active": t.active}
     dist.barrier()
     torch.save(out, os.path.join(out_dir, f"mesh_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+# ------------------------------------------------------- the mesh families
+# ``test_torch_mesh_families.py``: the moe, ssm and hybrid smoke models on
+# the same (2, 2) mesh.  Each case is (arch, config overrides); "drop"
+# routes the global chunk with a low capacity over several chunks, so
+# pairs are dropped across the data ranks' boundary.
+FAMILY_CASES = {
+    "granite": ("granite-moe-1b-a400m", {}),
+    "drop": ("granite-moe-1b-a400m",
+             {"moe": {"capacity_factor": 0.5, "token_chunk": 16}}),
+    "arctic": ("arctic-480b", {}),
+    "falcon": ("falcon-mamba-7b", {}),
+    "falcon_kernel": ("falcon-mamba-7b", {"ssm": {"use_scan_kernel": True}}),
+    "zamba2": ("zamba2-2.7b", {}),
+}
+# the cases without a backward (the scan kernel has none)
+FORWARD_ONLY = ("falcon_kernel",)
+# the train steps' microbatches: a rank's rows of each are its block of
+# the JAX step's (``rank_rows``), so MoE routing groups the same rows
+MICRO = 2
+# the drop case's routing input: one global chunk of MESH_ROWS x 4 tokens
+ROUTE_TOKENS = MESH_ROWS * 4
+
+
+def family_cfg(case, get_config):
+    """The case's config (``get_config`` of either package)."""
+    import dataclasses
+
+    arch, over = FAMILY_CASES[case]
+    cfg = get_config(arch, smoke=True)
+    for field, kw in over.items():
+        cfg = dataclasses.replace(cfg, **{field: dataclasses.replace(
+            getattr(cfg, field), **kw)})
+    return cfg
+
+
+def family_decode_inputs(cfg, seed=23):
+    """A decode step's whole state (numpy, by key) and tokens: random
+    K/V caches and recurrent state, lengths before the step."""
+    from repro_torch.models.transformer import _state_leaves
+
+    rng = np.random.default_rng(seed)
+    state = {}
+    for k, (shape, dt) in _state_leaves(cfg, MESH_ROWS, MESH_S).items():
+        if k == "cache_len":
+            state[k] = np.array([5, 9, 12, 3], np.int32)
+        else:
+            state[k] = (rng.standard_normal(shape) * 0.5).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab, (MESH_ROWS, 1)).astype(np.int32)
+    return state, toks
+
+
+def route_input(cfg, seed=24):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((ROUTE_TOKENS, cfg.d_model)).astype(
+        np.float32)
+
+
+def _family_case(case, cfg, params, mesh):
+    import copy
+
+    from repro_torch.dist.sharding import place
+    from repro_torch.dist.tensor_parallel import gather_tree
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import build_model
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.checkpoint import tree_flatten
+    from repro_torch.train.optimizer import (AdafactorConfig, AdamWConfig,
+                                             tree_unflatten)
+    from repro_torch.train.schedule import ScheduleConfig
+
+    model = build_model(cfg, "cpu", mesh=mesh)
+    plan = model.plan
+    psh = plan.shardings
+    pm = model.place(params)
+    mine = _rows(mesh)
+    toks, tg = (torch.from_numpy(a) for a in mesh_batch(cfg))
+    batch = {"tokens": toks[mine], "targets": tg[mine]}
+    out = {"plan": {k: getattr(plan, k) for k in
+                    ("heads", "mlp", "vocab", "experts", "ssm")},
+           "local_shapes": {p: tuple(x.shape) for p, x in
+                            flat_params(pm).items()}}
+    with torch.no_grad():
+        x, aux = tfm.forward(pm, toks[mine], cfg, plan=plan)
+        out["logits"] = tfm.logits_of(pm, x, cfg, plan)
+        out["aux"] = aux
+    if case not in FORWARD_ONLY:
+        loss, met, grads = ts.loss_and_grads(model, pm, batch)
+        loss, met, grads = ts._reduce(model, psh, loss, met, grads)
+        out["loss"], out["metrics"] = loss, met
+        out["grads"] = gather_tree(tree_unflatten(pm, grads), psh)
+        sched = ScheduleConfig(peak_lr=MESH_LR, warmup_steps=1,
+                               total_steps=10)
+        opts = [("adamw", AdamWConfig(lr=MESH_LR))]
+        if case == "arctic":
+            opts.append(("adafactor", AdafactorConfig(lr=MESH_LR,
+                                                      min_dim_factored=32)))
+        for name, opt in opts:
+            tcfg = ts.TrainConfig(optimizer=opt, schedule=sched,
+                                  microbatches=MICRO)
+            whole = ts.TrainState(copy.deepcopy(params),
+                                  ts.make_optimizer(opt)[0](params),
+                                  torch.zeros((), dtype=torch.int32))
+            sh = ts.state_sharding(model, whole)
+            state = place(whole, sh)
+            for _ in range(2):
+                state, m = ts.make_train_step(model, tcfg)(
+                    state, _step_rows(toks, tg, mesh, MICRO))
+            out[name] = {"state": dict(tree_flatten(gather_tree(state, sh))),
+                         "metrics": {k: float(v) for k, v in m.items()}}
+
+    whole, dt = family_decode_inputs(cfg)
+    whole = {k: torch.from_numpy(v) for k, v in whole.items()}
+    ssh = tfm.state_sharding(cfg, mesh, MESH_ROWS, MESH_S)
+    st = place(whole, ssh)
+    out["state_local"] = {k: tuple(v.shape) for k, v in st.items()}
+    with torch.no_grad():
+        logits, new = model.decode_step(pm, st, torch.from_numpy(dt)[mine])
+    out["decode_logits"] = logits
+    out["decode_state"] = gather_tree(new, ssh)
+    with torch.no_grad():
+        state, pl = model.prefill(pm, toks[mine], MESH_S)
+    out["prefill_logits"] = pl
+
+    if cfg.moe is not None:
+        xc = torch.from_numpy(route_input(cfg))
+        n = xc.shape[0] // plan.dp
+        i = mine.start // (MESH_ROWS // plan.dp)
+        ctx = moe_mod.moe_mesh(mesh, plan.experts, plan.batch_axes)
+        router = {"router": params["layers"]["moe"]["router"][0]}
+        r = moe_mod.route(xc[i * n:(i + 1) * n], router, cfg.moe, ctx)
+        out["route"] = {"slot": r[2], "keep": r[3], "cap": r[4]}
+    return out
+
+
+def _family_ckpt(cfg, mesh, out_dir, tag):
+    """A trainer's state saved on (2, 2) at step 2, restored on (1, 2)
+    (ranks 0-1) and re-meshed onto (1, 2): both bit for bit."""
+    from repro_torch.launch.mesh import make_mesh_shape
+
+    ck = os.path.join(out_dir, f"family_ckpt_{tag}")
+    saved = _trainer(cfg, mesh, ck, 2)
+    _like, at2 = _whole(saved)
+    sub = make_mesh_shape((1, 2), ("data", "model"), "cpu")
+    out = {"saved": at2}
+    resumed = _trainer(cfg, sub, ck, 2)
+    out["active"] = resumed.active
+    if resumed.active:
+        out["restored"] = _whole(resumed)[1]
+    dist.barrier()
+    saved.remesh(sub)
+    if saved.active:
+        out["remeshed"] = _whole(saved)[1]
+    dist.barrier()
+    return out
+
+
+def run_family_rank(rank, world, init_file, out_dir,
+                    cases=tuple(FAMILY_CASES), ckpt=("granite", "falcon")):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.weights import model_params_from_numpy
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    mesh = make_mesh_shape((2, 2), ("data", "model"), "cpu")
+    out = {}
+    for case in cases:
+        cfg = family_cfg(case, get_config)
+        flat = dict(np.load(os.path.join(out_dir, f"params_{case}.npz")))
+        params = model_params_from_numpy(unflat_params(flat), cfg, "cpu")
+        out[case] = _family_case(case, cfg, params, mesh)
+    for tag in ckpt:
+        out[f"ckpt_{tag}"] = _family_ckpt(family_cfg(tag, get_config), mesh,
+                                          out_dir, tag)
+    dist.barrier()
+    torch.save(out, os.path.join(out_dir, f"family_rank{rank}.pt"))
     dist.destroy_process_group()

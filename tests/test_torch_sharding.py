@@ -8,9 +8,14 @@ meshes of ``tests/test_sharding.py`` and on the (16, 16), (2, 16, 16),
 ``guarded_spec`` on its real shape (the JAX shapes from
 ``jax.eval_shape``) to JAX's on those meshes.  The mesh dry run counts
 one rank under a fake process group: on a (1, 1) mesh its counts are
-the meshless count's, and on (2, 2, 2) internlm2-1.8b's ``train_4k``
-at smoke size sends collective bytes and holds exactly its local
-shards' bytes as arguments.  (JAX's own mesh dry run,
+the meshless count's (for the moe, ssm and hybrid families too), and on
+(2, 2, 2) internlm2-1.8b's ``train_4k`` at smoke size sends collective
+bytes and holds exactly its local shards' bytes as arguments; the moe,
+ssm and hybrid steps there gather the expert counts and send
+all-to-all, each rank holding its shards.  The all-to-all's byte rule is
+``repro.utils.hlo``'s, and under a fake process group the MoE slots read
+from the gathered counts stay in range.  A rank's training rows are its
+block of each JAX microbatch, and ``batch_tp`` raises on a model axis.  (JAX's own mesh dry run,
 ``test_small_mesh_dryrun_subprocess``, fails on jax 0.9, so no count is
 held to it.)"""
 
@@ -294,6 +299,234 @@ def test_mesh_artifact_through_the_roofline_and_report(fake_mesh, tmp_path):
             if r.startswith("| internlm2-1.8b | decode_32k |")][0]
     assert line.endswith("| 4x2 |")
     assert "collective ms" in report.roofline_table(str(tmp_path))
-    with pytest.raises(ValueError, match="falcon-mamba-7b \\(ssm\\)"):
-        dryrun_cell("falcon-mamba-7b", "decode_32k", mesh=mesh, save=False,
-                    cfg=get_config("falcon-mamba-7b", smoke=True))
+    with pytest.raises(ValueError, match="llama-3.2-vision-11b \\(vlm\\)"):
+        dryrun_cell("llama-3.2-vision-11b", "decode_32k", mesh=mesh,
+                    save=False,
+                    cfg=get_config("llama-3.2-vision-11b", smoke=True))
+
+
+# ------------------------------------------------- moe, ssm and hybrid
+FAMILY_ARCHS = ("granite-moe-1b-a400m", "falcon-mamba-7b", "zamba2-2.7b")
+
+
+@pytest.mark.parametrize("arch,shape_name", itertools.product(
+    FAMILY_ARCHS, ["train_4k", "prefill_32k", "decode_32k"]))
+def test_mesh_dryrun_on_1x1_equals_the_meshless_count_families(
+        fake_mesh, arch, shape_name):
+    cfg = get_config(arch, smoke=True)
+    shape = dataclasses.replace(SHAPES[shape_name], seq_len=256)
+    plain = count_step(arch, cfg, shape, 2)
+    mesh = fake_mesh((1, 1), ("data", "model"))
+    assert count_step(arch, cfg, shape, 2, mesh=mesh) == plain
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS + ("arctic-480b",))
+def test_mesh_dryrun_on_2x2x2_families_send_and_hold_their_shards(
+        fake_mesh, arch):
+    """One rank of a smoke-size ``train_4k`` step on (2, 2, 2): an MoE
+    gathers its expert counts over the batch axes and sums its experts'
+    outputs over ``model``; a Mamba layer sends all-to-all over
+    ``model``; the arguments are exactly the rank's shards and rows."""
+    from repro_torch.models.transformer import mesh_plan
+
+    cfg = get_config(arch, smoke=True)
+    mesh = fake_mesh((2, 2, 2), ("pod", "data", "model"))
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=256)
+    rows = shape.global_batch // 4
+    row = count_step(arch, cfg, shape, rows, mesh=mesh)
+    plan = mesh_plan(cfg, mesh)
+    kinds = ["all-gather@data", "reduce-scatter@data", "all-reduce@pod",
+             "all-reduce@model"]
+    if cfg.moe is not None:
+        assert plan.experts
+        kinds.append("all-gather@pod")   # the counts' gather
+    if cfg.ssm is not None:
+        assert plan.ssm
+        kinds.append("all-to-all@model")
+    for kind in kinds:
+        assert row[f"coll.{kind}"] > 0, kind
+    from repro_torch.launch.dryrun import train_config
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import (init_train_state,
+                                              state_sharding)
+
+    # the whole state (AdamW, or arctic's Adafactor), each leaf's block
+    model = build_model(cfg, device="meta", mesh=mesh)
+    state = init_train_state(model, torch.Generator(),
+                             train_config(arch, rows))
+    sh = state_sharding(model, state)
+    held = sum(int(np.prod(s.local_shape(x.shape))) * x.element_size()
+               for x, s in zip(tree_leaves(state), tree_leaves(sh)))
+    inputs = 2 * rows * shape.seq_len * 4
+    assert row["argument_bytes"] == held + inputs
+
+
+def test_all_to_all_bytes_follow_the_hlo_rule(fake_mesh):
+    """The count of an even ``exchange`` (an all-to-all) over a 4-rank
+    axis equals ``repro.utils.hlo.collective_bytes`` of the same op:
+    ``(S-1)/S`` of its result."""
+    from repro.utils.hlo import collective_bytes
+    from repro_torch.dist import tensor_parallel as tp
+
+    mesh = fake_mesh((2, 4), ("data", "model"))
+    x = torch.empty((8, 6, 16), dtype=torch.bfloat16, device="meta")
+    tp.collective_counts(reset=True)
+    y = tp.exchange(x, 0, [2] * 4, [2] * 4, mesh, "model")
+    assert tuple(y.shape) == (8, 6, 16)
+    got = tp.collective_counts(reset=True)
+    hlo = ("%a = bf16[8,6,16]{2,1,0} all-to-all(bf16[8,6,16]{2,1,0} %x), "
+           "replica_groups=[2,4]<=[8], dimensions={0}")
+    want = collective_bytes(hlo)
+    assert got["all-to-all"] == want["all-to-all"] == 0.75 * 8 * 6 * 16 * 2
+    assert got["all-to-all@model"] == got["all-to-all"]
+    assert got["n_all-to-all"] == want["n_all-to-all"] == 1
+
+
+def test_exchange_gradient_sends_the_pieces_back(fake_mesh):
+    """An uneven ``exchange``'s backward is the exchange with ``send``
+    and ``recv`` swapped: the gradient has the input's shape, and each
+    direction counts the rows it sends to the other ranks."""
+    from repro_torch.dist import tensor_parallel as tp
+
+    mesh = fake_mesh((1, 2), ("data", "model"))
+    x = torch.empty((4, 3), device="meta", requires_grad=True)
+    tp.collective_counts(reset=True)
+    y = tp.exchange(x, 0, [1, 3], [1, 2], mesh, "model")
+    assert tuple(y.shape) == (3, 3)
+    assert tp.collective_counts()["all-to-all"] == 3 * 3 * 4
+    y.sum().backward()
+    assert tuple(x.grad.shape) == (4, 3)
+    got = tp.collective_counts(reset=True)
+    assert got["n_all-to-all"] == 2
+    assert got["all-to-all"] == (3 + 2) * 3 * 4
+
+
+def test_fake_group_gather_yields_in_range_slots():
+    """Under a fake process group nothing moves, and a receive buffer
+    may hold whatever it held: the expert counts an MoE rank gathers
+    come into a zero-filled buffer, so the slots it reads from them
+    stay within its dispatch buffer; an even exchange keeps its
+    shape."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.models import moe as moe_mod
+
+    mesh = make_mesh_shape((4, 2), ("data", "model"), "cpu", fake=True)
+    try:
+        x = torch.arange(24, dtype=torch.int64).reshape(4, 6)
+        assert tuple(tp.exchange(x, 0, [2, 2], [2, 2], mesh,
+                                 "model").shape) == (4, 6)
+        got = tp.all_gather(torch.full((1, 4), 7.0), mesh, "data", 0,
+                            zeros=True)
+        assert tuple(got.shape) == (4, 4)
+        assert bool(((got == 0) | (got == 7)).all())
+        m = MoEConfig(n_experts=4, top_k=2, d_ff_expert=8,
+                      capacity_factor=1.0, token_chunk=64)
+        g = torch.Generator().manual_seed(0)
+        p = {"router": torch.randn((16, 4), generator=g)}
+        xc = torch.randn((8, 16), generator=g)
+        ctx = moe_mod.moe_mesh(mesh, True, ("data",))
+        top_w, top_e, slot, keep, cap, aux = moe_mod.route(xc, p, m, ctx)
+        assert cap == 16     # the global chunk: 4 ranks of 8 tokens
+        assert bool(((slot >= 0) & (slot <= cap)).all())
+        assert bool((keep == (slot < cap)).all())
+        w = {"router": p["router"],
+             "we_gate": torch.randn((2, 16, 8), generator=g),
+             "we_up": torch.randn((2, 16, 8), generator=g),
+             "we_down": torch.randn((2, 8, 16), generator=g)}
+        y, _aux = moe_mod.moe_block(xc[None], w, m, ctx)
+        assert tuple(y.shape) == (1, 8, 16)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("m", [2, 3, 4, 8, 16])
+def test_mamba_pair_plan_gives_each_rank_its_channels(m):
+    """``ssm.pair_plan``'s exchange, simulated over every rank of a
+    ``model`` axis of m: rank j stores flat columns ``[j 2di/m, (j+1)
+    2di/m)`` of ``x @ w_in``; after the exchange rank r holds its
+    channels of ``xi`` and then of ``z``, block r of each."""
+    from repro_torch.models.ssm import pair_plan
+
+    di = 6 * m
+    sub = di // m
+    flat = np.arange(2 * di)                     # xi's di, then z's
+    store = [flat[j * 2 * sub:(j + 1) * 2 * sub] for j in range(m)]
+    sent = []                                    # sent[j][d]: j -> d
+    for j in range(m):
+        swap, send, _recv = pair_plan(m, j)
+        x = store[j]
+        if swap:
+            x = np.concatenate([x[sub:], x[:sub]])
+        cuts = np.cumsum([0] + [n * sub for n in send])
+        sent.append([x[cuts[d]:cuts[d + 1]] for d in range(m)])
+    for r in range(m):
+        _swap, _send, recv = pair_plan(m, r)
+        got = np.concatenate([sent[i][r] for i in range(m)])
+        assert [len(sent[i][r]) for i in range(m)] == [n * sub
+                                                       for n in recv]
+        want = np.concatenate([flat[r * sub:(r + 1) * sub],
+                               flat[di + r * sub:di + (r + 1) * sub]])
+        assert np.array_equal(got, want), (m, r)
+
+
+class _GridMesh:
+    """The axes and one rank's coordinate of a mesh, all ``rank_rows``
+    reads (no process group)."""
+
+    def __init__(self, shape, names, coord):
+        self.shape, self.mesh_dim_names, self.coord = shape, names, coord
+
+    def size(self, i):
+        return self.shape[i]
+
+    def get_coordinate(self):
+        return list(self.coord)
+
+
+@pytest.mark.parametrize("shape,names,n,m", [
+    ((2, 2), ("data", "model"), 8, 1),
+    ((2, 2), ("data", "model"), 8, 2),
+    ((2, 4, 1), ("pod", "data", "model"), 32, 4),
+    ((1, 2), ("data", "model"), 6, 3),
+])
+def test_rank_rows_give_each_rank_its_block_of_each_microbatch(shape, names,
+                                                               n, m):
+    """The rows a rank trains on, cut by the step into ``m`` slices:
+    slice i of data rank r is block r of the JAX step's global
+    microbatch i (``x.reshape((m, n/m, ...))[i]``), so the data ranks'
+    slices i together are that microbatch in order; every model rank of
+    a data rank has the same rows, and one microbatch is the contiguous
+    block."""
+    from repro_torch.train.train_step import rank_rows
+
+    jax_micro = np.arange(n).reshape(m, n // m)
+    dp = int(np.prod([s for s, a in zip(shape, names) if a != "model"]))
+    got = {}
+    for coord in itertools.product(*(range(s) for s in shape)):
+        rows = rank_rows(n, _GridMesh(shape, names, coord), m)
+        assert rows.shape == (n // dp,)
+        key = tuple(c for c, a in zip(coord, names) if a != "model")
+        assert np.array_equal(got.setdefault(key, rows), rows)
+    ranks = [got[k] for k in sorted(got)]
+    for i in range(m):
+        whole = np.concatenate([r.reshape(m, -1)[i] for r in ranks])
+        assert np.array_equal(whole, jax_micro[i])
+    if m == 1:
+        assert np.array_equal(np.concatenate(ranks), np.arange(n))
+    assert np.array_equal(rank_rows(n, None, m), np.arange(n))
+
+
+def test_batch_tp_raises_on_a_model_axis(fake_mesh):
+    """``batch_tp`` (the JAX ``"batch_model"`` rows, ``d_inner``
+    unsplit) raises by name on a model axis > 1 and runs where the
+    model axis is 1."""
+    from repro_torch.models.transformer import mesh_plan
+
+    cfg = get_config("falcon-mamba-7b", smoke=True)
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                           batch_tp=True))
+    with pytest.raises(ValueError, match="batch_tp"):
+        mesh_plan(cfg, fake_mesh((2, 2), ("data", "model")))
+    dist.destroy_process_group()
+    assert not mesh_plan(cfg, fake_mesh((2, 1), ("data", "model"))).ssm

@@ -139,3 +139,65 @@ def test_mesh_launch_counts():
     cs.per_step_launches([40, 40, 40], 40, "m2")
     with pytest.raises(SystemExit, match="expected 40"):
         cs.per_step_launches([40, 39, 40], 40, "m2")
+
+
+def test_m4_launch_windows():
+    """m4's windows: ``mamba_scan`` once a Mamba1 layer in a prefill,
+    ``flash_decode`` once an attention on the kernel route a step."""
+    cs.per_step_launches([32], 32, "m4 prefill", "mamba_scan")
+    with pytest.raises(SystemExit, match="mamba_scan launched"):
+        cs.per_step_launches([31], 32, "m4 prefill", "mamba_scan")
+    cs.per_step_launches([9, 9, 9, 9], 9, "m4 zamba2")
+    with pytest.raises(SystemExit, match="expected 24 a step"):
+        cs.per_step_launches([24, 24, 0, 24], 24, "m4 granite")
+
+
+@pytest.mark.parametrize("counted,held", [(3.5e9, True), (3.5e9 * 1.001,
+                                                          False),
+                                          (3.4e9, False)])
+def test_m5_collective_bytes_equal_the_dry_run(counted, held):
+    if held:
+        cs.collective_verdict("m5", counted, 3.5e9)
+    else:
+        with pytest.raises(SystemExit, match="collective bytes"):
+            cs.collective_verdict("m5", counted, 3.5e9)
+
+
+def test_m5_kernel_against_plain():
+    want = torch.randn(4, 8, 16)
+    assert cs.kernel_verdict("m5", "mamba_scan", want + 1e-6, want,
+                             cs.SCAN_TOL) == pytest.approx(1e-6, rel=0.1)
+    with pytest.raises(SystemExit, match="mamba_scan disagrees"):
+        cs.kernel_verdict("m5", "mamba_scan", want + 1e-2, want,
+                          cs.SCAN_TOL)
+
+
+def test_m5_batch_follows_the_dry_run(monkeypatch):
+    """Where the dry run says the rank does not fit at the JAX per-card
+    batch, m5 takes the largest power of two below that does, and says
+    so."""
+    from repro_torch.launch import dryrun
+
+    def fake(arch, shape_name, batch=None, cfg=None, mesh=None,
+             save=True):
+        b = batch or 8
+        return {"batch": b, "fits": b <= 2}
+
+    monkeypatch.setattr(dryrun, "dryrun_cell", fake)
+    art, note = cs._fit_batch("arctic-480b", "decode_32k", None, None)
+    assert art["batch"] == 2 and "batch 2" in note
+    monkeypatch.setattr(dryrun, "dryrun_cell",
+                        lambda *a, **k: {"batch": 8, "fits": True})
+    art, note = cs._fit_batch("arctic-480b", "decode_32k", None, None)
+    assert art["batch"] == 8 and note is None
+
+
+def test_m6_losses_within_the_bound():
+    a = [10.0, 9.5, 9.0, 8.7]
+    assert cs.loss_verdict("m6", a, [x * (1 + 5e-5) for x in a], 4,
+                           cs.RESTART_TOL) == pytest.approx(5e-5)
+    with pytest.raises(SystemExit, match="not the unsharded"):
+        cs.loss_verdict("m6", a, [x * (1 + 2e-4) for x in a], 4,
+                        cs.RESTART_TOL)
+    with pytest.raises(SystemExit, match="expected 4 each"):
+        cs.loss_verdict("m6", a, a[:3], 4, cs.RESTART_TOL)
