@@ -211,7 +211,18 @@ m. the mesh, within ``MESH_BUDGET_S`` (90 s): on 6d's model, m1
    (1, 1) mesh (bit-equal, exact windows), m5 rank 0 of arctic-480b's
    ``decode_32k`` on (16, 16) and of falcon-mamba-7b's ``prefill_32k``
    on (16, k) as m2 (``mamba_scan`` at the rank's channels vs plain),
-   m6 as m3 on granite-moe-1b-a400m.
+   m6 as m3 on granite-moe-1b-a400m.  Then, within ``MESH2_BUDGET_S``
+   (120 s) of their own, m7 llama-3.2-vision-11b and whisper-medium at
+   full width and depth on the (1, 1) mesh against the unsharded route
+   (a prefill with stub patches or frames, then 4 decode steps:
+   bit-equal, 0 ``flash_decode`` in the prefill and 48 a step), m8 rank
+   0 of each one's ``decode_32k`` on (16, 16) as m2 (``flash_decode``
+   at the rank's heads over the self and the cross cache vs plain,
+   timed beside its bound and SDPA), m9 m5's falcon-mamba-7b leg under
+   ``SSMConfig.batch_tp`` on (16, 2) (``mamba_scan`` at the rank's row
+   on all 8,192 channels), m10 a ``Trainer`` whose batches carry the
+   stub inputs on (1, 1) against none (llama-3.2-vision-11b at 5
+   layers, whisper-medium at 2 + 2; losses within 1e-4).
 6m. every other architecture at its published widths, one at a time,
    its depth cut (``FAMILY_DEPTH``: gemma2-9b 2 layers, one local and
    one global; phi4-mini and internlm2 2; granite-moe all 24; arctic-480b
@@ -520,6 +531,20 @@ M5_SCAN_LEN = 2048             # positions of the scan's kernel-vs-plain check
 # m6: launch.train on granite-moe-1b-a400m at full width, depth cut
 M6_ARCH = "granite-moe-1b-a400m"
 M6_LAYERS = 2
+# m7-m10 (the vlm and encdec families and batch_tp), a budget of their own
+MESH2_BUDGET_S = 120.0
+# m7: the (1, 1) mesh against the unsharded route (None: every layer)
+M7_DEPTH = {"llama-3.2-vision-11b": None, "whisper-medium": None}
+# m8: rank 0 of decode_32k on (16, 16) under a fake group
+M8_ARCHS = ("llama-3.2-vision-11b", "whisper-medium")
+M8_MESH = (16, 16)
+M9_MESH = (16, 2)              # m9: falcon-mamba-7b prefill_32k, batch_tp
+# m10: a Trainer on (1, 1) against none, M3_STEPS steps; llama-3.2-vision-
+# 11b at 5 layers (one cross group: 2 layers would run no layer at all,
+# the vlm forward running whole groups of cross_attn_every), whisper-
+# medium at 2 decoder and 2 encoder layers
+M10_LAYERS = {"llama-3.2-vision-11b": 5, "whisper-medium": 2}
+M10_BATCH, M10_SEQ = 4, 512
 TRAIN_ARCH = "internlm2-1.8b"  # phase t: trained at its full config
 TRAIN_SEQ = 4096
 TRAIN_BATCH = 8                # as TRAIN_MICRO microbatches
@@ -4592,6 +4617,27 @@ def mesh_decode_verdict(world, ref, got, ref_tok, got_tok, what):
     return worst
 
 
+def state_verdict(world, ref, got, what):
+    """m4's and m7's verdict on a state the mesh route wrote: on one
+    card (a world of 1) every leaf bit-equal to the unsharded route's
+    (the K/V, cross and recurrent caches, ``cache_len``)."""
+    if world != 1:
+        return
+    if set(ref) != set(got):
+        fail(f"{what}: the mesh route's state has leaves {sorted(got)}, "
+             f"the unsharded route's {sorted(ref)}")
+    for key in ref:
+        if not bit_equal(ref[key], got[key]):
+            fail(f"{what}: the mesh route's {key} is not bit-equal to the "
+                 "unsharded route's")
+
+
+def budget_verdict(what, seconds, budget):
+    """A phase's time against its stated budget."""
+    if seconds > budget:
+        fail(f"{what} took {seconds:.1f} s, past its {budget} s budget")
+
+
 def mesh_peak_verdict(tag, measured, predicted):
     """m2's memory verdict: the measured per-card peak over the mesh dry
     run's within ``M2_PEAK_BOUND``."""
@@ -4919,9 +4965,7 @@ def _m4_decode(win, world, model, params, mm, pm, mesh, state, tok, what):
         per.append(counts["flash_decode"])
         rtok, tok = rl.argmax(-1, keepdim=True), ml.argmax(-1, keepdim=True)
         mesh_decode_verdict(world, rl, ml, rtok, tok, f"{what} step {i}")
-    for key in ref:
-        if world == 1 and not bit_equal(ref[key], got[key]):
-            fail(f"{what}: the mesh route wrote another {key}")
+    state_verdict(world, ref, got, what)
     return per
 
 
@@ -4934,7 +4978,7 @@ def _m4_model(cfg, dev, seed, mesh):
     pm = mm.place(params)
     same = all(a is b for a, b in zip(leaves(pm), leaves(params)))
     if not same:
-        fail(f"m4 {cfg.name}: placing on the (1, 1) mesh copied a leaf")
+        fail(f"{cfg.name}: placing on the (1, 1) mesh copied a leaf")
     return model, params, mm, pm
 
 
@@ -5004,9 +5048,7 @@ def mesh_m4(win, card):
     mesh_decode_verdict(world, ref_logits, got_logits, rt,
                         got_logits.argmax(-1, keepdim=True),
                         f"m4 {cfg.name} prefill")
-    if world == 1 and not all(bit_equal(ref_state[k], got_state[k])
-                              for k in ref_state):
-        fail(f"m4 {cfg.name}: the (1, 1) prefill's state differs")
+    state_verdict(world, ref_state, got_state, f"m4 {cfg.name} prefill")
     per = _m4_decode(win, world, model, params, mm, pm, mesh, ref_state,
                      rt, f"m4 {cfg.name}")
     per_step_launches(per, 0, f"m4 {cfg.name}")
@@ -5114,7 +5156,7 @@ def _m5_row(tag, art, note, peak, per, ms, coll, dev_ms, kernel, err,
     row = dict(mesh=list(art["mesh"].values()), batch=art["batch"],
                note=note, head_split=art["head_split"],
                experts_split=art["experts_split"],
-               ssm_split=art["ssm_split"],
+               ssm_split=art["ssm_split"], rows_split=art["rows_split"],
                peak_measured_gb=peak and peak / 1e9,
                peak_predicted_gb=pred / 1e9, peak_ratio=ratio, step_ms=ms,
                device_ms=dev_ms, per_step={kernel: per},
@@ -5165,7 +5207,6 @@ def mesh_m5(win, card):
 
     from repro_torch.configs import SHAPES
     from repro_torch.kernels import flash_decode as fdk
-    from repro_torch.kernels import mamba_scan as msk
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh_shape
     from repro_torch.models.model import build_model
@@ -5221,57 +5262,84 @@ def mesh_m5(win, card):
     base_cfg = lm_config(LM_ARCH)
     cfg = dataclasses.replace(base_cfg,
                               n_layers=min(LM_DEPTH, base_cfg.n_layers))
-    shape = SHAPES["prefill_32k"]
     for k in M5_SSM_MODELS:
-        t0 = time.perf_counter()
-        mesh = make_mesh_shape((16, k), ("data", "model"), dev.type,
-                               fake=True)
-        art, note = _fit_batch(LM_ARCH, "prefill_32k", cfg, mesh)
-        run_cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
-            cfg.ssm, use_scan_kernel=True))     # as the dry run's cell
-        mm = build_model(run_cfg, device=dev, mesh=mesh)
-        base = _m5_base(cuda)
-        params = _rank_params(run_cfg, mm.plan, dev, 960 + k)
-        tokens = torch.zeros((art["batch"], shape.seq_len),
-                             dtype=torch.long, device=dev)
-
-        def step():
-            with torch.no_grad():
-                return mm.prefill(params, tokens, shape.seq_len + 1)[1]
-
-        per, ms, coll, dev_ms = _m5_run(win, f"m5 falcon k={k}", mm, step,
-                                        cuda, "mamba_scan", cfg.n_layers)
-        peak = torch.cuda.max_memory_allocated() - base if cuda else None
-        di = cfg.ssm.expand * cfg.d_model // k
-        g = torch.Generator(device=dev).manual_seed(970 + k)
-        shp = (art["batch"], M5_SCAN_LEN)
-        dt = torch.nn.functional.softplus(
-            torch.randn(shp + (di,), generator=g, device=dev) - 1.0)
-        xi = torch.randn(shp + (di,), generator=g, device=dev)
-        bb = torch.randn(shp + (cfg.ssm.state_dim,), generator=g,
-                         device=dev)
-        cc = torch.randn(shp + (cfg.ssm.state_dim,), generator=g,
-                         device=dev)
-        a_log = params["layers"]["ssm"]["A_log"][0].float().contiguous()
-        if tuple(a_log.shape) != (di, cfg.ssm.state_dim):
-            fail(f"m5 falcon k={k}: the rank's A_log block is "
-                 f"{tuple(a_log.shape)}, not ({di}, {cfg.ssm.state_dim})")
-        err = kernel_verdict(f"m5 falcon k={k}", "mamba_scan",
-                             ops.mamba_scan(dt, xi, bb, cc, a_log),
-                             msk.mamba_scan_plain(dt, xi, bb, cc, a_log),
-                             SCAN_TOL)
-        kern_ms = (time_ms(lambda: ops.mamba_scan(dt, xi, bb, cc, a_log), 3)
-                   if cuda else None)
-        ops.reset_launch_counts()
-        del params, tokens, dt, xi, bb, cc
-        dist.destroy_process_group()
-        rows.append(_m5_row(f"m5 {LM_ARCH} prefill_32k (16, {k})", art,
-                            note, peak, per, ms, coll, dev_ms, "mamba_scan",
-                            err, kern_ms, t0, card))
+        rows.append(_falcon_prefill_rank(win, cfg, (16, k), "m5", 960 + k,
+                                         card))
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     return rows
+
+
+def _falcon_prefill_rank(win, cfg, mshape, tag, seed, card):
+    """m5's and m9's leg: rank 0 of ``mshape`` under a fake process
+    group, falcon-mamba-7b ``prefill_32k`` at ``cfg``'s depth through
+    the scan kernel, against its mesh dry run; ``mamba_scan`` at the
+    rank's shape (its ``d_inner`` block of every row, or under
+    ``batch_tp`` its block of the rows on every channel) against plain
+    over the first ``M5_SCAN_LEN`` positions."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import mamba_scan as msk
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.models.model import build_model
+
+    dev = lm_device()
+    cuda = dev.type == "cuda"
+    shape = SHAPES["prefill_32k"]
+    t0 = time.perf_counter()
+    k = mshape[1]
+    what = f"{tag} falcon k={k}"
+    mesh = make_mesh_shape(mshape, ("data", "model"), dev.type, fake=True)
+    art, note = _fit_batch(LM_ARCH, "prefill_32k", cfg, mesh)
+    run_cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, use_scan_kernel=True))     # as the dry run's cell
+    mm = build_model(run_cfg, device=dev, mesh=mesh)
+    base = _m5_base(cuda)
+    params = _rank_params(run_cfg, mm.plan, dev, seed)
+    tokens = torch.zeros((art["batch"], shape.seq_len),
+                         dtype=torch.long, device=dev)
+
+    def step():
+        with torch.no_grad():
+            return mm.prefill(params, tokens, shape.seq_len + 1)[1]
+
+    per, ms, coll, dev_ms = _m5_run(win, what, mm, step, cuda,
+                                    "mamba_scan", cfg.n_layers)
+    peak = torch.cuda.max_memory_allocated() - base if cuda else None
+    di = cfg.ssm.expand * cfg.d_model
+    b = art["batch"]
+    if mm.plan.rows:
+        b //= k
+    else:
+        di //= k
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    shp = (b, M5_SCAN_LEN)
+    dt = torch.nn.functional.softplus(
+        torch.randn(shp + (di,), generator=g, device=dev) - 1.0)
+    xi = torch.randn(shp + (di,), generator=g, device=dev)
+    bb = torch.randn(shp + (cfg.ssm.state_dim,), generator=g, device=dev)
+    cc = torch.randn(shp + (cfg.ssm.state_dim,), generator=g, device=dev)
+    a_log = params["layers"]["ssm"]["A_log"][0].float().contiguous()
+    if tuple(a_log.shape) != (di, cfg.ssm.state_dim):
+        fail(f"{what}: the rank's A_log block is {tuple(a_log.shape)}, not "
+             f"({di}, {cfg.ssm.state_dim})")
+    err = kernel_verdict(what, "mamba_scan",
+                         ops.mamba_scan(dt, xi, bb, cc, a_log),
+                         msk.mamba_scan_plain(dt, xi, bb, cc, a_log),
+                         SCAN_TOL)
+    kern_ms = (time_ms(lambda: ops.mamba_scan(dt, xi, bb, cc, a_log), 3)
+               if cuda else None)
+    ops.reset_launch_counts()   # the comparison's launches: not main path
+    del params, tokens, dt, xi, bb, cc
+    dist.destroy_process_group()
+    row = _m5_row(f"{tag} {LM_ARCH} prefill_32k {mshape}", art, note, peak,
+                  per, ms, coll, dev_ms, "mamba_scan", err, kern_ms, t0,
+                  card)
+    row["scan_shape"] = [b, M5_SCAN_LEN, di]
+    return row
 
 
 def mesh_m6(card):
@@ -5305,6 +5373,286 @@ def mesh_m6(card):
     return dict(losses=a, mesh_losses=b, max_rel=rel,
                 seconds=time.perf_counter() - t0)
 
+def mesh_m7(win, card):
+    """m7: the vlm and encdec families on the launched (1, 1) mesh
+    against the unsharded route, at their published widths and depths
+    (``M7_DEPTH``): a prefill of ``FAM_EXTRA_BATCH`` prompts of
+    ``FAM_EXTRA_PROMPT`` tokens with stub ``patches``/``frames`` (bf16,
+    as phase 6m's), then ``M1_STEPS`` decode steps.  Logits, tokens and
+    every state leaf (the cross caches among them) bit-equal; launch
+    windows exact: no ``flash_decode`` in a prefill, one per attention
+    a step (48 for each model: llama-3.2-vision-11b's 40 self and 8
+    cross, whisper-medium's 24 and 24).  A (1, 1) mesh splits nothing:
+    m7 holds the placement and the plan's dispatch of the cross
+    attentions, not the sharded numerics (``tests/
+    test_torch_mesh_vlm_encdec.py``; m8 runs the sharded code under a
+    fake group)."""
+    import torch.distributed as dist
+
+    dev = lm_device()
+    cuda = dev.type == "cuda"
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(820)
+    for i, (arch, depth) in enumerate(M7_DEPTH.items()):
+        t0 = time.perf_counter()
+        mesh, world = _mesh_11(dev)
+        base = lm_config(arch)
+        cfg = base if depth is None else dataclasses.replace(
+            base, n_layers=depth)
+        model, params, mm, pm = _m4_model(cfg, dev, 821 + i, mesh)
+        init_s = time.perf_counter() - t0
+        b, l = FAM_EXTRA_BATCH, FAM_EXTRA_PROMPT
+        extra = extra_inputs(cfg, b, g, dev)
+        stub = next(iter(extra))
+        toks = torch.randint(0, cfg.vocab, (b, l), generator=g, device=dev)
+        max_len = l + M1_STEPS
+        with torch.no_grad():
+            ref_state, ref_logits = model.prefill(params, toks, max_len,
+                                                  extra)
+            (got_state, got_logits), counts = win.run(
+                lambda: mm.prefill(pm, toks, max_len, extra))
+        per_step_launches([counts["flash_decode"]], 0,
+                          f"m7 {arch} prefill")
+        rt = ref_logits.argmax(-1, keepdim=True)
+        mesh_decode_verdict(world, ref_logits, got_logits, rt,
+                            got_logits.argmax(-1, keepdim=True),
+                            f"m7 {arch} prefill")
+        state_verdict(world, ref_state, got_state, f"m7 {arch} prefill")
+        expect = kernel_attn_per_step(cfg) if cuda else 0
+        with torch.no_grad():
+            per = _m4_decode(win, world, model, params, mm, pm, mesh,
+                             ref_state, rt, f"m7 {arch}")
+        per_step_launches(per, expect, f"m7 {arch}")
+        del model, params, mm, pm, ref_state, got_state, extra
+        dist.destroy_process_group()
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        out[arch] = dict(layers=cfg.n_layers, depth_published=base.n_layers,
+                         world=world, bit_equal=world == 1,
+                         prefill=[b, l], flash_decode_per_prefill=0,
+                         flash_decode_per_step=per, init_s=init_s,
+                         seconds=time.perf_counter() - t0)
+        log(f"[m7] {arch} ({cfg.family}), {cfg.n_layers} of "
+            f"{base.n_layers} layers, on the (1, 1) mesh (world {world}) "
+            f"against the unsharded route: a {b} x {l} prefill with stub "
+            f"{stub}, then "
+            f"{M1_STEPS} decode steps; logits, tokens and state bit-equal: "
+            f"{world == 1}; flash_decode 0 in the prefill, {per} a step; "
+            f"init {init_s:.1f} s; {out[arch]['seconds']:.1f} s; {card}")
+    return out
+
+
+def _decode_kernel_row(tag, what, q, kc, vc, kl, flush_buf, cuda):
+    """``flash_decode`` at a rank's decode shape against its plain
+    version (``FD_TOL``), and on the card timed as phase 7 times it
+    (median of 16 launches after an L2 flush, warm beside it), its
+    bound from the work function and SDPA over the same cache."""
+    from repro_torch.kernels import flash_decode as fdk
+    from repro_torch.kernels import ops
+
+    err = kernel_verdict(f"{tag} {what}", "flash_decode",
+                         ops.flash_decode(q, kc, vc, kl),
+                         fdk.flash_decode_plain(q, kc, vc, kl), FD_TOL)
+    b, s, kh, d = kc.shape
+    h = q.shape[1]
+    row = dict(what=what, shape=[b, h, kh, d, s], max_abs_err=err,
+               ms=None, ms_warm_l2=None, bound_ms=None, library_ms=None)
+    if cuda:
+        lens = kl.cpu().numpy()
+        _rows, _bytes, bound = decode_bound(fdk, kc, lens, b, h)
+        cold, warm, _host = timed_launches(
+            [lambda: ops.flash_decode(q, kc, vc, kl)] * 16, flush_buf)
+        _lib, lib_cold = sdpa_ms(q, kc, vc, kl, flush_buf)
+        row.update(ms=statistics.median(cold),
+                   ms_warm_l2=statistics.median(warm), bound_ms=bound,
+                   library_ms=lib_cold)
+    ops.reset_launch_counts()   # the comparison's launches: not main path
+    log(f"[{tag}] flash_decode {what} at the rank's shape (B {b}, S {s}, "
+        f"{h}/{kh} heads of {d}): max |d| vs plain {err}; {row['ms']} ms "
+        f"cold L2 ({row['ms_warm_l2']} warm), bound {row['bound_ms']} ms, "
+        f"SDPA {row['library_ms']} ms cold L2")
+    return row
+
+
+def mesh_m8(win, card):
+    """m8: rank 0 of (16, 16) ``decode_32k`` for llama-3.2-vision-11b
+    and whisper-medium at the mesh dry run's rows a rank (8) under a
+    fake process group (collectives counted, not timed), only its
+    blocks, its rows' caches and its rows of the f32 stub inputs on the
+    card, as m5: the peak within ``M2_PEAK_BOUND`` of the dry run's,
+    the collective bytes a step equal to its, ``M5_STEPS`` steps of 48
+    ``flash_decode`` launches each, and the kernel
+    at the rank's heads (llama: all 32/8, since 8 kv heads do not split
+    16 ways; whisper: its 1/1 of 64) over the self cache and the cross
+    cache against plain, timed beside its bound and SDPA."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.models.model import build_model
+
+    dev = lm_device()
+    cuda = dev.type == "cuda"
+    shape = SHAPES["decode_32k"]
+    rows = []
+    for i, arch in enumerate(M8_ARCHS):
+        t0 = time.perf_counter()
+        cfg = lm_config(arch)
+        mesh = make_mesh_shape(M8_MESH, ("data", "model"), dev.type,
+                               fake=True)
+        art, note = _fit_batch(arch, "decode_32k", cfg, mesh)
+        mm = build_model(cfg, device=dev, mesh=mesh)
+        base = _m5_base(cuda)
+        params = _rank_params(cfg, mm.plan, dev, 980 + i)
+        state = mm.init_decode_state(art["batch"] * M8_MESH[0],
+                                     shape.seq_len)
+        state["cache_len"].fill_(shape.seq_len - 1)
+        b = state["cache_len"].shape[0]
+        tokens = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        name, n = (("patches", cfg.n_patches) if cfg.family == "vlm"
+                   else ("frames", cfg.enc_seq))
+        # the step's stub input, held as the dry run's step holds it
+        extra = {name: torch.zeros((b, n, cfg.d_model), device=dev)}
+
+        def step():
+            with torch.no_grad():
+                return mm.decode_step(params, state, tokens, extra)[0]
+
+        per, ms, coll, dev_ms = _m5_run(win, f"m8 {arch}", mm, step, cuda,
+                                        "flash_decode",
+                                        kernel_attn_per_step(cfg))
+        peak = torch.cuda.max_memory_allocated() - base if cuda else None
+        flush = (torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+                 if cuda else None)
+        a = cfg.attn
+        kern = []
+        for j, (what, kk, vk, kl) in enumerate((
+                ("self", "k_cache", "v_cache", state["cache_len"]),
+                ("cross", "cross_k", "cross_v",
+                 torch.full_like(state["cache_len"], n)))):
+            kc, vc = state[kk][0], state[vk][0]
+            gen = torch.Generator(device=dev).manual_seed(990 + 4 * i + j)
+            kc.normal_(generator=gen)
+            vc.normal_(generator=gen)
+            kvh = kc.shape[2]
+            q = torch.randn((b, kvh * a.n_heads // a.kv_heads, a.head_dim),
+                            generator=gen, device=dev) / a.head_dim ** 0.5
+            kern.append(_decode_kernel_row("m8", f"{arch} {what}", q, kc,
+                                           vc, kl, flush, cuda))
+        err = max(r["max_abs_err"] for r in kern)
+        del params, state, extra, flush
+        dist.destroy_process_group()
+        row = _m5_row(f"m8 {arch} decode_32k {M8_MESH}", art, note, peak,
+                      per, ms, coll, dev_ms, "flash_decode", err,
+                      kern[0]["ms"], t0, card)
+        row["flash_decode_shapes"] = kern
+        rows.append(row)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_m9(win, card):
+    """m9: m5's falcon-mamba-7b leg (``prefill_32k`` at ``LM_DEPTH``
+    layers) under ``SSMConfig.batch_tp`` on ``M9_MESH``: the Mamba rows
+    over ``model`` (a data rank's 2 rows, one a rank), ``d_inner``
+    whole; ``mamba_scan`` at the rank's row on all 8,192 channels
+    against plain."""
+    base = lm_config(LM_ARCH)
+    cfg = dataclasses.replace(base, n_layers=min(LM_DEPTH, base.n_layers),
+                              ssm=dataclasses.replace(base.ssm,
+                                                      batch_tp=True))
+    row = _falcon_prefill_rank(win, cfg, M9_MESH, "m9", 995, card)
+    if not row["rows_split"]:
+        fail("m9: batch_tp did not put the Mamba rows over model")
+    gc.collect()
+    if lm_device().type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+class StubTokens:
+    """``SyntheticTokens`` whose every batch also carries the stub
+    frontend's input (vlm ``patches`` or encdec ``frames``, f32, one
+    seeded draw held for every step): the trainer cuts it with the
+    tokens."""
+
+    def __init__(self, cfg, data, seed):
+        self.data = data
+        name, n = (("patches", cfg.n_patches) if cfg.family == "vlm"
+                   else ("frames", cfg.enc_seq))
+        rng = np.random.default_rng(seed)
+        self.extra = {name: (rng.standard_normal(
+            (data.local_batch, n, cfg.d_model), dtype=np.float32) * 0.5)}
+
+    def state_dict(self):
+        return self.data.state_dict()
+
+    def load_state_dict(self, st):
+        self.data.load_state_dict(st)
+
+    def next_batch(self):
+        import types
+
+        b = self.data.next_batch()
+        return types.SimpleNamespace(tokens=b.tokens, targets=b.targets,
+                                     step=b.step, **self.extra)
+
+
+def _m10_losses(cfg, dev, mesh):
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import ScheduleConfig
+    from repro_torch.train.train_step import TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-4),
+                       schedule=ScheduleConfig(peak_lr=1e-4, warmup_steps=1,
+                                               total_steps=M3_STEPS))
+    data = StubTokens(cfg, SyntheticTokens(vocab=cfg.vocab, seq=M10_SEQ,
+                                           local_batch=M10_BATCH), 1010)
+    t = Trainer(build_model(cfg, device=dev), TrainerConfig(train=tcfg),
+                data, mesh=mesh)
+    t.run(M3_STEPS)
+    return [m["loss"] for m in t.metrics_log]
+
+
+def mesh_m10(card):
+    """m10: a ``Trainer`` on the launched (1, 1) mesh against the
+    unsharded one, each family at full width and ``M10_LAYERS`` layers,
+    ``M3_STEPS`` steps of ``M10_BATCH`` x ``M10_SEQ`` whose batches
+    carry their stub inputs: the losses within ``RESTART_TOL``."""
+    import torch.distributed as dist
+
+    dev = lm_device()
+    out = {}
+    for arch, layers in M10_LAYERS.items():
+        t0 = time.perf_counter()
+        base = lm_config(arch)
+        cfg = dataclasses.replace(base, n_layers=layers, n_enc_layers=min(
+            base.n_enc_layers, layers))
+        plain = _m10_losses(cfg, dev, None)
+        mesh, world = _mesh_11(dev)
+        meshed = _m10_losses(cfg, dev, mesh)
+        dist.destroy_process_group()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        rel = loss_verdict(f"m10 {arch}", plain, meshed, M3_STEPS,
+                           RESTART_TOL)
+        out[arch] = dict(layers=cfg.n_layers, losses=plain,
+                         mesh_losses=meshed, max_rel=rel,
+                         seconds=time.perf_counter() - t0)
+        log(f"[m10] {arch} at full width, {cfg.n_layers} layers"
+            f"{f' + {cfg.n_enc_layers} encoder' if cfg.n_enc_layers else ''}"
+            f", {M10_BATCH} x {M10_SEQ} with stub inputs: Trainer losses "
+            f"{plain}; on the (1, 1) mesh {meshed}; max rel diff {rel} "
+            f"(bound {RESTART_TOL}); {out[arch]['seconds']:.1f} s; {card}")
+    return out
+
 
 def mesh_phase(win, lm, served, card):
     """Phase m's dense legs m1, m2 and m3, on 6d's model (m4-m6 run
@@ -5319,7 +5667,8 @@ def mesh_phase(win, lm, served, card):
 
 def mesh_families_phase(win, card, out):
     """Phase m's moe, ssm and hybrid legs m4, m5 and m6 after ``out``
-    (``mesh_phase``'s), the whole phase within ``MESH_BUDGET_S``."""
+    (``mesh_phase``'s), the whole phase within ``MESH_BUDGET_S``; then
+    m7-m10 (``mesh_families2_phase``)."""
     t0 = time.perf_counter()
     out["m4"] = mesh_m4(win, card)
     out["m5"] = mesh_m5(win, card)
@@ -5333,9 +5682,30 @@ def mesh_families_phase(win, card, out):
         + ", ".join(f"{key} {v:.1f}" for key, v in legs.items())
         + f"; m4-m6 {out['seconds_m4_m6']:.1f}); {card}")
     log("[m] summary " + json.dumps(out, default=str))
-    if out["seconds"] > MESH_BUDGET_S:
-        fail(f"phase m took {out['seconds']:.1f} s, past its "
-             f"{MESH_BUDGET_S} s budget")
+    budget_verdict("phase m", out["seconds"], MESH_BUDGET_S)
+    mesh_families2_phase(win, card, out)
+    return out
+
+
+def mesh_families2_phase(win, card, out):
+    """Phase m's vlm, encdec and ``batch_tp`` legs m7-m10, within their
+    own ``MESH2_BUDGET_S``."""
+    t0 = time.perf_counter()
+    out["m7"] = mesh_m7(win, card)
+    out["m8"] = mesh_m8(win, card)
+    out["m9"] = mesh_m9(win, card)
+    out["m10"] = mesh_m10(card)
+    out["seconds_m7_m10"] = secs = time.perf_counter() - t0
+    legs = {"m7": sum(v["seconds"] for v in out["m7"].values()),
+            "m8": sum(r["seconds"] for r in out["m8"]),
+            "m9": out["m9"]["seconds"],
+            "m10": sum(v["seconds"] for v in out["m10"].values())}
+    log(f"[m] m7-m10 {secs:.1f} s (budget {MESH2_BUDGET_S} s; "
+        + ", ".join(f"{key} {v:.1f}" for key, v in legs.items())
+        + f"); {card}")
+    log("[m] m7-m10 summary " + json.dumps(
+        {key: out[key] for key in ("m7", "m8", "m9", "m10")}, default=str))
+    budget_verdict("m7-m10", secs, MESH2_BUDGET_S)
     return out
 
 
@@ -7321,13 +7691,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     wall("dense serving (6d)", t0)
-    # ---- phase m's moe, ssm and hybrid legs, 6d's model freed
+    # ---- phase m's moe, ssm, hybrid, vlm and encdec legs, 6d's model freed
     t0 = time.perf_counter()
     mesh_families_phase(win, card, m_out)   # prints phase m's summary
+    # flash_decode at the mesh ranks' shapes (m8), for its kernel row
+    fd_rank_shapes = [k for row in m_out["m8"]
+                      for k in row["flash_decode_shapes"]]
     del m_out
     gc.collect()
     torch.cuda.empty_cache()
-    wall("mesh families (m4-m6)", t0)
+    wall("mesh families (m4-m10)", t0)
     t0 = time.perf_counter()
     families = families_phase(win, 0, card)
     wall("families (6m)", t0)
@@ -7342,6 +7715,7 @@ def main() -> int:
     lm_rows["flash_decode"] = flash_decode_rows(
         flash_decode_row(k, flush_buf, *fd_in),
         *decode_shape_checks(k, flush_buf, 0))
+    lm_rows["flash_decode"]["mesh_rank_shapes"] = fd_rank_shapes
     del fd_in, flush_buf
     gc.collect()
     torch.cuda.empty_cache()

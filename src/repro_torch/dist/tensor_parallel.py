@@ -13,6 +13,11 @@ them explicitly, as Megatron-LM and ZeRO do; these are the moves:
   gradient over the axes (an ``fsdp`` weight: every data rank saw other
   rows) or ``"slice"`` keeps this rank's block (every rank computed the
   same gradient);
+* ``scatter(x, dim, axis)``: this rank's block of ``dim`` of a tensor
+  every rank over ``axis`` holds whole (a slice, nothing moved); the
+  backward gathers the blocks' gradients over the axis (``models.ssm``
+  cuts a data rank's rows over ``model`` under ``batch_tp``, and
+  ``gather(..., grad="slice")`` puts them back);
 * ``exchange(x, dim, send, recv, axis)``: the all-to-all along one
   dimension, even or not (each rank sends its own sizes to each other
   rank), as ``models.ssm`` moves a flat ``d_inner`` block; its gradient
@@ -48,7 +53,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["axis_size", "axis_index", "copy_to", "reduce_from", "gather",
-           "exchange", "materialize", "all_reduce", "all_gather",
+           "scatter", "exchange", "materialize", "all_reduce", "all_gather",
            "gather_tree", "collective_counts",
            "BATCH_AXES", "COUNTS"]
 
@@ -227,6 +232,18 @@ class _Gather(torch.autograd.Function):
         return g, None, None, None, None
 
 
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = mesh, axis, dim
+        return _block(x, mesh, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return _all_gather(g, mesh, axis, dim), None, None, None
+
+
 class _Exchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim, send, recv):
@@ -262,6 +279,18 @@ def gather(x: torch.Tensor, mesh, axes: Axes, dim: int,
     if grad not in ("reduce_scatter", "slice"):
         raise ValueError(f"unknown gather gradient {grad!r}")
     return _Gather.apply(x, mesh, axes, dim, grad)
+
+
+def scatter(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block of ``dim`` over ``axis`` (``dim`` must divide
+    by the axis's size); its gradient is gathered over ``axis``."""
+    s = axis_size(mesh, axis)
+    if s == 1:
+        return x
+    if x.shape[dim] % s:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                         f"split over {axis} of {s}")
+    return _Scatter.apply(x, mesh, axis, dim)
 
 
 def exchange(x: torch.Tensor, dim: int, send: Sequence[int],

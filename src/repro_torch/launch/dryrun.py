@@ -13,10 +13,11 @@ and fitted in depth (``probe_cell``, ``roofline.run_probe``).
 
 **On a mesh** (``--mesh 16x16:data,model``, the JAX production mesh;
 ``--multi-pod`` its (2, 16, 16) ``pod,data,model``; any ``dxm`` shape),
-as the JAX dry run: the dense, moe, ssm and hybrid families (vlm and
-encdec are refused by name), each rank at the global batch of
-``SHAPES`` over the mesh's data-parallel ranks, training at the JAX microbatch rule (at most the
-rank's rows).  ``count_step`` counts rank 0's step on the meta device
+as the JAX dry run: every family, each rank at the global batch of
+``SHAPES`` over the mesh's data-parallel ranks (its inputs, vlm
+``patches`` and encdec ``frames`` among them, placed by
+``model.input_sharding``), training at the JAX microbatch rule (at most
+the rank's rows).  ``count_step`` counts rank 0's step on the meta device
 under a fake process group of the mesh's size (``launch.mesh``): its
 local shards (``param_sharding``, ``decode_state_specs``), the weights
 it gathers and the collectives it calls, each counted in wire bytes by
@@ -27,8 +28,10 @@ records the mesh, per-card FLOPs by unit, bytes, argument and peak
 bytes, and what splits over ``model``: the attention heads
 (``head_split``; where they do not, every rank holds and computes every
 kv head: its cache and the gathered weights are in its bytes), the
-experts (``experts_split``) and the Mamba layers' ``d_inner``
-(``ssm_split``).
+experts (``experts_split``), the Mamba layers' ``d_inner``
+(``ssm_split``) or, under ``SSMConfig.batch_tp`` (a config built with
+``dataclasses.replace``: no architecture sets it), their rows
+(``rows_split``).
 
 Without a mesh, the one-card question is what batch a card holds.
 With ``batch=None`` the dry run takes the largest power of two, up to
@@ -73,8 +76,8 @@ from repro_torch.configs import ARCHS, SHAPES, applicable_shapes, get_config
 from repro_torch.dist import tensor_parallel as tp
 from repro_torch.dist.sharding import place
 from repro_torch.models.model import (build_model, decode_state_shapes,
-                                      input_specs)
-from repro_torch.models.transformer import MESH_FAMILIES, mesh_plan
+                                      input_sharding, input_specs)
+from repro_torch.models.transformer import mesh_plan
 from repro_torch.train.optimizer import AdafactorConfig
 from repro_torch.train.train_step import (TrainConfig, init_train_state,
                                           make_train_step, state_sharding)
@@ -121,10 +124,19 @@ def cell_config(cfg, kind: str):
     return cfg
 
 
-def _inputs(cfg, shape, batch: int, device: torch.device):
-    """``input_specs`` at ``batch`` rows; off meta, zeros of those shapes
-    (token 0 is in every vocabulary)."""
-    ins = input_specs(cfg, dataclasses.replace(shape, global_batch=batch))
+def _inputs(cfg, shape, batch: int, device: torch.device, mesh=None):
+    """``input_specs`` at ``batch`` rows (on ``mesh``, the rank's block,
+    ``input_sharding``, of the whole batch of a step whose rank holds
+    ``batch`` rows); off meta, zeros of those shapes (token 0 is in
+    every vocabulary)."""
+    if mesh is None:
+        ins = input_specs(cfg, dataclasses.replace(shape,
+                                                   global_batch=batch))
+    else:
+        whole = dataclasses.replace(shape, global_batch=_mesh_rows(
+            shape, batch, mesh))
+        ins = place(input_specs(cfg, whole),
+                    input_sharding(cfg, whole, mesh))
     if device.type == "meta":
         return ins
     return {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
@@ -172,13 +184,13 @@ def count_step(arch: str, cfg, shape, batch: int,
             state = init_train_state(model, gen, tcfg)
             if mesh is not None:
                 state = place(state, state_sharding(model, state))
-            ins = _inputs(cfg, shape, batch, model.device)
+            ins = _inputs(cfg, shape, batch, model.device, mesh)
             wc.begin_step()
             tp.collective_counts(reset=True)
             make_train_step(model, tcfg)(state, ins)
         else:
             params = model.place(model.init(gen))
-            ins = _inputs(cfg, shape, batch, model.device)
+            ins = _inputs(cfg, shape, batch, model.device, mesh)
             extra = {k: v for k, v in ins.items() if k != "tokens"} or None
             if shape.kind == "prefill":
                 wc.begin_step()
@@ -265,10 +277,6 @@ def _choose_batch(arch, shape_name, cfg, microbatches):
 def _mesh_batch(arch, cfg, shape, mesh, microbatches, batch=None):
     """(rows a rank, its microbatch count) at the JAX global batch (or
     ``batch`` rows a rank, where one is given)."""
-    if cfg.family not in MESH_FAMILIES:
-        raise ValueError(f"{arch} ({cfg.family}) is refused on a mesh: "
-                         f"only the {', '.join(MESH_FAMILIES)} families run "
-                         "on one")
     dp = data_ways(mesh)
     if shape.global_batch % dp:
         if shape.kind != "decode" or cfg.family == "moe":
@@ -322,6 +330,7 @@ def dryrun_cell(arch: str, shape_name: str, batch: Optional[int] = None,
         art["head_split"] = plan.heads
         art["experts_split"] = plan.experts
         art["ssm_split"] = plan.ssm
+        art["rows_split"] = plan.rows
     if shape.kind == "train":
         art["microbatches"] = train_config(arch, batch,
                                            microbatches).microbatches
@@ -338,7 +347,8 @@ def dryrun_cell(arch: str, shape_name: str, batch: Optional[int] = None,
     where = (f" mesh {mesh_tag(mesh)} (heads "
              f"{'split' if art['head_split'] else 'replicated'}, experts "
              f"{'split' if art['experts_split'] else 'replicated'}, "
-             f"d_inner {'split' if art['ssm_split'] else 'replicated'} "
+             f"d_inner {'split' if art['ssm_split'] else 'replicated'}"
+             f"{', Mamba rows split' if art['rows_split'] else ''} "
              "over model)" if mesh is not None else "")
     print(f"[dryrun] {arch} {shape_name}{where}: batch {batch} a card "
           f"({art['cards']:g} cards), {flops / 1e9:.1f} GFLOP, "
@@ -380,8 +390,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--out-dir", default=None)
     ap.add_argument("--mesh", default=None,
                     help="e.g. '16x16:data,model': one rank of that mesh, "
-                    "under a fake process group (dense, moe, ssm and "
-                    "hybrid families)")
+                    "under a fake process group")
     ap.add_argument("--multi-pod", action="store_true",
                     help="the (2, 16, 16) pod,data,model mesh")
     ap.add_argument("--continue-on-error", action="store_true")
@@ -397,11 +406,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     archs = [args.arch] if args.arch else list(ARCHS)
     failures = []
     for arch in archs:
-        fam = get_config(arch).family
-        if mesh is not None and not args.arch and fam not in MESH_FAMILIES:
-            print(f"[dryrun] {arch} ({fam}): refused on a mesh: only the "
-                  f"{', '.join(MESH_FAMILIES)} families run on one")
-            continue
         shapes = ([args.shape] if args.shape
                   else list(applicable_shapes(get_config(arch))))
         for shape in shapes:

@@ -25,8 +25,8 @@ two routes fixed by the config alone (``decode_route``):
 into a cache in place (a position at or past the cache's length is
 dropped, as JAX's scatter drops it).
 
-On a mesh (``transformer``'s dense and moe layers and the hybrid's
-shared block), ``attention_specs`` places
+On a mesh (every attention of ``transformer`` and ``encdec``),
+``attention_specs`` places
 the weights as JAX does: ``wq`` ``("fsdp", "heads")``, ``wk``/``wv``
 ``("fsdp", "kv_heads")``, ``wo`` ``("heads", "fsdp")``, so ``heads``
 splits the flat ``n_heads * head_dim`` axis.  ``local_attention`` gives
@@ -39,7 +39,13 @@ every rank computes every head.  ``tp_self_attention`` and
 ``tp_decode_attention`` run the meshless functions on those weights, a
 rank's heads in and ``wo``'s row-parallel partial sums summed over
 ``model`` out; the decode attention's ``ops.flash_decode`` gets the
-rank's local q and kv heads.
+rank's local q and kv heads.  ``tp_cross_attention`` is the same for
+``cross_attention`` (vlm's patches, encdec's encoder output, and the
+encoder's bidirectional self-attention, its K/V source its own input):
+the K/V source enters through ``copy_to`` too, and the rank's
+``wk``/``wv`` columns give its kv heads.  ``fill_cross_kv`` writes a
+cross cache (the rank's kv heads on a mesh), and ``tp_decode_attention``
+without RoPE decodes over it.
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ from repro_torch.models.layers import Initializer, rms_norm, rope, softcap
 
 __all__ = ["init_attention", "attention_specs", "heads_split",
            "local_attention", "tp_self_attention", "tp_decode_attention",
-           "self_attention", "cross_attention", "decode_attention",
+           "tp_cross_attention", "fill_cross_kv", "self_attention", "cross_attention", "decode_attention",
            "decode_route", "flash_attention", "project_new_kv",
            "write_new_kv", "update_kv_cache", "BIG_WINDOW", "NEG_INF"]
 
@@ -142,13 +148,46 @@ def tp_self_attention(x, w, a: AttnConfig, split: bool, mesh,
     return tp.reduce_from(out, mesh, "model")
 
 
+def tp_cross_attention(x, x_kv, w, a: AttnConfig, split: bool, mesh,
+                       chunk_q: int = 512, chunk_k: int = 1024
+                       ) -> torch.Tensor:
+    """``cross_attention`` on ``local_attention``'s weights: x and the
+    K/V source x_kv (once, where it is x) enter the rank's heads through
+    ``copy_to``, ``wo``'s partial sums leave through ``reduce_from``
+    over ``model`` (all the identity unless the heads split)."""
+    if not split:
+        return cross_attention(x, x_kv, w, a, chunk_q, chunk_k)
+    xq = tp.copy_to(x, mesh, "model")
+    xk = xq if x_kv is x else tp.copy_to(x_kv, mesh, "model")
+    out = cross_attention(xq, xk, w, a, chunk_q, chunk_k)
+    return tp.reduce_from(out, mesh, "model")
+
+
 def tp_decode_attention(x, w, a: AttnConfig, split: bool, mesh, k_cache,
-                        v_cache, cache_len, window=None) -> torch.Tensor:
+                        v_cache, cache_len, window=None,
+                        use_rope: bool = True) -> torch.Tensor:
     """``decode_attention`` of the rank's heads against its cache shard
-    (``kv_heads`` over ``model`` where the heads split), ``wo``'s partial
-    sums summed over ``model``."""
-    out = decode_attention(x, w, a, k_cache, v_cache, cache_len, window)
+    (``kv_heads`` over ``model`` where the heads split; a cross cache
+    without RoPE), ``wo``'s partial sums summed over ``model``."""
+    out = decode_attention(x, w, a, k_cache, v_cache, cache_len, window,
+                           use_rope=use_rope)
     return tp.reduce_from(out, mesh, "model") if split else out
+
+
+def fill_cross_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  x_kv: torch.Tensor, p, a: AttnConfig) -> None:
+    """Write the K/V of x_kv [B, S, D] through ``p``'s ``wk``/``wv``
+    (no ``k_norm``, no RoPE, as the reference) into k/v_cache [B, S,
+    KH, Dh] in place, in the caches' dtype; the product in the promoted
+    dtype of x_kv and the weight, as jnp's matmul promotes (vlm's f32
+    patches against bf16 weights)."""
+    b = x_kv.shape[0]
+    for cache, name in ((k_cache, "wk"), (v_cache, "wv")):
+        wt = p[name]
+        dt = torch.promote_types(x_kv.dtype, wt.dtype)
+        kv = x_kv.to(dt) @ wt.to(dt)
+        cache.copy_(kv.reshape(b, -1, a.kv_heads, a.head_dim)
+                    .to(cache.dtype))
 
 
 def _project_qkv(x, x_kv, p, a: AttnConfig, positions, kv_positions,

@@ -19,9 +19,28 @@ block of ``cfg.remat``, as the JAX ``_remat`` wraps the scan body.
 Copied from the reference: ``prefill``
 leaves the self-attention K/V caches zero, so decoding attends over zero
 K/V at the prompt's positions.  ``param_specs`` and
-``decode_state_specs`` are the JAX tables of logical axes; encdec does
-not run on a mesh yet (``transformer.MESH_FAMILIES``), so the JAX
-module's ``constrain`` hints have no counterpart yet.
+``decode_state_specs`` are the JAX tables of logical axes.
+
+**On a mesh** (a ``transformer.MeshPlan`` passed as ``plan``:
+``plan.enc`` an encoder layer's shardings, ``plan.layer`` a decoder
+layer's), every entry point runs on the rank's local shards as the
+decoder-only families do: the rows (``frames`` and ``tokens``) over the
+batch axes; every ``fsdp`` weight gathered for its use; each attention
+on the rank's heads where ``kv_heads`` divides by ``model``
+(``attention.local_attention``), the encoder's bidirectional one and the
+decoder's cross-attention through ``attention.tp_cross_attention`` (the
+encoder output entering the rank's ``wk``/``wv`` columns); the GELU MLP
+over ``mlp`` (``layers.tp_swiglu``); the learned ``enc_pos`` replicated;
+the tied ``embed`` over ``vocab`` where the vocabulary divides by
+``model`` (whisper-medium's 51,865 does not divide 16: then every rank
+holds and computes the whole of it), its logits scaled by
+``d_model^-0.5`` (``transformer.logits_of``, the loss through
+``transformer.mean_nll``: the rank's part of the global mean).  The
+decode state is the rank's shard (``transformer.state_sharding``: the
+self and cross caches over the kv heads where they split); ``prefill``
+fills the cross caches with the rank's kv heads and ``decode_step``
+reads them, two ``flash_decode`` launches a layer on the rank's heads.
+The JAX ``constrain`` sites keep their names.
 """
 
 from __future__ import annotations
@@ -31,11 +50,12 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constrain
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (Initializer, chunked_cross_entropy,
-                                       dtype_of, init_mlp, remat, rms_norm,
-                                       swiglu)
-from repro_torch.models.transformer import (_mlp_specs, _slice,
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import (Initializer, dtype_of, init_mlp,
+                                       remat, rms_norm)
+from repro_torch.models.transformer import (MeshPlan, _mlp_specs, _slice,
                                             _stack_init, _stack_specs)
 
 __all__ = ["init_params", "param_specs", "encode", "train_loss",
@@ -103,130 +123,135 @@ def _frames(extra, cfg: ModelConfig) -> torch.Tensor:
     return extra["frames"]
 
 
-def _enc_layer(x, lp, positions, cfg: ModelConfig):
-    t = x.shape[1]
-    a = cfg.attn
+def _mlp(h, lp, cfg: ModelConfig, plan: Optional[MeshPlan], sh):
+    return tfm._mlp(h, lp["mlp"], cfg, plan, tfm._sh(plan, sh, "mlp"))
+
+
+def _enc_layer(x, lp, cfg: ModelConfig, plan: Optional[MeshPlan] = None):
+    """An encoder layer: bidirectional self-attention (the cross
+    attention of its input to itself: no mask, no RoPE), then the MLP."""
+    sh = None if plan is None else plan.enc
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = attn._project_qkv(h, h, lp["attn"], a, positions, positions,
-                                use_rope=False)
-    h = attn.flash_attention(
-        q, k, v, positions, positions, causal=False, window=None,
-        cap=a.attn_softcap, chunk_q=min(cfg.attn_chunk_q, t),
-        chunk_k=min(cfg.attn_chunk_k, t))
-    x = x + h.reshape(x.shape[0], t, -1) @ lp["attn"]["wo"]
+    w, a, split = tfm._attn_weights(lp, cfg, plan, sh, "attn")
+    h = attn.tp_cross_attention(h, h, w, a, split, tfm._mesh(plan),
+                                cfg.attn_chunk_q, cfg.attn_chunk_k)
+    x = x + constrain(h, "batch", None, None)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + swiglu(h, lp["mlp"], cfg.act)
+    return x + _mlp(h, lp, cfg, plan, sh)
 
 
-def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def encode(params, frames: torch.Tensor, cfg: ModelConfig,
+           plan: Optional[MeshPlan] = None) -> torch.Tensor:
     """frames [B, T, D] (stub frontend output) -> encoder states."""
     t = frames.shape[1]
     x = frames.to(dtype_of(cfg.compute_dtype)) + params["enc_pos"][:t]
-    positions = torch.arange(t, dtype=torch.int32, device=x.device)
+    x = constrain(x, "batch", None, None)
     layer = remat(_enc_layer, cfg.remat)
     for i in range(cfg.n_enc_layers):
-        x = layer(x, _slice(params["enc_layers"], i), positions, cfg)
+        x = layer(x, _slice(params["enc_layers"], i), cfg, plan)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _dec_layer(x, lp, enc_out, positions, cfg: ModelConfig):
+def _dec_layer(x, lp, enc_out, positions, cfg: ModelConfig,
+               plan: Optional[MeshPlan] = None):
+    mesh = tfm._mesh(plan)
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    x = x + attn.self_attention(h, lp["attn"], cfg.attn, positions,
-                                chunk_q=cfg.attn_chunk_q,
-                                chunk_k=cfg.attn_chunk_k)
+    w, a, split = tfm._attn_weights(lp, cfg, plan, None, "attn")
+    x = x + attn.tp_self_attention(h, w, a, split, mesh, positions, None,
+                                   cfg.attn_chunk_q, cfg.attn_chunk_k)
     h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
-    x = x + attn.cross_attention(h, enc_out, lp["cross"], cfg.attn,
-                                 chunk_q=cfg.attn_chunk_q,
-                                 chunk_k=cfg.attn_chunk_k)
+    w, a, split = tfm._attn_weights(lp, cfg, plan, None, "cross")
+    x = x + attn.tp_cross_attention(h, enc_out, w, a, split, mesh,
+                                    cfg.attn_chunk_q, cfg.attn_chunk_k)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + swiglu(h, lp["mlp"], cfg.act)
+    return x + _mlp(h, lp, cfg, plan, None)
 
 
-def _decode_forward(params, tokens, enc_out, cfg: ModelConfig):
-    x = params["embed"][tokens]
+def _decode_forward(params, tokens, enc_out, cfg: ModelConfig,
+                    plan: Optional[MeshPlan] = None):
+    x = constrain(tfm._embed(params, tokens, plan), "batch", None, None)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
     layer = remat(_dec_layer, cfg.remat)
     for i in range(cfg.n_layers):
         x = layer(x, _slice(params["dec_layers"], i), enc_out, positions,
-                  cfg)
+                  cfg, plan)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+               plan: Optional[MeshPlan] = None):
     """Encode ``batch["frames"]``, decode ``tokens``; mean nll over
     ``targets`` (tied embeddings, logits scaled by d_model^-0.5) ->
-    (nll, {"nll", "aux": 0})."""
-    enc_out = encode(params, _frames(batch, cfg), cfg)
-    x = _decode_forward(params, batch["tokens"].long(), enc_out, cfg)
-    nll = chunked_cross_entropy(
-        x, params["embed"], batch["targets"], cfg.loss_chunk,
-        logit_softcap=cfg.logit_softcap, mask=batch.get("mask"),
-        logit_scale=cfg.d_model ** -0.5)
+    (nll, {"nll", "aux": 0}); on a mesh the rank's part of the global
+    mean."""
+    enc_out = encode(params, _frames(batch, cfg), cfg, plan)
+    x = _decode_forward(params, batch["tokens"].long(), enc_out, cfg, plan)
+    nll = tfm.mean_nll(params, x, batch, cfg, plan)
     return nll, {"nll": nll, "aux": torch.zeros((), dtype=_F32,
                                                 device=nll.device)}
 
 
-def _logits(params, x, cfg: ModelConfig):
-    return (x * cfg.d_model ** -0.5) @ params["embed"].T
-
-
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device) -> Dict[str, torch.Tensor]:
-    a = cfg.attn
-    dtype = dtype_of(cfg.compute_dtype)
-
-    def kv(s):
-        return torch.zeros((cfg.n_layers, batch, s, a.kv_heads, a.head_dim),
-                           dtype=dtype, device=device)
-
-    return {"cache_len": torch.zeros((batch,), dtype=torch.int32,
-                                     device=device),
-            "k_cache": kv(max_len), "v_cache": kv(max_len),
-            "cross_k": kv(cfg.enc_seq), "cross_v": kv(cfg.enc_seq)}
+                      device, plan: Optional[MeshPlan] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """All zero: ``cache_len`` i32[B]; ``k_cache``/``v_cache`` [L, B,
+    max_len, KH, Dh] and ``cross_k``/``cross_v`` [L, B, enc_seq, KH, Dh]
+    in the compute dtype.  On a mesh, the rank's shard of the state of
+    ``batch`` rows over the mesh (``transformer.state_sharding``)."""
+    return tfm.init_decode_state(cfg, batch, max_len, device, plan)
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
-            extra: Optional[Dict[str, torch.Tensor]] = None):
-    """Returns (state, logits [B, V] in the compute dtype)."""
+            extra: Optional[Dict[str, torch.Tensor]] = None,
+            plan: Optional[MeshPlan] = None):
+    """Returns (state, logits [B, V] in the compute dtype).  On a mesh,
+    ``tokens`` and the frames are the rank's rows and the state its
+    shard."""
     b = tokens.shape[0]
-    enc_out = encode(params, _frames(extra, cfg), cfg)
-    state = init_decode_state(cfg, b, max_len, tokens.device)
-    a = cfg.attn
+    enc_out = encode(params, _frames(extra, cfg), cfg, plan)
+    state = init_decode_state(cfg, b * (1 if plan is None else plan.dp),
+                              max_len, tokens.device, plan)
     for i in range(cfg.n_layers):
-        cross = _slice(params["dec_layers"], i)["cross"]
-        for name, w in (("cross_k", "wk"), ("cross_v", "wv")):
-            kv = (enc_out @ cross[w]).reshape(b, -1, a.kv_heads, a.head_dim)
-            state[name][i] = kv.to(state[name].dtype)
-    x = _decode_forward(params, tokens, enc_out, cfg)
+        w, a, _split = tfm._attn_weights(_slice(params["dec_layers"], i),
+                                         cfg, plan, None, "cross")
+        attn.fill_cross_kv(state["cross_k"][i], state["cross_v"][i],
+                           enc_out, w, a)
+    x = _decode_forward(params, tokens, enc_out, cfg, plan)
     state["cache_len"] = torch.full((b,), tokens.shape[1], dtype=torch.int32,
                                     device=tokens.device)
-    return state, _logits(params, x[:, -1], cfg)
+    return state, tfm.logits_of(params, x[:, -1], cfg, plan)
 
 
 def decode_step(params, state, tokens: torch.Tensor, cfg: ModelConfig,
-                extra: Optional[Dict[str, torch.Tensor]] = None):
+                extra: Optional[Dict[str, torch.Tensor]] = None,
+                plan: Optional[MeshPlan] = None):
     """tokens [B, 1] -> (logits f32[B, V], new_state); writes the
     self-attention caches of ``state`` in place.  ``extra`` is not read
-    (the cross K/V is in the state)."""
-    x = params["embed"][tokens]
+    (the cross K/V is in the state).  On a mesh, the rank's rows over
+    the whole vocabulary and its shard of the state."""
+    mesh = tfm._mesh(plan)
+    x = constrain(tfm._embed(params, tokens, plan), "batch", None, None)
     new_len = state["cache_len"] + 1
     enc_len = torch.full_like(new_len, state["cross_k"].shape[2])
-    a = cfg.attn
     for i in range(cfg.n_layers):
         lp = _slice(params["dec_layers"], i)
         kc, vc = state["k_cache"][i], state["v_cache"][i]
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        k_new, v_new = attn.project_new_kv(h, lp["attn"], a, new_len - 1)
+        w, a, split = tfm._attn_weights(lp, cfg, plan, None, "attn")
+        k_new, v_new = attn.project_new_kv(h, w, a, new_len - 1)
         attn.write_new_kv(kc, vc, k_new, v_new, new_len - 1)
-        x = x + attn.decode_attention(h, lp["attn"], a, kc, vc, new_len)
+        x = x + attn.tp_decode_attention(h, w, a, split, mesh, kc, vc,
+                                         new_len)
         h = rms_norm(x, lp["ln_cross"], cfg.norm_eps)
-        x = x + attn.decode_attention(h, lp["cross"], a, state["cross_k"][i],
-                                      state["cross_v"][i], enc_len,
-                                      use_rope=False)
+        w, a, split = tfm._attn_weights(lp, cfg, plan, None, "cross")
+        x = x + attn.tp_decode_attention(h, w, a, split, mesh,
+                                         state["cross_k"][i],
+                                         state["cross_v"][i], enc_len,
+                                         use_rope=False)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + swiglu(h, lp["mlp"], cfg.act)
+        x = x + _mlp(h, lp, cfg, plan, None)
     new_state = dict(state)
     new_state["cache_len"] = new_len
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, x[:, 0], cfg).to(_F32), new_state
+    return tfm.logits_of(params, x[:, 0], cfg, plan).to(_F32), new_state

@@ -16,10 +16,9 @@ gradients); ``batch`` holds ``tokens``/``targets`` and the vlm
 ``decode_state_specs()`` are the JAX trees of logical axes.
 
 ``build_model(cfg, device, mesh=...)`` (a ``DeviceMesh`` with axes among
-"pod", "data", "model"; the dense, moe, ssm and hybrid families, vlm
-and encdec raise) makes
-the mesh's ``transformer.MeshPlan`` once (``plan``) and passes it to
-every entry point, which runs on this rank's local shards:
+"pod", "data", "model"; every family) makes the mesh's
+``transformer.MeshPlan`` once (``plan``) and passes it to every entry
+point, which runs on this rank's local shards:
 ``place(params)`` cuts them from whole parameters (``param_sharding`` on
 each leaf's shape), ``train_loss`` takes the
 rank's rows and returns its part of the global loss,
@@ -30,7 +29,12 @@ state (``decode_state_specs``).
 
 ``input_specs`` and ``decode_state_shapes`` are the dry run's input
 surface: meta tensors with the JAX names, shapes and dtypes, no
-storage; ``input_axes`` gives their JAX logical axes.
+storage; ``input_axes`` gives their JAX logical axes, and
+``input_sharding`` their placement on a mesh: every input's rows, the
+vlm ``patches`` and encdec ``frames`` [B, n, D] f32 among them, over
+the batch axes (on every data rank where the batch does not split), as
+the JAX ``input_specs`` places them; a rank takes the vlm or encdec
+prefill's and ``train_loss``'s stub inputs for its own rows.
 """
 
 from __future__ import annotations
@@ -41,13 +45,13 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.dist.sharding import place
+from repro_torch.dist.sharding import param_sharding, place
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
 
 __all__ = ["ModelAPI", "build_model", "input_specs", "input_axes",
-           "decode_state_shapes"]
+           "input_sharding", "decode_state_shapes"]
 
 _META = torch.device("meta")
 
@@ -139,6 +143,13 @@ def input_axes(cfg: ModelConfig, shape: ShapeConfig
     axes = {k: ("batch",) + (None,) * (v.dim() - 1)
             for k, v in input_specs(cfg, shape).items()}
     return axes
+
+
+def input_sharding(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """{name: ``NamedSharding``} of every ``input_specs`` entry on
+    ``mesh`` (``input_axes``, guarded on its shape)."""
+    return param_sharding(input_axes(cfg, shape), mesh,
+                          input_specs(cfg, shape))
 
 
 def decode_state_shapes(cfg: ModelConfig, batch: int, max_len: int

@@ -44,9 +44,27 @@ checks: its ``di/m`` channels are whole heads), and their gradients sum
 over ``model``; ``gate_norm``'s mean square spans all of ``d_inner``
 (``layers.tp_rms_norm``).  ``w_out``'s partial sums leave through
 ``reduce_from``.  The decode state ``ssm_h`` and ``ssm_conv`` hold the
-rank's channels.  ``batch_tp`` (the JAX ``"batch_model"`` rows,
-``d_inner`` unsplit) does not run on a model axis > 1
-(``transformer.mesh_plan`` raises).
+rank's channels.
+
+``batch_tp`` (the JAX ``"batch_model"`` rows over ``("pod", "data",
+"model")``, ``d_inner`` unsplit; ``SSMMesh(layout="rows")``): the
+weights are gathered over ``fsdp`` and nothing of them is split over
+``model``.  A prefill or training layer takes the rank's block of its
+data rank's rows (``tensor_parallel.scatter``: a slice, its gradient
+gathered), runs the meshless block on them with whole weights (each
+entering through ``copy_to``, so their gradients sum over ``model``),
+and gathers the rows over ``model`` on exit (``gather``, its gradient
+the rank's block).  Where a data rank's rows do not split over
+``model`` (a microbatch of one row), every ``model`` rank runs them all.
+The decode step keeps the JAX decode state's layout, ``ssm_h`` and
+``ssm_conv`` over ``d_inner`` (``transformer.decode_state_specs``): the
+rank decodes its ``d_inner`` block against the whole weights, cut to
+its channels with no exchange (``layout="paired"``: its ``xi`` and
+``z`` columns taken apart), the partial sums as on a ``d_inner``
+block.  A decode batch need not split over ``model`` (decode_32k's 8
+rows a data rank do not split 16 ways), and a decode step's cost is
+the weights' read, not the rows, so the state does not follow the
+rows.
 """
 
 from __future__ import annotations
@@ -143,9 +161,14 @@ def mamba_specs(d_model: int, s: SSMConfig):
 # ====================================================================== mesh
 @dataclasses.dataclass(frozen=True)
 class SSMMesh:
-    """A Mamba layer on a rank's ``d_inner`` block of ``mesh`` (see the
-    module docstring)."""
+    """A Mamba layer on ``mesh`` (see the module docstring): ``"inner"``
+    a rank's ``d_inner`` block of the stored columns, moved by the
+    exchange; ``"rows"`` (``batch_tp``) whole weights on the rank's
+    block of rows, a decode step on its ``d_inner`` block of them;
+    ``"paired"`` weights already cut to the rank's channels (``xi``'s
+    block, then ``z``'s)."""
     mesh: Any
+    layout: str = "inner"
 
 
 _MAMBA2_REPLICATED = ("w_dt", "dt_bias", "A_log", "D")
@@ -188,6 +211,29 @@ def local_mamba(p: Dict[str, torch.Tensor], shardings, s: SSMConfig,
         for k in _MAMBA2_REPLICATED:
             w[k] = _narrow(w[k], w[k].dim() - 1, mesh)
     return w
+
+
+def _channels(p: Dict[str, torch.Tensor], s: SSMConfig, mesh
+              ) -> Dict[str, torch.Tensor]:
+    """Whole weights cut to rank ``model``'s block of ``d_inner``: its
+    ``xi`` and ``z`` columns of ``w_in`` side by side, every other
+    ``d_inner`` dimension (``mamba_specs`` without ``batch_tp``) its
+    block, and Mamba2's per-head leaves its heads'."""
+    di = p["conv_b"].shape[0]
+    r = tp.axis_index(mesh, "model")
+    n = di // tp.axis_size(mesh, "model")
+    specs = mamba_specs(0, dataclasses.replace(s, batch_tp=False))
+    out = {}
+    for k, x in p.items():
+        if k == "w_in":
+            x = torch.cat([x[:, r * n:(r + 1) * n],
+                           x[:, di + r * n:di + (r + 1) * n]], dim=1)
+        elif k in _MAMBA2_REPLICATED and s.version == 2:
+            x = _narrow(x, x.dim() - 1, mesh)
+        elif "d_inner" in specs[k]:
+            x = _narrow(x, specs[k].index("d_inner"), mesh)
+        out[k] = x
+    return out
 
 
 def _pair_channels(xz: torch.Tensor, mesh) -> Tuple[torch.Tensor,
@@ -317,6 +363,8 @@ def _project(x: torch.Tensor, p: Dict[str, torch.Tensor],
     if ctx is None:
         return (x,) + tuple(torch.chunk(x @ p["w_in"], 2, dim=-1))
     x = tp.copy_to(x, ctx.mesh, "model")
+    if ctx.layout == "paired":
+        return (x,) + tuple(torch.chunk(x @ p["w_in"], 2, dim=-1))
     return (x,) + _pair_channels(x @ p["w_in"], ctx.mesh)
 
 
@@ -398,6 +446,8 @@ def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], d_model: int,
     """Prefill and training forward. x [B, L, D] -> [B, L, D].  On a
     mesh, ``p`` is ``local_mamba``'s and ``ctx`` the rank's (see the
     module docstring)."""
+    if ctx is not None and ctx.layout == "rows":
+        return _rows_block(x, p, d_model, s, remat_chunks, ctx.mesh)
     dtype = x.dtype
     if s.version == 1:
         if s.use_scan_kernel:
@@ -430,6 +480,19 @@ def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], d_model: int,
     return _leave(y @ p["w_out"], ctx)
 
 
+def _rows_block(x: torch.Tensor, p: Dict[str, torch.Tensor], d_model: int,
+               s: SSMConfig, remat_chunks: bool, mesh) -> torch.Tensor:
+    """``batch_tp``'s layer: the rank's block of the rows over ``model``
+    through the meshless block on whole weights, the rows gathered back
+    (every rank runs every row where they do not split)."""
+    if x.shape[0] % tp.axis_size(mesh, "model"):
+        return mamba_block(x, p, d_model, s, remat_chunks)
+    p = {k: tp.copy_to(v, mesh, "model") for k, v in p.items()}
+    y = mamba_block(tp.scatter(x, mesh, "model", 0), p, d_model, s,
+                    remat_chunks)
+    return tp.gather(y, mesh, "model", 0, grad="slice")
+
+
 def init_ssm_state(batch: int, d_model: int, s: SSMConfig,
                    dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
     di = s.expand * d_model
@@ -448,7 +511,15 @@ def mamba_decode_step(x: torch.Tensor, state: Dict[str, torch.Tensor],
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token recurrence. x [B, 1, D]; returns (y [B, 1, D], new
     state); the given state is not modified.  On a rank's ``d_inner``
-    block (``ctx``), ``state`` and ``p`` hold its channels."""
+    block (``ctx``), ``state`` and ``p`` hold its channels; under
+    ``batch_tp`` (``"rows"``), ``p`` is whole and ``state`` the rank's
+    channels (whole where ``d_inner`` does not split)."""
+    if ctx is not None and ctx.layout == "rows":
+        if state["conv"].shape[-1] == p["conv_b"].shape[0]:
+            ctx = None
+        else:
+            p = _channels(p, s, ctx.mesh)
+            ctx = SSMMesh(ctx.mesh, "paired")
     b = x.shape[0]
     dtype = x.dtype
     xw, xi, z = _project(x, p, ctx)                          # [B, 1, di]

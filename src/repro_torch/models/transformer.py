@@ -36,9 +36,10 @@ reference's scans drop the final state).  The vlm prefill does fill
 **On a mesh** (a ``MeshPlan`` passed as ``plan``; ``models.model``
 builds one for a model built with a ``mesh``): ``param_specs`` and
 ``decode_state_specs`` are the JAX tables of logical axes for every
-family, and the dense, moe, ssm and hybrid families
-(``MESH_FAMILIES``) run ``forward``, ``train_loss``, ``prefill``,
-``decode_step`` and ``logits_of`` on each rank's local shards
+family, and every family (encdec in ``models.encdec``, on the same
+plan) runs ``forward``, ``train_loss``,
+``prefill``, ``decode_step`` and ``logits_of`` on each rank's local
+shards
 (``param_sharding`` on each leaf's shape, ``guarded_spec``): rows over
 the batch axes, weights over ``fsdp`` gathered for their use
 (``tensor_parallel.materialize``), attention heads (where ``kv_heads``
@@ -46,18 +47,27 @@ divides), MLP columns and vocabulary over ``model``
 (``attention.local_attention``, ``layers.tp_swiglu``,
 ``layers.xent_sums``), experts over ``model`` with the reference's
 global capacity (``moe.moe_block``), and Mamba layers on a rank's
-``d_inner`` block (``ssm.local_mamba``; ``batch_tp`` raises on a model
-axis > 1).  zamba2's ``shared_attn`` is a dense block with
-its own shardings.  ``train_loss`` returns the rank's part of the
+``d_inner`` block (``ssm.local_mamba``), or under ``batch_tp`` on its
+block of the rows with ``d_inner`` whole (``ssm.SSMMesh``'s
+``"rows"``).  zamba2's ``shared_attn`` is a dense block with its own
+shardings.  vlm's cross layers (``cross_layers``, shardings
+``plan.cross``) attend from the rank's heads to the patches
+(``attention.tp_cross_attention``; the K/V through the rank's
+``wk``/``wv`` columns); their tanh ``gate`` is replicated and enters no
+collective, so its gradient is each rank's whole one, summed over the
+batch axes alone; the prefill fills ``cross_k``/``cross_v`` with the
+rank's kv heads (all of them where the heads do not split, as
+llama-3.2-vision-11b's 8 at ``model`` 16), and a decode step reads the
+rank's shard of them (``attention.tp_decode_attention`` without RoPE).  ``train_loss`` returns the rank's part of the
 global mean (its nll sum over the global mask count, and its part of
 the MoE ``aux``), which ``train.train_step`` sums over the batch axes;
 ``decode_step`` and ``prefill`` return the rank's rows' logits over the
 whole vocabulary, and the decode state is the rank's shard (K/V caches
-over the kv heads where they split, ``ssm_h``/``ssm_conv`` over
-``d_inner``).  The blocks are the meshless ones: every tensor-parallel
-move is the identity without a plan.  The JAX ``constrain`` sites (the
-embedding's output, the decode step's, the logits) keep their names.
-vlm and encdec raise on a mesh (``mesh_plan``).
+over the kv heads where they split, vlm's ``cross_k``/``cross_v``
+likewise, ``ssm_h``/``ssm_conv`` over ``d_inner``).  The blocks are the
+meshless ones: every tensor-parallel move is the identity without a
+plan.  The JAX ``constrain`` sites (the embedding's output, the decode
+step's, the logits) keep their names.
 """
 
 from __future__ import annotations
@@ -81,10 +91,9 @@ from repro_torch.models.layers import (Initializer, dtype_of, init_mlp,
 __all__ = ["init_params", "param_specs", "forward", "train_loss",
            "init_decode_state", "decode_state_specs", "decode_step",
            "prefill", "logits_of", "layer_params", "mesh_plan",
-           "state_sharding", "MeshPlan", "FAMILIES", "MESH_FAMILIES"]
+           "state_sharding", "MeshPlan", "FAMILIES"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
-MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 BIG_WINDOW = attn.BIG_WINDOW
 _F32 = torch.float32
 
@@ -275,13 +284,15 @@ def decode_state_specs(cfg: ModelConfig) -> Dict[str, Tuple]:
 class MeshPlan:
     """How a model runs on ``mesh``: each parameter leaf's
     ``NamedSharding`` (``guarded_spec`` on its shape), a layer's (the
-    layer axis dropped), and which products split over ``model``: the
-    attention heads (``kv_heads`` divides), the MLP columns (``d_ff``
-    does: the dense MLP, arctic's dense residual or zamba2's shared
-    block), the vocabulary (``vocab`` does), the experts (``n_experts``
-    does) and ``d_inner`` (``ssm``, where ``ssm.inner_splits``).
-    ``batch_axes`` are the mesh's data axes of size > 1, ``dp`` their
-    product."""
+    layer axis dropped: ``layer`` a decoder layer's, ``cross`` a vlm
+    cross layer's, ``enc`` an encdec encoder layer's), and which
+    products split over ``model``: the attention heads (``kv_heads``
+    divides), the MLP columns (``d_ff`` does: the dense MLP, arctic's
+    dense residual or zamba2's shared block), the vocabulary (``vocab``
+    does), the experts (``n_experts`` does), ``d_inner`` (``ssm``, where
+    ``ssm.inner_splits``) or, under ``batch_tp``, the Mamba layers' rows
+    (``rows``).  ``batch_axes`` are the mesh's data axes of size > 1,
+    ``dp`` their product."""
     cfg: ModelConfig
     mesh: Any
     shardings: Dict[str, Any]
@@ -293,6 +304,9 @@ class MeshPlan:
     dp: int
     experts: bool = False
     ssm: bool = False
+    rows: bool = False
+    cross: Optional[Dict[str, Any]] = None
+    enc: Optional[Dict[str, Any]] = None
 
 
 def _drop_layer_axis(tree):
@@ -309,16 +323,19 @@ def _splits(sharding: NamedSharding, dim: int) -> bool:
             and (e == "model" or (isinstance(e, tuple) and "model" in e)))
 
 
-def _check_mesh_family(cfg: ModelConfig, mesh) -> None:
-    if cfg.family not in MESH_FAMILIES:
-        raise ValueError(f"{cfg.name} ({cfg.family}): only the "
-                         f"{', '.join(MESH_FAMILIES)} families run on a "
-                         "mesh")
-    if (cfg.ssm is not None and cfg.ssm.batch_tp
-            and tp.axis_size(mesh, "model") > 1):
-        raise ValueError(f"{cfg.name}: SSMConfig.batch_tp (rows over "
-                         "model, d_inner unsplit) does not run on a model "
-                         "axis > 1")
+def _check_known_family(cfg: ModelConfig) -> None:
+    """``_check_family`` with encdec (``models.encdec``) admitted."""
+    if cfg.family not in FAMILIES + ("encdec",):
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
+
+
+def _tables(cfg: ModelConfig):
+    """(init_params, param_specs, decode_state_specs) of ``cfg``'s
+    family (encdec's in ``models.encdec``)."""
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec as ed
+        return ed.init_params, ed.param_specs, ed.decode_state_specs
+    return init_params, param_specs, decode_state_specs
 
 
 def _batch_axes(mesh) -> Tuple[Tuple[str, ...], int]:
@@ -340,13 +357,16 @@ def _mlp_block_shardings(cfg: ModelConfig, sh, lay):
 
 def mesh_plan(cfg: ModelConfig, mesh) -> MeshPlan:
     """The ``MeshPlan`` of ``cfg`` on ``mesh`` (``models.model`` builds
-    it once per model); raises for a family the mesh does not run."""
-    _check_mesh_family(cfg, mesh)
-    shapes = init_params(torch.Generator(), cfg, torch.device("meta"))
-    sh = param_sharding(param_specs(cfg), mesh, shapes)
-    lay = _drop_layer_axis(sh["layers"])
+    it once per model)."""
+    _check_known_family(cfg)
+    init, specs, _states = _tables(cfg)
+    shapes = init(torch.Generator(), cfg, torch.device("meta"))
+    sh = param_sharding(specs(cfg), mesh, shapes)
+    lay = _drop_layer_axis(sh["dec_layers" if "dec_layers" in sh
+                              else "layers"])
     bat, dp = _batch_axes(mesh)
     mlp = _mlp_block_shardings(cfg, sh, lay)
+    s = cfg.ssm
     return MeshPlan(cfg=cfg, mesh=mesh, shardings=sh, layer=lay,
                     heads=(cfg.attn is not None
                            and attn.heads_split(cfg.attn, mesh)),
@@ -354,9 +374,14 @@ def mesh_plan(cfg: ModelConfig, mesh) -> MeshPlan:
                     vocab=_splits(sh["embed"], 0), batch_axes=bat, dp=dp,
                     experts=("moe" in lay
                              and _splits(lay["moe"]["we_gate"], 0)),
-                    ssm=(cfg.ssm is not None
-                         and ssm_mod.inner_splits(cfg.d_model, cfg.ssm,
-                                                  mesh)))
+                    ssm=(s is not None and not s.batch_tp
+                         and ssm_mod.inner_splits(cfg.d_model, s, mesh)),
+                    rows=(s is not None and s.batch_tp
+                          and tp.axis_size(mesh, "model") > 1),
+                    cross=(_drop_layer_axis(sh["cross_layers"])
+                           if "cross_layers" in sh else None),
+                    enc=(_drop_layer_axis(sh["enc_layers"])
+                         if "enc_layers" in sh else None))
 
 
 def _state_leaves(cfg: ModelConfig, batch: int, max_len: int):
@@ -366,13 +391,15 @@ def _state_leaves(cfg: ModelConfig, batch: int, max_len: int):
     fam = cfg.family
     a = cfg.attn
     out = {"cache_len": ((batch,), torch.int32)}
-    if fam in ("dense", "moe", "vlm"):
+    if fam in ("dense", "moe", "vlm", "encdec"):
         kv = (cfg.n_layers, batch, max_len, a.kv_heads, a.head_dim)
         out["k_cache"] = out["v_cache"] = (kv, dt)
-    if fam == "vlm":
-        cross = (cfg.n_layers // cfg.cross_attn_every, batch, cfg.n_patches,
-                 a.kv_heads, a.head_dim)
-        out["cross_k"] = out["cross_v"] = (cross, dt)
+    if fam in ("vlm", "encdec"):
+        cross = ((cfg.n_layers // cfg.cross_attn_every, batch,
+                  cfg.n_patches) if fam == "vlm"
+                 else (cfg.n_layers, batch, cfg.enc_seq))
+        out["cross_k"] = out["cross_v"] = (cross + (a.kv_heads, a.head_dim),
+                                           dt)
     if fam in ("ssm", "hybrid"):
         s = cfg.ssm
         di = s.expand * cfg.d_model
@@ -392,7 +419,7 @@ def state_sharding(cfg: ModelConfig, mesh, batch: int, max_len: int):
     the whole mesh (``decode_state_specs``, guarded on each leaf's
     shape: rows that do not split over the batch axes are on every data
     rank, as long_500k's one row; an MoE model raises there)."""
-    _check_mesh_family(cfg, mesh)
+    _check_known_family(cfg)
     s, m = cfg.ssm, tp.axis_size(mesh, "model")
     di = 0 if s is None else s.expand * cfg.d_model
     if s is not None and s.version == 2 and di % m == 0 \
@@ -408,7 +435,7 @@ def state_sharding(cfg: ModelConfig, mesh, batch: int, max_len: int):
                          f"mesh's {dp} data-parallel ranks")
     shapes = {k: v[0] for k, v in _state_leaves(cfg, batch,
                                                max_len).items()}
-    return param_sharding(decode_state_specs(cfg), mesh, shapes)
+    return param_sharding(_tables(cfg)[2](cfg), mesh, shapes)
 
 
 # ============================================================ layer bodies
@@ -471,7 +498,9 @@ def _mamba(lp, cfg: ModelConfig, plan: Optional[MeshPlan]):
         return lp["ssm"], None
     w = ssm_mod.local_mamba(lp["ssm"], plan.layer["ssm"], cfg.ssm,
                             plan.mesh, plan.ssm)
-    return w, ssm_mod.SSMMesh(plan.mesh) if plan.ssm else None
+    if plan.ssm:
+        return w, ssm_mod.SSMMesh(plan.mesh)
+    return w, ssm_mod.SSMMesh(plan.mesh, "rows") if plan.rows else None
 
 
 def _ssm_block(x, lp, cfg: ModelConfig, plan: Optional[MeshPlan] = None):
@@ -482,11 +511,12 @@ def _ssm_block(x, lp, cfg: ModelConfig, plan: Optional[MeshPlan] = None):
                                    ctx=ctx)
 
 
-def _cross_block(x, cp, patches, cfg: ModelConfig):
+def _cross_block(x, cp, patches, cfg: ModelConfig,
+                 plan: Optional[MeshPlan] = None):
     h = rms_norm(x, cp["ln"], cfg.norm_eps)
-    h = attn.cross_attention(h, patches, cp["attn"], cfg.attn,
-                             chunk_q=cfg.attn_chunk_q,
-                             chunk_k=cfg.attn_chunk_k)
+    w, a, split = _attn_weights(cp, cfg, plan, _cross(plan))
+    h = attn.tp_cross_attention(h, patches, w, a, split, _mesh(plan),
+                                cfg.attn_chunk_q, cfg.attn_chunk_k)
     return x + _gate(cp, x) * h
 
 
@@ -513,6 +543,11 @@ def _groups(cfg: ModelConfig, k: int):
 # ================================================================== mesh
 def _mesh(plan: Optional[MeshPlan]):
     return None if plan is None else plan.mesh
+
+
+def _cross(plan: Optional[MeshPlan]):
+    """A vlm cross layer's shardings (None without a plan)."""
+    return None if plan is None else plan.cross
 
 
 def _keep(split: bool) -> Tuple[str, ...]:
@@ -556,14 +591,15 @@ def _sh(plan: Optional[MeshPlan], sh, key: str):
     return (plan.layer if sh is None else sh)[key]
 
 
-def _attn_weights(lp, cfg: ModelConfig, plan: Optional[MeshPlan], sh=None):
-    """(weights, config, heads split) of a block's attention:
+def _attn_weights(lp, cfg: ModelConfig, plan: Optional[MeshPlan], sh=None,
+                  key: str = "attn"):
+    """(weights, config, heads split) of a block's attention ``key``:
     ``attention.local_attention`` on a mesh (``sh`` the block's
     shardings, default a stacked layer's), the block's own without."""
     if plan is None:
-        return lp["attn"], cfg.attn, False
-    return attn.local_attention(lp["attn"], _sh(plan, sh, "attn"),
-                                cfg.attn, plan.mesh)
+        return lp[key], cfg.attn, False
+    return attn.local_attention(lp[key], _sh(plan, sh, key), cfg.attn,
+                                plan.mesh)
 
 
 def _mlp(h, p, cfg: ModelConfig, plan: Optional[MeshPlan], sh):
@@ -601,8 +637,9 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         for g in range(cfg.n_layers // k):
             for i in range(g * k, (g + 1) * k):
                 x = dense(x, layer_params(params, i), cfg, positions,
-                          windows[i])
-            x = cross(x, _slice(params["cross_layers"], g), patches, cfg)
+                          windows[i], plan)
+            x = cross(x, _slice(params["cross_layers"], g), patches, cfg,
+                      plan)
     elif fam == "moe":
         moe = remat(_moe_block, cfg.remat)
         for i in range(cfg.n_layers):
@@ -632,10 +669,20 @@ def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Mean next-token nll plus the MoE aux loss -> (loss, {"nll",
     "aux"}).  ``batch`` has ``tokens`` and ``targets`` [B, L], optionally
     ``mask`` [B, L], and vlm's ``patches``.  On a mesh, the rank's part
-    of the global mean: its rows' nll sum over the mask's count summed
-    over the batch axes."""
+    of the global mean (``mean_nll``)."""
     x, aux = forward(params, batch["tokens"].long(), cfg, extra=batch,
                      plan=plan)
+    nll = mean_nll(params, x, batch, cfg, plan)
+    return nll + aux, {"nll": nll, "aux": aux}
+
+
+def mean_nll(params, x, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+             plan: Optional[MeshPlan] = None) -> torch.Tensor:
+    """The mean nll of hidden states x [B, L, D] over ``batch``'s
+    ``targets`` (and ``mask``), logits scaled by ``d_model^-0.5`` where
+    the embeddings are tied; on a mesh, the rank's part of the global
+    mean: its rows' nll sum over the mask's count summed over the batch
+    axes."""
     scale = cfg.d_model ** -0.5 if cfg.tie_embeddings else 1.0
     total, count = xent_sums(
         x, _unembed(params, cfg, plan), batch["targets"], cfg.loss_chunk,
@@ -645,8 +692,7 @@ def train_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     if plan is not None and plan.batch_axes:
         count = tp.all_reduce(count.detach().clone(), plan.mesh,
                               plan.batch_axes)
-    nll = total / torch.clamp(count, min=1.0)
-    return nll + aux, {"nll": nll, "aux": aux}
+    return total / torch.clamp(count, min=1.0)
 
 
 # ================================================================== decode
@@ -658,9 +704,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     dtype; vlm ``cross_k``/``cross_v`` [L / cross_attn_every, B,
     n_patches, KH, Dh]; ssm and hybrid ``ssm_h`` (f32) and ``ssm_conv``;
     hybrid one K/V cache per group, [L / hybrid_attn_every, B, max_len,
-    KH, Dh].  On a mesh, the rank's shard of the state of ``batch`` rows
-    over the mesh (``state_sharding``)."""
-    _check_family(cfg)
+    KH, Dh]; encdec's (``models.encdec.init_decode_state``) likewise.  On
+    a mesh, the rank's shard of the state of ``batch`` rows over the mesh
+    (``state_sharding``)."""
+    _check_known_family(cfg)
     leaves = _state_leaves(cfg, batch, max_len)
     if plan is None:
         return {k: torch.zeros(shape, dtype=dt, device=device)
@@ -742,13 +789,14 @@ def decode_step(params, state, tokens: torch.Tensor, cfg: ModelConfig,
             for i in range(g * k, (g + 1) * k):
                 x = _attn_decode_block(
                     x, layer_params(params, i), cfg, state["k_cache"][i],
-                    state["v_cache"][i], new_len, windows[i])
+                    state["v_cache"][i], new_len, windows[i], plan)
             cp = _slice(params["cross_layers"], g)
             h = rms_norm(x, cp["ln"], cfg.norm_eps)
-            h = attn.decode_attention(h, cp["attn"], cfg.attn,
-                                      state["cross_k"][g],
-                                      state["cross_v"][g], plen,
-                                      use_rope=False)
+            w, a, split = _attn_weights(cp, cfg, plan, _cross(plan))
+            h = attn.tp_decode_attention(h, w, a, split, _mesh(plan),
+                                         state["cross_k"][g],
+                                         state["cross_v"][g], plen,
+                                         use_rope=False)
             x = x + _gate(cp, x) * h
     else:  # ssm, hybrid
         nh = torch.empty_like(state["ssm_h"])
@@ -784,18 +832,14 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
                               max_len, tokens.device, plan)
     x, _ = forward(params, tokens, cfg, extra=extra, plan=plan)
     if cfg.family == "vlm":
-        a = cfg.attn
         patches = _patches(extra, cfg)
         for g in range(cfg.n_layers // cfg.cross_attn_every):
-            cp = _slice(params["cross_layers"], g)
-            for name, w in (("cross_k", "wk"), ("cross_v", "wv")):
-                # the patches as given (f32 or not), in the promoted
-                # dtype, as jnp's matmul promotes
-                wt = cp["attn"][w]
-                dt = torch.promote_types(patches.dtype, wt.dtype)
-                kv = (patches.to(dt) @ wt.to(dt)).reshape(
-                    b, -1, a.kv_heads, a.head_dim)
-                state[name][g] = kv.to(state[name].dtype)
+            w, a, _split = _attn_weights(_slice(params["cross_layers"], g),
+                                         cfg, plan, _cross(plan))
+            # the patches as given (f32 or not); on a mesh the rank's
+            # kv heads
+            attn.fill_cross_kv(state["cross_k"][g], state["cross_v"][g],
+                               patches, w, a)
     state["cache_len"] = torch.full((b,), l, dtype=torch.int32,
                                     device=tokens.device)
     return state, logits_of(params, x[:, -1], cfg, plan)

@@ -21,7 +21,12 @@ every check it has in the full smoke:
   falcon-mamba-7b and zamba2-2.7b on the (1, 1) mesh against the
   unsharded route, m5 one rank of arctic-480b on (16, 16) and of
   falcon-mamba-7b on (16, k) against the mesh dry run, m6 the mesh
-  launcher on granite-moe-1b-a400m).
+  launcher on granite-moe-1b-a400m), then its vlm, encdec and
+  ``batch_tp`` legs (``chip_smoke.mesh_families2_phase``: m7
+  llama-3.2-vision-11b and whisper-medium on the (1, 1) mesh against the
+  unsharded route, m8 one rank of each on (16, 16) ``decode_32k``, m9
+  falcon-mamba-7b under ``batch_tp`` on (16, 2), m10 a ``Trainer`` with
+  stub inputs on (1, 1) against none).
 * ``r`` runs phase r: its dry runs beside the build, then r2 on phase
   6's model, r1 inside phase 6d and r3 after phase t's t1
   (``chip_smoke.roofline_*``), and prints phase r's summary.

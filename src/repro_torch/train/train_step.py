@@ -15,7 +15,9 @@ The step writes the optimizer state and the parameters in place
 (``make_optimizer``'s update), as the JAX trainer donates its state.
 
 For a model built on a mesh (``build_model(..., mesh=...)``) the state's
-leaves are the rank's local shards and the batch is its rows.  Each
+leaves are the rank's local shards and the batch is its rows (every
+array of it: ``tokens``, ``targets``, vlm ``patches``, encdec
+``frames``; the microbatch cut slices each alike).  Each
 ``fsdp`` weight is gathered for its use and its gradient
 reduce-scattered back over ``data`` inside the backward
 (``tensor_parallel.materialize``); after it, every gradient is summed

@@ -21,7 +21,9 @@ Port of ``repro.train.trainer``:
   (``train_step.state_sharding``: AdamW ``m``/``v`` as the parameters,
   Adafactor ``vr``/``vc`` by the JAX dry run's rule), every rank draws
   the data's whole batch and trains on its rows (its block over the
-  batch axes of each microbatch, ``train_step.rank_rows``), and
+  batch axes of each microbatch, ``train_step.rank_rows``; a batch's
+  vlm ``patches`` or encdec ``frames``, where the data source gives
+  them, are cut with its tokens), and
   checkpoints are written block by block and restore
   onto any mesh (``train.checkpoint``);
 * re-placement: ``remesh(mesh)`` moves the state onto another mesh, a
@@ -76,6 +78,20 @@ def _mesh_device(mesh, default: torch.device) -> torch.device:
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
+
+
+_EXTRA = ("patches", "frames")
+
+
+def _arrays(b) -> Dict[str, np.ndarray]:
+    """A data batch's arrays: ``tokens`` and ``targets``, and the stub
+    frontends' ``patches`` (vlm) or ``frames`` (encdec) where it has
+    them."""
+    out = {"tokens": b.tokens, "targets": b.targets}
+    for k in _EXTRA:
+        if getattr(b, k, None) is not None:
+            out[k] = getattr(b, k)
+    return out
 
 
 class Trainer:
@@ -221,10 +237,8 @@ class Trainer:
                 if self._stop:
                     break
                 b = self.data.next_batch()
-                batch = {"tokens": torch.from_numpy(
-                             self._rows(b.tokens)).to(self.device),
-                         "targets": torch.from_numpy(
-                             self._rows(b.targets)).to(self.device)}
+                batch = {k: torch.from_numpy(self._rows(v)).to(self.device)
+                         for k, v in _arrays(b).items()}
                 t0 = time.perf_counter()
                 torn = True
                 self.state, metrics = self._train_step(self.state, batch)

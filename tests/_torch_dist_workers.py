@@ -528,3 +528,215 @@ def run_family_rank(rank, world, init_file, out_dir,
     dist.barrier()
     torch.save(out, os.path.join(out_dir, f"family_rank{rank}.pt"))
     dist.destroy_process_group()
+
+
+# ------------------------------------------- vlm, encdec and batch_tp
+# ``test_torch_mesh_vlm_encdec.py``: the vlm and encdec smoke models and
+# the two Mamba families under ``batch_tp``, each case (arch, config
+# overrides, mesh shape).  "vlm" splits its 2 kv heads over a model axis
+# of 2; "vlm_unsplit" runs on (1, 4), where 2 kv heads do not divide 4
+# (the branch llama-3.2-vision-11b's 8 kv heads take at model 16).
+VLM_CASES = {
+    "vlm": ("llama-3.2-vision-11b", {}, (2, 2)),
+    "vlm_unsplit": ("llama-3.2-vision-11b", {}, (1, 4)),
+    "whisper": ("whisper-medium", {}, (2, 2)),
+    "falcon_tp": ("falcon-mamba-7b", {"ssm": {"batch_tp": True}}, (2, 2)),
+    "zamba2_tp": ("zamba2-2.7b", {"ssm": {"batch_tp": True}}, (2, 2)),
+}
+VLM_CKPT = ("vlm", "whisper")
+
+
+def vlm_cfg(case, get_config):
+    """The case's config (``get_config`` of either package)."""
+    import dataclasses
+
+    arch, over, _shape = VLM_CASES[case]
+    cfg = get_config(arch, smoke=True)
+    for field, kw in over.items():
+        cfg = dataclasses.replace(cfg, **{field: dataclasses.replace(
+            getattr(cfg, field), **kw)})
+    return cfg
+
+
+def stub_inputs(cfg, rows=MESH_ROWS, seed=25):
+    """{name: array} of the vlm ``patches`` or encdec ``frames`` of
+    ``rows`` rows (empty for the text families)."""
+    names = {"vlm": ("patches", cfg.n_patches),
+             "encdec": ("frames", cfg.enc_seq)}
+    if cfg.family not in names:
+        return {}
+    name, n = names[cfg.family]
+    rng = np.random.default_rng(seed)
+    return {name: (rng.standard_normal((rows, n, cfg.d_model)) * 0.5)
+            .astype(np.float32)}
+
+
+class StubData:
+    """A token source whose batches also carry seeded vlm ``patches`` or
+    encdec ``frames`` (one draw per step), its state the token
+    source's."""
+
+    def __init__(self, cfg, data):
+        self.cfg, self.data = cfg, data
+
+    def state_dict(self):
+        return self.data.state_dict()
+
+    def load_state_dict(self, st):
+        self.data.load_state_dict(st)
+
+    def next_batch(self):
+        import types
+
+        b = self.data.next_batch()
+        extra = stub_inputs(self.cfg, b.tokens.shape[0], 1000 + b.step)
+        return types.SimpleNamespace(tokens=b.tokens, targets=b.targets,
+                                     step=b.step, **extra)
+
+
+def _vlm_hidden(cfg, pm, toks, extra, plan):
+    """The final hidden states of the rank's rows (encdec: the decoder's
+    over the encoder output)."""
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import transformer as tfm
+
+    if cfg.family == "encdec":
+        enc = ed.encode(pm, extra["frames"], cfg, plan)
+        return ed._decode_forward(pm, toks, enc, cfg, plan)
+    return tfm.forward(pm, toks, cfg, extra=extra or None, plan=plan)[0]
+
+
+def _vlm_case(cfg, params, mesh):
+    import copy
+
+    from repro_torch.dist.sharding import place
+    from repro_torch.dist.tensor_parallel import gather_tree
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model import build_model
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.checkpoint import tree_flatten
+    from repro_torch.train.optimizer import AdamWConfig, tree_unflatten
+    from repro_torch.train.schedule import ScheduleConfig
+
+    model = build_model(cfg, "cpu", mesh=mesh)
+    plan = model.plan
+    psh = plan.shardings
+    pm = model.place(params)
+    mine = _rows(mesh)
+    toks, tg = (torch.from_numpy(a) for a in mesh_batch(cfg))
+    extra = {k: torch.from_numpy(v) for k, v in stub_inputs(cfg).items()}
+    mine_x = {k: v[mine] for k, v in extra.items()}
+    out = {"plan": {k: getattr(plan, k) for k in
+                    ("heads", "mlp", "vocab", "ssm", "rows")},
+           "local_shapes": {p: tuple(x.shape) for p, x in
+                            flat_params(pm).items()}}
+    with torch.no_grad():
+        x = _vlm_hidden(cfg, pm, toks[mine], mine_x, plan)
+        out["logits"] = tfm.logits_of(pm, x, cfg, plan)
+    batch = {"tokens": toks[mine], "targets": tg[mine], **mine_x}
+    loss, met, grads = ts.loss_and_grads(model, pm, batch)
+    loss, met, grads = ts._reduce(model, psh, loss, met, grads)
+    out["loss"] = loss
+    out["grads"] = gather_tree(tree_unflatten(pm, grads), psh)
+
+    opt = AdamWConfig(lr=MESH_LR)
+    tcfg = ts.TrainConfig(optimizer=opt, schedule=ScheduleConfig(
+        peak_lr=MESH_LR, warmup_steps=1, total_steps=10),
+        microbatches=MICRO)
+    whole = ts.TrainState(copy.deepcopy(params),
+                          ts.make_optimizer(opt)[0](params),
+                          torch.zeros((), dtype=torch.int32))
+    sh = ts.state_sharding(model, whole)
+    state = place(whole, sh)
+    rows = torch.from_numpy(ts.rank_rows(MESH_ROWS, mesh, MICRO))
+    step_batch = {"tokens": toks[rows], "targets": tg[rows],
+                  **{k: v[rows] for k, v in extra.items()}}
+    for _ in range(2):
+        state, m = ts.make_train_step(model, tcfg)(state, step_batch)
+    out["adamw"] = {"state": dict(tree_flatten(gather_tree(state, sh))),
+                    "metrics": {k: float(v) for k, v in m.items()}}
+
+    whole, dt = family_decode_inputs(cfg)
+    whole = {k: torch.from_numpy(v) for k, v in whole.items()}
+    ssh = tfm.state_sharding(cfg, mesh, MESH_ROWS, MESH_S)
+    st = place(whole, ssh)
+    out["state_local"] = {k: tuple(v.shape) for k, v in st.items()}
+    with torch.no_grad():
+        logits, new = model.decode_step(pm, st, torch.from_numpy(dt)[mine])
+        out["decode_logits"] = logits
+        out["decode_state"] = gather_tree(new, ssh)
+        pst, pl = model.prefill(pm, toks[mine], MESH_S, extra=mine_x or None)
+    out["prefill_logits"] = pl
+    out["prefill_state"] = gather_tree(pst, ssh)
+    return out
+
+
+def _vlm_trainer(cfg, mesh, ckpt_dir, steps):
+    from repro_torch.data.tokens import SyntheticTokens
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.schedule import ScheduleConfig
+    from repro_torch.train.train_step import TrainConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=MESH_LR),
+                       schedule=ScheduleConfig(peak_lr=MESH_LR,
+                                               warmup_steps=1,
+                                               total_steps=10))
+    data = StubData(cfg, SyntheticTokens(vocab=cfg.vocab, seq=MESH_LEN,
+                                         local_batch=MESH_ROWS))
+    t = Trainer(build_model(cfg, "cpu"),
+                TrainerConfig(train=tcfg, ckpt_dir=ckpt_dir,
+                              ckpt_every=100), data, mesh=mesh)
+    t.run(steps)
+    return t
+
+
+def _vlm_ckpt(cfg, mesh, out_dir, tag):
+    """A trainer's state (its batches carrying the stub inputs) saved on
+    (2, 2) at step 2, restored on (1, 2) (ranks 0-1) and re-meshed onto
+    (1, 2): both bit for bit."""
+    from repro_torch.launch.mesh import make_mesh_shape
+
+    ck = os.path.join(out_dir, f"vlm_ckpt_{tag}")
+    saved = _vlm_trainer(cfg, mesh, ck, 2)
+    out = {"saved": _whole(saved)[1],
+           "losses": [m["loss"] for m in saved.metrics_log]}
+    sub = make_mesh_shape((1, 2), ("data", "model"), "cpu")
+    resumed = _vlm_trainer(cfg, sub, ck, 2)
+    out["active"] = resumed.active
+    if resumed.active:
+        out["restored"] = _whole(resumed)[1]
+    dist.barrier()
+    saved.remesh(sub)
+    if saved.active:
+        out["remeshed"] = _whole(saved)[1]
+    dist.barrier()
+    return out
+
+
+def run_vlm_rank(rank, world, init_file, out_dir, cases=tuple(VLM_CASES),
+                 ckpt=VLM_CKPT):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh_shape
+    from repro_torch.weights import model_params_from_numpy
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    meshes = {}
+    out = {}
+    for case in cases:
+        shape = VLM_CASES[case][2]
+        if shape not in meshes:
+            meshes[shape] = make_mesh_shape(shape, ("data", "model"), "cpu")
+        cfg = vlm_cfg(case, get_config)
+        flat = dict(np.load(os.path.join(out_dir, f"params_{case}.npz")))
+        params = model_params_from_numpy(unflat_params(flat), cfg, "cpu")
+        out[case] = _vlm_case(cfg, params, meshes[shape])
+    for tag in ckpt:
+        out[f"ckpt_{tag}"] = _vlm_ckpt(vlm_cfg(tag, get_config),
+                                       meshes[(2, 2)], out_dir, tag)
+    dist.barrier()
+    torch.save(out, os.path.join(out_dir, f"vlm_rank{rank}.pt"))
+    dist.destroy_process_group()

@@ -366,3 +366,125 @@ def test_cli_counts_a_cell(tmp_path, capsys):
     assert (tmp_path / "falcon-mamba-7b__decode_32k.json").exists()
     report.main(["dryrun", "--dir", str(tmp_path)])
     assert "| falcon-mamba-7b | decode_32k | 8 | 16 |" in capsys.readouterr().out
+
+
+# ------------------------------------------------ vlm and encdec on a mesh
+MESH_DECODE = ["llama-3.2-vision-11b", "whisper-medium"]
+
+
+@pytest.fixture
+def fake_mesh():
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh_shape
+
+    yield lambda shape: make_mesh_shape(shape, ("data", "model"), "meta",
+                                        fake=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _mesh_decode(arch, mesh, cfg=None, rows=2, seq=64):
+    cfg = cfg or get_config(arch, smoke=True)
+    shape = dataclasses.replace(SHAPES["decode_32k"], seq_len=seq)
+    return cfg, dryrun.count_step(arch, cfg, shape, rows, mesh=mesh)
+
+
+def _leaf_bytes(params, shardings, where):
+    """{path: the rank's block's bytes} of the leaves ``where(path,
+    spec)`` keeps."""
+    from repro_torch.train.checkpoint import tree_flatten
+
+    sh = dict(tree_flatten(shardings))
+    out = {}
+    for p, x in tree_flatten(params):
+        if where(p, tuple(sh[p].spec)):
+            out[p] = (int(np.prod(sh[p].local_shape(x.shape)))
+                      * x.element_size())
+    return out
+
+
+@pytest.mark.parametrize("arch", MESH_DECODE)
+def test_mesh_decode_holds_its_cross_caches_and_stub_inputs(fake_mesh,
+                                                            arch):
+    """One rank of a decode step on (2, 2): its arguments are its
+    parameter blocks, its rows' self and cross caches over its kv heads
+    (2 of the smoke config's 2 split over 2 ranks: one each), its
+    ``cache_len`` and tokens, and its rows of the f32 ``patches`` or
+    ``frames``, each counted from the config."""
+    from repro_torch.models.model import build_model
+
+    mesh = fake_mesh((2, 2))
+    cfg, row = _mesh_decode(arch, mesh)
+    a, rows, seq = cfg.attn, 2, 64
+    model = build_model(cfg, device="meta", mesh=mesh)
+    params = sum(_leaf_bytes(model.init(torch.Generator()),
+                             model.plan.shardings,
+                             lambda p, s: True).values())
+    kvh = a.kv_heads // 2
+    cache = 2 * cfg.n_layers * rows * seq * kvh * a.head_dim * 4
+    if cfg.family == "vlm":
+        n_cross, n = cfg.n_layers // cfg.cross_attn_every, cfg.n_patches
+    else:
+        n_cross, n = cfg.n_layers, cfg.enc_seq
+    cross = 2 * n_cross * rows * n * kvh * a.head_dim * 4
+    stub = rows * n * cfg.d_model * 4
+    ints = 4 * rows + 4 * rows          # cache_len, tokens
+    assert row["argument_bytes"] == params + cache + cross + stub + ints
+
+
+@pytest.mark.parametrize("arch", MESH_DECODE)
+def test_mesh_decode_gathers_each_fsdp_block_once_a_use(fake_mesh, arch):
+    """A decode step on (2, 2) gathers every ``fsdp`` block it uses over
+    ``data``, once a use: each gather of two blocks sends one, so the
+    step's all-gather bytes over ``data`` are the bytes of the blocks it
+    uses, whisper's tied embedding twice (the embedding and the logits),
+    its encoder's none (the cross caches hold what it made)."""
+    from repro_torch.models.model import build_model
+
+    mesh = fake_mesh((2, 2))
+    cfg, row = _mesh_decode(arch, mesh)
+    model = build_model(cfg, device="meta", mesh=mesh)
+    used = _leaf_bytes(model.init(torch.Generator()), model.plan.shardings,
+                       lambda p, s: "data" in str(s)
+                       and not p.startswith("enc_"))
+    want = sum(used.values())
+    if cfg.family == "encdec":
+        want += used["embed"]
+    assert row["coll.all-gather@data"] == want
+
+
+def test_whisper_vocabulary_stays_whole_where_it_does_not_divide(
+        fake_mesh):
+    """whisper-medium's 51,865 tokens do not divide a model axis of 16:
+    ``guarded_spec`` leaves the tied embedding's rows whole (its
+    ``d_model`` over ``data``), and the plan computes the whole
+    vocabulary on every rank.  At smoke width on (2, 2) the same holds
+    for a vocabulary of 51,865 (an odd count): no logits are gathered
+    over ``model``, where the smoke config's 512 gather (m - 1) / m of
+    the rank's rows' f32 logits."""
+    from repro_torch.models.transformer import mesh_plan
+
+    plan = mesh_plan(get_config("whisper-medium"), fake_mesh((16, 16)))
+    assert not plan.vocab and plan.heads
+    assert tuple(plan.shardings["embed"].spec) == (None, "data")
+    smoke = get_config("whisper-medium", smoke=True)
+    odd = dataclasses.replace(smoke, vocab=51_865)
+    _cfg, whole = _mesh_decode("whisper-medium", fake_mesh((2, 2)), odd)
+    assert "coll.all-gather@model" not in whole
+    _cfg, split = _mesh_decode("whisper-medium", fake_mesh((2, 2)), smoke)
+    assert split["coll.all-gather@model"] == 0.5 * 2 * smoke.vocab * 4
+
+
+def test_mesh_dryrun_counts_the_vlm_and_encdec_cells(fake_mesh, capsys):
+    """``dryrun_cell`` on a mesh counts the vlm and encdec cells, and
+    each artifact records what splits over ``model``."""
+    mesh = fake_mesh((2, 2))
+    for arch in MESH_DECODE:
+        art = dryrun.dryrun_cell(
+            arch, "decode_32k", batch=2, cfg=get_config(arch, smoke=True),
+            mesh=mesh, save=False)
+        assert art["head_split"] and not art["rows_split"]
+        assert art["collective_bytes"]["total"] > 0
+        assert f"[dryrun] {arch} decode_32k mesh 2x2 (heads split" \
+            in capsys.readouterr().out

@@ -43,6 +43,9 @@ from repro_torch.serve.frontend import (COMPLETED, EXPIRED, SHED, FrontEnd,
 
 _TERMINAL = (COMPLETED, SHED, EXPIRED)
 _SLACK = 60.0   # "no deadline pressure" SLO for correctness-only tests
+# batches the overload test serves under its stall before the burst, so
+# the service model's EWMA (step 0.25) keeps 0.75^8 = 0.1 of its seed
+_WARM_BATCHES = 8
 
 
 @pytest.fixture(autouse=True)
@@ -194,7 +197,13 @@ def test_overload_sheds_and_stays_exact():
     late, and nothing served may be wrong.  The overload is an injected
     5 ms stall on every dispatch (25 batches of 32 take at least 125 ms
     against a 20 ms deadline), so it does not depend on the host's
-    speed."""
+    speed.  The front end's service model learns the stalled dispatch
+    (``_WARM_BATCHES`` batches under the same plan, served before the
+    burst): admission then sees the backlog from its first batch.  With
+    the model at its 5 ms seed instead, a host slow enough that the
+    first stalled dispatch outlasts the deadline meets every other
+    request already expired in the queue, and nothing is shed by
+    admission."""
     nfl, keys, oracle = _build_nfl(seed=3)
     rng = np.random.default_rng(4)
     orc = _Oracle(oracle)
@@ -202,13 +211,20 @@ def test_overload_sheds_and_stays_exact():
     fe.on_batch_dispatched = orc.hook
     for _ in range(3):
         nfl.lookup_batch(rng.choice(keys, 32, replace=False))
+    warm = [ServiceRequest(-1 - i, "point", float(rng.choice(keys)),
+                           deadline_s=_SLACK)
+            for i in range(32 * _WARM_BATCHES)]
     reqs = [ServiceRequest(i, "point", float(rng.choice(keys)),
                            deadline_s=0.02) for i in range(800)]
+    plan = faults.FaultPlan(device_stall_s=5e-3)
+    with faults.inject(plan):
+        _submit_drain(fe, warm)
+    assert fe.counters["completed"] == len(warm)
     faults.injection_stats(reset=True)
-    with faults.inject(faults.FaultPlan(device_stall_s=5e-3)):
+    with faults.inject(plan):
         _submit_drain(fe, reqs)
     assert faults.injection_stats()["stalls"] > 0
-    _assert_terminal_exactly_once(fe, reqs)
+    _assert_terminal_exactly_once(fe, warm + reqs)
     assert fe.counters["shed"] + fe.counters["expired"] > 0
     assert fe.reasons["shed-admission"] > 0
     assert orc.check(reqs) == 0

@@ -15,7 +15,10 @@ ssm and hybrid steps there gather the expert counts and send
 all-to-all, each rank holding its shards.  The all-to-all's byte rule is
 ``repro.utils.hlo``'s, and under a fake process group the MoE slots read
 from the gathered counts stay in range.  A rank's training rows are its
-block of each JAX microbatch, and ``batch_tp`` raises on a model axis.  (JAX's own mesh dry run,
+block of each JAX microbatch, and ``batch_tp`` lays the Mamba rows over
+``model`` with ``d_inner`` whole.  The vlm and encdec families and the
+``batch_tp`` configs count on (1, 1) as without a mesh and on (2, 2, 2)
+hold exactly their shards, rows and stub inputs.  (JAX's own mesh dry run,
 ``test_small_mesh_dryrun_subprocess``, fails on jax 0.9, so no count is
 held to it.)"""
 
@@ -299,14 +302,28 @@ def test_mesh_artifact_through_the_roofline_and_report(fake_mesh, tmp_path):
             if r.startswith("| internlm2-1.8b | decode_32k |")][0]
     assert line.endswith("| 4x2 |")
     assert "collective ms" in report.roofline_table(str(tmp_path))
-    with pytest.raises(ValueError, match="llama-3.2-vision-11b \\(vlm\\)"):
-        dryrun_cell("llama-3.2-vision-11b", "decode_32k", mesh=mesh,
-                    save=False,
-                    cfg=get_config("llama-3.2-vision-11b", smoke=True))
+    # a vlm cell counts on the same mesh, its artifact beside the other
+    vlm = dryrun_cell("llama-3.2-vision-11b", "decode_32k", mesh=mesh,
+                      out_dir=str(tmp_path),
+                      cfg=get_config("llama-3.2-vision-11b", smoke=True))
+    assert vlm["head_split"] and vlm["collective_bytes"]["total"] > 0
+    assert analyze_artifact(vlm)["mesh"] == "4x2"
+    assert any(r.startswith("| llama-3.2-vision-11b | decode_32k |")
+               and r.endswith("| 4x2 |")
+               for r in report.dryrun_table(str(tmp_path)).splitlines())
 
 
 # ------------------------------------------------- moe, ssm and hybrid
 FAMILY_ARCHS = ("granite-moe-1b-a400m", "falcon-mamba-7b", "zamba2-2.7b")
+# the vlm and encdec families and a batch_tp config (built with
+# dataclasses.replace: no architecture sets it)
+EXTRA_ARCHS = ("llama-3.2-vision-11b", "whisper-medium", "falcon-mamba-7b")
+W_ROWS = 4
+
+
+def _extra_cfg(arch):
+    return (_batch_tp(arch) if arch == "falcon-mamba-7b"
+            else get_config(arch, smoke=True))
 
 
 @pytest.mark.parametrize("arch,shape_name", itertools.product(
@@ -358,6 +375,58 @@ def test_mesh_dryrun_on_2x2x2_families_send_and_hold_their_shards(
     held = sum(int(np.prod(s.local_shape(x.shape))) * x.element_size()
                for x, s in zip(tree_leaves(state), tree_leaves(sh)))
     inputs = 2 * rows * shape.seq_len * 4
+    assert row["argument_bytes"] == held + inputs
+
+
+@pytest.mark.parametrize("arch,shape_name", itertools.product(
+    EXTRA_ARCHS, ["train_4k", "prefill_32k", "decode_32k"]))
+def test_mesh_dryrun_on_1x1_equals_the_meshless_count_vlm_encdec(
+        fake_mesh, arch, shape_name):
+    cfg = _extra_cfg(arch)
+    shape = dataclasses.replace(SHAPES[shape_name], seq_len=256)
+    plain = count_step(arch, cfg, shape, 2)
+    mesh = fake_mesh((1, 1), ("data", "model"))
+    assert count_step(arch, cfg, shape, 2, mesh=mesh) == plain
+
+
+@pytest.mark.parametrize("arch", EXTRA_ARCHS)
+def test_mesh_dryrun_on_2x2x2_vlm_encdec_hold_their_shards(fake_mesh,
+                                                           arch):
+    """One rank of a smoke-size ``train_4k`` step on (2, 2, 2): the
+    vlm's and encdec's heads split over ``model`` (their activations'
+    partial sums summed there), a ``batch_tp`` Mamba layer gathers its
+    rows over ``model``; the arguments are exactly the rank's shards,
+    its rows of tokens and targets, and its rows of the f32 stub
+    inputs."""
+    from repro_torch.launch.dryrun import train_config
+    from repro_torch.models.model import input_specs
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import (init_train_state,
+                                              state_sharding)
+
+    cfg = _extra_cfg(arch)
+    mesh = fake_mesh((2, 2, 2), ("pod", "data", "model"))
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=256)
+    rows = shape.global_batch // 4
+    row = count_step(arch, cfg, shape, rows, mesh=mesh)
+    model = build_model(cfg, device="meta", mesh=mesh)
+    kinds = ["all-gather@data", "reduce-scatter@data", "all-reduce@pod",
+             "all-reduce@model"]
+    if cfg.ssm is not None:
+        assert model.plan.rows
+        kinds.append("all-gather@model")
+    else:
+        assert model.plan.heads
+    for kind in kinds:
+        assert row[f"coll.{kind}"] > 0, kind
+    state = init_train_state(model, torch.Generator(),
+                             train_config(arch, rows))
+    sh = state_sharding(model, state)
+    held = sum(int(np.prod(s.local_shape(x.shape))) * x.element_size()
+               for x, s in zip(tree_leaves(state), tree_leaves(sh)))
+    ins = input_specs(cfg, dataclasses.replace(shape, global_batch=rows))
+    inputs = sum(x.numel() * x.element_size() for x in ins.values())
+    assert inputs > 2 * rows * shape.seq_len * 4 or cfg.ssm is not None
     assert row["argument_bytes"] == held + inputs
 
 
@@ -517,16 +586,38 @@ def test_rank_rows_give_each_rank_its_block_of_each_microbatch(shape, names,
     assert np.array_equal(rank_rows(n, None, m), np.arange(n))
 
 
-def test_batch_tp_raises_on_a_model_axis(fake_mesh):
-    """``batch_tp`` (the JAX ``"batch_model"`` rows, ``d_inner``
-    unsplit) raises by name on a model axis > 1 and runs where the
-    model axis is 1."""
-    from repro_torch.models.transformer import mesh_plan
+def _batch_tp(arch):
+    cfg = get_config(arch, smoke=True)
+    return dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                            batch_tp=True))
 
-    cfg = get_config("falcon-mamba-7b", smoke=True)
-    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
-                                                           batch_tp=True))
-    with pytest.raises(ValueError, match="batch_tp"):
-        mesh_plan(cfg, fake_mesh((2, 2), ("data", "model")))
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_batch_tp_lays_mamba_rows_over_model(fake_mesh, arch):
+    """``batch_tp`` (the JAX ``"batch_model"`` rows) on a fake (2, 2)
+    mesh: no Mamba weight splits over ``model`` (``d_inner`` whole, the
+    ``fsdp`` rows over ``data``), the plan puts the rows over ``model``
+    instead of ``d_inner``, and a prefill's Mamba layers gather each
+    rank's block of rows over ``model`` (a data rank's 2 rows, one a
+    rank: (m - 1) / m of the layer's whole output) and send no
+    all-to-all; the decode state keeps ``d_inner`` over ``model``.  On a
+    model axis of 1 nothing splits."""
+    from repro_torch.models.transformer import mesh_plan, state_sharding
+
+    cfg = _batch_tp(arch)
+    mesh = fake_mesh((2, 2), ("data", "model"))
+    plan = mesh_plan(cfg, mesh)
+    assert plan.rows and not plan.ssm
+    for k, s in plan.layer["ssm"].items():
+        assert "model" not in s.spec, (k, s.spec)
+    assert tuple(plan.layer["ssm"]["w_in"].spec) == ("data", None)
+    st = state_sharding(cfg, mesh, W_ROWS, 64)
+    assert tuple(st["ssm_conv"].spec) == (None, "data", None, "model")
+    shape = dataclasses.replace(SHAPES["prefill_32k"], seq_len=64)
+    row = count_step(arch, cfg, shape, 2, mesh=mesh)
+    assert "coll.all-to-all" not in row
+    out = 2 * shape.seq_len * cfg.d_model * 4     # one layer's rows, f32
+    assert row["coll.all-gather@model"] >= cfg.n_layers * out / 2
     dist.destroy_process_group()
-    assert not mesh_plan(cfg, fake_mesh((2, 1), ("data", "model"))).ssm
+    one = mesh_plan(cfg, fake_mesh((2, 1), ("data", "model")))
+    assert not one.rows and not one.ssm

@@ -201,3 +201,79 @@ def test_m6_losses_within_the_bound():
                         cs.RESTART_TOL)
     with pytest.raises(SystemExit, match="expected 4 each"):
         cs.loss_verdict("m6", a, a[:3], 4, cs.RESTART_TOL)
+
+
+# ------------------------------------------------------ phase m, m7-m10
+def test_m7_state_bit_equality_on_one_card():
+    """m7's (and m4's) state verdict: every leaf, the cross caches
+    among them, bit-equal on one card; on more cards the logits' ulp
+    rule holds instead."""
+    ref = {"cache_len": torch.tensor([130, 130], dtype=torch.int32),
+           "cross_k": torch.randn(8, 2, 1601, 8, 4).to(torch.bfloat16),
+           "k_cache": torch.randn(40, 2, 132, 8, 4).to(torch.bfloat16)}
+    got = {k: v.clone() for k, v in ref.items()}
+    cs.state_verdict(1, ref, got, "m7")
+    off = dict(got)
+    off["cross_k"] = got["cross_k"].clone()
+    off["cross_k"][3, 1, 1600, 7, 0] += 1.0
+    with pytest.raises(SystemExit, match="cross_k is not bit-equal"):
+        cs.state_verdict(1, ref, off, "m7")
+    with pytest.raises(SystemExit, match="leaves"):
+        cs.state_verdict(1, ref, {k: got[k] for k in ("cache_len",
+                                                      "k_cache")}, "m7")
+    cs.state_verdict(4, ref, off, "m7")
+
+
+def test_m7_m8_launch_windows_of_48():
+    """48 ``flash_decode`` a decode step for each model at its full
+    config (llama-3.2-vision-11b's 40 self and 8 cross attentions,
+    whisper-medium's 24 and 24), none in a prefill."""
+    for arch in ("llama-3.2-vision-11b", "whisper-medium"):
+        assert cs.kernel_attn_per_step(get_config(arch)) == 48
+    cs.per_step_launches([48, 48, 48, 48], 48, "m7 llama")
+    with pytest.raises(SystemExit, match="expected 48 a step"):
+        cs.per_step_launches([48, 48, 40, 48], 48, "m7 llama")
+    cs.per_step_launches([0], 0, "m7 whisper prefill")
+    with pytest.raises(SystemExit, match="expected 0 a step"):
+        cs.per_step_launches([24], 0, "m7 whisper prefill")
+
+
+@pytest.mark.parametrize("ratio,held", [(1.0, True), (0.951, True),
+                                        (1.099, True), (0.94, False),
+                                        (1.11, False)])
+def test_m8_m9_peak_ratio(ratio, held):
+    pred = 43.8e9       # about llama-3.2-vision-11b's rank: the 42.95 GB cache
+    if held:
+        assert cs.mesh_peak_verdict("m8", ratio * pred, pred) == \
+            pytest.approx(ratio)
+    else:
+        with pytest.raises(SystemExit, match="outside"):
+            cs.mesh_peak_verdict("m8", ratio * pred, pred)
+
+
+@pytest.mark.parametrize("counted,held", [(2.5e8, True),
+                                          (2.5e8 + 1e3, False)])
+def test_m8_m9_collective_bytes_equal_the_dry_run(counted, held):
+    if held:
+        cs.collective_verdict("m8", counted, 2.5e8)
+    else:
+        with pytest.raises(SystemExit, match="collective bytes"):
+            cs.collective_verdict("m8", counted, 2.5e8)
+
+
+def test_m10_losses_within_the_bound():
+    a = [12.1, 11.9, 11.6, 11.2]
+    assert cs.loss_verdict("m10", a, list(a), 4, cs.RESTART_TOL) == 0.0
+    with pytest.raises(SystemExit, match="not the unsharded"):
+        cs.loss_verdict("m10", a, [x * (1 + 3e-4) for x in a], 4,
+                        cs.RESTART_TOL)
+
+
+@pytest.mark.parametrize("seconds,held", [(60.0, True), (120.0, True),
+                                          (120.5, False)])
+def test_m7_m10_budget(seconds, held):
+    if held:
+        cs.budget_verdict("m7-m10", seconds, cs.MESH2_BUDGET_S)
+    else:
+        with pytest.raises(SystemExit, match="past its 120.0 s budget"):
+            cs.budget_verdict("m7-m10", seconds, cs.MESH2_BUDGET_S)
